@@ -8,28 +8,44 @@ toolkit's nvcc; imports nothing of JAX or of the JAX package. Phases, each
 failing the run on any mismatch:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the MSDA kernels from kinet_tpu_torch/ops/csrc;
-3. kernels vs their plain PyTorch versions on the card, at the flagship
-   shapes (encoder MSDA high- and low-level Lite updates, decoder raw-pool
-   with a bottom/right pad), in f32 (TF32 off) and bf16, with times;
+2. build: nvcc builds the five kernels from kinet_tpu_torch/ops/csrc;
+3. forward kernels vs their plain PyTorch versions on the card, at the
+   flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
+   updates, decoder raw-pool with a bottom/right pad), f32 (TF32 off) and
+   bf16, with times;
+3b. backward kernels vs the plain versions' autograd gradients at the
+   training shapes (672x1184), f32 and bf16, with times;
+P2. the row-gather probe kernel vs its plain version and torch.gather, then
+   the probe's entry point (kinet_tpu_torch.tools.gather_probe);
 4. the full-width flagship model (hidden 288, 8 heads, 6+6 layers, 500
    queries, 100 track slots, seeded random weights) on the card against the
    same model on the CPU, f32, over two chained frames at 256x448;
-5. the main path: the flagship model in bf16 at 800x1440 driven frame by
-   frame through Tracker.step over a synthetic moving-boxes sequence, with
-   per-frame times and the kernels' launch counts;
-6. one JSON line per run listing every kernel with its launches, error and
-   times; then nvidia-smi's name/power line; then the result line.
+5. the serving main path: the flagship model in bf16 at 800x1440 driven
+   frame by frame through Tracker.step over a synthetic moving-boxes
+   sequence, with per-frame times and the kernels' launch counts;
+6. one full-width f32 train step (dropout 0) on the card against the CPU
+   at 256x448, on the same augmented targets: loss, gradient norm and the
+   MSDA linears' gradients;
+7. the training main path: make_train_step in bf16 with remat at 672x1184
+   (3 warm-up, 10 timed steps), launch counts per step, peak memory and a
+   profile; then train(cfg), the entry point, on a synthetic MOT dataset,
+   writing a checkpoint and resuming from it.
+
+Then one JSON line listing every kernel with its launches, error and times;
+nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
+subset (phases 1 and 2 always run) and prints no result line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 kinet_tpu_torch package beside this file.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +56,11 @@ FLAGSHIP = ["train_deformable", "train_tracking", "train_multi_frame"]
 LEVELS = ((100, 180), (50, 90), (25, 45), (13, 23))
 N_FRAMES, WARMUP = 14, 2
 MAIN_HW = (800, 1440)
+# training: bench_train.py's 672x1184, levels at strides 8, 16, 32, 64
+TRAIN_LEVELS = ((84, 148), (42, 74), (21, 37), (11, 19))
+TRAIN_HW, TRAIN_OBJECTS = (672, 1184), 20
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+DEVICE = "cuda"  # the card (a rehearsal on the CPU sets "cpu")
 
 
 class SmokeFailure(RuntimeError):
@@ -250,6 +271,159 @@ def kernel_summary(torch, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: backward kernels vs the plain versions' gradients
+
+
+def grad_errors(torch, name, pairs):
+    """pairs: (label, kernel grad, plain grad, rtol, atol); checks each and
+    returns the largest max abs error."""
+    worst = 0.0
+    for label, g, r, rtol, atol in pairs:
+        assert_close(torch, f"{name} {label}", g, r, rtol, atol)
+        worst = max(worst, (g.float() - r.float()).abs().max().item())
+    return worst
+
+
+def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
+    """One backward kernel at one shape and dtype: its gradients against
+    autograd through the plain version, medians of both backward passes,
+    and the bound of this run's inputs."""
+    b, m = 1, 8
+    s = sum(h * w for h, w in shapes)
+    dev = gen.device
+    loc, aw = make_samples(torch, gen, b, lq, m, shapes, p)
+    l = len(shapes)
+    n_samples = b * lq * m * l * p
+    sample_bytes = n_samples * 3 * 4  # loc (x, y) + aw, f32
+    esize = torch.finfo(dtype).bits // 8
+    # bf16: both round the f32 dvalue / dsrc sums to bf16 once and may land
+    # one bf16 ulp (2^-7 relative) apart; f32 atomics change only the order
+    tol_v = (1e-2, 1e-5) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+
+    # daw sums corner dot products over a head's channels (over all C for
+    # the raw pool), and dloc is W_l (H_l) * aw times their signed sum: f32
+    # rounding of those dot products in another order gives absolute errors
+    # that scale with the largest values, and relative errors without bound
+    # where the signed sum cancels. atol is 1e-5 of the largest |reference|
+    def scaled(ref, floor):
+        return max(floor, 1e-5 * ref.abs().max().item())
+    if kind == "msda":
+        d = 36
+        value = torch.randn(b, s, m, d, generator=gen, device=dev).to(dtype)
+        cot = torch.randn(b, lq, m * d, generator=gen, device=dev)
+        got = msda._msda_bwd(value, shapes, loc, aw, cot)
+        ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, aw)]
+        out = msda.ms_deform_attn_plain(ins[0], shapes, ins[1], ins[2])
+        ref = torch.autograd.grad(out, ins, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        err = grad_errors(torch, f"{name} {dtype}", [
+            ("dvalue", got[0], ref[0], *tol_v),
+            ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
+            ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5)),
+        ])
+        t_k = median_ms(torch, lambda: msda._msda_bwd(value, shapes, loc, aw, cot))
+        t_p = median_ms(torch, lambda: torch.autograd.grad(
+            out, ins, cot, retain_graph=True))
+        rows, corners = touched(torch, loc, shapes, None, heads=True)
+        # value rows read, dvalue rows written (f32), grad_out read, the
+        # samples' loc/aw read and dloc/daw written
+        moved = rows * d * (esize + 4) + b * lq * m * d * 4 + 2 * sample_bytes
+        flops = corners * d * 4 + n_samples * 30
+    else:
+        c = 288
+        src = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
+        cot_p = torch.randn(b, lq, m, c, generator=gen, device=dev).to(dtype)
+        cot_w = torch.randn(b, lq, m, generator=gen, device=dev)
+        got = msda._raw_pool_bwd(src, shapes, loc, aw, extents, cot_p, cot_w)
+        ins = [t.detach().clone().requires_grad_(True) for t in (src, loc, aw)]
+        outs = msda.ms_deform_attn_raw_pool_plain(ins[0], shapes, ins[1],
+                                                  ins[2], extents)
+        ref = torch.autograd.grad(outs, ins, (cot_p, cot_w), retain_graph=True)
+        torch.cuda.synchronize()
+        err = grad_errors(torch, f"{name} {dtype}", [
+            ("dsrc", got[0], ref[0], *tol_v),
+            ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
+            ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5)),
+        ])
+        t_k = median_ms(torch, lambda: msda._raw_pool_bwd(
+            src, shapes, loc, aw, extents, cot_p, cot_w))
+        t_p = median_ms(torch, lambda: torch.autograd.grad(
+            outs, ins, (cot_p, cot_w), retain_graph=True))
+        rows, corners = touched(torch, loc, shapes, extents, heads=False)
+        moved = rows * c * (esize + 4) + b * lq * m * (c * esize + 4) + \
+            2 * sample_bytes + l * b * 8
+        flops = corners * c * 4 + n_samples * 30
+    t_b, by = bound_ms(moved, flops)
+    log(f"  {name:<26} {str(dtype):<15} max abs err {err:.3e} | kernel "
+        f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {t_b:.4f} ms ({by}: "
+        f"{moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
+    return dict(err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by)
+
+
+def phase_backward_kernels(torch, msda):
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    dec_shapes = TRAIN_LEVELS[:2] * 2  # 2 finest levels x 2 frames
+    ext = torch.tensor(
+        [[[h - 5, w - 9] for h, w in dec_shapes]], dtype=torch.float32,
+        device=DEVICE,
+    )
+    cases = [
+        # (name, kernel, kind, shapes, Lq, P, launches per train step)
+        ("msda_bwd high-lite", "msda_bwd", "msda", TRAIN_LEVELS[:2],
+         sum(h * w for h, w in TRAIN_LEVELS[1:]), 2, 5),
+        ("msda_bwd low-lite", "msda_bwd", "msda", TRAIN_LEVELS[:1],
+         TRAIN_LEVELS[0][0] * TRAIN_LEVELS[0][1], 2, 1),
+        ("msda_raw_pool_bwd", "msda_raw_pool_bwd", "raw", dec_shapes, 600, 2, 6),
+    ]
+    results = {}
+    for name, kernel, kind, shapes, lq, p, per_step in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = backward_case(torch, msda, gen, name, kind, shapes, lq, p,
+                              dtype, ext if kind == "raw" else None)
+            results.setdefault(kernel, []).append((dtype, per_step, r))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase P2: the row-gather probe
+
+
+def phase_gather_probe(torch):
+    from kinet_tpu_torch.ops import gather_probe
+    from kinet_tpu_torch.tools import gather_probe as probe
+
+    tbl, idx = probe.probe_inputs(DEVICE)
+    out = gather_probe.gather_rows(tbl, idx)
+    ref = gather_probe.gather_rows_plain(tbl, idx)
+    idx64 = idx.long()
+    lib = torch.gather(tbl, 0, idx64)
+    torch.cuda.synchronize()
+    # a gather copies values: exact
+    err = max((out - ref).abs().max().item(), (out - lib).abs().max().item())
+    check(err == 0.0, f"gather_rows differs from its plain version by {err}")
+    t_k = median_ms(torch, lambda: gather_probe.gather_rows(tbl, idx))
+    t_p = median_ms(torch, lambda: gather_probe.gather_rows_plain(tbl, idx))
+    t_lib = median_ms(torch, lambda: torch.gather(tbl, 0, idx64))
+    r, c = tbl.shape
+    moved = r * c * 4 * 3  # index read, output written, table read once
+    t_b, by = bound_ms(moved, 0)
+    log(f"  gather_rows [{r}, {c}] f32  max abs err {err:.3e} | kernel "
+        f"{t_k:.4f} ms ({r * c * 4 * 2 / t_k / 1e6:.1f} GB/s by the probe's "
+        f"count)  plain {t_p:.4f} ms  torch.gather {t_lib:.4f} ms  bound "
+        f"{t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB)")
+    gather_probe.gather_rows.launches = 0
+    res = probe.main(["--device", DEVICE])  # the probe's entry point
+    launches = gather_probe.gather_rows.launches
+    check(launches == probe.K + 1,
+          f"the probe launched gather_rows {launches} times, expected "
+          f"{probe.K + 1}")
+    log(f"  probe entry point: {res['us_per_op']:.2f} us/op, "
+        f"{res['gb_per_s']:.1f} GB/s, {launches} launches")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                bound_by=by, library_ms=t_lib, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the model
 
 
@@ -423,17 +597,8 @@ def phase_main_path(torch, msda):
     # where the time goes: one profiled window of 3 frames, after the run
     # whose launches were counted; device time = the kernels and copies
     # CUPTI saw on the card (one stream, so their durations do not overlap)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for blob in frames[N_FRAMES:N_FRAMES + 3]:
-            tracker.step(blob)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 3e3, n + 1)
+    profiled = iter(frames[N_FRAMES:N_FRAMES + 3])
+    by_name = device_profile(torch, lambda: tracker.step(next(profiled)), 3)
     busy = sum(t for t, _ in by_name.values())
     if busy <= 0:
         log("  profiler: no device time recorded")
@@ -452,9 +617,265 @@ def phase_main_path(torch, msda):
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: training
 
 
-def main() -> int:
+def train_frames(torch, seed, h, w, n_obj, t_slots, hidden, device):
+    """(batch, targets, prev_batch, prev_targets): two frames of random
+    images with the same n_obj tracks at random boxes, as bench_train.py."""
+    from kinet_tpu_torch.structs import ImageBatch, Targets
+
+    gen = torch.Generator().manual_seed(seed)
+    frames = []
+    for _ in range(2):
+        images = torch.randn(1, h, w, 3, generator=gen)
+        boxes = 0.2 + 0.4 * torch.rand(1, n_obj, 4, generator=gen)
+        targets = Targets.create(
+            boxes, torch.zeros(1, n_obj), torch.ones(1, n_obj),
+            track_ids=torch.arange(n_obj)[None], num_track_queries=t_slots,
+            hidden_dim=hidden,
+        )
+        frames += [ImageBatch(images, torch.zeros(1, h, w, dtype=torch.bool)),
+                   targets]
+    return [x.to(device) for x in frames]
+
+
+def phase_train_vs_cpu(torch):
+    """One f32 train step (dropout 0) on the CPU and on the card from the
+    same seeded weights, with the augmented targets the CPU made fed to
+    both."""
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+    from kinet_tpu_torch.tracking import train_augment
+
+    cfg = flagship_cfg().replace(compute_dtype="float32")
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    made = []
+    augment = train_augment.add_track_queries_to_targets
+    res = {}
+    for dev in ("cpu", DEVICE):
+        model, _ = build_model(cfg, device=dev, seed=3)
+        model.train()
+        opt = Optimizer(model, cfg, 1000)
+        step = make_train_step(model, build_criterion(cfg), opt, cfg)
+
+        def recorded(*a, **kw):
+            if dev == "cpu":
+                made.append(augment(*a, **kw))
+            return made[0].to(dev)
+
+        train_augment.add_track_queries_to_targets = recorded
+        try:
+            losses = step(*train_frames(torch, 4, 256, 448, TRAIN_OBJECTS,
+                                        t_slots, hidden, dev))
+        finally:
+            train_augment.add_track_queries_to_targets = augment
+        # the optimizer has clipped the gradients in place; the clip scale
+        # is the reported norm's, so compare the clipped gradients
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                 if any(k in n for k in ("sampling_offsets",
+                                         "attention_weights", "value_proj"))}
+        res[dev] = ({k: v.float().cpu() for k, v in losses.items()}, grads)
+        del model, opt, step
+    torch.cuda.empty_cache()
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[DEVICE]
+    n_active = int(made[0].track_query_mask.sum())
+    log(f"  augmented targets: {n_active} track queries "
+        f"({int(made[0].track_query_fp_mask.sum())} flagged false positive)")
+    # f32 on both, TF32 off; sums run in other orders on the card, through a
+    # 50-layer backbone, 12 transformer layers and the atomics of the MSDA
+    # backward kernels
+    for key in ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm"):
+        a, r = l_gpu[key], l_cpu[key]
+        log(f"  {key:<10} card {a.item():.6f}  cpu {r.item():.6f}")
+        assert_close(torch, f"train step {key}", a, r, 1e-3, 1e-5)
+    worst = (0.0, "")
+    for n in g_cpu:
+        scale = g_cpu[n].abs().max().item()
+        err = (g_gpu[n] - g_cpu[n]).abs().max().item()
+        worst = max(worst, (err / max(scale, 1e-12), n))
+        assert_close(torch, f"grad {n}", g_gpu[n], g_cpu[n], 1e-2,
+                     1e-3 * scale + 1e-9)
+    log(f"  {len(g_cpu)} MSDA linear gradients agree; worst max abs err / "
+        f"max |grad| {worst[0]:.3e} ({worst[1]}; rtol 1e-2, atol 1e-3 x "
+        f"max |grad|)")
+
+
+def device_profile(torch, fn, n):
+    """{device op name: (ms per call of fn, count)} over n calls: the CUDA
+    kernels and copies CUPTI saw on the card (one stream, so their
+    durations do not overlap). User annotations that the profiler mirrors
+    onto the device timeline (``Optimizer.step#AdamW.step``) span other
+    ops and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / (1e3 * n), k + 1)
+    return by_name
+
+
+def phase_train_main_path(torch, msda):
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+
+    # the flagship as bench_train.py trains it: bf16, remat, dropout 0.1
+    cfg = flagship_cfg().replace(compute_dtype="bfloat16", remat=True,
+                                 dropout=0.1)
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    model, _ = build_model(cfg, device=DEVICE, seed=5)
+    model.train()
+    step = make_train_step(model, build_criterion(cfg), Optimizer(model, cfg),
+                           cfg)
+    frames = train_frames(torch, 6, *TRAIN_HW, TRAIN_OBJECTS, t_slots, hidden,
+                          DEVICE)
+    for _ in range(TRAIN_WARMUP):
+        loss = float(step(*frames)["loss"])
+        check(loss == loss and abs(loss) < 1e6, f"warm-up loss {loss}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {
+        "msda_fwd": (msda.ms_deform_attn, "launches"),
+        "msda_bwd": (msda.ms_deform_attn, "bwd_launches"),
+        "msda_raw_pool_fwd": (msda.ms_deform_attn_raw_pool, "launches"),
+        "msda_raw_pool_bwd": (msda.ms_deform_attn_raw_pool, "bwd_launches"),
+    }
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(*frames)
+        losses.append(float(out["loss"]))  # the step ends in this copy
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    check(all(x == x and abs(x) < 1e6 for x in losses), f"losses {losses}")
+    log(f"  per-step ms: {' '.join(f'{t:.1f}' for t in times)}")
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  median {med:.3f} ms/step -> {1000.0 / med:.4f} steps/s; peak "
+        f"device memory {peak:.2f} GiB")
+    log(f"  launches per step: "
+        f"{ {k: n / TRAIN_STEPS for k, n in launches.items()} }")
+    for k, n in launches.items():
+        check(n > 0 and n % TRAIN_STEPS == 0,
+              f"{k} launched {n} times over {TRAIN_STEPS} steps")
+
+    by_name = device_profile(torch, lambda: float(step(*frames)["loss"]), 2)
+    busy = sum(t for t, _ in by_name.values())
+    if busy <= 0:
+        log("  profiler: no device time recorded")
+    else:
+        msda_ms = sum(t for k, (t, _) in by_name.items() if "msda" in k)
+        log(f"  profiler: device busy {busy:.3f} ms/step = "
+            f"{100 * busy / med:.1f}% of the median step (idle "
+            f"{100 * (1 - busy / med):.1f}%); MSDA kernels {msda_ms:.3f} "
+            f"ms/step = {100 * msda_ms / busy:.1f}% of device time; "
+            f"{sum(n for _, n in by_name.values()) // 2} device ops/step")
+        for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+            log(f"    {t:8.3f} ms/step {n // 2:5d}/step  {k[:100]}")
+    del model, step, frames
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def write_mot_dataset(root: Path, n_frames=6, h=360, w=640):
+    """A synthetic MOT sequence in the MOT-to-COCO layout the trainer reads
+    (root/train/*.jpg, root/annotations/train.json): four boxes moving over
+    noise."""
+    import numpy as np
+    from PIL import Image
+
+    (root / "train").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    rng = np.random.default_rng(0)
+    images, annotations = [], []
+    for f in range(n_frames):
+        name = f"SEQ-01_{f + 1:06d}.jpg"
+        arr = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        for tid in range(1, 5):
+            x, y = 40 + 120 * tid + 6 * f, 60 + 20 * tid
+            arr[y:y + 120, x:x + 50] = 255
+            annotations.append({
+                "id": len(annotations), "image_id": f, "category_id": 1,
+                "bbox": [x, y, 50, 120], "area": 6000, "iscrowd": 0,
+                "track_id": tid,
+            })
+        Image.fromarray(arr).save(root / "train" / name)
+        images.append({"id": f, "file_name": name, "height": h, "width": w,
+                       "frame_id": f, "first_frame_image_id": 0,
+                       "seq_length": n_frames, "seq": "SEQ-01"})
+    coco = {"images": images, "annotations": annotations,
+            "categories": [{"id": 1, "name": "person"}],
+            "sequences": ["SEQ-01"]}
+    (root / "annotations" / "train.json").write_text(json.dumps(coco))
+
+
+def phase_train_entry(torch):
+    from kinet_tpu_torch.engine.train import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_mot_dataset(root / "mot")
+        out = root / "out"
+        cfg = flagship_cfg().replace(
+            mot_path_train=str(root / "mot"), mot_path_val=str(root / "mot"),
+            val_interval=0, epochs=2, debug=True, batch_size=1,
+            num_workers=2, log_interval=1, dropout=0.1, remat=True,
+            compute_dtype="bfloat16", output_dir=str(out),
+            **{"img_transform.max_size": 666},
+        )
+        t0 = time.perf_counter()
+        _, _, steps = train(cfg, device=DEVICE)
+        first_s = time.perf_counter() - t0
+        ckpt = out / "checkpoint.pth"
+        check(ckpt.exists() and (out / "config.yaml").exists(),
+              "train(cfg) wrote no checkpoint or config")
+        t0 = time.perf_counter()
+        _, _, resumed = train(cfg.replace(resume=str(ckpt), resume_optim=True),
+                              device=DEVICE)
+        check(resumed == 2 * steps,
+              f"the resumed run ended at step {resumed}, expected {2 * steps}")
+        log(f"  train(cfg): {steps} steps in {first_s:.1f} s (model build "
+            f"included), checkpoint {ckpt.stat().st_size / 2**20:.1f} MiB; "
+            f"resumed at epoch 2, {resumed - steps} more steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+
+
+KERNEL_META = {
+    # name: (source, the TPU kernel or XLA formulation it replaces)
+    "msda_fwd": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
+                 "kinet_tpu/ops/pallas_msda.py:91"),
+    "msda_raw_pool_fwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_fwd.cu",
+                          "kinet_tpu/ops/msda.py:691"),
+    "msda_bwd": ("kinet_tpu_torch/ops/csrc/msda_bwd.cu",
+                 "kinet_tpu/ops/pallas_msda.py:214"),
+    "msda_raw_pool_bwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_bwd.cu",
+                          "kinet_tpu/ops/msda.py:405"),
+    "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
+                    "scripts/pallas_gather_probe.py:14"),
+}
+PHASES = ("3", "3b", "P2", "4", "5", "6", "7")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="GPU smoke run of kinet_tpu_torch")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    phases = set(ap.parse_args(argv).phases.split(","))
     root = Path(__file__).resolve().parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: the kinet_tpu_torch package is not beside this "
@@ -487,31 +908,52 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {kernel}: {line.strip()}")
 
-    log("== 3. kernels vs plain (flagship shapes, B=1)")
-    summary = kernel_summary(torch, phase_kernels(torch, msda))
+    summary, launches = {}, {}
+    if "3" in phases:
+        log("== 3. forward kernels vs plain (800x1440 shapes, B=1)")
+        summary.update(kernel_summary(torch, phase_kernels(torch, msda)))
+    if "3b" in phases:
+        log("== 3b. backward kernels vs plain gradients (672x1184 shapes, B=1)")
+        summary.update(kernel_summary(torch, phase_backward_kernels(torch, msda)))
+    if "P2" in phases:
+        log("== P2. row-gather probe [8192, 128]")
+        summary["gather_rows"] = phase_gather_probe(torch)
+        launches["gather_rows"] = summary["gather_rows"]["launches"]
+    if "4" in phases:
+        log("== 4. full-width model: card vs CPU, f32, 256x448, two frames")
+        phase_model_vs_cpu(torch)
+    if "5" in phases:
+        log(f"== 5. serving main path: Tracker.step, bf16, 800x1440, "
+            f"{N_FRAMES} frames")
+        served, frame_ms = phase_main_path(torch, msda)
+        launches.update(served)
+        log(f"  {1000.0 / frame_ms:.3f} frames/s")
+    if "6" in phases:
+        log("== 6. train step: card vs CPU, f32, dropout 0, 256x448")
+        phase_train_vs_cpu(torch)
+    if "7" in phases:
+        log(f"== 7. training main path: make_train_step, bf16, remat, "
+            f"672x1184, {TRAIN_WARMUP} + {TRAIN_STEPS} steps")
+        trained, step_ms = phase_train_main_path(torch, msda)
+        # the forward kernels' count is the serving path's; the backward
+        # kernels' the training path's
+        launches.update({k: v for k, v in trained.items() if "bwd" in k})
+        log("== 7b. train(cfg): the entry point on a synthetic MOT dataset")
+        phase_train_entry(torch)
+    log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    if phases != set(PHASES):
+        log("  (a subset of the phases: no result line)")
+        return 0
 
-    log("== 4. full-width model: card vs CPU, f32, 256x448, two frames")
-    phase_model_vs_cpu(torch)
-
-    log(f"== 5. main path: Tracker.step, bf16, 800x1440, {N_FRAMES} frames")
-    launches, frame_ms = phase_main_path(torch, msda)
-
-    meta = {
-        "msda_fwd": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
-                     "kinet_tpu/ops/pallas_msda.py:91"),
-        "msda_raw_pool_fwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_fwd.cu",
-                              "kinet_tpu/ops/msda.py:691"),
-    }
     kernels = [
-        {"name": k, "route": "cuda", "source": meta[k][0],
-         "replaces": meta[k][1], "launches": launches[k],
-         "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],
-         "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
-         "bound_by": summary[k]["bound_by"], "library_ms": None}
-        for k in ("msda_fwd", "msda_raw_pool_fwd")
+        {"name": k, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[k], "max_abs_err": summary[k]["max_abs_err"],
+         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
+         "bound_ms": summary[k]["bound_ms"],
+         "bound_by": summary[k]["bound_by"],
+         "library_ms": summary[k].get("library_ms")}
+        for k, (src, replaces) in KERNEL_META.items()
     ]
-    log(f"== done in {time.perf_counter() - t_start:.1f} s; "
-        f"{1000.0 / frame_ms:.3f} frames/s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

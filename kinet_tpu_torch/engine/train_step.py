@@ -1,0 +1,79 @@
+"""The train step (port of ``kinet_tpu/engine/train_step.py``).
+
+One call: the previous frame's forward (and the one before it, with
+``track_prev_prev_frame``), the track-query simulation, the current
+forward, the criterion, the backward pass and the optimizer update.
+
+Mixed precision follows the JAX package's recipe, not ``torch.autocast``:
+the master parameters stay float32, and with ``compute_dtype: bfloat16``
+every floating parameter and the images are cast to bfloat16 inside the
+differentiated function (``torch.func.functional_call`` over the casts), so
+the whole forward runs in bfloat16 and the gradients come back to the
+float32 masters through the casts. autocast's per-op policy would keep
+some ops in float32 and is a different numeric recipe.
+"""
+from __future__ import annotations
+
+import torch
+from torch.func import functional_call
+
+from ..structs import ImageBatch
+from ..tracking.train_augment import tracking_train_forward
+
+
+def make_train_step(model, criterion, optimizer, cfg, generator=None):
+    """Returns ``step(batch, targets, prev_batch=None, prev_targets=None,
+    prev_prev_batch=None, prev_prev_targets=None) -> losses``: a dict of
+    detached scalar tensors on the model's device, with the weighted total
+    as "loss" and the global gradient norm before clipping as "grad_norm".
+
+    ``model`` must be in ``train()`` mode for dropout; ``generator`` (a CPU
+    ``torch.Generator``, seeded from ``cfg.seed`` by default) draws the
+    track-query simulation."""
+    tracking = bool(cfg.get("tracking", False))
+    fp_prob = float(cfg.get("track_query_false_positive_prob", 0.1))
+    fn_prob = float(cfg.get("track_query_false_negative_prob", 0.4))
+    backprop_prev = bool(cfg.get("track_backprop_prev_frame", False))
+    bf16 = cfg.get("compute_dtype", "float32") == "bfloat16"
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+
+    def cast(x):
+        return x.to(torch.bfloat16) if bf16 and x.is_floating_point() else x
+
+    def cast_batch(batch):
+        if batch is None or not bf16:
+            return batch
+        return ImageBatch(batch.images.to(torch.bfloat16), batch.pad_mask)
+
+    def step(batch, targets, prev_batch=None, prev_targets=None,
+             prev_prev_batch=None, prev_prev_targets=None):
+        optimizer.zero_grad()
+        params = {k: cast(v) for k, v in model.named_parameters()}
+
+        def forward(b, t, **kw):
+            return functional_call(model, params, (b, t), kw)
+
+        batch, prev_batch, prev_prev_batch = map(
+            cast_batch, (batch, prev_batch, prev_prev_batch)
+        )
+        if tracking and prev_batch is not None:
+            out, aug_targets = tracking_train_forward(
+                forward, generator, batch, targets, prev_batch, prev_targets,
+                criterion, prev_prev_batch=prev_prev_batch,
+                prev_prev_targets=prev_prev_targets,
+                false_positive_prob=fp_prob, false_negative_prob=fn_prob,
+                backprop_prev_frame=backprop_prev,
+            )
+        else:
+            out, aug_targets = forward(batch, targets), targets
+        losses = criterion(out, aug_targets)
+        total = criterion.total_loss(losses)
+        total.backward()
+        grad_norm = optimizer.step()
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["loss"] = total.detach()
+        losses["grad_norm"] = grad_norm
+        return losses
+
+    return step

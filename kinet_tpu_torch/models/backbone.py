@@ -8,6 +8,10 @@ so ``tools/from_jax.py`` maps weights one to one. Convolutions run NCHW;
 The JAX ``StemConv`` is a TPU space-to-depth rewrite of a plain 7x7/s2
 convolution with the same [7, 7, 3, 64] parameter; here it is that plain
 ``nn.Conv2d``.
+
+Training: the stem convolution and ``layer1_*`` are frozen, as are all
+FrozenBatchNorm tensors; the rest of the trunk trains at ``lr_backbone``
+(the labels are ``engine/state.py::param_labels``).
 """
 from __future__ import annotations
 
@@ -18,15 +22,20 @@ from torch import nn
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm whose statistics and affine are fixed buffers."""
+    """BatchNorm with fixed statistics and affine.
+
+    The four tensors are parameters, as in the JAX package (``self.param``
+    there): they get gradients, which enter the global norm of gradient
+    clipping, but the optimizer never updates them (group "frozen",
+    ``engine/state.py``)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
 
     def forward(self, x):  # x [B, C, H, W]
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)

@@ -4,7 +4,11 @@
 ``build_model(cfg, device=None)`` -> (model, postprocessors). The model is
 built on ``device``, which defaults to CUDA and raises without a card (pass
 ``device="cpu"`` for the CPU). Its weights are random, drawn from ``seed``
-with an explicit generator; ``tools/from_jax.py`` loads trained ones.
+with an explicit generator; ``tools/from_jax.py`` loads trained ones. Its
+dropout generator (``model.dropout_rng``) is seeded from ``seed`` too.
+
+``build_criterion(cfg)`` -> the training criterion, with the loss weights
+of ``build_weight_dict(cfg)``.
 
 Configurations outside the ported slice raise NotImplementedError naming
 the ROADMAP item that ports them; nothing else is silently run instead.
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from .backbone import FrozenBatchNorm
+from .criterion import SetCriterion
 from .deformable_detr import DeformableDETR
 from .deformable_transformer import MSDeformAttn, offset_grid_init
 from .postprocess import build_postprocessors
@@ -114,11 +119,61 @@ def build_model(cfg, device=None, seed: int = 0):
                 int(cfg.get("max_track_queries", 100)) if tracking else 0
             ),
             focal_loss=cfg.focal_loss,
+            dropout=float(cfg.dropout),
+            aux_loss=bool(cfg.aux_loss),
+            remat=bool(cfg.get("remat", False)),
         )
     model.to_empty(device=device)
     init_weights(model, torch.Generator().manual_seed(seed))
+    model.dropout_rng.generator = torch.Generator(device=device).manual_seed(
+        seed + 1
+    )
     model.eval()
     return model, build_postprocessors(cfg)
+
+
+def build_weight_dict(cfg) -> dict:
+    """Loss weights; with ``aux_loss`` every key is repeated with the
+    suffixes ``_0`` .. ``_{dec_layers - 2}`` of the auxiliary decoder layers
+    and ``_enc`` (unused until two-stage is ported), as the JAX package
+    does, so ``total_loss`` is an exact-key weighted sum."""
+    wd = {
+        "loss_ce": cfg.cls_loss_coef,
+        "loss_bbox": cfg.bbox_loss_coef,
+        "loss_giou": cfg.giou_loss_coef,
+    }
+    if cfg.masks:
+        _not_ported("segmentation masks (MOTS)", "MOTS")
+    if cfg.aux_loss:
+        aux = {}
+        for i in range(cfg.dec_layers - 1):
+            aux.update({f"{k}_{i}": v for k, v in wd.items()})
+        aux.update({f"{k}_enc": v for k, v in wd.items()})
+        wd.update(aux)
+    return wd
+
+
+def build_criterion(cfg) -> SetCriterion:
+    """The Hungarian set criterion of the deformable tracking models
+    (labels, boxes, cardinality)."""
+    if cfg.get("kine", False):
+        _not_ported("the KineT model family", "KineT")
+    return SetCriterion(
+        num_classes=num_classes_for(cfg.get("dataset", "coco")),
+        weight_dict=build_weight_dict(cfg),
+        eos_coef=cfg.eos_coef,
+        losses=("labels", "boxes", "cardinality"),
+        focal_loss=cfg.focal_loss,
+        focal_alpha=cfg.focal_alpha,
+        focal_gamma=cfg.focal_gamma,
+        tracking=bool(cfg.get("tracking", False)),
+        track_query_false_positive_eos_weight=(
+            cfg.track_query_false_positive_eos_weight
+        ),
+        cost_class=cfg.set_cost_class,
+        cost_bbox=cfg.set_cost_bbox,
+        cost_giou=cfg.set_cost_giou,
+    )
 
 
 @torch.no_grad()

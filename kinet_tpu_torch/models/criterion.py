@@ -1,0 +1,192 @@
+"""Set-prediction losses (port of ``kinet_tpu/models/criterion.py``, the
+labels / boxes / cardinality losses of the deformable tracking models).
+
+- the match is query4target [B, N] from ``matcher.hungarian_match``;
+- per-query target classes are a masked scatter of the target labels;
+- ``num_boxes`` is the count of valid targets in the batch;
+- padded query slots (inactive track slots) are left out of every loss via
+  the model's ``query_valid``.
+
+Losses: softmax CE with eos down-weighting and the false-positive
+track-query reweighting, sigmoid focal, cardinality (log only), boxes L1 +
+GIoU; each auxiliary decoder layer adds the same keys with the suffix
+``_{i}``. The losses are computed in float32 whatever the type of the
+model's outputs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou
+from .matcher import hungarian_match
+
+
+def sigmoid_ce(logits, labels):
+    """Numerically stable binary cross-entropy with logits."""
+    return logits.clamp(min=0) - logits * labels + torch.log1p(
+        torch.exp(-logits.abs())
+    )
+
+
+def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
+    """Elementwise sigmoid focal loss on logits."""
+    prob = torch.sigmoid(logits)
+    ce = sigmoid_ce(logits, targets)
+    p_t = prob * targets + (1 - prob) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
+    return loss
+
+
+class SetCriterion:
+    """``criterion(outputs, targets)`` -> dict of losses.
+
+    ``outputs`` is the model dict: pred_logits [B, Q, C(+1)], pred_boxes
+    [B, Q, 4], query_valid [B, Q] and, with aux_loss, aux_outputs."""
+
+    def __init__(self, num_classes: int, weight_dict: dict, eos_coef: float = 0.1,
+                 losses=("labels", "boxes", "cardinality"),
+                 focal_loss: bool = False, focal_alpha: float = 0.25,
+                 focal_gamma: float = 2.0, tracking: bool = False,
+                 track_query_false_positive_eos_weight: bool = True,
+                 cost_class: float = 1.0, cost_bbox: float = 5.0,
+                 cost_giou: float = 2.0):
+        self.num_classes = num_classes
+        self.weight_dict = weight_dict
+        self.eos_coef = eos_coef
+        self.losses = tuple(losses)
+        self.focal_loss = focal_loss
+        self.focal_alpha = focal_alpha
+        self.focal_gamma = focal_gamma
+        self.tracking = tracking
+        self.track_fp_eos_weight = track_query_false_positive_eos_weight
+        self.cost_class = cost_class
+        self.cost_bbox = cost_bbox
+        self.cost_giou = cost_giou
+
+    def match(self, outputs, targets) -> torch.Tensor:
+        return hungarian_match(
+            outputs["pred_logits"], outputs["pred_boxes"], targets,
+            self.cost_class, self.cost_bbox, self.cost_giou, self.focal_loss,
+            self.focal_alpha, self.focal_gamma,
+        )
+
+    @staticmethod
+    def _query_valid(outputs, b, q, device):
+        qv = outputs.get("query_valid")
+        return qv if qv is not None else torch.ones(b, q, dtype=torch.bool,
+                                                    device=device)
+
+    def _target_classes(self, q4t, targets, num_queries):
+        """[B, Q] class per query: the matched target's label, else the
+        no-object class ``num_classes``."""
+        b = q4t.shape[0]
+        tc = torch.full((b, num_queries + 1), self.num_classes,
+                        dtype=torch.long, device=q4t.device)
+        q = torch.where(targets.valid & (q4t >= 0), q4t, num_queries)
+        tc.scatter_(1, q.long(), targets.labels.long())
+        return tc[:, :num_queries]
+
+    def loss_labels(self, outputs, targets, q4t, num_boxes):
+        logits = outputs["pred_logits"].float()  # [B, Q, C+1]
+        b, q, _ = logits.shape
+        qv = self._query_valid(outputs, b, q, logits.device)
+        tc = self._target_classes(q4t, targets, q)
+        empty_weight = torch.ones(self.num_classes + 1, device=logits.device)
+        empty_weight[-1] = self.eos_coef
+        nll = -torch.gather(logits.log_softmax(-1), -1, tc[..., None])[..., 0]
+        w = empty_weight[tc]
+        loss_ce = nll * w
+        if self.tracking and self.track_fp_eos_weight:
+            # FP track queries: drop the eos down-weighting
+            t = targets.num_track_slots
+            fp = torch.zeros(b, q, dtype=torch.bool, device=logits.device)
+            fp[:, :t] = targets.track_query_fp_mask
+            loss_ce = torch.where(fp, loss_ce / self.eos_coef, loss_ce)
+            w = torch.where(fp, torch.ones_like(w), w)
+        loss_ce = torch.where(qv, loss_ce, torch.zeros_like(loss_ce))
+        w = torch.where(qv, w, torch.zeros_like(w))
+        losses = {"loss_ce": loss_ce.sum() / w.sum().clamp(min=1e-6)}
+        losses["class_error"] = self._class_error(logits[..., :-1], tc, qv)
+        return losses
+
+    def loss_labels_focal(self, outputs, targets, q4t, num_boxes):
+        logits = outputs["pred_logits"].float()  # [B, Q, C], no eos column
+        b, q, c = logits.shape
+        qv = self._query_valid(outputs, b, q, logits.device)
+        tc = self._target_classes(q4t, targets, q)
+        onehot = F.one_hot(tc, c + 1)[..., :c].float()  # eos -> all-zero row
+        loss = sigmoid_focal_loss(logits, onehot, self.focal_alpha,
+                                  self.focal_gamma)
+        loss = torch.where(qv[..., None], loss, torch.zeros_like(loss))
+        return {
+            "loss_ce": loss.sum() / num_boxes,
+            "class_error": self._class_error(logits, tc, qv),
+        }
+
+    def _class_error(self, logits, tc, qv):
+        """Log only: 100 - accuracy (%) over the matched queries."""
+        with torch.no_grad():
+            matched = (tc != self.num_classes) & qv
+            correct = ((logits.argmax(-1) == tc) & matched).sum()
+            return 100.0 * (1.0 - correct / matched.sum().clamp(min=1))
+
+    def loss_cardinality(self, outputs, targets, q4t, num_boxes):
+        """Log only. Counts argmax != last class as non-empty in both modes,
+        as the reference does (under focal loss the last class is a real
+        class)."""
+        with torch.no_grad():
+            logits = outputs["pred_logits"]
+            qv = self._query_valid(outputs, *logits.shape[:2], logits.device)
+            non_empty = logits.argmax(-1) != logits.shape[-1] - 1
+            card = (non_empty & qv).sum(1).float()
+            err = (card - targets.valid.sum(1).float()).abs().mean()
+        return {"cardinality_error": err}
+
+    def loss_boxes(self, outputs, targets, q4t, num_boxes):
+        pred = outputs["pred_boxes"].float()  # [B, Q, 4]
+        valid = targets.valid & (q4t >= 0)
+        idx = q4t.clamp(min=0).long()
+        src = torch.gather(pred, 1, idx[..., None].expand(-1, -1, 4))
+        l1 = (src - targets.boxes).abs().sum(-1)
+        l1 = torch.where(valid, l1, torch.zeros_like(l1))
+        giou = torch.diagonal(
+            generalized_box_iou(box_cxcywh_to_xyxy(src),
+                                box_cxcywh_to_xyxy(targets.boxes)),
+            dim1=1, dim2=2,
+        )
+        loss_giou = torch.where(valid, 1.0 - giou, torch.zeros_like(giou))
+        return {"loss_bbox": l1.sum() / num_boxes,
+                "loss_giou": loss_giou.sum() / num_boxes}
+
+    def get_loss(self, name, outputs, targets, q4t, num_boxes):
+        fns = {
+            "labels": self.loss_labels_focal if self.focal_loss else self.loss_labels,
+            "cardinality": self.loss_cardinality,
+            "boxes": self.loss_boxes,
+        }
+        return fns[name](outputs, targets, q4t, num_boxes)
+
+    def __call__(self, outputs, targets) -> dict:
+        num_boxes = targets.valid.float().sum().clamp(min=1.0)
+        q4t = self.match(outputs, targets)
+        losses = {}
+        for name in self.losses:
+            losses.update(self.get_loss(name, outputs, targets, q4t, num_boxes))
+        for i, aux in enumerate(outputs.get("aux_outputs", [])):
+            aux = dict(aux)
+            aux.setdefault("query_valid", outputs.get("query_valid"))
+            q4t_i = self.match(aux, targets)
+            for name in self.losses:
+                for k, v in self.get_loss(name, aux, targets, q4t_i,
+                                          num_boxes).items():
+                    if k != "class_error":
+                        losses[f"{k}_{i}"] = v
+        return losses
+
+    def total_loss(self, losses: dict) -> torch.Tensor:
+        """Weighted sum over the keys present in ``weight_dict``."""
+        return sum(w * losses[k] for k, w in self.weight_dict.items()
+                   if k in losses)

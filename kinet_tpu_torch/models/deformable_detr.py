@@ -1,5 +1,4 @@
-"""Deformable DETR (port of ``kinet_tpu/models/deformable_detr.py``,
-inference).
+"""Deformable DETR (port of ``kinet_tpu/models/deformable_detr.py``).
 
 - Multi-scale pyramid from C3..C5: per-level 1x1 input projections +
   GroupNorm, and an extra stride-64 level by a 3x3/s2 convolution.
@@ -15,6 +14,10 @@ inference).
   reference points.
 - ``hs_embed`` is the decoder's last output (no final norm), the track-query
   feedback of the tracker.
+- Training: in ``train()`` mode with ``aux_loss`` the output carries
+  ``aux_outputs`` (the heads of the first ``dec_layers - 1`` decoder
+  layers) for the criterion; ``query_valid`` marks the active queries.
+  Dropout draws from ``self.dropout_rng``.
 """
 from __future__ import annotations
 
@@ -26,7 +29,11 @@ from torch import nn
 
 from ..structs import ImageBatch, Targets
 from .backbone import Backbone, downsample_pad_mask
-from .deformable_transformer import DeformableTransformer, inverse_sigmoid
+from .deformable_transformer import (
+    DeformableTransformer,
+    DropoutRNG,
+    inverse_sigmoid,
+)
 from .detr import MLP
 from .position_encoding import sine3d_position_encoding, sine_position_encoding
 
@@ -58,6 +65,9 @@ class DeformableDETR(nn.Module):
         msda_ref_normalizer: bool = False,
         num_track_slots: int = 0,
         focal_loss: bool = True,
+        dropout: float = 0.0,
+        aux_loss: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         if cache_prev_encoder and not multi_frame_attention:
@@ -71,6 +81,8 @@ class DeformableDETR(nn.Module):
         self.multi_frame_encoding = multi_frame_encoding
         self.cache_prev_encoder = cache_prev_encoder
         self.num_track_slots = num_track_slots
+        self.aux_loss = aux_loss
+        self.dropout_rng = DropoutRNG()
 
         self.backbone = Backbone(backbone_name, True, dilation)
         chans = self.backbone.num_channels  # [512, 1024, 2048]
@@ -100,6 +112,7 @@ class DeformableDETR(nn.Module):
             enc_lite_high_klevels=enc_lite_high_klevels,
             dec_gather_raw=dec_gather_raw, dec_klevels=dec_klevels,
             msda_ref_normalizer=msda_ref_normalizer,
+            dropout=dropout, rng=self.dropout_rng, remat=remat,
         )
         self.query_embed = nn.Parameter(torch.empty(num_queries, hidden_dim * 2))
         out_classes = num_classes + (0 if focal_loss else 1)
@@ -150,6 +163,16 @@ class DeformableDETR(nn.Module):
             else:
                 pos.append(sine_position_encoding(m, self.hidden_dim // 2))
         return pos
+
+    def _heads(self, i, hs, init_ref, inter_refs):
+        """(logits, boxes) of decoder layer ``i``."""
+        ref = inverse_sigmoid(init_ref if i == 0 else inter_refs[i - 1])
+        tmp = self.bbox_head(i)(hs[i]).float()
+        if ref.shape[-1] == 4:
+            tmp = tmp + ref
+        else:
+            tmp = torch.cat([tmp[..., :2] + ref, tmp[..., 2:]], -1)
+        return self.class_head(i)(hs[i]), torch.sigmoid(tmp)
 
     def forward(
         self,
@@ -207,7 +230,7 @@ class DeformableDETR(nn.Module):
                 track_query_active=active,
             )
 
-        hs, memory, init_ref, inter_refs = self.transformer(
+        hs, memory, init_ref, inter_refs, q_pad = self.transformer(
             srcs, masks, pos, self.query_embed,
             bbox_embeds=(
                 [self.bbox_head(i) for i in range(self.dec_layers)]
@@ -216,20 +239,26 @@ class DeformableDETR(nn.Module):
             **track_kwargs, **tf_kwargs,
         )
 
-        # the last decoder layer's heads; the other layers' outputs (the
-        # JAX package's aux_outputs) feed only the training losses
+        # the last decoder layer's heads; the other layers' heads (the
+        # aux_outputs) feed only the training losses, so inference skips them
         last = self.dec_layers - 1
-        ref = inverse_sigmoid(init_ref if last == 0 else inter_refs[last - 1])
-        tmp = self.bbox_head(last)(hs[last]).float()
-        if ref.shape[-1] == 4:
-            tmp = tmp + ref
-        else:
-            tmp = torch.cat([tmp[..., :2] + ref, tmp[..., 2:]], -1)
+        layers = range(last + 1) if self.aux_loss and self.training else [last]
+        heads = {i: self._heads(i, hs, init_ref, inter_refs) for i in layers}
+        nq = hs.shape[2]
         out = {
-            "pred_logits": self.class_head(last)(hs[last]),
-            "pred_boxes": torch.sigmoid(tmp),
+            "pred_logits": heads[last][0],
+            "pred_boxes": heads[last][1],
             "hs_embed": hs[last],
+            "query_valid": (
+                ~q_pad if q_pad is not None
+                else torch.ones(b, nq, dtype=torch.bool, device=hs.device)
+            ),
         }
+        if len(heads) > 1:
+            out["aux_outputs"] = [
+                {"pred_logits": heads[i][0], "pred_boxes": heads[i][1]}
+                for i in range(last)
+            ]
         # features of this frame, reusable as next frame's prev_features
         out["frame_features"] = (feats, batch.pad_mask)
         if self.multi_frame_attention and self.cache_prev_encoder:

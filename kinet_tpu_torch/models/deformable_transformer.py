@@ -1,5 +1,5 @@
 """Deformable transformer (port of
-``kinet_tpu/models/deformable_transformer.py``, inference).
+``kinet_tpu/models/deformable_transformer.py``).
 
 - Level shapes are static Python tuples; tokens are flattened level-major
   as [B, S, C], the current frame's levels first.
@@ -11,8 +11,11 @@
 - Sampling offsets are normalized by (W, H) per level; ``ref_normalizer``
   selects the (H, W) order of checkpoints trained with the fork.
 
-Dropout is absent: this module serves inference, the only mode of the port
-so far. Module names follow the JAX parameter tree where it names modules
+Dropout sits where the flax layers have it and acts only in ``train()``
+mode, drawing its masks from the model's explicit generator
+(``DropoutRNG``). ``remat`` recomputes each encoder layer in the backward
+pass (``torch.utils.checkpoint``), replaying the layer's dropout masks.
+Module names follow the JAX parameter tree where it names modules
 (``layer0``, ``self_attn``, ``value_proj`` ...); ``tools/from_jax.py`` maps
 the rest.
 """
@@ -24,12 +27,74 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.msda import (
     device_constant,
     ms_deform_attn,
     ms_deform_attn_raw_pool,
 )
+
+
+class DropoutRNG:
+    """Holds the ``torch.Generator`` that every ``Dropout`` of one model
+    draws from. ``build_model`` seeds it on the model's device; a trainer
+    may replace it."""
+
+    def __init__(self):
+        self.generator: Optional[torch.Generator] = None
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in ``train()`` mode, keep each element with
+    probability 1 - p and scale it by 1 / (1 - p); ``broadcast`` lists the
+    dimensions that share one draw. The masks come from ``rng.generator``."""
+
+    def __init__(self, p: float, rng: DropoutRNG, broadcast=()):
+        super().__init__()
+        self.p, self.rng, self.broadcast = float(p), rng, tuple(broadcast)
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.rng.generator is None:
+            raise RuntimeError("dropout needs the model's generator "
+                               "(DropoutRNG.generator)")
+        shape = [1 if i in self.broadcast else n for i, n in enumerate(x.shape)]
+        keep = torch.rand(shape, generator=self.rng.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def remat(rng: DropoutRNG, module: nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint``: activations are
+    recomputed in the backward pass, with the parameter tensors of this call
+    (the bf16 casts of a ``functional_call``, say) and with the dropout
+    generator rewound to its state at the first call, so the recomputation
+    draws the same masks (the generator is then put back where the forward
+    pass left it)."""
+    params = dict(module.named_parameters())
+    gen = rng.generator
+    start = gen.get_state() if gen is not None else None
+    calls = []
+
+    def fn(*a):
+        return functional_call(module, params, a)
+
+    def run(*a):
+        if calls and gen is not None:
+            after = gen.get_state()
+            gen.set_state(start)
+            try:
+                return fn(*a)
+            finally:
+                gen.set_state(after)
+        calls.append(1)
+        return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def inverse_sigmoid(x, eps=1e-5):
@@ -148,7 +213,7 @@ class MSDeformAttn(nn.Module):
 
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
-                 ref_normalizer=False):
+                 ref_normalizer=False, dropout=0.0, rng=None):
         super().__init__()
         self.self_attn = MSDeformAttn(
             d_model, n_levels, n_heads, n_points, ref_normalizer=ref_normalizer
@@ -157,6 +222,10 @@ class DeformableEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        rng = rng or DropoutRNG()
+        self.dropout1 = Dropout(dropout, rng)  # attention output
+        self.dropout_ffn = Dropout(dropout, rng)  # FFN hidden
+        self.dropout2 = Dropout(dropout, rng)  # FFN output
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None, src_value=None):
@@ -167,8 +236,9 @@ class DeformableEncoderLayer(nn.Module):
             q, reference_points, src if src_value is None else src_value,
             spatial_shapes, padding_mask,
         )
-        src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        src = self.norm1(src + self.dropout1(src2))
+        h = self.linear2(self.dropout_ffn(F.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout2(h))
 
 
 def encoder_reference_points(spatial_shapes, valid_ratios):
@@ -197,9 +267,12 @@ class DeformableEncoder(nn.Module):
 
     def __init__(self, num_layers, d_model, d_ffn, n_levels, n_heads,
                  n_points, lite=False, lite_low_klevels=0,
-                 lite_high_klevels=0, ref_normalizer=False):
+                 lite_high_klevels=0, ref_normalizer=False, dropout=0.0,
+                 rng=None, remat=False):
         super().__init__()
         self.n_levels = n_levels
+        self.remat = remat
+        self.rng = rng or DropoutRNG()
         self.modes = []  # per layer: ("all" | "high" | "low", levels)
         for i in range(num_layers):
             last_lite = lite and i == num_layers - 1 and n_levels > 1
@@ -213,8 +286,14 @@ class DeformableEncoder(nn.Module):
             self.modes.append((mode, k))
             self.add_module(f"layer{i}", DeformableEncoderLayer(
                 d_model, d_ffn, k, n_heads, n_points,
-                ref_normalizer=ref_normalizer,
+                ref_normalizer=ref_normalizer, dropout=dropout, rng=self.rng,
             ))
+
+    def _layer(self, i, *args):
+        layer = getattr(self, f"layer{i}")
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(self.rng, layer, *args)
+        return layer(*args)
 
     def forward(self, src, spatial_shapes, valid_ratios, pos=None,
                 padding_mask=None):
@@ -226,14 +305,13 @@ class DeformableEncoder(nn.Module):
         split0 = spatial_shapes[0][0] * spatial_shapes[0][1]
         out = src
         for i, (mode, k) in enumerate(self.modes):
-            layer = getattr(self, f"layer{i}")
             if mode == "all":
-                out = layer(out, pos, ref, spatial_shapes, padding_mask)
+                out = self._layer(i, out, pos, ref, spatial_shapes, padding_mask)
                 continue
             s_k = sum(h * w for h, w in spatial_shapes[:k])
             rows = slice(split0, None) if mode == "high" else slice(0, split0)
-            upd = layer(
-                out[:, rows],
+            upd = self._layer(
+                i, out[:, rows],
                 pos[:, rows] if pos is not None else None,
                 ref[:, rows, :k], tuple(spatial_shapes[:k]),
                 padding_mask[:, :s_k] if padding_mask is not None else None,
@@ -249,15 +327,18 @@ class DeformableEncoder(nn.Module):
 class MultiheadAttention(nn.Module):
     """Multi-head dot-product attention with the semantics of flax's
     ``MultiHeadDotProductAttention``: the query is scaled by 1/sqrt(d_head)
-    and masked keys get the dtype's most negative logit."""
+    and masked keys get the dtype's most negative logit; in ``train()`` mode
+    the attention weights get dropout with one mask shared by the batch and
+    the heads (flax's ``broadcast_dropout``)."""
 
-    def __init__(self, d_model, n_heads):
+    def __init__(self, d_model, n_heads, dropout=0.0, rng=None):
         super().__init__()
         self.n_heads = n_heads
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attn_dropout = Dropout(dropout, rng or DropoutRNG(), (0, 1))
 
     def forward(self, q, k, v, key_valid=None):  # key_valid [B, Lk] bool
         b, lq, c = q.shape
@@ -271,15 +352,17 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(
                 ~key_valid[:, None, None, :], torch.finfo(logits.dtype).min
             )
-        out = logits.softmax(-1) @ vh
+        out = self.attn_dropout(logits.softmax(-1)) @ vh
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, c))
 
 
 class DeformableDecoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
-                 gather_raw=False, ref_normalizer=False):
+                 gather_raw=False, ref_normalizer=False, dropout=0.0,
+                 rng=None):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads)
+        rng = rng or DropoutRNG()
+        self.self_attn = MultiheadAttention(d_model, n_heads, dropout, rng)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttn(
             d_model, n_levels, n_heads, n_points, gather_raw=gather_raw,
@@ -289,19 +372,26 @@ class DeformableDecoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout1 = Dropout(dropout, rng)  # self-attention output
+        self.dropout2 = Dropout(dropout, rng)  # cross-attention output
+        self.dropout_ffn = Dropout(dropout, rng)  # FFN hidden
+        self.dropout3 = Dropout(dropout, rng)  # FFN output
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None, query_pad_mask=None):
         q = tgt + query_pos if query_pos is not None else tgt
         key_valid = ~query_pad_mask if query_pad_mask is not None else None
-        tgt = self.norm1(tgt + self.self_attn(q, q, tgt, key_valid))
+        tgt = self.norm1(
+            tgt + self.dropout1(self.self_attn(q, q, tgt, key_valid))
+        )
         tgt2 = self.cross_attn(
             tgt + query_pos if query_pos is not None else tgt,
             reference_points, src, spatial_shapes, src_padding_mask,
             query_mask=query_pad_mask,
         )
-        tgt = self.norm2(tgt + tgt2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm2(tgt + self.dropout2(tgt2))
+        h = self.linear2(self.dropout_ffn(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout3(h))
 
 
 class DeformableDecoder(nn.Module):
@@ -310,13 +400,15 @@ class DeformableDecoder(nn.Module):
     inverse-sigmoid residuals."""
 
     def __init__(self, num_layers, d_model, d_ffn, n_levels, n_heads,
-                 n_points, gather_raw=False, ref_normalizer=False):
+                 n_points, gather_raw=False, ref_normalizer=False,
+                 dropout=0.0, rng=None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", DeformableDecoderLayer(
                 d_model, d_ffn, n_levels, n_heads, n_points,
                 gather_raw=gather_raw, ref_normalizer=ref_normalizer,
+                dropout=dropout, rng=rng,
             ))
 
     def forward(self, tgt, reference_points, src, spatial_shapes,
@@ -369,7 +461,11 @@ class DeformableTransformer(nn.Module):
     frames' halves, encoded separately, current frame first.
     ``frame_agnostic_levels`` gives both halves the same level embeds, so a
     frame's encoded memory is the same as current or as previous frame, and
-    the caller can pass last step's memory as ``prev_encoded``."""
+    the caller can pass last step's memory as ``prev_encoded``.
+
+    Returns (hs, memory, init_reference, inter_references, query_pad_mask);
+    query_pad_mask [B, Q] is True at inactive track slots (None without
+    track queries)."""
 
     def __init__(self, d_model=256, nheads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024,
@@ -378,8 +474,10 @@ class DeformableTransformer(nn.Module):
                  frame_agnostic_levels=False, enc_lite=False,
                  enc_lite_klevels=0, enc_lite_high_klevels=0,
                  dec_gather_raw=False, dec_klevels=0,
-                 msda_ref_normalizer=False):
+                 msda_ref_normalizer=False, dropout=0.0, rng=None,
+                 remat=False):
         super().__init__()
+        rng = rng or DropoutRNG()
         self.d_model = d_model
         self.num_feature_levels = num_feature_levels
         self.separate_encoder = multi_frame_attention_separate_encoder
@@ -391,13 +489,14 @@ class DeformableTransformer(nn.Module):
             enc_levels, nheads, enc_n_points, lite=enc_lite,
             lite_low_klevels=enc_lite_klevels,
             lite_high_klevels=enc_lite_high_klevels,
-            ref_normalizer=msda_ref_normalizer,
+            ref_normalizer=msda_ref_normalizer, dropout=dropout, rng=rng,
+            remat=remat,
         )
         frames, _, k = self._dec_frames_half()
         self.decoder = DeformableDecoder(
             num_decoder_layers, d_model, dim_feedforward,
             k * frames, nheads, dec_n_points, gather_raw=dec_gather_raw,
-            ref_normalizer=msda_ref_normalizer,
+            ref_normalizer=msda_ref_normalizer, dropout=dropout, rng=rng,
         )
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         self.reference_points_head = nn.Linear(d_model, 2)
@@ -550,4 +649,4 @@ class DeformableTransformer(nn.Module):
             tgt, reference_points, dec_memory, dec_shapes, dec_vr,
             query_pos, dec_mask, query_pad_mask, bbox_embeds,
         )
-        return hs, memory, init_reference, inter_refs
+        return hs, memory, init_reference, inter_refs, query_pad_mask

@@ -150,6 +150,98 @@ __device__ __forceinline__ void sample_point(const T* __restrict__ base,
   }
 }
 
+// Backward of sample_point for one lane's V channels:
+//   dbase[corner] += aw * bilinear weight * go   (f32 atomics)
+// and the lane's partial dot products d_c = <go, v_corner>, accumulated as
+//   a  += bil_c * d_c,   bx += d bil_c / dx * d_c,   by += d bil_c / dy * d_c
+// over the corners that sample_point reads (the same bounds and extents).
+template <typename T, int V>
+__device__ __forceinline__ void sample_point_bwd(
+    const T* __restrict__ base, float* __restrict__ dbase,
+    long long row_stride, int h, int w, float x, float y, float aw, float vh,
+    float vw, const float (&go)[V], float& a, float& bx, float& by) {
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const float xmax = fminf((float)(w - 1), vw - 1.0f);
+  const float ymax = fminf((float)(h - 1), vh - 1.0f);
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+    const float yi = y0 + dy;
+    if (!(yi >= 0.0f && yi <= ymax)) continue;
+    const float wy = dy ? fy : 1.0f - fy;
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const float xi = x0 + dx;
+      if (!(xi >= 0.0f && xi <= xmax)) continue;
+      const float wx = dx ? fx : 1.0f - fx;
+      const long long cell = (long long)yi * w + (long long)xi;
+      float v[V];
+      VecIO<T, V>::load(base + cell * row_stride, v);
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) dot = fmaf(go[i], v[i], dot);
+      a = fmaf(wy * wx, dot, a);
+      bx = fmaf(dx ? wy : -wy, dot, bx);
+      by = fmaf(dy ? wx : -wx, dot, by);
+      const float wt = wy * wx * aw;
+      float* dp = dbase + cell * row_stride;
+#pragma unroll
+      for (int i = 0; i < V; ++i) atomicAdd(dp + i, wt * go[i]);
+    }
+  }
+}
+
+// Sums over the corners that sample_point reads of the bilinear weight and
+// of its derivatives along x and y (the terms that a gradient of the weight
+// sum contributes).
+__device__ __forceinline__ void corner_weight_sums(int h, int w, float x,
+                                                   float y, float vh,
+                                                   float vw, float& s,
+                                                   float& sx, float& sy) {
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const float xmax = fminf((float)(w - 1), vw - 1.0f);
+  const float ymax = fminf((float)(h - 1), vh - 1.0f);
+  s = sx = sy = 0.0f;
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+    const float yi = y0 + dy;
+    if (!(yi >= 0.0f && yi <= ymax)) continue;
+    const float wy = dy ? fy : 1.0f - fy;
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const float xi = x0 + dx;
+      if (!(xi >= 0.0f && xi <= xmax)) continue;
+      const float wx = dx ? fx : 1.0f - fx;
+      s += wy * wx;
+      sx += dx ? wy : -wy;
+      sy += dy ? wx : -wx;
+    }
+  }
+}
+
+// Sum over the G lanes of a lane group (G a power of two <= 32, groups
+// aligned within the warp). Every lane of the warp must call it.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o, G);
+  return v;
+}
+
+// Lane-group width of the backward kernels: one group of G lanes per
+// (batch, query, head), each lane taking channel groups lane, lane + G, ...
+inline int pick_group(int channel_groups) {
+  if (channel_groups > 16) return 32;
+  if (channel_groups > 8) return 16;
+  return 8;
+}
+
 // Widest channel group (4, 2 or 1) that divides the channel count and
 // keeps every vector access of the input table (in_bytes per element) and
 // of the output (out_bytes per element) aligned.

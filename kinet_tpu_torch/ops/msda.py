@@ -27,9 +27,13 @@ across the repeated corner reads. The TPU's quad tables, per-head unrolls
 and level split existed for TPU gather-speed tiers and are not carried
 over.
 
-A wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel, adding one to its ``launches`` count, or
-raises. Shapes follow the JAX package:
+Both are differentiable. A wrapper runs the plain version only for tensors
+on the CPU, and autograd differentiates it there. For CUDA tensors it goes
+through a ``torch.autograd.Function`` whose forward launches the forward
+kernel (adding one to the wrapper's ``launches`` count) and whose backward
+launches the backward kernel (``csrc/msda_bwd.cu``,
+``csrc/msda_raw_pool_bwd.cu``; count ``bwd_launches``), or raises; it
+never falls back to the plain version. Shapes follow the JAX package:
 
   value              [B, S, M, D]   S = sum_l H_l * W_l
   src                [B, S, C]
@@ -63,8 +67,10 @@ def device_constant(values: tuple, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """A small constant tensor on ``device``, made once per (values, dtype,
     device). Making it anew would copy host to device, which synchronises
-    the stream, at every call. Callers never write to it."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    the stream, at every call. Callers never write to it. It is made outside
+    inference mode, so a cache filled while serving also serves autograd."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _level_tables(spatial_shapes, device):
@@ -120,12 +126,13 @@ def ms_deform_attn_plain(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of ``ms_deform_attn``: one ``F.grid_sample`` per level,
-    in float32. Returns [B, Lq, M * D] float32."""
+    in float32 (float64 for float64 values). Returns [B, Lq, M * D]."""
     n, _, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
-    values = value.float().split([h * w for h, w in spatial_shapes], dim=1)
+    ct = torch.promote_types(value.dtype, torch.float32)
+    values = value.to(ct).split([h * w for h, w in spatial_shapes], dim=1)
     grids = 2.0 * sampling_locations - 1.0
-    out = torch.zeros(n * m, d, lq, dtype=torch.float32, device=value.device)
+    out = torch.zeros(n * m, d, lq, dtype=ct, device=value.device)
     for lid, (h, w) in enumerate(spatial_shapes):
         v = values[lid].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
         g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)  # [NM, Lq, P, 2]
@@ -139,16 +146,88 @@ def ms_deform_attn_plain(
     return out.view(n, m, d, lq).permute(0, 3, 1, 2).reshape(n, lq, m * d)
 
 
+def _launch(name: str, argtypes, device, *args):
+    """Launches kernel ``name`` on the current stream of ``device``; raises
+    if the launch fails."""
+    fn = _kernel_fn(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _msda_fwd(value, spatial_shapes, loc, aw):
+    b, s, m, d = value.shape
+    _, lq, _, l, p, _ = loc.shape
+    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
+    if out.numel() == 0:
+        return out.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
+    _launch(
+        "msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p,
+    )
+    ms_deform_attn.launches += 1
+    return out
+
+
+def _msda_bwd(value, spatial_shapes, loc, aw, grad_out):
+    b, s, m, d = value.shape
+    _, lq, _, l, p, _ = loc.shape
+    dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    dloc = torch.zeros_like(loc)
+    daw = torch.zeros_like(aw)
+    if lq * b * m * d == 0:
+        return dvalue.to(value.dtype), dloc, daw
+    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
+    _launch(
+        "msda_bwd", [_P, _I] + [_P] * 8 + [_I] * 7 + [_P], value.device,
+        value.data_ptr(), _DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
+        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
+        grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+        daw.data_ptr(), b, s, m, d, lq, l, p,
+    )
+    ms_deform_attn.bwd_launches += 1
+    return dvalue.to(value.dtype), dloc, daw
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """``ms_deform_attn`` on CUDA: forward kernel ``msda_fwd``, backward
+    kernel ``msda_bwd`` (dvalue accumulated in f32, then cast to value's
+    dtype; dloc and daw f32)."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, aw):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, aw)
+        return _msda_fwd(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        dvalue, dloc, daw = _msda_bwd(
+            value, ctx.spatial_shapes, loc, aw,
+            grad_out.float().contiguous(),
+        )
+        return dvalue, None, dloc, daw
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """MSDA forward: [B, S, M, D] values -> [B, Lq, M * D] float32.
+    """MSDA forward: [B, S, M, D] values -> [B, Lq, M * D] float32,
+    differentiable in value, sampling_locations and attention_weights.
 
-    CPU tensors take ``ms_deform_attn_plain``; CUDA tensors launch the
-    ``msda_fwd`` kernel (f32 or bf16 value, f32 accumulation)."""
+    CPU tensors take ``ms_deform_attn_plain``; CUDA tensors go through
+    ``MSDeformAttnFunction`` (kernels ``msda_fwd`` / ``msda_bwd``; f32 or
+    bf16 value, f32 accumulation)."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(
             value, spatial_shapes, sampling_locations, attention_weights
@@ -162,34 +241,21 @@ def ms_deform_attn(
     b, s, m, d = value.shape
     if s != sum(h * w for h, w in spatial_shapes):
         raise ValueError(f"value has {s} tokens, spatial_shapes {spatial_shapes}")
-    lq, mh, l, p = _check_samples(
+    _, mh, _, _ = _check_samples(
         sampling_locations, attention_weights, b, len(spatial_shapes),
         value.device,
     )
     if mh != m:
         raise ValueError(f"sampling_locations have {mh} heads, value {m}")
-    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
-    if out.numel() == 0:
-        return out.zero_()
-    value = value.contiguous()
-    loc = sampling_locations.contiguous()
-    aw = attention_weights.contiguous()
-    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
-    fn = _kernel_fn("msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P])
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
-        rc = fn(
-            value.data_ptr(), _DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
-            starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-            out.data_ptr(), b, s, m, d, lq, l, p, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {rc}")
-    ms_deform_attn.launches += 1
-    return out
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnFunction.apply(
+        value.contiguous(), shapes, sampling_locations.contiguous(),
+        attention_weights.contiguous(),
+    )
 
 
 ms_deform_attn.launches = 0
+ms_deform_attn.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +270,14 @@ def ms_deform_attn_raw_pool_plain(
     valid_extents: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``ms_deform_attn_raw_pool``: an explicit gather of
-    the four bilinear corners of every sample, in float32."""
+    the four bilinear corners of every sample, in float32 (float64 for
+    float64 src)."""
     b, _, c = src.shape
     _, lq, m, _, p, _ = sampling_locations.shape
-    srcf = src.float()
-    pooled = torch.zeros(b, lq, m, c, dtype=torch.float32, device=src.device)
-    wsum = torch.zeros(b, lq, m, dtype=torch.float32, device=src.device)
+    ct = torch.promote_types(src.dtype, torch.float32)
+    srcf = src.to(ct)
+    pooled = torch.zeros(b, lq, m, c, dtype=ct, device=src.device)
+    wsum = torch.zeros(b, lq, m, dtype=ct, device=src.device)
     for lid, ((h, w), start) in enumerate(
         zip(spatial_shapes, level_start_index(spatial_shapes))
     ):
@@ -246,6 +314,70 @@ def ms_deform_attn_raw_pool_plain(
     return pooled.to(src.dtype), wsum
 
 
+def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
+    b, s, c = src.shape
+    _, lq, m, l, p, _ = loc.shape
+    pooled = torch.empty(b, lq, m, c, dtype=src.dtype, device=src.device)
+    wsum = torch.empty(b, lq, m, dtype=torch.float32, device=src.device)
+    if pooled.numel() == 0:
+        return pooled.zero_(), wsum.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
+    _launch(
+        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 7 + [_P],
+        src.device, src.data_ptr(), _DTYPE_CODE[src.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), None if ext is None else ext.data_ptr(),
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
+    )
+    ms_deform_attn_raw_pool.launches += 1
+    return pooled, wsum
+
+
+def _raw_pool_bwd(src, spatial_shapes, loc, aw, ext, grad_pooled, grad_wsum):
+    b, s, c = src.shape
+    _, lq, m, l, p, _ = loc.shape
+    dsrc = torch.zeros(src.shape, dtype=torch.float32, device=src.device)
+    dloc = torch.zeros_like(loc)
+    daw = torch.zeros_like(aw)
+    if b * lq * m * c == 0:
+        return dsrc.to(src.dtype), dloc, daw
+    shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
+    _launch(
+        "msda_raw_pool_bwd", [_P, _I] + [_P] * 10 + [_I] * 7 + [_P],
+        src.device, src.data_ptr(), _DTYPE_CODE[src.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), None if ext is None else ext.data_ptr(),
+        grad_pooled.data_ptr(), grad_wsum.data_ptr(), dsrc.data_ptr(),
+        dloc.data_ptr(), daw.data_ptr(), b, s, c, lq, m, l, p,
+    )
+    ms_deform_attn_raw_pool.bwd_launches += 1
+    return dsrc.to(src.dtype), dloc, daw
+
+
+class MSDeformAttnRawPoolFunction(torch.autograd.Function):
+    """``ms_deform_attn_raw_pool`` on CUDA: forward kernel
+    ``msda_raw_pool_fwd``, backward kernel ``msda_raw_pool_bwd`` (dsrc
+    accumulated in f32, then cast to src's dtype; dloc and daw f32; no
+    gradient into valid_extents)."""
+
+    @staticmethod
+    def forward(ctx, src, spatial_shapes, loc, aw, ext):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(src, loc, aw, ext)
+        return _raw_pool_fwd(src, spatial_shapes, loc, aw, ext)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_pooled, grad_wsum):
+        src, loc, aw, ext = ctx.saved_tensors
+        dsrc, dloc, daw = _raw_pool_bwd(
+            src, ctx.spatial_shapes, loc, aw, ext,
+            grad_pooled.to(src.dtype).contiguous(),
+            grad_wsum.float().contiguous(),
+        )
+        return dsrc, None, dloc, daw, None
+
+
 def ms_deform_attn_raw_pool(
     src: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -258,14 +390,16 @@ def ms_deform_attn_raw_pool(
     wsum [B, Lq, M] float32); the caller projects after pooling and restores
     the projection bias through wsum, exact by linearity:
       sum_k w_k (src_k W + b) = (sum_k w_k src_k) W + (sum_k w_k) b.
+    Differentiable in src, sampling_locations and attention_weights.
 
     valid_extents [B, L, 2] float32 (rows, columns) per level: corners in the
     bottom/right pad region weigh 0 in both outputs, so wsum matches the
     project-first path, which zeroes the projected value, bias included, at
     padded tokens.
 
-    CPU tensors take ``ms_deform_attn_raw_pool_plain``; CUDA tensors launch
-    the ``msda_raw_pool_fwd`` kernel."""
+    CPU tensors take ``ms_deform_attn_raw_pool_plain``; CUDA tensors go
+    through ``MSDeformAttnRawPoolFunction`` (kernels ``msda_raw_pool_fwd`` /
+    ``msda_raw_pool_bwd``)."""
     if src.device.type == "cpu":
         return ms_deform_attn_raw_pool_plain(
             src, spatial_shapes, sampling_locations, attention_weights,
@@ -282,11 +416,10 @@ def ms_deform_attn_raw_pool(
     b, s, c = src.shape
     if s != sum(h * w for h, w in spatial_shapes):
         raise ValueError(f"src has {s} tokens, spatial_shapes {spatial_shapes}")
-    lq, m, l, p = _check_samples(
+    _, _, l, _ = _check_samples(
         sampling_locations, attention_weights, b, len(spatial_shapes),
         src.device,
     )
-    ext_ptr = None
     if valid_extents is not None:
         if (tuple(valid_extents.shape) != (b, l, 2)
                 or valid_extents.dtype != torch.float32
@@ -294,32 +427,13 @@ def ms_deform_attn_raw_pool(
             raise ValueError(
                 f"valid_extents must be float32 [{b}, {l}, 2] on {src.device}"
             )
-        valid_extents = valid_extents.contiguous()
-        ext_ptr = valid_extents.data_ptr()
-    pooled = torch.empty(b, lq, m, c, dtype=src.dtype, device=src.device)
-    wsum = torch.empty(b, lq, m, dtype=torch.float32, device=src.device)
-    if pooled.numel() == 0:
-        return pooled.zero_(), wsum.zero_()
-    src = src.contiguous()
-    loc = sampling_locations.contiguous()
-    aw = attention_weights.contiguous()
-    shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
-    fn = _kernel_fn(
-        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 7 + [_P]
+        valid_extents = valid_extents.detach().contiguous()
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnRawPoolFunction.apply(
+        src.contiguous(), shapes, sampling_locations.contiguous(),
+        attention_weights.contiguous(), valid_extents,
     )
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = fn(
-            src.data_ptr(), _DTYPE_CODE[src.dtype], shapes_t.data_ptr(),
-            starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(), ext_ptr,
-            pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"msda_raw_pool_fwd kernel launch failed: CUDA error {rc}"
-        )
-    ms_deform_attn_raw_pool.launches += 1
-    return pooled, wsum
 
 
 ms_deform_attn_raw_pool.launches = 0
+ms_deform_attn_raw_pool.bwd_launches = 0

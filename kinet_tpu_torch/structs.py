@@ -21,6 +21,9 @@ class ImageBatch:
     images: torch.Tensor  # [B, H, W, 3]
     pad_mask: torch.Tensor  # [B, H, W] bool, True = padding
 
+    def to(self, device) -> "ImageBatch":
+        return ImageBatch(self.images.to(device), self.pad_mask.to(device))
+
 
 @dataclass
 class Targets:
@@ -70,8 +73,29 @@ class Targets:
             ),
         )
 
+    @property
+    def num_track_slots(self) -> int:
+        return self.track_query_mask.shape[1]
+
     def replace(self, **kw) -> "Targets":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "Targets":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
+        })
+
+
+def pick_bucket(h: int, w: int, buckets) -> tuple[int, int]:
+    """Smallest (short, long) bucket that fits an h x w image (host-side)."""
+    short, long = min(h, w), max(h, w)
+    for bs, bl in buckets:
+        if short <= bs and long <= bl:
+            return (bs, bl) if h <= w else (bl, bs)
+    bs, bl = buckets[-1]
+    return (bs, bl) if h <= w else (bl, bs)
 
 
 def pad_image_to(img: np.ndarray, ph: int, pw: int):

@@ -1,15 +1,18 @@
-"""Weight bridge: fill a port model from the JAX model's flax parameters.
+"""Weight bridge between a port model and the JAX model's flax parameters.
 
 ``load_jax_params(model, params)`` takes the flax tree (``{"params": ...}``
 or its inside) with numpy leaves; the caller runs ``jax.device_get`` on it,
-this module never imports JAX. Mapping:
+this module never imports JAX. The other direction: ``flax_path(model,
+name)`` gives a port tensor's flax path, and ``to_flax_layout`` turns a
+port tensor (a parameter or its gradient) into the flax leaf's layout.
+Mapping:
 
 - conv kernel [kH, kW, I, O] -> weight [O, I, kH, kW],
 - Dense kernel [I, O] -> weight [O, I]; a multi-head attention kernel
   ([C, H, dh] for query/key/value, [H, dh, C] for out) is flattened to its
   [in, out] matrix first, and its bias to a vector,
 - LayerNorm / GroupNorm ``scale`` -> ``weight``,
-- FrozenBatchNorm buffers, ``level_embed`` and ``query_embed`` as they are.
+- FrozenBatchNorm tensors, ``level_embed`` and ``query_embed`` as they are.
 
 Port modules carry the flax names (``layer0``, ``self_attn``,
 ``_ValueProjAfterPool`` as ``value_proj`` ...), except the auto-named flax
@@ -50,19 +53,49 @@ def _flatten(tree, prefix, out):
 
 
 def _source(module: nn.Module, leaf: str):
-    """(flax leaf name, numpy array -> port layout) for one port tensor."""
+    """(flax leaf name, numpy array -> port layout, port array + flax shape
+    -> flax layout) for one port tensor."""
     if isinstance(module, nn.Linear):
         if leaf == "weight":
             i, o = module.in_features, module.out_features
-            return "kernel", lambda a: a.reshape(i, o).T
-        return "bias", lambda a: a.reshape(-1)
+            return ("kernel", lambda a: a.reshape(i, o).T,
+                    lambda a, shape: a.T.reshape(shape))
+        return "bias", lambda a: a.reshape(-1), lambda a, shape: a.reshape(shape)
     if isinstance(module, nn.Conv2d):
         if leaf == "weight":
-            return "kernel", lambda a: a.transpose(3, 2, 0, 1)
-        return "bias", lambda a: a
+            return ("kernel", lambda a: a.transpose(3, 2, 0, 1),
+                    lambda a, shape: a.transpose(2, 3, 1, 0))
+        return "bias", lambda a: a, lambda a, shape: a
     if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
-        return ("scale" if leaf == "weight" else "bias"), lambda a: a
-    return leaf, lambda a: a
+        return (("scale" if leaf == "weight" else "bias"), lambda a: a,
+                lambda a, shape: a)
+    return leaf, lambda a: a, lambda a, shape: a
+
+
+def _resolve(model: nn.Module, name: str):
+    *mod_path, leaf = name.split(".")
+    flax_leaf, to_port, to_flax = _source(
+        model.get_submodule(".".join(mod_path)), leaf
+    )
+    return tuple(_flax_segment(s) for s in mod_path) + (flax_leaf,), to_port, to_flax
+
+
+def flax_path(model: nn.Module, name: str) -> tuple:
+    """The flax path (inside ``params``) of port tensor ``name``, e.g.
+    ``transformer.decoder.layer0.norm1.weight`` ->
+    ``("transformer", "decoder", "layer0", "LayerNorm_0", "scale")``."""
+    return _resolve(model, name)[0]
+
+
+def to_flax_layout(model: nn.Module, name: str, array: np.ndarray,
+                   flax_shape) -> np.ndarray:
+    """Port tensor ``name`` (or its gradient) as a numpy array in the layout
+    of its flax leaf of shape ``flax_shape``."""
+    out = _resolve(model, name)[2](np.asarray(array), tuple(flax_shape))
+    if tuple(out.shape) != tuple(flax_shape):
+        raise ValueError(f"{name}: {out.shape} after the layout change, "
+                         f"flax has {tuple(flax_shape)}")
+    return out
 
 
 @torch.no_grad()
@@ -73,10 +106,7 @@ def load_jax_params(model: nn.Module, params) -> None:
     used, unfilled = set(), []
     tensors = list(model.named_parameters()) + list(model.named_buffers())
     for name, tensor in tensors:
-        *mod_path, leaf = name.split(".")
-        module = model.get_submodule(".".join(mod_path))
-        flax_leaf, to_port = _source(module, leaf)
-        path = tuple(_flax_segment(s) for s in mod_path) + (flax_leaf,)
+        path, to_port, _ = _resolve(model, name)
         if path not in flat:
             unfilled.append(f"{name} <- {'/'.join(path)}")
             continue

@@ -1,0 +1,102 @@
+"""Checkpoints and shape-adapting resume (port of
+``kinet_tpu/utils/checkpoint.py``; reference src/train.py:167-282,
+312-357), with ``torch.save`` in place of orbax.
+
+A checkpoint is one file holding {"params": the model's state dict,
+"opt_state": the optimizer's state dict, "step", "epoch"}:
+``checkpoint.pth`` every epoch and ``checkpoint_epoch_{e}.pth`` every
+``save_model_interval`` epochs (the best-metric checkpoints come with the
+evaluation slice).
+
+On resume a tensor whose shape differs from the model's is adapted as the
+reference does: the class head keeps its first rows (optionally the
+checkpoint's last, eos, row: ``resume_shift_neuron``), query embeddings are
+tiled or cut, anything else copies the overlapping region. Shapes are in
+the port's layout (a linear weight is [out, in]).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+
+def _adapt_tensor(name: str, ckpt: torch.Tensor, model: torch.Tensor,
+                  resume_shift_neuron: bool = False) -> torch.Tensor:
+    if ckpt.shape == model.shape:
+        return ckpt
+    out = model.detach().clone()
+    if "class_embed" in name:
+        n = min(ckpt.shape[0], model.shape[0])
+        out[:n] = ckpt[:n]
+        if (ckpt.dim() == 1 and resume_shift_neuron
+                and ckpt.shape[0] > model.shape[0]):
+            out[-1] = ckpt[-1]  # the eos neuron from the checkpoint's last
+        return out
+    if "query_embed" in name:
+        n_model, n_ckpt = model.shape[0], ckpt.shape[0]
+        if n_ckpt >= n_model:
+            return ckpt[:n_model]
+        reps = -(-n_model // n_ckpt)
+        return ckpt.repeat(reps, *([1] * (ckpt.dim() - 1)))[:n_model]
+    region = tuple(slice(0, min(a, b)) for a, b in zip(ckpt.shape, model.shape))
+    out[region] = ckpt[region]
+    return out
+
+
+@torch.no_grad()
+def adapt_params(model: torch.nn.Module, state: dict,
+                 resume_shift_neuron: bool = False) -> None:
+    """Loads ``state`` into ``model``, adapting shapes per tensor; tensors
+    missing from the checkpoint keep the model's values."""
+    for name, t in model.state_dict().items():
+        if name in state:
+            t.copy_(_adapt_tensor(name, state[name].to(t.device), t,
+                                  resume_shift_neuron))
+
+
+class CheckpointManager:
+    """Epoch checkpoints."""
+
+    def __init__(self, output_dir: str, save_model_interval: int = 5):
+        self.dir = Path(output_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.save_model_interval = save_model_interval
+
+    def _save(self, path: Path, payload):
+        tmp = path.with_suffix(".tmp")
+        torch.save(payload, tmp)
+        tmp.replace(path)
+
+    def save_epoch(self, model, optimizer, step: int, epoch: int):
+        payload = {"params": model.state_dict(),
+                   "opt_state": optimizer.state_dict(),
+                   "step": int(step), "epoch": int(epoch)}
+        self._save(self.dir / "checkpoint.pth", payload)
+        if self.save_model_interval and epoch % self.save_model_interval == 0:
+            self._save(self.dir / f"checkpoint_epoch_{epoch}.pth", payload)
+
+
+def load_checkpoint(path) -> dict:
+    return torch.load(Path(path), map_location="cpu", weights_only=True)
+
+
+def load_for_resume(cfg, model, optimizer) -> tuple[int, int]:
+    """Resume or transfer from ``cfg.resume`` (reference train.py:167-282):
+    the weights always, the optimizer state, step and epoch with
+    ``resume_optim``. Returns (start_epoch, step)."""
+    start_epoch, step = int(cfg.start_epoch), 0
+    if cfg.get("masks") and cfg.get("load_mask_head_from_model"):
+        raise NotImplementedError(
+            "load_mask_head_from_model (MOTS) is not ported to "
+            "kinet_tpu_torch yet (ROADMAP.md, 'Modules to port': MOTS)"
+        )
+    if not cfg.resume:
+        return start_epoch, step
+    restored = load_checkpoint(cfg.resume)
+    adapt_params(model, restored["params"], bool(cfg.resume_shift_neuron))
+    if cfg.resume_optim and "opt_state" in restored:
+        optimizer.load_state_dict(restored["opt_state"])
+        start_epoch = int(restored.get("epoch", 0)) + 1
+        step = int(restored.get("step", 0))
+    return start_epoch, step
