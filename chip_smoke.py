@@ -14,7 +14,8 @@ failing the run on any mismatch:
    updates, decoder raw-pool with a bottom/right pad), f32 (TF32 off) and
    bf16, with times;
 3b. backward kernels vs the plain versions' autograd gradients at the
-   training shapes (672x1184), f32 and bf16, with times;
+   training shapes (672x1184), f32 and bf16, with times and each pass's
+   device time;
 P2. the row-gather probe kernel vs its plain version and torch.gather, then
    the probe's entry point (kinet_tpu_torch.tools.gather_probe);
 4. the full-width flagship model (hidden 288, 8 heads, 6+6 layers, 500
@@ -28,8 +29,25 @@ P2. the row-gather probe kernel vs its plain version and torch.gather, then
    MSDA linears' gradients;
 7. the training main path: make_train_step in bf16 with remat at 672x1184
    (3 warm-up, 10 timed steps), launch counts per step, peak memory and a
-   profile; then train(cfg), the entry point, on a synthetic MOT dataset,
+   profile (the MSDA kernels' device time per step beside that of the
+   earlier f32-atomic backward kernels, and each backward kernel's device
+   time a call); then
+   train(cfg), the entry point, on a synthetic MOT dataset,
    writing a checkpoint and resuming from it.
+
+A kernel's time is its device time: CUDA events around 20 back-to-back
+calls of its wrapper on the same inputs (so the tables stay in L2 from one
+call to the next), queued behind a spin kernel until the host has
+enqueued them all, per call (``device_ms``). A wrapper enqueues only its
+kernel's own launches, so the interval holds those and the gaps between
+them. Phase 3b adds the profiler's device time of each pass of a backward
+kernel, and phase 7 each backward kernel's device time a call on the
+training path (every MSDA ``__global__`` has ``msda`` in its name); both
+are readings, and a profiler that sees nothing fails neither. The
+wrapper's time between two CUDA events around one call, which also holds
+the argument checks, the allocations and the ctypes call while the card
+waits, is reported beside it as ``wrapper_ms``. The plain versions and
+``torch.gather`` are timed by ``device_ms`` too.
 
 Then one JSON line listing every kernel with its launches, error and times;
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
@@ -41,6 +59,7 @@ kinet_tpu_torch package beside this file.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -51,6 +70,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# torch.cuda._sleep counts SM clock cycles; at the H100's highest clock
+# (1.98 GHz) a spin lasts at least the time asked for, at lower clocks longer
+SPIN_CYCLES_PER_S = 1.98e9
 FLAGSHIP = ["train_deformable", "train_tracking", "train_multi_frame"]
 # flagship level shapes at 800x1440: strides 8, 16, 32, 64
 LEVELS = ((100, 180), (50, 90), (25, 45), (13, 23))
@@ -60,6 +82,13 @@ MAIN_HW = (800, 1440)
 TRAIN_LEVELS = ((84, 148), (42, 74), (21, 37), (11, 19))
 TRAIN_HW, TRAIN_OBJECTS = (672, 1184), 20
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# launches a train step: msda_fwd 6 for the previous frame, 6 for the
+# current one, 6 again under remat; the decoder's 6 + 6; one backward each
+TRAIN_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 6, "msda_raw_pool_fwd": 12,
+                  "msda_raw_pool_bwd": 6}
+# the four MSDA kernels' device ms per step on an H100 (700 W) when the
+# backward kernels scattered the table gradient with f32 atomics
+ATOMIC_BWD_MSDA_MS_PER_STEP = 3.253
 DEVICE = "cuda"  # the card (a rehearsal on the CPU sets "cpu")
 
 
@@ -86,6 +115,9 @@ def nvidia_smi_line() -> str:
 
 
 def median_ms(torch, fn, iters=20, warmup=3):
+    """The wrapper's time: CUDA events around one call, median of iters
+    calls. Host work inside the call (checks, allocations, the ctypes
+    call) counts while the card waits for it."""
     for _ in range(warmup):
         fn()
     times = []
@@ -98,6 +130,59 @@ def median_ms(torch, fn, iters=20, warmup=3):
         z.synchronize()
         times.append(a.elapsed_time(z))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Device ms per call of fn: CUDA events around iters back-to-back
+    calls, queued behind a spin kernel that holds the stream until the host
+    has enqueued them all, so the interval holds the calls' device work
+    (and the gaps between their launches) and none of the host's. If the
+    first event has fired by the time the last call is enqueued (a call
+    waited for the card, or the launch queue filled), the spin did not
+    cover the host: the run is repeated with a longer spin and fewer
+    calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0  # host and device: an upper bound
+    for _ in range(6):
+        spin_s = 2.0 * iters * call_s + 2e-3
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        a.record()
+        for _ in range(iters):
+            fn()
+        z.record()
+        covered = not a.query()
+        z.synchronize()
+        if covered:
+            return a.elapsed_time(z) / iters
+        log(f"  (the spin did not cover {iters} calls: again, longer, with "
+            f"{max(1, iters // 2)})")
+        call_s *= 2.0
+        iters = max(1, iters // 2)
+    raise SmokeFailure("device_ms: the host never got ahead of the card")
+
+
+def pass_ms(torch, fn, match, iters=20):
+    """{short name: device ms per call} of the device operations whose
+    name contains ``match`` over iters profiled calls of fn (the passes of
+    one kernel's C entry point). Each operation counts at its mean duration
+    times its launches per call, so a launch that the profiler drops at the
+    window's edge does not shorten it. Empty if the profiler saw none:
+    the breakdown is a reading, the kernel's time is ``device_ms``'s."""
+    by_name = device_profile(torch, fn, iters)
+    parts = {}
+    for k, (t, n) in by_name.items():
+        if match in k:
+            short = k.split("(")[0].replace("void ", "").replace("kinet::", "")
+            parts[short] = parts.get(short, 0.0) + \
+                t * iters / n * max(1, round(n / iters))
+    return parts
 
 
 def errors(torch, out, ref):
@@ -195,8 +280,8 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         tol = dict(rtol=1e-4, atol=1e-5)  # both read the same values in f32
         assert_close(torch, f"{name} {dtype}", out, ref, **tol)
         err = errors(torch, out, ref)
-        t_k = median_ms(torch, lambda: msda.ms_deform_attn(value, shapes, loc, aw))
-        t_p = median_ms(torch, lambda: msda.ms_deform_attn_plain(value, shapes, loc, aw))
+        run_k = lambda: msda.ms_deform_attn(value, shapes, loc, aw)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_plain(value, shapes, loc, aw)  # noqa: E731
         rows, corners = touched(torch, loc, shapes, None, heads=True)
         moved = rows * d * esize + sample_bytes + b * lq * m * d * 4
         flops = corners * d * 2 + n_samples * 20
@@ -213,17 +298,33 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         assert_close(torch, f"{name} {dtype}", out, ref, **tol)
         assert_close(torch, f"{name} wsum {dtype}", wsum, ref_w, 1e-4, 1e-5)
         err = max(errors(torch, out, ref), errors(torch, wsum, ref_w))
-        t_k = median_ms(torch, lambda: msda.ms_deform_attn_raw_pool(src, shapes, loc, aw, extents))
-        t_p = median_ms(torch, lambda: msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw, extents))
+        run_k = lambda: msda.ms_deform_attn_raw_pool(src, shapes, loc, aw, extents)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw, extents)  # noqa: E731
         rows, corners = touched(torch, loc, shapes, extents, heads=False)
         moved = rows * c * esize + sample_bytes + l * b * 8 + \
             b * lq * m * (c * esize + 4)
         flops = corners * c * 2 + n_samples * 20
     t_b, by = bound_ms(moved, flops)
+    timed = time_kernel(torch, run_k, run_p)
     log(f"  {name:<24} {str(dtype):<15} max abs err {err[0]:.3e} max rel err "
-        f"{err[1]:.3e} | kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound "
-        f"{t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
-    return dict(err=err[0], ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by)
+        f"{err[1]:.3e} | {timed_text(timed)} bound {t_b:.4f} ms ({by}: "
+        f"{moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
+    return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
+
+
+def time_kernel(torch, run_k, run_p, passes=None):
+    """Device ms of the kernel's wrapper (which enqueues only the kernel's
+    own launches) and of the plain version, the wrapper's host-inclusive
+    ms and, with ``passes`` (a name fragment), the profiler's device ms of
+    each pass."""
+    return dict(ms=device_ms(torch, run_k), plain_ms=device_ms(torch, run_p, 5),
+                wrapper_ms=median_ms(torch, run_k),
+                parts=pass_ms(torch, run_k, passes) if passes else {})
+
+
+def timed_text(t):
+    return (f"kernel {t['ms']:.4f} ms device (wrapper {t['wrapper_ms']:.4f} "
+            f"ms)  plain {t['plain_ms']:.4f} ms device ")
 
 
 def phase_kernels(torch, msda):
@@ -262,11 +363,12 @@ def kernel_summary(torch, results):
         total = sum(n for n, _ in bf)
         summary[kernel] = {
             "max_abs_err": max(r["err"] for _, _, r in rows),
-            "ms": sum(n * r["ms"] for n, r in bf) / total,
-            "plain_ms": sum(n * r["plain_ms"] for n, r in bf) / total,
-            "bound_ms": sum(n * r["bound_ms"] for n, r in bf) / total,
             "bound_by": bf[0][1]["bound_by"],
         }
+        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                    "pr2_bound_ms"):
+            if key in bf[0][1]:
+                summary[kernel][key] = sum(n * r[key] for n, r in bf) / total
     return summary
 
 
@@ -286,8 +388,10 @@ def grad_errors(torch, name, pairs):
 
 def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
     """One backward kernel at one shape and dtype: its gradients against
-    autograd through the plain version, medians of both backward passes,
-    and the bound of this run's inputs."""
+    autograd through the plain version, device times of both backward
+    passes, and the bound of this run's inputs (and, to compare with PR 2,
+    the bound by PR 2's count, which left out the untouched rows of the
+    table gradient and counted an f32 write of the touched ones)."""
     b, m = 1, 8
     s = sum(h * w for h, w in shapes)
     dev = gen.device
@@ -297,7 +401,8 @@ def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
     sample_bytes = n_samples * 3 * 4  # loc (x, y) + aw, f32
     esize = torch.finfo(dtype).bits // 8
     # bf16: both round the f32 dvalue / dsrc sums to bf16 once and may land
-    # one bf16 ulp (2^-7 relative) apart; f32 atomics change only the order
+    # one bf16 ulp (2^-7 relative) apart; the kernel's segment sums change
+    # only the order of the f32 adds
     tol_v = (1e-2, 1e-5) if dtype == torch.bfloat16 else (1e-4, 1e-5)
 
     # daw sums corner dot products over a head's channels (over all C for
@@ -321,13 +426,18 @@ def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
             ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
             ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5)),
         ])
-        t_k = median_ms(torch, lambda: msda._msda_bwd(value, shapes, loc, aw, cot))
-        t_p = median_ms(torch, lambda: torch.autograd.grad(
-            out, ins, cot, retain_graph=True))
+        run_k = lambda: msda._msda_bwd(value, shapes, loc, aw, cot)  # noqa: E731
+        run_p = lambda: torch.autograd.grad(  # noqa: E731
+            out, ins, cot, retain_graph=True)
         rows, corners = touched(torch, loc, shapes, None, heads=True)
-        # value rows read, dvalue rows written (f32), grad_out read, the
-        # samples' loc/aw read and dloc/daw written
-        moved = rows * d * (esize + 4) + b * lq * m * d * 4 + 2 * sample_bytes
+        # the touched value rows read, all of dvalue written (both in
+        # value's type), grad_out read, the samples' loc/aw read and
+        # dloc/daw written
+        common = b * lq * m * d * 4 + 2 * sample_bytes
+        moved = rows * d * esize + b * s * m * d * esize + common
+        # PR 2's count, kept to compare with it: the touched rows of an f32
+        # dvalue written, the rest of the table not
+        moved_pr2 = rows * d * (esize + 4) + common
         flops = corners * d * 4 + n_samples * 30
     else:
         c = 288
@@ -345,19 +455,29 @@ def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
             ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
             ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5)),
         ])
-        t_k = median_ms(torch, lambda: msda._raw_pool_bwd(
-            src, shapes, loc, aw, extents, cot_p, cot_w))
-        t_p = median_ms(torch, lambda: torch.autograd.grad(
-            outs, ins, (cot_p, cot_w), retain_graph=True))
+        run_k = lambda: msda._raw_pool_bwd(  # noqa: E731
+            src, shapes, loc, aw, extents, cot_p, cot_w)
+        run_p = lambda: torch.autograd.grad(  # noqa: E731
+            outs, ins, (cot_p, cot_w), retain_graph=True)
         rows, corners = touched(torch, loc, shapes, extents, heads=False)
-        moved = rows * c * (esize + 4) + b * lq * m * (c * esize + 4) + \
-            2 * sample_bytes + l * b * 8
+        # the touched src rows read, all of dsrc written (both in src's
+        # type), grad_pooled and grad_wsum read, the samples and extents
+        common = b * lq * m * (c * esize + 4) + 2 * sample_bytes + l * b * 8
+        moved = rows * c * esize + b * s * c * esize + common
+        moved_pr2 = rows * c * (esize + 4) + common
         flops = corners * c * 4 + n_samples * 30
     t_b, by = bound_ms(moved, flops)
-    log(f"  {name:<26} {str(dtype):<15} max abs err {err:.3e} | kernel "
-        f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {t_b:.4f} ms ({by}: "
-        f"{moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
-    return dict(err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by)
+    t_pr2, _ = bound_ms(moved_pr2, flops)
+    timed = time_kernel(torch, run_k, run_p, passes="msda")
+    log(f"  {name:<26} {str(dtype):<15} max abs err {err:.3e} | "
+        f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} "
+        f"MB, {flops / 1e6:.1f} Mflop; PR 2's count {t_pr2:.4f} ms)")
+    if not timed["parts"]:
+        log("      (the profiler saw no pass of this kernel)")
+    for k, t in sorted(timed["parts"].items(), key=lambda kv: -kv[1]):
+        log(f"      {t:.4f} ms  {k[:90]}")
+    return dict(err=err, bound_ms=t_b, bound_by=by, pr2_bound_ms=t_pr2,
+                **timed)
 
 
 def phase_backward_kernels(torch, msda):
@@ -401,15 +521,16 @@ def phase_gather_probe(torch):
     # a gather copies values: exact
     err = max((out - ref).abs().max().item(), (out - lib).abs().max().item())
     check(err == 0.0, f"gather_rows differs from its plain version by {err}")
-    t_k = median_ms(torch, lambda: gather_probe.gather_rows(tbl, idx))
-    t_p = median_ms(torch, lambda: gather_probe.gather_rows_plain(tbl, idx))
-    t_lib = median_ms(torch, lambda: torch.gather(tbl, 0, idx64))
+    timed = time_kernel(torch, lambda: gather_probe.gather_rows(tbl, idx),
+                        lambda: gather_probe.gather_rows_plain(tbl, idx))
+    t_k = timed["ms"]
+    t_lib = device_ms(torch, lambda: torch.gather(tbl, 0, idx64))
     r, c = tbl.shape
     moved = r * c * 4 * 3  # index read, output written, table read once
     t_b, by = bound_ms(moved, 0)
-    log(f"  gather_rows [{r}, {c}] f32  max abs err {err:.3e} | kernel "
-        f"{t_k:.4f} ms ({r * c * 4 * 2 / t_k / 1e6:.1f} GB/s by the probe's "
-        f"count)  plain {t_p:.4f} ms  torch.gather {t_lib:.4f} ms  bound "
+    log(f"  gather_rows [{r}, {c}] f32  max abs err {err:.3e} | "
+        f"{timed_text(timed)} ({r * c * 4 * 2 / t_k / 1e6:.1f} GB/s by the "
+        f"probe's count)  torch.gather {t_lib:.4f} ms device  bound "
         f"{t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB)")
     gather_probe.gather_rows.launches = 0
     res = probe.main(["--device", DEVICE])  # the probe's entry point
@@ -419,8 +540,9 @@ def phase_gather_probe(torch):
           f"{probe.K + 1}")
     log(f"  probe entry point: {res['us_per_op']:.2f} us/op, "
         f"{res['gb_per_s']:.1f} GB/s, {launches} launches")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b,
-                bound_by=by, library_ms=t_lib, launches=launches)
+    return dict(max_abs_err=err, ms=t_k, wrapper_ms=timed["wrapper_ms"],
+                plain_ms=timed["plain_ms"], bound_ms=t_b, bound_by=by,
+                library_ms=t_lib, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +719,7 @@ def phase_main_path(torch, msda):
     # where the time goes: one profiled window of 3 frames, after the run
     # whose launches were counted; device time = the kernels and copies
     # CUPTI saw on the card (one stream, so their durations do not overlap)
-    profiled = iter(frames[N_FRAMES:N_FRAMES + 3])
+    profiled = itertools.cycle(frames[N_FRAMES:N_FRAMES + 3])
     by_name = device_profile(torch, lambda: tracker.step(next(profiled)), 3)
     busy = sum(t for t, _ in by_name.values())
     if busy <= 0:
@@ -684,8 +806,8 @@ def phase_train_vs_cpu(torch):
     log(f"  augmented targets: {n_active} track queries "
         f"({int(made[0].track_query_fp_mask.sum())} flagged false positive)")
     # f32 on both, TF32 off; sums run in other orders on the card, through a
-    # 50-layer backbone, 12 transformer layers and the atomics of the MSDA
-    # backward kernels
+    # 50-layer backbone, 12 transformer layers and the segment sums of the
+    # MSDA backward kernels
     for key in ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm"):
         a, r = l_gpu[key], l_cpu[key]
         log(f"  {key:<10} card {a.item():.6f}  cpu {r.item():.6f}")
@@ -702,25 +824,62 @@ def phase_train_vs_cpu(torch):
         f"max |grad|)")
 
 
-def device_profile(torch, fn, n):
+def device_profile(torch, fn, n, timeline=None):
     """{device op name: (ms per call of fn, count)} over n calls: the CUDA
     kernels and copies CUPTI saw on the card (one stream, so their
     durations do not overlap). User annotations that the profiler mirrors
     onto the device timeline (``Optimizer.step#AdamW.step``) span other
-    ops and are left out."""
+    ops and are left out. A ``timeline`` list gets (start, name, ms) of
+    each op, in order of start. A window in which the profiler saw no
+    device op at all is profiled again, up to three times; then it is
+    returned empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+        log("  (the profiler saw no device op: profiling again)")
     by_name = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            t, k = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / (1e3 * n), k + 1)
+    for e in events:
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / (1e3 * n), k + 1)
+        if timeline is not None:
+            timeline.append((e.time_range.start, e.name,
+                             e.time_range.elapsed_us() / 1e3))
+    if timeline is not None:
+        timeline.sort()
     return by_name
+
+
+def backward_calls(timeline):
+    """{backward kernel: (device ms a call, calls)} from a profiled
+    timeline: one call's passes run back to back on the stream, from
+    msda_segment_clear to msda_segment_sum, and its dots pass names the
+    kernel. A call cut by the profile's edges is left out."""
+    calls, run = {}, None
+    for _, name, ms in timeline:
+        if "msda_segment_clear" in name:
+            run = [ms, None]
+        elif run is not None and "msda" in name:
+            run[0] += ms
+            if "_bwd_dots" in name:
+                run[1] = ("msda_raw_pool_bwd" if "raw_pool" in name
+                          else "msda_bwd")
+            if "msda_segment_sum" in name:
+                if run[1] is not None:
+                    t, k = calls.get(run[1], (0.0, 0))
+                    calls[run[1]] = (t + run[0], k + 1)
+                run = None
+    return {k: (t / n, n) for k, (t, n) in calls.items()}
 
 
 def phase_train_main_path(torch, msda):
@@ -768,10 +927,13 @@ def phase_train_main_path(torch, msda):
     log(f"  launches per step: "
         f"{ {k: n / TRAIN_STEPS for k, n in launches.items()} }")
     for k, n in launches.items():
-        check(n > 0 and n % TRAIN_STEPS == 0,
-              f"{k} launched {n} times over {TRAIN_STEPS} steps")
+        check(n == TRAIN_LAUNCHES[k] * TRAIN_STEPS,
+              f"{k} launched {n} times over {TRAIN_STEPS} steps, expected "
+              f"{TRAIN_LAUNCHES[k]} a step")
 
-    by_name = device_profile(torch, lambda: float(step(*frames)["loss"]), 2)
+    timeline = []
+    by_name = device_profile(torch, lambda: float(step(*frames)["loss"]), 2,
+                             timeline)
     busy = sum(t for t, _ in by_name.values())
     if busy <= 0:
         log("  profiler: no device time recorded")
@@ -782,6 +944,15 @@ def phase_train_main_path(torch, msda):
             f"{100 * (1 - busy / med):.1f}%); MSDA kernels {msda_ms:.3f} "
             f"ms/step = {100 * msda_ms / busy:.1f}% of device time; "
             f"{sum(n for _, n in by_name.values()) // 2} device ops/step")
+        log(f"  MSDA device ms/step {msda_ms:.3f} (with the f32-atomic "
+            f"backward kernels: {ATOMIC_BWD_MSDA_MS_PER_STEP})")
+        for k, (t, n) in sorted(backward_calls(timeline).items()):
+            log(f"  {k}: {t:.4f} device ms a call on this path, all its "
+                f"passes ({n} calls profiled)")
+        for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+            if "msda" in k:
+                log(f"    {t:8.3f} ms/step {n // 2:5d}/step  {k[:100]}")
+        log("  largest device items:")
         for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             log(f"    {t:8.3f} ms/step {n // 2:5d}/step  {k[:100]}")
     del model, step, frames
@@ -862,9 +1033,9 @@ KERNEL_META = {
     "msda_raw_pool_fwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_fwd.cu",
                           "kinet_tpu/ops/msda.py:691"),
     "msda_bwd": ("kinet_tpu_torch/ops/csrc/msda_bwd.cu",
-                 "kinet_tpu/ops/pallas_msda.py:214"),
+                 "kinet_tpu/ops/pallas_msda.py:220"),
     "msda_raw_pool_bwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_bwd.cu",
-                          "kinet_tpu/ops/msda.py:405"),
+                          "kinet_tpu/ops/msda.py:426"),
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
 }
@@ -914,7 +1085,12 @@ def main(argv=None) -> int:
         summary.update(kernel_summary(torch, phase_kernels(torch, msda)))
     if "3b" in phases:
         log("== 3b. backward kernels vs plain gradients (672x1184 shapes, B=1)")
-        summary.update(kernel_summary(torch, phase_backward_kernels(torch, msda)))
+        bwd = kernel_summary(torch, phase_backward_kernels(torch, msda))
+        for k, r in bwd.items():
+            log(f"  {k} over a step's mix: {r['ms']:.5f} ms a launch, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f} % of its bound "
+                f"{r['bound_ms']:.5f} ms (PR 2's count {r['pr2_bound_ms']:.5f})")
+        summary.update(bwd)
     if "P2" in phases:
         log("== P2. row-gather probe [8192, 128]")
         summary["gather_rows"] = phase_gather_probe(torch)
@@ -948,7 +1124,8 @@ def main(argv=None) -> int:
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[k], "max_abs_err": summary[k]["max_abs_err"],
-         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
+         "ms": summary[k]["ms"], "wrapper_ms": summary[k]["wrapper_ms"],
+         "plain_ms": summary[k]["plain_ms"],
          "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms")}

@@ -110,6 +110,30 @@ struct VecIO<__nv_bfloat16, 4> {
   }
 };
 
+template <>
+struct VecIO<__nv_bfloat16, 8> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* o) {
+    uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 t = bf2_to_f2(w[i]);
+      o[2 * i] = t.x;
+      o[2 * i + 1] = t.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint4 u;
+    u.x = f2_to_bf2(v[0], v[1]);
+    u.y = f2_to_bf2(v[2], v[3]);
+    u.z = f2_to_bf2(v[4], v[5]);
+    u.w = f2_to_bf2(v[6], v[7]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
 // Bilinearly samples one point of one level and adds aw * sample to acc.
 //   base       : this lane's channels at cell 0 of the level
 //   row_stride : elements between consecutive cells
@@ -150,46 +174,51 @@ __device__ __forceinline__ void sample_point(const T* __restrict__ base,
   }
 }
 
-// Backward of sample_point for one lane's V channels:
-//   dbase[corner] += aw * bilinear weight * go   (f32 atomics)
-// and the lane's partial dot products d_c = <go, v_corner>, accumulated as
-//   a  += bil_c * d_c,   bx += d bil_c / dx * d_c,   by += d bil_c / dy * d_c
-// over the corners that sample_point reads (the same bounds and extents).
-template <typename T, int V>
-__device__ __forceinline__ void sample_point_bwd(
-    const T* __restrict__ base, float* __restrict__ dbase,
-    long long row_stride, int h, int w, float x, float y, float aw, float vh,
-    float vw, const float (&go)[V], float& a, float& bx, float& by) {
+// Corner `corner` (dy = corner >> 1, dx = corner & 1) of the sample at
+// pixel (x, y): true if sample_point reads it (the same bounds and
+// extents), with its cell in the level and its bilinear factors.
+__device__ __forceinline__ bool corner_at(int corner, int h, int w, float x,
+                                          float y, float vh, float vw,
+                                          long long& cell, float& wy,
+                                          float& wx) {
   const float x0 = floorf(x);
   const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
   const float xmax = fminf((float)(w - 1), vw - 1.0f);
   const float ymax = fminf((float)(h - 1), vh - 1.0f);
+  const int dy = corner >> 1;
+  const int dx = corner & 1;
+  const float yi = y0 + dy;
+  const float xi = x0 + dx;
+  wy = dy ? y - y0 : 1.0f - (y - y0);
+  wx = dx ? x - x0 : 1.0f - (x - x0);
+  cell = (long long)yi * w + (long long)xi;
+  return yi >= 0.0f && yi <= ymax && xi >= 0.0f && xi <= xmax;
+}
+
+// Backward of sample_point for one lane's V channels: the lane's partial
+// dot products d_c = <go, v_corner>, accumulated as
+//   a  += bil_c * d_c,   bx += d bil_c / dx * d_c,   by += d bil_c / dy * d_c
+// over the corners that sample_point reads (corner_at). The table's
+// gradient is not formed here: msda_segment.cuh sums it per row from the
+// corners that count_corner lists.
+template <typename T, int V>
+__device__ __forceinline__ void sample_point_bwd(
+    const T* __restrict__ base, long long row_stride, int h, int w, float x,
+    float y, float vh, float vw, const float (&go)[V], float& a, float& bx,
+    float& by) {
 #pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    const float yi = y0 + dy;
-    if (!(yi >= 0.0f && yi <= ymax)) continue;
-    const float wy = dy ? fy : 1.0f - fy;
+  for (int corner = 0; corner < 4; ++corner) {
+    long long cell;
+    float wy, wx;
+    if (!corner_at(corner, h, w, x, y, vh, vw, cell, wy, wx)) continue;
+    float v[V];
+    VecIO<T, V>::load(base + cell * row_stride, v);
+    float dot = 0.0f;
 #pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float xi = x0 + dx;
-      if (!(xi >= 0.0f && xi <= xmax)) continue;
-      const float wx = dx ? fx : 1.0f - fx;
-      const long long cell = (long long)yi * w + (long long)xi;
-      float v[V];
-      VecIO<T, V>::load(base + cell * row_stride, v);
-      float dot = 0.0f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) dot = fmaf(go[i], v[i], dot);
-      a = fmaf(wy * wx, dot, a);
-      bx = fmaf(dx ? wy : -wy, dot, bx);
-      by = fmaf(dy ? wx : -wx, dot, by);
-      const float wt = wy * wx * aw;
-      float* dp = dbase + cell * row_stride;
-#pragma unroll
-      for (int i = 0; i < V; ++i) atomicAdd(dp + i, wt * go[i]);
-    }
+    for (int i = 0; i < V; ++i) dot = fmaf(go[i], v[i], dot);
+    a = fmaf(wy * wx, dot, a);
+    bx = fmaf((corner & 1) ? wy : -wy, dot, bx);
+    by = fmaf((corner >> 1) ? wx : -wx, dot, by);
   }
 }
 
@@ -200,27 +229,15 @@ __device__ __forceinline__ void corner_weight_sums(int h, int w, float x,
                                                    float y, float vh,
                                                    float vw, float& s,
                                                    float& sx, float& sy) {
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-  const float xmax = fminf((float)(w - 1), vw - 1.0f);
-  const float ymax = fminf((float)(h - 1), vh - 1.0f);
   s = sx = sy = 0.0f;
 #pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    const float yi = y0 + dy;
-    if (!(yi >= 0.0f && yi <= ymax)) continue;
-    const float wy = dy ? fy : 1.0f - fy;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float xi = x0 + dx;
-      if (!(xi >= 0.0f && xi <= xmax)) continue;
-      const float wx = dx ? fx : 1.0f - fx;
-      s += wy * wx;
-      sx += dx ? wy : -wy;
-      sy += dy ? wx : -wx;
-    }
+  for (int corner = 0; corner < 4; ++corner) {
+    long long cell;
+    float wy, wx;
+    if (!corner_at(corner, h, w, x, y, vh, vw, cell, wy, wx)) continue;
+    s += wy * wx;
+    sx += (corner & 1) ? wy : -wy;
+    sy += (corner >> 1) ? wx : -wx;
   }
 }
 
@@ -234,8 +251,9 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// Lane-group width of the backward kernels: one group of G lanes per
-// (batch, query, head), each lane taking channel groups lane, lane + G, ...
+// Lane-group width of msda_raw_pool_bwd's dots pass: one group of G lanes
+// per (batch, query, head, level), each lane taking channel groups lane,
+// lane + G, ...
 inline int pick_group(int channel_groups) {
   if (channel_groups > 16) return 32;
   if (channel_groups > 8) return 16;

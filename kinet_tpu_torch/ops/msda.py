@@ -33,7 +33,9 @@ through a ``torch.autograd.Function`` whose forward launches the forward
 kernel (adding one to the wrapper's ``launches`` count) and whose backward
 launches the backward kernel (``csrc/msda_bwd.cu``,
 ``csrc/msda_raw_pool_bwd.cu``; count ``bwd_launches``), or raises; it
-never falls back to the plain version. Shapes follow the JAX package:
+never falls back to the plain version. The backward kernels form the
+value table's gradient as a segmented reduction without floating-point
+atomics (``csrc/msda_segment.cuh``). Shapes follow the JAX package:
 
   value              [B, S, M, D]   S = sum_l H_l * W_l
   src                [B, S, C]
@@ -104,15 +106,17 @@ def _check_samples(sampling_locations, attention_weights, b, n_levels, dev):
     return lq, m, l, p
 
 
-def _kernel_fn(name: str, argtypes):
-    fn = getattr(cuda_build.load(name), name)
+def _kernel_fn(name: str, argtypes, lib: Optional[str] = None,
+               restype=ctypes.c_int):
+    """C function ``name`` of kernel library ``lib`` (default: ``name``)."""
+    fn = getattr(cuda_build.load(lib or name), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 # ---------------------------------------------------------------------------
@@ -174,30 +178,48 @@ def _msda_fwd(value, spatial_shapes, loc, aw):
     return out
 
 
+def _segment_scratch(lib: str, n_keys: int, n_entries: int,
+                     device) -> torch.Tensor:
+    """The int32 scratch of one call of backward kernel ``lib`` (counts,
+    offsets, tile sums, entries, slots of csrc/msda_segment.cuh), sized by
+    the library's ``msda_segment_scratch_ints``; the kernel checks it."""
+    if max(n_keys, n_entries) >= 2**31:
+        raise ValueError(
+            f"{n_keys} gradient rows or {n_entries} corners exceed the "
+            "backward kernels' int32 indices"
+        )
+    count = _kernel_fn("msda_segment_scratch_ints", [_LL, _LL], lib, _LL)
+    return torch.empty(count(n_keys, n_entries), dtype=torch.int32,
+                       device=device)
+
+
 def _msda_bwd(value, spatial_shapes, loc, aw, grad_out):
     b, s, m, d = value.shape
     _, lq, _, l, p, _ = loc.shape
-    dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    dloc = torch.zeros_like(loc)
-    daw = torch.zeros_like(aw)
+    dvalue = torch.empty(value.shape, dtype=value.dtype, device=value.device)
+    dloc = torch.empty_like(loc)
+    daw = torch.empty_like(aw)
     if lq * b * m * d == 0:
-        return dvalue.to(value.dtype), dloc, daw
+        return dvalue.zero_(), dloc.zero_(), daw.zero_()
+    scratch = _segment_scratch("msda_bwd", b * s * m, b * lq * m * l * p * 4,
+                               value.device)
     shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
     _launch(
-        "msda_bwd", [_P, _I] + [_P] * 8 + [_I] * 7 + [_P], value.device,
-        value.data_ptr(), _DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
-        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-        grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-        daw.data_ptr(), b, s, m, d, lq, l, p,
+        "msda_bwd", [_P, _I] + [_P] * 9 + [_LL] + [_I] * 7 + [_P],
+        value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), grad_out.data_ptr(), dvalue.data_ptr(),
+        dloc.data_ptr(), daw.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        b, s, m, d, lq, l, p,
     )
     ms_deform_attn.bwd_launches += 1
-    return dvalue.to(value.dtype), dloc, daw
+    return dvalue, dloc, daw
 
 
 class MSDeformAttnFunction(torch.autograd.Function):
     """``ms_deform_attn`` on CUDA: forward kernel ``msda_fwd``, backward
-    kernel ``msda_bwd`` (dvalue accumulated in f32, then cast to value's
-    dtype; dloc and daw f32)."""
+    kernel ``msda_bwd`` (dvalue summed per row in f32 and written once in
+    value's dtype; dloc and daw f32)."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, loc, aw):
@@ -336,29 +358,32 @@ def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
 def _raw_pool_bwd(src, spatial_shapes, loc, aw, ext, grad_pooled, grad_wsum):
     b, s, c = src.shape
     _, lq, m, l, p, _ = loc.shape
-    dsrc = torch.zeros(src.shape, dtype=torch.float32, device=src.device)
-    dloc = torch.zeros_like(loc)
-    daw = torch.zeros_like(aw)
+    dsrc = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+    dloc = torch.empty_like(loc)
+    daw = torch.empty_like(aw)
     if b * lq * m * c == 0:
-        return dsrc.to(src.dtype), dloc, daw
+        return dsrc.zero_(), dloc.zero_(), daw.zero_()
+    scratch = _segment_scratch("msda_raw_pool_bwd", b * s,
+                               b * lq * m * l * p * 4, src.device)
     shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
     _launch(
-        "msda_raw_pool_bwd", [_P, _I] + [_P] * 10 + [_I] * 7 + [_P],
+        "msda_raw_pool_bwd", [_P, _I] + [_P] * 11 + [_LL] + [_I] * 7 + [_P],
         src.device, src.data_ptr(), _DTYPE_CODE[src.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
         aw.data_ptr(), None if ext is None else ext.data_ptr(),
         grad_pooled.data_ptr(), grad_wsum.data_ptr(), dsrc.data_ptr(),
-        dloc.data_ptr(), daw.data_ptr(), b, s, c, lq, m, l, p,
+        dloc.data_ptr(), daw.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        b, s, c, lq, m, l, p,
     )
     ms_deform_attn_raw_pool.bwd_launches += 1
-    return dsrc.to(src.dtype), dloc, daw
+    return dsrc, dloc, daw
 
 
 class MSDeformAttnRawPoolFunction(torch.autograd.Function):
     """``ms_deform_attn_raw_pool`` on CUDA: forward kernel
     ``msda_raw_pool_fwd``, backward kernel ``msda_raw_pool_bwd`` (dsrc
-    accumulated in f32, then cast to src's dtype; dloc and daw f32; no
-    gradient into valid_extents)."""
+    summed per row in f32 and written once in src's dtype; dloc and daw
+    f32; no gradient into valid_extents)."""
 
     @staticmethod
     def forward(ctx, src, spatial_shapes, loc, aw, ext):
@@ -437,3 +462,4 @@ def ms_deform_attn_raw_pool(
 
 ms_deform_attn_raw_pool.launches = 0
 ms_deform_attn_raw_pool.bwd_launches = 0
+

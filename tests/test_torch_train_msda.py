@@ -156,9 +156,10 @@ def _grads_on(dev, fn, cots, *inputs):
 @pytest.mark.parametrize("shapes", SHAPES)
 def test_backward_kernels_match_plain_on_gpu(shapes, dtype):
     """The CUDA outputs carry a grad_fn, the backward launches its kernel,
-    and the gradients agree with the plain version's (dvalue / dsrc
-    accumulate with f32 atomics, whose order varies: same tolerances as
-    against JAX; bf16 dvalue / dsrc are rounded once to bf16 by both)."""
+    and the gradients agree with the plain version's (dvalue / dsrc are
+    segment sums in f32 whose order follows int atomics: same tolerances
+    as against JAX; bf16 dvalue / dsrc are rounded once to bf16 by
+    both)."""
     dev = _cuda()
     value, src, loc, aw, ext = (torch.from_numpy(x) for x in _inputs(5, shapes))
     # on a 2^-16 grid every pixel coordinate is exact in f32
@@ -196,3 +197,200 @@ def test_backward_kernels_match_plain_on_gpu(shapes, dtype):
     torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
     torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
+
+
+def _corner_entries_plain(spatial_shapes, sampling_locations,
+                          attention_weights, valid_extents=None,
+                          per_head=True):
+    """Plain version of the backward kernels' record step
+    (``count_corner`` in kinet_tpu_torch/ops/csrc/msda_segment.cuh). Entry
+    e = ((bqm * L + l) * P + p) * 4 + corner, corner = 2 * dy + dx, for
+    every corner of every sample of (b, q, m) = bqm, whose source row is
+    e // (L * P * 4). Returns (keys [E] int64, weights [E] float32): the key
+    is the gradient row that the corner adds to, (b * S + cell) * M + m
+    (``per_head``, dvalue's rows) or b * S + cell (dsrc's rows), and -1 for
+    a corner outside the level or in the bottom/right pad; the weight is
+    aw * bilinear weight."""
+    b, lq, m, l, p, _ = sampling_locations.shape
+    s = sum(h * w for h, w in spatial_shapes)
+    keys = torch.full((b, lq, m, l, p, 4), -1, dtype=torch.long)
+    weights = torch.zeros(b, lq, m, l, p, 4, dtype=torch.float32)
+    loc = sampling_locations.detach().float().cpu()
+    aw = attention_weights.detach().float().cpu()
+    bidx = torch.arange(b).view(b, 1, 1, 1)
+    midx = torch.arange(m).view(1, 1, m, 1)
+    for lid, ((h, w), start) in enumerate(
+        zip(spatial_shapes, msda.level_start_index(spatial_shapes))
+    ):
+        x = loc[:, :, :, lid, :, 0] * w - 0.5
+        y = loc[:, :, :, lid, :, 1] * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        xmax = torch.full_like(x, float(w - 1))
+        ymax = torch.full_like(y, float(h - 1))
+        if valid_extents is not None:
+            ext = valid_extents[:, lid].detach().float().cpu().view(b, 1, 1, 1, 2)
+            ymax = torch.minimum(ymax, ext[..., 0] - 1.0)
+            xmax = torch.minimum(xmax, ext[..., 1] - 1.0)
+        for dy in (0, 1):
+            yi = y0 + dy
+            wy = fy if dy else 1.0 - fy
+            for dx in (0, 1):
+                xi = x0 + dx
+                wx = fx if dx else 1.0 - fx
+                inside = (xi >= 0) & (xi <= xmax) & (yi >= 0) & (yi <= ymax)
+                row = bidx * s + start + (
+                    yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+                )
+                key = row * m + midx if per_head else row
+                keys[:, :, :, lid, :, 2 * dy + dx] = torch.where(inside, key, -1)
+                weights[:, :, :, lid, :, 2 * dy + dx] = torch.where(
+                    inside, wy * wx * aw[:, :, :, lid], 0.0
+                )
+    return keys.flatten(), weights.flatten()
+
+
+def _segment_sum_plain(keys, weights, grad_rows, n_keys):
+    """Plain version of the backward kernels' scan, place and sum steps
+    (csrc/msda_segment.cuh): offsets [n_keys + 1] are the exclusive prefix
+    sum of each key's count of entries; each key's segment lists its
+    entries in entry order, and its row is the float32 sum, in that order,
+    of weight * grad_rows[e // (E / len(grad_rows))] (a key with no entry
+    gives exact zeros). Returns (rows [n_keys, width] float32, offsets)."""
+    per_row = keys.numel() // grad_rows.shape[0]
+    grad = grad_rows.detach().float().cpu()
+    entries = torch.nonzero(keys >= 0).flatten()  # in entry order
+    k = keys[entries]
+    counts = torch.bincount(k, minlength=n_keys)
+    offsets = torch.zeros(n_keys + 1, dtype=torch.long)
+    offsets[1:] = torch.cumsum(counts, 0)
+    slots = entries[torch.sort(k, stable=True).indices]  # grouped by key
+    contrib = weights[slots, None] * grad[slots // per_row]
+    out = torch.zeros(n_keys, grad.shape[1], dtype=torch.float32)
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        has = counts > j
+        out[has] += contrib[offsets[:-1][has] + j]
+    return out, offsets
+
+
+def _pad_rule_holds(keys, shapes, ext, s):
+    """No recorded corner lies in a level's bottom/right pad."""
+    rows = keys[keys >= 0]
+    b, cell = rows // s, rows % s
+    for lid, ((h, w), start) in enumerate(zip(shapes, msda.level_start_index(shapes))):
+        at = (cell >= start) & (cell < start + h * w)
+        yi, xi = (cell[at] - start) // w, (cell[at] - start) % w
+        if ((yi >= ext[b[at], lid, 0]) | (xi >= ext[b[at], lid, 1])).any():
+            return False
+    return True
+
+
+@pytest.mark.parametrize("shapes", SHAPES)
+def test_segment_plan_matches_plain_autograd(shapes):
+    """The backward kernels' plan for dvalue / dsrc (corner entries keyed by
+    their gradient row, offsets from the counts, an ordered sum per
+    segment), in plain PyTorch, against autograd through the plain
+    versions: the key formula, the weights and the in-bounds and pad rules
+    of the kernels' record step."""
+    value, src, loc, aw, ext = (torch.from_numpy(x) for x in _inputs(7, shapes))
+    b, lq, m, l, p = aw.shape
+    s, d, c = value.shape[1], value.shape[-1], src.shape[-1]
+    gen = torch.Generator().manual_seed(8)
+
+    cot = torch.randn(b, lq, m * d, generator=gen)
+    v = value.clone().requires_grad_(True)
+    ref = torch.autograd.grad(msda.ms_deform_attn_plain(v, shapes, loc, aw), v, cot)[0]
+    keys, w = _corner_entries_plain(shapes, loc, aw)
+    assert keys.numel() == b * lq * m * l * p * 4
+    rows, offsets = _segment_sum_plain(keys, w, cot.view(b * lq * m, d), b * s * m)
+    torch.testing.assert_close(rows.view(b, s, m, d), ref, rtol=1e-4, atol=1e-5)
+    counts = offsets.diff()
+    assert offsets[0] == 0 and offsets[-1] == int((keys >= 0).sum())
+    assert (counts >= 0).all() and (counts == 0).any()
+    assert (rows[counts == 0] == 0).all()  # empty segments: exact zeros
+
+    e = ext
+    cot_p = torch.randn(b, lq, m, c, generator=gen)
+    sr = src.clone().requires_grad_(True)
+    pooled, wsum = msda.ms_deform_attn_raw_pool_plain(sr, shapes, loc, aw, e)
+    ref = torch.autograd.grad(pooled, sr, cot_p)[0]  # wsum has no dsrc term
+    keys, w = _corner_entries_plain(shapes, loc, aw, e, per_head=False)
+    rows, offsets = _segment_sum_plain(keys, w, cot_p.view(b * lq * m, c), b * s)
+    torch.testing.assert_close(rows.view(b, s, c), ref, rtol=1e-4, atol=1e-5)
+    # the entries of each (b, q, m) carry exactly the weights that wsum sums
+    torch.testing.assert_close(w.view(b, lq, m, -1).sum(-1), wsum, rtol=1e-5, atol=1e-6)
+    assert _pad_rule_holds(keys, shapes, e, s)
+    assert int((keys >= 0).sum()) < int(
+        (_corner_entries_plain(shapes, loc, aw, per_head=False)[0] >= 0).sum())
+
+
+def _heavy_loc(loc, shapes, n_heavy):
+    """The first n_heavy queries sample every level at one shared point, so
+    each of its corner cells collects n_heavy * M * P entries (per head:
+    n_heavy * P), more than one staged chunk of the segment sum; the others
+    sample only the left part of each level, so the right part's keys have
+    no entry."""
+    loc = loc.clone()
+    loc[..., 0] *= 0.4
+    for lid, (h, w) in enumerate(shapes):
+        loc[:, :n_heavy, :, lid, :, 0] = (w // 2 + 0.25) / w
+        loc[:, :n_heavy, :, lid, :, 1] = (h // 2 + 0.75) / h
+    return loc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_heavy_and_empty_segments_on_gpu(dtype):
+    """Segments far longer than one staged chunk (every query of a block on
+    one cell) and keys with no entry at all: the backward kernels against
+    autograd through the plain versions at the tolerances above; the rows
+    of empty keys are exact zeros in the output's type; each backward is
+    one launch and its outputs carry a grad_fn."""
+    dev = _cuda()
+    shapes = SHAPES[0]
+    value, src, loc, aw, ext = (torch.from_numpy(x) for x in _inputs(
+        9, shapes, lq=512, p=3))
+    loc = torch.round(_heavy_loc(loc, shapes, 384) * 65536.0) / 65536.0
+    b, lq, m = loc.shape[:3]
+    s = value.shape[1]
+    gen = torch.Generator().manual_seed(10)
+    tol = dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+
+    cot = torch.randn(b, lq, m * value.shape[-1], generator=gen)
+    before = msda.ms_deform_attn.bwd_launches
+    out, g = _grads_on(dev, lambda v, lc, a: msda.ms_deform_attn(v, shapes, lc, a),
+                       [cot], value.to(dtype), loc, aw)
+    assert out[0].grad_fn is not None
+    assert msda.ms_deform_attn.bwd_launches == before + 1
+    assert g[0].dtype == dtype
+    _, ref = _grads_on(dev, lambda v, lc, a: msda.ms_deform_attn_plain(v, shapes, lc, a),
+                       [cot], value.to(dtype), loc, aw)
+    torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
+    keys, _ = _corner_entries_plain(shapes, loc, aw)
+    counts = torch.bincount(keys[keys >= 0], minlength=b * s * m)
+    assert counts.max() > 1024 // 3 and (counts == 0).any()
+    assert (g[0].reshape(-1, value.shape[-1])[counts.to(dev) == 0] == 0).all()
+
+    e = ext.to(dev)
+    cot_p = torch.randn(b, lq, m, src.shape[-1], generator=gen)
+    cot_w = torch.randn(b, lq, m, generator=gen)
+    before = msda.ms_deform_attn_raw_pool.bwd_launches
+    out, g = _grads_on(
+        dev, lambda s_, lc, a: msda.ms_deform_attn_raw_pool(s_, shapes, lc, a, e),
+        [cot_p, cot_w], src.to(dtype), loc, aw)
+    assert out[0].grad_fn is not None
+    assert msda.ms_deform_attn_raw_pool.bwd_launches == before + 1
+    assert g[0].dtype == dtype
+    _, ref = _grads_on(
+        dev, lambda s_, lc, a: msda.ms_deform_attn_raw_pool_plain(s_, shapes, lc, a, e),
+        [cot_p, cot_w], src.to(dtype), loc, aw)
+    torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
+    keys, _ = _corner_entries_plain(shapes, loc, aw, ext, per_head=False)
+    counts = torch.bincount(keys[keys >= 0], minlength=b * s)
+    assert counts.max() > 1024 and (counts == 0).any()
+    assert (g[0].reshape(-1, src.shape[-1])[counts.to(dev) == 0] == 0).all()
