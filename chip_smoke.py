@@ -11,8 +11,10 @@ failing the run on any mismatch:
 2. build: nvcc builds the five kernels from kinet_tpu_torch/ops/csrc;
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
-   updates, decoder raw-pool with a bottom/right pad), f32 (TF32 off) and
-   bf16, with times;
+   updates, decoder raw-pool with a bottom/right pad; a random reference
+   point per query), f32 (TF32 off) and bf16, with times and what the
+   corners read (corners, distinct rows, L2 bytes of the corner reads in
+   32-byte sectors, that over the device time);
 3b. backward kernels vs the plain versions' autograd gradients at the
    training shapes (672x1184), f32 and bf16, with times and each pass's
    device time;
@@ -23,15 +25,20 @@ P2. the row-gather probe kernel vs its plain version and torch.gather, then
    same model on the CPU, f32, over two chained frames at 256x448;
 5. the serving main path: the flagship model in bf16 at 800x1440 driven
    frame by frame through Tracker.step over a synthetic moving-boxes
-   sequence, with per-frame times and the kernels' launch counts;
+   sequence, with per-frame times and the kernels' launch counts; then a
+   replay: the arguments of one served frame's 12 forward MSDA calls,
+   recorded by wrapping the two entry points where the model binds them,
+   each call's kernel against its plain version (bf16 and f32) and its
+   device time and reads on the main path's own samples (``replay_ms``);
+   ``--variants`` adds the kernels' measurement variants;
 6. one full-width f32 train step (dropout 0) on the card against the CPU
    at 256x448, on the same augmented targets: loss, gradient norm and the
    MSDA linears' gradients;
 7. the training main path: make_train_step in bf16 with remat at 672x1184
    (3 warm-up, 10 timed steps), launch counts per step, peak memory and a
    profile (the MSDA kernels' device time per step beside that of the
-   earlier f32-atomic backward kernels, and each backward kernel's device
-   time a call); then
+   earlier f32-atomic backward kernels, each backward kernel's device
+   time a call and each forward kernel's a launch); then
    train(cfg), the entry point, on a synthetic MOT dataset,
    writing a checkpoint and resuming from it.
 
@@ -112,6 +119,21 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(text):
+    """(mangled entry name, registers, spills) of every kernel instance in
+    nvcc's ``-Xptxas -v`` messages."""
+    entries, name, spills = [], "?", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            entries.append((name, regs, spills))
+    return entries
 
 
 def median_ms(torch, fn, iters=20, warmup=3):
@@ -222,37 +244,87 @@ def make_samples(torch, gen, b, lq, m, shapes, p):
     return loc.contiguous(), aw.view(b, lq, m, l, p).contiguous()
 
 
-def touched(torch, loc, shapes, ext, heads):
-    """(distinct rows read, in-bounds corners) of one sampling pass: a row is
-    one (batch, cell, head) slice when ``heads`` is given, else one
-    (batch, cell) row of all channels."""
+def corner_rows(torch, loc, shapes, ext):
+    """Row of the table (level start + cell) of every bilinear corner of
+    every sample, [B, Lq, M, L, P, 2 (dy), 2 (dx)] int64, and -1 where the
+    kernels read nothing: the corner rule of csrc/msda_common.cuh::corner_at
+    (outside the level, or at or past the valid extent)."""
     from kinet_tpu_torch.ops.msda import level_start_index
 
-    b, lq, m = loc.shape[:3]
-    s = sum(h * w for h, w in shapes)
-    dev = loc.device
-    bidx = torch.arange(b, device=dev).view(b, 1, 1, 1)
-    midx = torch.arange(m, device=dev).view(1, 1, m, 1)
-    keys, corners = [], 0
+    b, lq, m, l, p, _ = loc.shape
+    rows = torch.full((b, lq, m, l, p, 2, 2), -1, dtype=torch.long,
+                      device=loc.device)
     for lid, ((h, w), start) in enumerate(zip(shapes, level_start_index(shapes))):
         x = loc[:, :, :, lid, :, 0] * w - 0.5
         y = loc[:, :, :, lid, :, 1] * h - 0.5
         x0, y0 = x.floor(), y.floor()
-        vh = ext[:, lid, 0].view(b, 1, 1, 1) if ext is not None else h
-        vw = ext[:, lid, 1].view(b, 1, 1, 1) if ext is not None else w
+        xmax, ymax = torch.full_like(x, w - 1.0), torch.full_like(y, h - 1.0)
+        if ext is not None:
+            xmax = torch.minimum(xmax, ext[:, lid, 1].view(b, 1, 1, 1) - 1.0)
+            ymax = torch.minimum(ymax, ext[:, lid, 0].view(b, 1, 1, 1) - 1.0)
         for dy in (0, 1):
             for dx in (0, 1):
                 xi, yi = x0 + dx, y0 + dy
-                inside = (xi >= 0) & (xi < vw) & (xi <= w - 1) & \
-                    (yi >= 0) & (yi < vh) & (yi <= h - 1)
+                inside = (xi >= 0) & (xi <= xmax) & (yi >= 0) & (yi <= ymax)
                 cell = start + yi.clamp(0, h - 1).long() * w + \
                     xi.clamp(0, w - 1).long()
-                key = bidx * s + cell
-                if heads:
-                    key = key * m + midx
-                keys.append(key[inside])
-                corners += int(inside.sum())
-    return torch.unique(torch.cat(keys)).numel(), corners
+                rows[:, :, :, lid, :, dy, dx] = torch.where(inside, cell, -1)
+    return rows
+
+
+def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16):
+    """What one call's corners read. ``corners``: in-bounds corners;
+    ``distinct``: distinct rows (head slices for msda), the bound's count;
+    ``l2_bytes``: the 32-byte sectors of every corner read, what a kernel
+    that reads each corner from L2 fetches. msda: ``run_distinct``, the distinct slices
+    summed over blocks of ``run`` consecutive queries (a block's reads of a
+    slice it read before can come from L1). Raw pool: ``query_distinct``,
+    distinct rows per query summed over queries, and ``plan_rows``, the rows
+    the kernel's per-query plan fetches (identical corner-pair units
+    merged)."""
+    rows = corner_rows(torch, loc, shapes, ext)
+    b, lq, m = loc.shape[:3]
+    s = sum(h * w for h, w in shapes)
+    dev = loc.device
+    bidx = torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1, 1)
+    bq = bidx * lq + torch.arange(lq, device=dev).view(1, lq, 1, 1, 1, 1, 1)
+    valid = rows >= 0
+    row = bidx * s + rows
+    key = row * m + torch.arange(m, device=dev).view(1, 1, m, 1, 1, 1, 1) \
+        if kind == "msda" else row
+    nbytes = width * esize
+    off = key * nbytes
+    sectors = (off + nbytes - 1) // 32 - off // 32 + 1
+    st = dict(corners=int(valid.sum()),
+              distinct=torch.unique(key[valid]).numel(),
+              l2_bytes=int(sectors[valid].sum()) * 32)
+    if kind == "msda":
+        run_key = (bq // run) * (b * s * m) + key
+        st["run_distinct"] = torch.unique(run_key[valid]).numel()
+    else:
+        st["query_distinct"] = torch.unique((bq * (b * s) + row)[valid]).numel()
+        vl, vr = valid[..., 0], valid[..., 1]
+        first = torch.where(vl, row[..., 0], row[..., 1])
+        n = vl.long() + vr.long()
+        unit = (bq[..., 0] * (b * s) + first) * 2 + (n - 1)
+        st["plan_rows"] = int((torch.unique(unit[n > 0]) % 2 + 1).sum())
+    return st
+
+
+def stats_text(st, ms):
+    """Log text of read_stats beside the kernel's device ms."""
+    c = st["corners"]
+    text = (f"corners {c}, distinct rows {st['distinct']} "
+            f"({st['distinct'] / max(c, 1):.3f})")
+    if "run_distinct" in st:
+        text += (f", a run's repeated slice reads "
+                 f"{1 - st['run_distinct'] / max(c, 1):.3f}")
+    else:
+        text += (f", distinct per query {st['query_distinct']} "
+                 f"({st['query_distinct'] / max(c, 1):.3f}), plan rows "
+                 f"{st['plan_rows']} ({st['plan_rows'] / max(c, 1):.3f})")
+    return (text + f"; corner sectors {st['l2_bytes'] / 1e6:.1f} MB, "
+            f"{st['l2_bytes'] / ms / 1e9:.2f} TB/s")
 
 
 def bound_ms(bytes_moved, flops):
@@ -282,9 +354,9 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         err = errors(torch, out, ref)
         run_k = lambda: msda.ms_deform_attn(value, shapes, loc, aw)  # noqa: E731
         run_p = lambda: msda.ms_deform_attn_plain(value, shapes, loc, aw)  # noqa: E731
-        rows, corners = touched(torch, loc, shapes, None, heads=True)
-        moved = rows * d * esize + sample_bytes + b * lq * m * d * 4
-        flops = corners * d * 2 + n_samples * 20
+        st = read_stats(torch, "msda", loc, shapes, None, d, esize)
+        moved = st["distinct"] * d * esize + sample_bytes + b * lq * m * d * 4
+        flops = st["corners"] * d * 2 + n_samples * 20
     else:
         c = 288
         src = torch.randn(b, s, c, generator=gen, device=gen.device).to(dtype)
@@ -300,15 +372,16 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         err = max(errors(torch, out, ref), errors(torch, wsum, ref_w))
         run_k = lambda: msda.ms_deform_attn_raw_pool(src, shapes, loc, aw, extents)  # noqa: E731
         run_p = lambda: msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw, extents)  # noqa: E731
-        rows, corners = touched(torch, loc, shapes, extents, heads=False)
-        moved = rows * c * esize + sample_bytes + l * b * 8 + \
+        st = read_stats(torch, "raw", loc, shapes, extents, c, esize)
+        moved = st["distinct"] * c * esize + sample_bytes + l * b * 8 + \
             b * lq * m * (c * esize + 4)
-        flops = corners * c * 2 + n_samples * 20
+        flops = st["corners"] * c * 2 + n_samples * 20
     t_b, by = bound_ms(moved, flops)
     timed = time_kernel(torch, run_k, run_p)
     log(f"  {name:<24} {str(dtype):<15} max abs err {err[0]:.3e} max rel err "
         f"{err[1]:.3e} | {timed_text(timed)} bound {t_b:.4f} ms ({by}: "
         f"{moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
+    log(f"      {stats_text(st, timed['ms'])}")
     return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
 
 
@@ -429,7 +502,8 @@ def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         run_k = lambda: msda._msda_bwd(value, shapes, loc, aw, cot)  # noqa: E731
         run_p = lambda: torch.autograd.grad(  # noqa: E731
             out, ins, cot, retain_graph=True)
-        rows, corners = touched(torch, loc, shapes, None, heads=True)
+        st = read_stats(torch, "msda", loc, shapes, None, d, esize)
+        rows, corners = st["distinct"], st["corners"]
         # the touched value rows read, all of dvalue written (both in
         # value's type), grad_out read, the samples' loc/aw read and
         # dloc/daw written
@@ -459,7 +533,8 @@ def backward_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
             src, shapes, loc, aw, extents, cot_p, cot_w)
         run_p = lambda: torch.autograd.grad(  # noqa: E731
             outs, ins, (cot_p, cot_w), retain_graph=True)
-        rows, corners = touched(torch, loc, shapes, extents, heads=False)
+        st = read_stats(torch, "raw", loc, shapes, extents, c, esize)
+        rows, corners = st["distinct"], st["corners"]
         # the touched src rows read, all of dsrc written (both in src's
         # type), grad_pooled and grad_wsum read, the samples and extents
         common = b * lq * m * (c * esize + 4) + 2 * sample_bytes + l * b * 8
@@ -637,7 +712,7 @@ def moving_boxes(np, h, w, n_frames, seed=0):
         }
 
 
-def phase_main_path(torch, msda):
+def phase_main_path(torch, msda, variants=False):
     import numpy as np
 
     from kinet_tpu_torch.models.build import build_model
@@ -716,6 +791,16 @@ def phase_main_path(torch, msda):
     check(n_boxes > 0, "the tracker produced no result")
     log(f"  {len(tracker.get_results())} tracks, {n_boxes} result boxes")
 
+    # the forward kernels on one served frame's own samples
+    calls = record_forward_calls(torch, lambda: tracker.step(frames[N_FRAMES]))
+    kinds = [k for k, _ in calls]
+    check(kinds.count("msda_fwd") == 6 and kinds.count("msda_raw_pool_fwd") == 6,
+          f"a frame made {len(calls)} forward MSDA calls, expected 6 + 6")
+    log("  replay of one frame's 12 forward MSDA calls (bf16; compared on "
+        "locations snapped to a 2^-16 grid):")
+    replay = phase_replay(torch, msda, calls, variants)
+    del calls
+
     # where the time goes: one profiled window of 3 frames, after the run
     # whose launches were counted; device time = the kernels and copies
     # CUPTI saw on the card (one stream, so their durations do not overlap)
@@ -731,11 +816,132 @@ def phase_main_path(torch, msda):
             f"kernels {msda_ms:.3f} ms/frame = {100 * msda_ms / busy:.1f}% of "
             f"device time; {sum(n for _, n in by_name.values()) // 3} device "
             f"ops/frame")
+        for k, (t, n) in sorted(forward_launch_ms(by_name, 3).items()):
+            log(f"  {k}: {t:.5f} device ms a launch on this path ({n:.0f} "
+                f"a frame)")
         for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             log(f"    {t:8.3f} ms/frame {n // 3:5d}/frame  {k[:100]}")
     del tracker, model
     torch.cuda.empty_cache()
-    return launches, med
+    return launches, med, replay
+
+
+# ---------------------------------------------------------------------------
+# phase 5's replay: the forward kernels on the main path's own samples
+
+
+def record_forward_calls(torch, fn):
+    """Runs fn() with the model's two MSDA entry points wrapped where
+    models/deformable_transformer.py binds them, and unwrapped after;
+    returns (kernel, arguments) of every call, the tensors cloned."""
+    from kinet_tpu_torch.models import deformable_transformer as dt
+
+    calls = []
+    orig = (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool)
+
+    def recording(kernel, f):
+        def wrapped(*args):
+            calls.append((kernel, tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)))
+            return f(*args)
+        return wrapped
+
+    dt.ms_deform_attn = recording("msda_fwd", orig[0])
+    dt.ms_deform_attn_raw_pool = recording("msda_raw_pool_fwd", orig[1])
+    try:
+        fn()
+    finally:
+        dt.ms_deform_attn, dt.ms_deform_attn_raw_pool = orig
+    return calls
+
+
+def snapped(torch, loc):
+    """The locations on a 2^-16 grid, for the comparisons: there every
+    pixel coordinate is exact in f32 (make_samples), so a kernel and its
+    plain version differ only in the order of their sums. Off the grid,
+    f32 rounding of the main path's coordinates (grid_sample's formula vs
+    loc * W - 0.5) alone moves a sample by ~1e-5 px."""
+    return torch.round(loc * 65536.0) / 65536.0
+
+
+def replay_call(torch, msda, kernel, args, variants):
+    """One recorded call: the kernel against its plain version on the
+    snapped samples, bf16 as recorded and f32; the kernel's device ms on
+    the recorded inputs, and what its corners read. With ``variants``, the
+    device ms of the kernel's measurement variants too."""
+    table, shapes, loc, aw = args[:4]
+    lq, l = loc.shape[1], loc.shape[3]
+    esize = torch.finfo(table.dtype).bits // 8
+    loc_s = snapped(torch, loc)
+    err = 0.0
+    if kernel == "msda_fwd":
+        for v in (table, table.float()):
+            out = msda.ms_deform_attn(v, shapes, loc_s, aw)
+            ref = msda.ms_deform_attn_plain(v, shapes, loc_s, aw)
+            assert_close(torch, f"replay {kernel} {v.dtype}", out, ref,
+                         1e-4, 1e-5)
+            err = max(err, errors(torch, out, ref)[0])
+        run_k = lambda: msda.ms_deform_attn(table, shapes, loc, aw)  # noqa: E731
+        st = read_stats(torch, "msda", loc, shapes, None, table.shape[3], esize)
+        var = {f"{'4-channel lanes' if v else 'default'}, run "
+               f"{r or 'even'}": (
+                   lambda r=r, v=v: msda._msda_fwd(table, shapes, loc, aw, r, v))
+               for r, v in ((0, 0), (12, 0), (24, 0), (48, 0), (0, 1), (8, 1))}
+    else:
+        ext = args[4]
+        for v in (table, table.float()):
+            pooled, wsum = msda.ms_deform_attn_raw_pool(v, shapes, loc_s, aw, ext)
+            ref, ref_w = msda.ms_deform_attn_raw_pool_plain(v, shapes, loc_s,
+                                                            aw, ext)
+            rtol = 1e-2 if v.dtype == torch.bfloat16 else 1e-4
+            assert_close(torch, f"replay {kernel} {v.dtype}", pooled, ref,
+                         rtol, 1e-5)
+            assert_close(torch, f"replay {kernel} wsum {v.dtype}", wsum,
+                         ref_w, 1e-4, 1e-5)
+            err = max(err, errors(torch, pooled, ref)[0],
+                      errors(torch, wsum, ref_w)[0])
+        run_k = lambda: msda.ms_deform_attn_raw_pool(  # noqa: E731
+            table, shapes, loc, aw, ext)
+        st = read_stats(torch, "raw", loc, shapes, ext, table.shape[2], esize)
+        names = ("direct", "staged, merged", "staged, not merged",
+                 "direct, 8-byte groups")
+        var = {names[i]: (lambda i=i: msda._raw_pool_fwd(table, shapes, loc,
+                                                          aw, ext, i))
+               for i in range(4)}
+    ms = device_ms(torch, run_k)
+    log(f"  {kernel:<18} Lq {lq:5d} L {l}: {ms:.5f} ms device, max abs err "
+        f"{err:.3e}; {stats_text(st, ms)}")
+    if variants:
+        log("      variants: " + ", ".join(
+            f"{k} {device_ms(torch, f):.5f} ms" for k, f in var.items()))
+    return ms
+
+
+def phase_replay(torch, msda, calls, variants):
+    """{kernel: mean device ms a launch} over one served frame's recorded
+    forward calls."""
+    per_kernel = {}
+    with torch.inference_mode():
+        for kernel, args in calls:
+            per_kernel.setdefault(kernel, []).append(
+                replay_call(torch, msda, kernel, args, variants))
+    for k, t in per_kernel.items():
+        log(f"  {k}: {statistics.mean(t):.5f} ms a launch over the frame's "
+            f"{len(t)} calls, {sum(t):.5f} ms a frame")
+    return {k: statistics.mean(t) for k, t in per_kernel.items()}
+
+
+def forward_launch_ms(by_name, calls):
+    """{forward kernel: (device ms a launch, launches a call of fn)} from a
+    profile of ``calls`` calls (device_profile's by_name)."""
+    found = {}
+    for k, (t, n) in by_name.items():
+        kernel = ("msda_raw_pool_fwd" if "raw_pool_fwd" in k else
+                  "msda_fwd" if "msda_fwd" in k else None)
+        if kernel:
+            t0, n0 = found.get(kernel, (0.0, 0))
+            found[kernel] = (t0 + t * calls, n0 + n)
+    return {k: (t / n, n / calls) for k, (t, n) in found.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -949,6 +1155,9 @@ def phase_train_main_path(torch, msda):
         for k, (t, n) in sorted(backward_calls(timeline).items()):
             log(f"  {k}: {t:.4f} device ms a call on this path, all its "
                 f"passes ({n} calls profiled)")
+        for k, (t, n) in sorted(forward_launch_ms(by_name, 2).items()):
+            log(f"  {k}: {t:.5f} device ms a launch on this path ({n:.0f} "
+                f"a step)")
         for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
             if "msda" in k:
                 log(f"    {t:8.3f} ms/step {n // 2:5d}/step  {k[:100]}")
@@ -1046,7 +1255,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of kinet_tpu_torch")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--variants", action="store_true",
+                    help="phase 5's replay also times the forward kernels' "
+                         "measurement variants")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     root = Path(__file__).resolve().parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: the kinet_tpu_torch package is not beside this "
@@ -1075,9 +1288,8 @@ def main(argv=None) -> int:
     messages = cuda_build.build_all(ptxas_info=True)
     log(f"  built {sorted(messages)} in {time.perf_counter() - t0:.1f} s")
     for kernel, text in messages.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {kernel}: {line.strip()}")
+        for entry, regs, spills in ptxas_entries(text):
+            log(f"  {kernel}: {entry[:72]}: {regs}; {spills}")
 
     summary, launches = {}, {}
     if "3" in phases:
@@ -1101,8 +1313,10 @@ def main(argv=None) -> int:
     if "5" in phases:
         log(f"== 5. serving main path: Tracker.step, bf16, 800x1440, "
             f"{N_FRAMES} frames")
-        served, frame_ms = phase_main_path(torch, msda)
+        served, frame_ms, replay = phase_main_path(torch, msda, args.variants)
         launches.update(served)
+        for k, t in replay.items():
+            summary.setdefault(k, {})["replay_ms"] = t
         log(f"  {1000.0 / frame_ms:.3f} frames/s")
     if "6" in phases:
         log("== 6. train step: card vs CPU, f32, dropout 0, 256x448")
@@ -1128,7 +1342,9 @@ def main(argv=None) -> int:
          "plain_ms": summary[k]["plain_ms"],
          "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"],
-         "library_ms": summary[k].get("library_ms")}
+         "library_ms": summary[k].get("library_ms"),
+         **({"replay_ms": summary[k]["replay_ms"]}
+            if "replay_ms" in summary[k] else {})}
         for k, (src, replaces) in KERNEL_META.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // Shared device helpers of the multi-scale deformable attention (MSDA)
 // kernels: vector loads/stores of f32 or bf16 channel groups, and the
-// bilinear sampling of one point with grid_sample(align_corners=False,
-// padding_mode="zeros") semantics.
+// corner rule of bilinear sampling with grid_sample(align_corners=False,
+// padding_mode="zeros") semantics (corner_at), which every MSDA kernel,
+// forward and backward, derives its corners from.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -134,49 +135,39 @@ struct VecIO<__nv_bfloat16, 8> {
   }
 };
 
-// Bilinearly samples one point of one level and adds aw * sample to acc.
-//   base       : this lane's channels at cell 0 of the level
-//   row_stride : elements between consecutive cells
-//   x, y       : pixel coordinates (loc * W - 0.5, loc * H - 0.5)
-//   vh, vw     : valid extent of the level; a corner at row >= vh or
-//                column >= vw weighs 0 (pass H, W for no padding)
-// Corners outside [0, W-1] x [0, H-1] weigh 0, as grid_sample's zeros
-// padding. wsum gets the summed weights of the corners that were read.
-template <typename T, int V>
-__device__ __forceinline__ void sample_point(const T* __restrict__ base,
-                                             long long row_stride, int h,
-                                             int w, float x, float y,
-                                             float aw, float vh, float vw,
-                                             float (&acc)[V], float& wsum) {
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-  const float xmax = fminf((float)(w - 1), vw - 1.0f);
-  const float ymax = fminf((float)(h - 1), vh - 1.0f);
+// N consecutive floats from p (p aligned to the widest of 16, 8 and 4
+// bytes that divides N * 4): a (q, m)'s sample locations or weights.
+template <int N>
+__device__ __forceinline__ void load_floats(const float* __restrict__ p,
+                                            float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    const float yi = y0 + dy;
-    if (!(yi >= 0.0f && yi <= ymax)) continue;
-    const float wy = dy ? fy : 1.0f - fy;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float xi = x0 + dx;
-      if (!(xi >= 0.0f && xi <= xmax)) continue;
-      const float wt = wy * (dx ? fx : 1.0f - fx) * aw;
-      const long long cell = (long long)yi * w + (long long)xi;
-      float v[V];
-      VecIO<T, V>::load(base + cell * row_stride, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
-      wsum += wt;
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+      o[i] = t.x;
+      o[i + 1] = t.y;
+      o[i + 2] = t.z;
+      o[i + 3] = t.w;
     }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(p + i));
+      o[i] = t.x;
+      o[i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = __ldg(p + i);
   }
 }
 
 // Corner `corner` (dy = corner >> 1, dx = corner & 1) of the sample at
-// pixel (x, y): true if sample_point reads it (the same bounds and
-// extents), with its cell in the level and its bilinear factors.
+// pixel (x, y) = (loc_x * W - 0.5, loc_y * H - 0.5): true if it is read,
+// with its cell in the level and its bilinear factors. A corner outside
+// [0, W-1] x [0, H-1] (grid_sample's zeros padding), or at row >= vh or
+// column >= vw (valid extent of the level; pass H, W for no padding), is
+// not read and weighs 0.
 __device__ __forceinline__ bool corner_at(int corner, int h, int w, float x,
                                           float y, float vh, float vw,
                                           long long& cell, float& wy,
@@ -195,10 +186,10 @@ __device__ __forceinline__ bool corner_at(int corner, int h, int w, float x,
   return yi >= 0.0f && yi <= ymax && xi >= 0.0f && xi <= xmax;
 }
 
-// Backward of sample_point for one lane's V channels: the lane's partial
+// Backward of one bilinear sample for one lane's V channels: the partial
 // dot products d_c = <go, v_corner>, accumulated as
 //   a  += bil_c * d_c,   bx += d bil_c / dx * d_c,   by += d bil_c / dy * d_c
-// over the corners that sample_point reads (corner_at). The table's
+// over the corners that corner_at reads. The table's
 // gradient is not formed here: msda_segment.cuh sums it per row from the
 // corners that count_corner lists.
 template <typename T, int V>
@@ -222,7 +213,7 @@ __device__ __forceinline__ void sample_point_bwd(
   }
 }
 
-// Sums over the corners that sample_point reads of the bilinear weight and
+// Sums over the corners that corner_at reads of the bilinear weight and
 // of its derivatives along x and y (the terms that a gradient of the weight
 // sum contributes).
 __device__ __forceinline__ void corner_weight_sums(int h, int w, float x,

@@ -19,105 +19,474 @@
 // f32 (vh, vw) or null. Outputs pooled [B, Lq, M, C] in src's dtype
 // (accumulated in f32) and wsum [B, Lq, M] f32.
 //
-// Bound: bytes. Each sample reads 4 corner rows of C channels; the pooled
-// output (Lq*M*C) is written once. Design: one thread per (b, q, m, group
-// of V channels); the C/V threads of one (q, m) read each corner row as
-// one coalesced run of C*sizeof(T) bytes. The raw table is shared by all
-// heads and all decoder layers (45,000 tokens x 288 channels, 26 MB in
-// bf16 at the flagship), so it stays in the 50 MB L2 across the heads'
-// repeated reads; no 4C quad table is built.
+// What bounds it on an H100: the corner reads from L2 and their latency,
+// not HBM. The flagship's raw table (45,000 tokens x 288 channels, 26 MB
+// in bf16) stays in the 50 MB L2, and a query's 8 heads x 4 levels x 2
+// points x 4 corners read 256 rows of 576 B: ~88 MB of sectors a launch.
+// On the main path's samples the heads of a query share almost no cell
+// (distinct rows per query 0.99 of its corners in five of the six decoder
+// layers, 0.55 in the first), so the bytes cannot be cut by merging; they
+// have to be read faster: with wide loads, and many of them in flight (a
+// thread that loops over levels and points known only at run time, with a
+// branch per corner, has one sample's corners in flight at a time).
+//
+// Design (msda_raw_pool_fwd_kernel): one thread per (b, q, m, 16-byte
+// channel group), the C/V threads of a (q, m) side by side, so each corner
+// row is read as one coalesced run of full 16-byte loads. For the (L, P)
+// the decoder launches, (4, 2) and (2, 2), L and P are fixed at compile
+// time: a thread reads its (q, m)'s samples as vectors, computes all
+// 4 * L * P corners branch-free with corner_at, the corner rule the
+// backward kernels use (a corner that is not read loads its level's cell 0
+// with weight 0), and has their loads in flight before its first FMA. A
+// generic instance covers other (L, P), and 8-, 4- or 2-byte groups other
+// widths and alignments.
+//
+// Measured and kept only as a variant (msda_raw_pool_fwd_staged_kernel):
+// one block per query, which merges the corner pairs that its heads and
+// points share (__match_any_sync over a warp's units), fetches each
+// distinct row once into shared memory with cp.async.bulk and an mbarrier
+// per stage (a ring of two level stages), and sums each head's corners
+// from there. On the main path, on an H100, it takes 1.7x the direct
+// kernel's time: the per-level plan and the small bulk copies add latency
+// that merging does not win back where it merges nothing.
 #include "msda_common.cuh"
 
 namespace kinet {
 
-template <typename T, int V>
-__global__ void __launch_bounds__(256) msda_raw_pool_fwd_kernel(
-    const T* __restrict__ src, const int* __restrict__ spatial_shapes,
-    const int* __restrict__ level_start, const float* __restrict__ loc,
-    const float* __restrict__ aw, const float* __restrict__ valid_extents,
-    T* __restrict__ pooled, float* __restrict__ wsum_out, int B, int S, int C,
-    int Lq, int M, int L, int P) {
-  const int groups = C / V;
+// Only the block size bounds ptxas (see msda_fwd.cu): with a minimum of
+// blocks an SM as well, the fixed instances spilled or took 150 registers.
+constexpr int kDirectThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces the bytes the stage's copies will bring.
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "{ .reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1; }" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 16 bytes of a staged row, converted to f32
+__device__ __forceinline__ void load_chunk(const float* p, float (&o)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x;
+  o[1] = t.y;
+  o[2] = t.z;
+  o[3] = t.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = bf2_to_f2(w[i]);
+    o[2 * i] = t.x;
+    o[2 * i + 1] = t.y;
+  }
+}
+
+struct RawPoolArgs {
+  const int* spatial_shapes;
+  const int* level_start;
+  const float* loc;
+  const float* aw;
+  const float* valid_extents;
+  float* wsum_out;
+  int B, S, C, Lq, M, L, P;
+  int merge;  // staged variant: 0 fetches every unit on its own
+};
+
+// Shared memory of one block, carved from the dynamic allocation.
+struct Plan {
+  int* row[2];    // [M * P * 4] per stage: stage row of each corner; -1:
+                  // not read
+  float* wt[2];   // [M * P * 4] per stage: aw * bilinear weight, 0 if not read
+  int* copy_src;  // [M * P * 2]: a unit's first row in batch b's table
+  int* copy_dst;  // [M * P * 2]: its stage row * 2 + (rows - 1)
+};
+
+// The staged variant's plan. Warp 0 plans level l into stage s: every lane
+// takes the corner pair (m, p, dy) = unit u, a unit of one or two rows
+// (both corners inside: two adjacent cells); identical units of a round of
+// 32 lanes are merged. The entry of corner (m, p, dy, dx) at
+// (m * P + p) * 4 + dy * 2 + dx gets its stage row (-1: not read) and
+// weight. Then the warp issues one bulk copy per distinct unit.
+template <typename T>
+__device__ void plan_level(const RawPoolArgs& a, const T* __restrict__ src,
+                           const Plan& plan, T* stage,
+                           unsigned long long* bar, int bq, int l, int s) {
+  const int lane = threadIdx.x;
+  const int b = bq / a.Lq;
+  const int h = __ldg(a.spatial_shapes + 2 * l);
+  const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+  const int start = __ldg(a.level_start + l);
+  float vh = (float)h, vw = (float)w;
+  if (a.valid_extents != nullptr) {
+    vh = __ldg(a.valid_extents + ((long long)b * a.L + l) * 2);
+    vw = __ldg(a.valid_extents + ((long long)b * a.L + l) * 2 + 1);
+  }
+  const int units = a.M * a.P * 2;
+  int rows = 0, copies = 0;  // warp-uniform running totals
+  for (int u0 = 0; u0 < units; u0 += 32) {
+    const int u = u0 + lane;
+    const bool live = u < units;
+    const int m = u / (a.P * 2);
+    const int p = (u >> 1) % a.P;
+    const int dy = u & 1;
+    long long cell_l = 0, cell_r = 0;
+    float wy_l = 0.f, wx_l = 0.f, wy_r = 0.f, wx_r = 0.f, aw = 0.f;
+    bool in_l = false, in_r = false;
+    if (live) {
+      const long long k = (((long long)bq * a.M + m) * a.L + l) * a.P + p;
+      const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
+      const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
+      aw = __ldg(a.aw + k);
+      in_l = corner_at(dy * 2, h, w, x, y, vh, vw, cell_l, wy_l, wx_l);
+      in_r = corner_at(dy * 2 + 1, h, w, x, y, vh, vw, cell_r, wy_r, wx_r);
+    }
+    const int n = (int)in_l + (int)in_r;
+    const int first = start + (int)(in_l ? cell_l : cell_r);
+    // a unit is its first row and its length; lanes with nothing to read,
+    // and every lane when merging is off, get keys of their own
+    const long long key = (n > 0 && a.merge) ? (long long)first * 2 + (n - 1)
+                                             : -1LL - u;
+    const unsigned same = __match_any_sync(0xffffffffu, key);
+    const int leader = __ffs(same) - 1;
+    const bool lead = leader == lane && n > 0;
+    const unsigned ones = __ballot_sync(0xffffffffu, lead && n == 1);
+    const unsigned twos = __ballot_sync(0xffffffffu, lead && n == 2);
+    const unsigned below = (1u << lane) - 1u;
+    int base = rows + __popc(ones & below) + 2 * __popc(twos & below);
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (lead) {
+      const int ci = copies + __popc((ones | twos) & below);
+      plan.copy_src[ci] = first;
+      plan.copy_dst[ci] = base * 2 + (n - 1);
+    }
+    if (live) {
+      const int e = (m * a.P + p) * 4 + dy * 2;
+      plan.row[s][e] = in_l ? base : -1;
+      plan.wt[s][e] = in_l ? wy_l * wx_l * aw : 0.0f;
+      plan.row[s][e + 1] = in_r ? base + (int)in_l : -1;
+      plan.wt[s][e + 1] = in_r ? wy_r * wx_r * aw : 0.0f;
+    }
+    rows += __popc(ones) + 2 * __popc(twos);
+    copies += __popc(ones | twos);
+  }
+  const unsigned row_bytes = (unsigned)(a.C * sizeof(T));
+  // the stage was last read through the generic proxy before the block's
+  // barrier; order those reads before the async copies that overwrite it
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive_expect(bar, (unsigned)rows * row_bytes);
+  __syncwarp();
+  const T* src_b = src + (long long)b * a.S * a.C;
+  for (int i = lane; i < copies; i += 32) {
+    const int dst = plan.copy_dst[i];
+    bulk_copy(stage + (long long)(dst >> 1) * a.C,
+              src_b + (long long)plan.copy_src[i] * a.C,
+              ((dst & 1) + 1) * row_bytes, bar);
+  }
+}
+
+// The direct kernel (see the top): kL > 0 fixes L and P at compile time;
+// kL = 0 is the generic instance, one sample's corners at a time.
+template <typename T, int V, int kL, int kP>
+__global__ void __launch_bounds__(kDirectThreads)
+    msda_raw_pool_fwd_kernel(const T* __restrict__ src, RawPoolArgs a,
+                             T* __restrict__ pooled) {
+  const int groups = a.C / V;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)B * Lq * M * groups;
-  if (tid >= total) return;
+  if (tid >= (long long)a.B * a.Lq * a.M * groups) return;
   const int g = (int)(tid % groups);
   const long long bqm = tid / groups;  // (b * Lq + q) * M + m
-  const int b = (int)(bqm / ((long long)M * Lq));
-
-  const float* loc_p = loc + bqm * L * P * 2;
-  const float* aw_p = aw + bqm * L * P;
+  const int b = (int)(bqm / ((long long)a.M * a.Lq));
+  const int L = kL > 0 ? kL : a.L;
+  const int P = kL > 0 ? kP : a.P;
+  const T* src_b = src + (long long)b * a.S * a.C + (long long)g * V;
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.0f;
   float wsum = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const int h = __ldg(spatial_shapes + 2 * l);
-    const int w = __ldg(spatial_shapes + 2 * l + 1);
-    float vh = (float)h, vw = (float)w;
-    if (valid_extents != nullptr) {
-      vh = __ldg(valid_extents + ((long long)b * L + l) * 2);
-      vw = __ldg(valid_extents + ((long long)b * L + l) * 2 + 1);
+  if constexpr (kL > 0) {
+    constexpr int kLP = kL * kP;
+    float xy[2 * kLP], aw[kLP];
+    load_floats<2 * kLP>(a.loc + bqm * 2 * kLP, xy);
+    load_floats<kLP>(a.aw + bqm * kLP, aw);
+    float v[4 * kLP][V], wt[4 * kLP];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const int start = __ldg(a.level_start + l);
+      float vh = (float)h, vw = (float)w;
+      if (a.valid_extents != nullptr) {
+        vh = __ldg(a.valid_extents + ((long long)b * kL + l) * 2);
+        vw = __ldg(a.valid_extents + ((long long)b * kL + l) * 2 + 1);
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = l * kP + p;
+        const float x = xy[2 * k] * w - 0.5f;
+        const float y = xy[2 * k + 1] * h - 0.5f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          long long cell;
+          float wy, wx;
+          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
+          wt[4 * k + c] = in ? wy * wx * aw[k] : 0.0f;
+          VecIO<T, V>::load(src_b + (start + (in ? cell : 0)) * a.C,
+                            v[4 * k + c]);
+        }
+      }
     }
-    const T* base = src + ((long long)b * S + __ldg(level_start + l)) * C +
-                    (long long)g * V;
-    for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const float x = __ldg(loc_p + 2 * k) * w - 0.5f;
-      const float y = __ldg(loc_p + 2 * k + 1) * h - 0.5f;
-      sample_point<T, V>(base, C, h, w, x, y, __ldg(aw_p + k), vh, vw, acc,
-                         wsum);
+#pragma unroll
+    for (int k = 0; k < 4 * kLP; ++k) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = fmaf(wt[k], v[k][i], acc[i]);
+      wsum += wt[k];
+    }
+  } else {
+    for (int l = 0; l < L; ++l) {
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const int start = __ldg(a.level_start + l);
+      float vh = (float)h, vw = (float)w;
+      if (a.valid_extents != nullptr) {
+        vh = __ldg(a.valid_extents + ((long long)b * L + l) * 2);
+        vw = __ldg(a.valid_extents + ((long long)b * L + l) * 2 + 1);
+      }
+      for (int p = 0; p < P; ++p) {
+        const long long k = (bqm * L + l) * P + p;
+        const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
+        const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
+        const float aw = __ldg(a.aw + k);
+        float v[4][V], wt[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          long long cell;
+          float wy, wx;
+          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
+          wt[c] = in ? wy * wx * aw : 0.0f;
+          VecIO<T, V>::load(src_b + (start + (in ? cell : 0)) * a.C, v[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(wt[c], v[c][i], acc[i]);
+          wsum += wt[c];
+        }
+      }
     }
   }
-  VecIO<T, V>::store(pooled + bqm * C + (long long)g * V, acc);
-  if (g == 0) wsum_out[bqm] = wsum;
+  VecIO<T, V>::store(pooled + bqm * a.C + (long long)g * V, acc);
+  if (g == 0) a.wsum_out[bqm] = wsum;
+}
+
+// The staged variant: one block per (b, q), one thread per (m, 16-byte
+// channel group); levels go through a ring of two stages, the next level's
+// copies in flight while the block sums this one.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_raw_pool_fwd_staged_kernel(const T* __restrict__ src, RawPoolArgs a,
+                                    T* __restrict__ pooled) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int entries = a.M * a.P * 4;
+  const long long stage_elems = (long long)entries * a.C;
+  T* stages = reinterpret_cast<T*>(smem);
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(stages + 2 * stage_elems);
+  Plan plan;
+  plan.row[0] = reinterpret_cast<int*>(bar + 2);
+  plan.row[1] = plan.row[0] + entries;
+  plan.wt[0] = reinterpret_cast<float*>(plan.row[1] + entries);
+  plan.wt[1] = plan.wt[0] + entries;
+  plan.copy_src = reinterpret_cast<int*>(plan.wt[1] + entries);
+  plan.copy_dst = plan.copy_src + entries / 2;
+
+  const int bq = blockIdx.x;  // b * Lq + q
+  const bool planner = threadIdx.x < 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int l = 0; l < 2 && l < a.L; ++l)
+    if (planner)
+      plan_level<T>(a, src, plan, stages + l * stage_elems, bar + l, bq, l, l);
+  __syncthreads();
+
+  const int groups = a.C / V;
+  const int item = threadIdx.x;  // m * groups + g
+  const bool live = item < a.M * groups;
+  const int m = live ? item / groups : 0;
+  const int g = item - m * groups;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  float wsum = 0.0f;
+  for (int l = 0; l < a.L; ++l) {
+    const int s = l & 1;
+    mbar_wait(bar + s, (unsigned)(l >> 1) & 1u);
+    if (live) {
+      const int* rows = plan.row[s] + m * a.P * 4;
+      const float* wts = plan.wt[s] + m * a.P * 4;
+      const T* stage = stages + s * stage_elems + (long long)g * V;
+#pragma unroll 8
+      for (int e = 0; e < a.P * 4; ++e) {
+        const int r = rows[e];
+        const float wt = wts[e];
+        if (r >= 0) {
+          float v[V];
+          load_chunk(stage + (long long)r * a.C, v);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
+        }
+        wsum += wt;
+      }
+    }
+    __syncthreads();  // stage s and its plan are free again
+    if (planner && l + 2 < a.L)
+      plan_level<T>(a, src, plan, stages + s * stage_elems, bar + s, bq,
+                    l + 2, s);
+  }
+  if (live) {
+    const long long bqm = (long long)bq * a.M + m;
+    VecIO<T, V>::store(pooled + bqm * a.C + (long long)g * V, acc);
+    if (g == 0) a.wsum_out[bqm] = wsum;
+  }
+}
+
+inline long long staged_smem(int M, int P, int C, int esize) {
+  const long long entries = (long long)M * P * 4;
+  return 2 * entries * C * esize + 16 + entries * 4 * 4 + entries * 4;
 }
 
 template <typename T>
-static void launch(const void* src, const void* shapes, const void* starts,
-                   const void* loc, const void* aw, const void* valid_extents,
-                   void* pooled, void* wsum, int B, int S, int C, int Lq,
-                   int M, int L, int P, cudaStream_t stream) {
-  const int v = pick_vec(C, src, sizeof(T), pooled, sizeof(T));
-  const long long total = (long long)B * Lq * M * (C / v);
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-  const T* s = static_cast<const T*>(src);
-  const int* sh = static_cast<const int*>(shapes);
-  const int* st = static_cast<const int*>(starts);
-  const float* lc = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(aw);
-  const float* ve = static_cast<const float*>(valid_extents);
-  T* po = static_cast<T*>(pooled);
-  float* ws = static_cast<float*>(wsum);
-  if (v == 4)
-    msda_raw_pool_fwd_kernel<T, 4><<<blocks, threads, 0, stream>>>(
-        s, sh, st, lc, a, ve, po, ws, B, S, C, Lq, M, L, P);
-  else if (v == 2)
-    msda_raw_pool_fwd_kernel<T, 2><<<blocks, threads, 0, stream>>>(
-        s, sh, st, lc, a, ve, po, ws, B, S, C, Lq, M, L, P);
+static cudaError_t launch_staged(const T* src, const RawPoolArgs& a,
+                                 T* pooled, cudaStream_t stream) {
+  const int items = a.M * (a.C / (16 / (int)sizeof(T)));
+  const int threads = (items + 31) / 32 * 32;
+  const long long smem = staged_smem(a.M, a.P, a.C, sizeof(T));
+  auto kernel = msda_raw_pool_fwd_staged_kernel<T>;
+  static bool opted_in = false;  // once per instance: allow all of it
+  if (smem > 48 * 1024 && !opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  kernel<<<(unsigned)(a.B * a.Lq), threads, (size_t)smem, stream>>>(src, a,
+                                                                  pooled);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+static cudaError_t launch_direct(const T* src, const RawPoolArgs& a,
+                                 T* pooled, cudaStream_t stream) {
+  const long long total = (long long)a.B * a.Lq * a.M * (a.C / V);
+  const unsigned blocks =
+      (unsigned)((total + kDirectThreads - 1) / kDirectThreads);
+  // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
+  const bool vec = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0;
+  if (vec && a.L == 4 && a.P == 2)
+    msda_raw_pool_fwd_kernel<T, V, 4, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
+  else if (vec && a.L == 2 && a.P == 2)
+    msda_raw_pool_fwd_kernel<T, V, 2, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
   else
-    msda_raw_pool_fwd_kernel<T, 1><<<blocks, threads, 0, stream>>>(
-        s, sh, st, lc, a, ve, po, ws, B, S, C, Lq, M, L, P);
+    msda_raw_pool_fwd_kernel<T, V, 0, 0>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
+  return cudaGetLastError();
+}
+
+// variant: 0 the direct kernel; for measurement only: 1 the staged
+// variant, merged, 2 staged without merging (both where the shapes allow),
+// 3 the direct kernel with channel groups of at most 8 bytes
+template <typename T>
+static cudaError_t launch(const void* src, const void* pooled, RawPoolArgs a,
+                          int variant, cudaStream_t stream) {
+  const T* s = static_cast<const T*>(src);
+  T* po = static_cast<T*>(const_cast<void*>(pooled));
+  constexpr int kChunk = 16 / sizeof(T);  // channels of a 16-byte group
+  const bool aligned16 = (uintptr_t)src % 16 == 0 &&
+                         (uintptr_t)pooled % 16 == 0 && a.C % kChunk == 0;
+  a.merge = variant != 2;
+  if ((variant == 1 || variant == 2) && aligned16 &&
+      a.M * (a.C / kChunk) <= kMaxThreads &&
+      staged_smem(a.M, a.P, a.C, sizeof(T)) <= kMaxSmem)
+    return launch_staged<T>(s, a, po, stream);
+  if (aligned16 && variant != 3)
+    return launch_direct<T, kChunk>(s, a, po, stream);
+  const int v = pick_vec(a.C, src, sizeof(T), pooled, sizeof(T));
+  if (v == 4) return launch_direct<T, 4>(s, a, po, stream);
+  if (v == 2) return launch_direct<T, 2>(s, a, po, stream);
+  return launch_direct<T, 1>(s, a, po, stream);
 }
 
 }  // namespace kinet
 
-// C entry bound with ctypes. Returns cudaGetLastError() after the launch.
+// C entry bound with ctypes. Returns the launch's CUDA error (0 if none).
 extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
                                  const void* shapes, const void* starts,
                                  const void* loc, const void* aw,
                                  const void* valid_extents, void* pooled,
                                  void* wsum, int B, int S, int C, int Lq,
-                                 int M, int L, int P, void* stream) {
+                                 int M, int L, int P, int variant,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kinet::RawPoolArgs a{static_cast<const int*>(shapes),
+                       static_cast<const int*>(starts),
+                       static_cast<const float*>(loc),
+                       static_cast<const float*>(aw),
+                       static_cast<const float*>(valid_extents),
+                       static_cast<float*>(wsum),
+                       B, S, C, Lq, M, L, P, 1};
   if (dtype == kinet::kBF16)
-    kinet::launch<__nv_bfloat16>(src, shapes, starts, loc, aw, valid_extents,
-                                 pooled, wsum, B, S, C, Lq, M, L, P, s);
-  else if (dtype == kinet::kF32)
-    kinet::launch<float>(src, shapes, starts, loc, aw, valid_extents, pooled,
-                         wsum, B, S, C, Lq, M, L, P, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)kinet::launch<__nv_bfloat16>(src, pooled, a, variant, s);
+  if (dtype == kinet::kF32)
+    return (int)kinet::launch<float>(src, pooled, a, variant, s);
+  return (int)cudaErrorInvalidValue;
 }

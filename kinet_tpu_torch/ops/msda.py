@@ -16,16 +16,27 @@ weights and summed over levels and points.
   ``kinet_tpu/ops/msda.py::ms_deform_attn_raw_pool`` with its
   ``build_raw_quad`` table.
 
-What bounds both on an H100: bytes. Every sample reads four corner rows at
-data-dependent cells (D = 36 channels a head in the encoder, C = 288 raw
-channels in the decoder) plus its location and weight, for 2 flops a
-channel a corner. The kernels give one thread to each group of 4 channels
-of one (batch, query, head), so the threads of a head read each corner row
-as one coalesced run, and keep the f32 sum in registers; the flagship's
-value tables (13 MB encoder, 26 MB decoder, in bf16) stay in the 50 MB L2
-across the repeated corner reads. The TPU's quad tables, per-head unrolls
-and level split existed for TPU gather-speed tiers and are not carried
-over.
+What bounds both on an H100: the corner reads from L2 and their latency,
+not HBM. Every sample reads four corner rows at data-dependent cells (a
+72-byte head slice in the encoder, a 576-byte raw row in the decoder, in
+bf16) plus its location and weight, for 2 flops a channel a corner; the
+flagship's tables (13 MB encoder, 26 MB decoder, in bf16) stay in the 50 MB
+L2, so every corner of every sample is a read from L2 again, and the HBM
+bound, which counts each touched row once, is not what the kernels meet.
+Both kernels fix the (levels, points) the flagship launches at compile
+time, read a (query, head)'s samples as vectors, take every corner
+branch-free (a corner that is not read loads cell 0 with weight 0) and
+have all of a thread's corner loads in flight before its first sum; both
+use wide loads: ``msda_fwd`` gives a thread 12 channels of a head in bf16
+(one 16-byte and one 8-byte load a corner) and walks runs of consecutive,
+raster-ordered queries, whose shared slices come from L1;
+``msda_raw_pool_fwd`` gives a thread 16 bytes of a raw row. Both derive
+their corners from ``corner_at`` (``csrc/msda_common.cuh``), the corner
+rule of the backward kernels. The raw pool's staged variant, which merges
+the corners that a query's heads share and fetches each distinct row once
+with bulk copies, is kept for measurement only: on the main path's samples
+the heads share almost no row. The TPU's quad tables, per-head unrolls and
+level split existed for TPU gather-speed tiers and are not carried over.
 
 Both are differentiable. A wrapper runs the plain version only for tensors
 on the CPU, and autograd differentiates it there. For CUDA tensors it goes
@@ -161,7 +172,10 @@ def _launch(name: str, argtypes, device, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _msda_fwd(value, spatial_shapes, loc, aw):
+def _msda_fwd(value, spatial_shapes, loc, aw, run=0, variant=0):
+    """Launches ``msda_fwd``. ``run``: consecutive queries a block walks
+    (0: an even share for each block that fits on the card); ``variant`` 1:
+    4-channel lanes where bf16 takes 12-channel ones (only to measure)."""
     b, s, m, d = value.shape
     _, lq, _, l, p, _ = loc.shape
     out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
@@ -169,10 +183,10 @@ def _msda_fwd(value, spatial_shapes, loc, aw):
         return out.zero_()
     shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
     _launch(
-        "msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        "msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
         value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
-        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p,
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p, run, variant,
     )
     ms_deform_attn.launches += 1
     return out
@@ -336,7 +350,10 @@ def ms_deform_attn_raw_pool_plain(
     return pooled.to(src.dtype), wsum
 
 
-def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
+def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext, variant=0):
+    """Launches ``msda_raw_pool_fwd``. ``variant`` 0: the direct kernel;
+    only to measure: 1 the staged variant, merged, 2 staged without
+    merging, 3 the direct kernel with channel groups of at most 8 bytes."""
     b, s, c = src.shape
     _, lq, m, l, p, _ = loc.shape
     pooled = torch.empty(b, lq, m, c, dtype=src.dtype, device=src.device)
@@ -345,11 +362,11 @@ def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
         return pooled.zero_(), wsum.zero_()
     shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
     _launch(
-        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 7 + [_P],
+        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 8 + [_P],
         src.device, src.data_ptr(), _DTYPE_CODE[src.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
         aw.data_ptr(), None if ext is None else ext.data_ptr(),
-        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p, variant,
     )
     ms_deform_attn_raw_pool.launches += 1
     return pooled, wsum

@@ -162,3 +162,113 @@ def test_kernels_match_plain_on_gpu(shapes, dtype):
         dict(rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(pooled.float(), ref_p.float(), **tol)
     torch.testing.assert_close(wsum, ref_w, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernels' own cases: query runs, compiled (L, P) instances and
+# the generic one, staged and direct raw-pool paths, merging, empty queries
+
+
+def _grid(a):
+    """Locations on a 2^-16 grid: every pixel coordinate is exact in f32,
+    so kernel and plain version differ only in the order of their sums."""
+    return (np.round(a * 65536.0) / 65536.0).astype(np.float32)
+
+
+def _case(name, seed):
+    """(shapes, value, src, loc, aw, ext) of one named case, B = 2."""
+    rng = np.random.default_rng(seed)
+    b, m, d, c = 2, 8, 36, 12
+    shapes, lq, p = ((9, 13), (5, 7)), 37, 2  # Lq not a multiple of a run
+    if name == "generic_lp":  # (L, P) = (3, 3): the generic instance
+        shapes, p = ((9, 13), (5, 7), (3, 4)), 3
+    elif name == "one_level":  # (L, P) = (1, 2): the low-lite instance
+        shapes = ((11, 17),)
+    elif name == "wide_rows":  # C * esize a multiple of 16 in bf16 too
+        c = 64
+    elif name == "many_units":  # M * P * 2 = 64 corner pairs: two rounds
+        p, c = 4, 64
+    l = len(shapes)
+    s = sum(h * w for h, w in shapes)
+    value = rng.normal(size=(b, s, m, d)).astype(np.float32)
+    src = rng.normal(size=(b, s, c)).astype(np.float32)
+    loc = rng.uniform(-0.1, 1.1, size=(b, lq, m, l, p, 2))
+    if name == "merged":  # every head of a query on the same point
+        loc[:] = loc[:, :, :1]
+    if name == "empty":  # query 0 outside every level, query 1 in the pad
+        loc[:, 0] = rng.uniform(1.2, 2.0, size=loc[:, 0].shape)
+        loc[:, 1] = rng.uniform(0.9, 0.99, size=loc[:, 1].shape)
+    aw = rng.uniform(size=(b, lq, m, l, p)).astype(np.float32)
+    aw = aw / aw.sum(axis=(3, 4), keepdims=True)
+    ext = np.zeros((b, l, 2), np.float32)
+    for i, (h, w) in enumerate(shapes):
+        ext[:, i] = (max(1, h - 2), max(1, w - 3))
+    return shapes, value, src, _grid(loc), aw, ext
+
+
+FWD_CASES = ["runs", "generic_lp", "one_level", "wide_rows", "many_units",
+             "merged", "empty"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_forward_kernels_cases_on_gpu(case, dtype):
+    dev = _cuda()
+    shapes, value, src, loc, aw, ext = _case(case, FWD_CASES.index(case))
+    v, s, lc, a, e = (t.to(dev) for t in _t(value, src, loc, aw, ext))
+    v, s = v.to(dtype), s.to(dtype)
+    out = msda.ms_deform_attn(v, shapes, lc, a)
+    ref = msda.ms_deform_attn_plain(v, shapes, lc, a)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    tol = dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+    for ext_t in (None, e):
+        ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(s, shapes, lc, a,
+                                                          ext_t)
+        # 0: the direct kernel; 1: staged and merged, 2: staged without
+        # merging (where the shapes allow), 3: direct with groups of at most
+        # 8 bytes
+        for variant in range(4):
+            pooled, wsum = msda._raw_pool_fwd(s, shapes, lc, a, ext_t, variant)
+            torch.testing.assert_close(pooled.float(), ref_p.float(), **tol)
+            torch.testing.assert_close(wsum, ref_w, rtol=1e-4, atol=1e-5)
+    if case == "empty":
+        # nothing of query 0 is read: exact zeros
+        assert not out[:, 0].any() and not wsum[:, 0].any()
+        assert not pooled[:, 0].float().any()
+        # query 1 samples only the pad: nothing is read with the extents
+        assert not wsum[:, 1].any() and not pooled[:, 1].float().any()
+
+
+@pytest.mark.gpu
+def test_forward_kernel_runs_match_plain_on_gpu():
+    """Every run length a block may walk, and every variant, gives the
+    same result."""
+    dev = _cuda()
+    for case in ("runs", "one_level"):  # (L, P) = (2, 2) and (1, 2)
+        shapes, value, _, loc, aw, _ = _case(case, 11)
+        v, lc, a = (t.to(dev) for t in _t(value, loc, aw))
+        for dtype in (torch.float32, torch.bfloat16):
+            vd = v.to(dtype)
+            ref = msda.ms_deform_attn_plain(vd, shapes, lc, a)
+            # run 0: an even share for each block; variant 1: 4-channel
+            # lanes where bf16 takes 12-channel ones
+            for run, variant in ((0, 0), (1, 0), (5, 0), (64, 0), (0, 1),
+                                 (3, 1), (16, 1)):
+                torch.testing.assert_close(
+                    msda._msda_fwd(vd, shapes, lc, a, run, variant), ref,
+                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_forward_kernels_count_launches_on_gpu():
+    dev = _cuda()
+    shapes, value, src, loc, aw, ext = _case("runs", 12)
+    v, s, lc, a, e = (t.to(dev) for t in _t(value, src, loc, aw, ext))
+    before = (msda.ms_deform_attn.launches, msda.ms_deform_attn_raw_pool.launches)
+    msda.ms_deform_attn(v.bfloat16(), shapes, lc, a)
+    msda.ms_deform_attn_raw_pool(s.bfloat16(), shapes, lc, a, e)
+    msda.ms_deform_attn_raw_pool(s, shapes, lc, a)
+    after = (msda.ms_deform_attn.launches, msda.ms_deform_attn_raw_pool.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 2)
