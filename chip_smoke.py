@@ -30,7 +30,6 @@ P2. the row-gather probe kernel vs its plain version and torch.gather, then
    recorded by wrapping the two entry points where the model binds them,
    each call's kernel against its plain version (bf16 and f32) and its
    device time and reads on the main path's own samples (``replay_ms``);
-   ``--variants`` adds the kernels' measurement variants;
 6. one full-width f32 train step (dropout 0) on the card against the CPU
    at 256x448, on the same augmented targets: loss, gradient norm and the
    MSDA linears' gradients;
@@ -279,9 +278,8 @@ def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16):
     that reads each corner from L2 fetches. msda: ``run_distinct``, the distinct slices
     summed over blocks of ``run`` consecutive queries (a block's reads of a
     slice it read before can come from L1). Raw pool: ``query_distinct``,
-    distinct rows per query summed over queries, and ``plan_rows``, the rows
-    the kernel's per-query plan fetches (identical corner-pair units
-    merged)."""
+    distinct rows per query summed over queries (what a kernel that fetched
+    each row once per query would read)."""
     rows = corner_rows(torch, loc, shapes, ext)
     b, lq, m = loc.shape[:3]
     s = sum(h * w for h, w in shapes)
@@ -303,11 +301,6 @@ def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16):
         st["run_distinct"] = torch.unique(run_key[valid]).numel()
     else:
         st["query_distinct"] = torch.unique((bq * (b * s) + row)[valid]).numel()
-        vl, vr = valid[..., 0], valid[..., 1]
-        first = torch.where(vl, row[..., 0], row[..., 1])
-        n = vl.long() + vr.long()
-        unit = (bq[..., 0] * (b * s) + first) * 2 + (n - 1)
-        st["plan_rows"] = int((torch.unique(unit[n > 0]) % 2 + 1).sum())
     return st
 
 
@@ -321,8 +314,7 @@ def stats_text(st, ms):
                  f"{1 - st['run_distinct'] / max(c, 1):.3f}")
     else:
         text += (f", distinct per query {st['query_distinct']} "
-                 f"({st['query_distinct'] / max(c, 1):.3f}), plan rows "
-                 f"{st['plan_rows']} ({st['plan_rows'] / max(c, 1):.3f})")
+                 f"({st['query_distinct'] / max(c, 1):.3f})")
     return (text + f"; corner sectors {st['l2_bytes'] / 1e6:.1f} MB, "
             f"{st['l2_bytes'] / ms / 1e9:.2f} TB/s")
 
@@ -712,7 +704,7 @@ def moving_boxes(np, h, w, n_frames, seed=0):
         }
 
 
-def phase_main_path(torch, msda, variants=False):
+def phase_main_path(torch, msda):
     import numpy as np
 
     from kinet_tpu_torch.models.build import build_model
@@ -798,7 +790,7 @@ def phase_main_path(torch, msda, variants=False):
           f"a frame made {len(calls)} forward MSDA calls, expected 6 + 6")
     log("  replay of one frame's 12 forward MSDA calls (bf16; compared on "
         "locations snapped to a 2^-16 grid):")
-    replay = phase_replay(torch, msda, calls, variants)
+    replay = phase_replay(torch, msda, calls)
     del calls
 
     # where the time goes: one profiled window of 3 frames, after the run
@@ -864,11 +856,10 @@ def snapped(torch, loc):
     return torch.round(loc * 65536.0) / 65536.0
 
 
-def replay_call(torch, msda, kernel, args, variants):
+def replay_call(torch, msda, kernel, args):
     """One recorded call: the kernel against its plain version on the
     snapped samples, bf16 as recorded and f32; the kernel's device ms on
-    the recorded inputs, and what its corners read. With ``variants``, the
-    device ms of the kernel's measurement variants too."""
+    the recorded inputs, and what its corners read."""
     table, shapes, loc, aw = args[:4]
     lq, l = loc.shape[1], loc.shape[3]
     esize = torch.finfo(table.dtype).bits // 8
@@ -883,10 +874,6 @@ def replay_call(torch, msda, kernel, args, variants):
             err = max(err, errors(torch, out, ref)[0])
         run_k = lambda: msda.ms_deform_attn(table, shapes, loc, aw)  # noqa: E731
         st = read_stats(torch, "msda", loc, shapes, None, table.shape[3], esize)
-        var = {f"{'4-channel lanes' if v else 'default'}, run "
-               f"{r or 'even'}": (
-                   lambda r=r, v=v: msda._msda_fwd(table, shapes, loc, aw, r, v))
-               for r, v in ((0, 0), (12, 0), (24, 0), (48, 0), (0, 1), (8, 1))}
     else:
         ext = args[4]
         for v in (table, table.float()):
@@ -903,28 +890,20 @@ def replay_call(torch, msda, kernel, args, variants):
         run_k = lambda: msda.ms_deform_attn_raw_pool(  # noqa: E731
             table, shapes, loc, aw, ext)
         st = read_stats(torch, "raw", loc, shapes, ext, table.shape[2], esize)
-        names = ("direct", "staged, merged", "staged, not merged",
-                 "direct, 8-byte groups")
-        var = {names[i]: (lambda i=i: msda._raw_pool_fwd(table, shapes, loc,
-                                                          aw, ext, i))
-               for i in range(4)}
     ms = device_ms(torch, run_k)
     log(f"  {kernel:<18} Lq {lq:5d} L {l}: {ms:.5f} ms device, max abs err "
         f"{err:.3e}; {stats_text(st, ms)}")
-    if variants:
-        log("      variants: " + ", ".join(
-            f"{k} {device_ms(torch, f):.5f} ms" for k, f in var.items()))
     return ms
 
 
-def phase_replay(torch, msda, calls, variants):
+def phase_replay(torch, msda, calls):
     """{kernel: mean device ms a launch} over one served frame's recorded
     forward calls."""
     per_kernel = {}
     with torch.inference_mode():
         for kernel, args in calls:
             per_kernel.setdefault(kernel, []).append(
-                replay_call(torch, msda, kernel, args, variants))
+                replay_call(torch, msda, kernel, args))
     for k, t in per_kernel.items():
         log(f"  {k}: {statistics.mean(t):.5f} ms a launch over the frame's "
             f"{len(t)} calls, {sum(t):.5f} ms a frame")
@@ -1255,9 +1234,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of kinet_tpu_torch")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--variants", action="store_true",
-                    help="phase 5's replay also times the forward kernels' "
-                         "measurement variants")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     root = Path(__file__).resolve().parent
@@ -1313,7 +1289,7 @@ def main(argv=None) -> int:
     if "5" in phases:
         log(f"== 5. serving main path: Tracker.step, bf16, 800x1440, "
             f"{N_FRAMES} frames")
-        served, frame_ms, replay = phase_main_path(torch, msda, args.variants)
+        served, frame_ms, replay = phase_main_path(torch, msda)
         launches.update(served)
         for k, t in replay.items():
             summary.setdefault(k, {})["replay_ms"] = t

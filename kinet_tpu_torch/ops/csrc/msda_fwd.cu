@@ -37,6 +37,9 @@
 //     encoder's queries are raster-ordered tokens whose samples overlap, so
 //     the slices a run shares come from the SM's L1 (loads through the
 //     read-only path allocate there) rather than L2.
+#include <mutex>
+#include <vector>
+
 #include "msda_common.cuh"
 
 namespace kinet {
@@ -55,20 +58,37 @@ inline int block_threads(int per_query) {
   return q > 0 && (q * per_query) % 32 == 0 ? q * per_query : 256;
 }
 
-// (blocks, run): with run > 0 given, ceil(queries / run) blocks; else as
-// many blocks as fit on the card at once, each with an even share of the
-// queries.
-template <typename K>
-static void grid_for(K kernel, int threads, long long queries, int& run,
-                     unsigned& blocks) {
-  if (run <= 0) {
-    int dev = 0, sms = 1, per_sm = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    run = (int)((queries + slots - 1) / slots);
-  }
+// Blocks of `kernel` with `threads` threads that fit on the card at once:
+// asked of the runtime once per (kernel, device, block size) and kept, so
+// that a launch adds no device queries to the host's work.
+static long long resident_blocks(const void* kernel, int threads) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    long long slots;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(mu);
+  for (const Entry& e : known)
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads)
+      return e.slots;
+  int sms = 1, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  known.push_back({kernel, dev, threads, slots});
+  return slots;
+}
+
+// (blocks, run): as many blocks as fit on the card at once, each walking an
+// even share of the queries, `run` consecutive ones.
+static void grid_for(const void* kernel, int threads, long long queries,
+                     int& run, unsigned& blocks) {
+  const long long slots = resident_blocks(kernel, threads);
+  run = (int)((queries + slots - 1) / slots);
   blocks = (unsigned)((queries + run - 1) / run);
 }
 
@@ -292,11 +312,12 @@ template <typename T, int V>
 static cudaError_t launch_v(const T* value, const int* sh, const int* st,
                             const float* lc, const float* a, float* o, int B,
                             int S, int M, int D, int Lq, int L, int P,
-                            int run, bool fixed, cudaStream_t stream) {
+                            bool fixed, cudaStream_t stream) {
   const int threads = block_threads(M * (D / V));
+  int run;
   unsigned blocks;
   auto launch_k = [&](auto kernel) {
-    grid_for(kernel, threads, (long long)B * Lq, run, blocks);
+    grid_for((const void*)kernel, threads, (long long)B * Lq, run, blocks);
     kernel<<<blocks, threads, 0, stream>>>(value, sh, st, lc, a, o, B, S, M,
                                            D, Lq, L, P, run);
   };
@@ -309,14 +330,11 @@ static cudaError_t launch_v(const T* value, const int* sh, const int* st,
   return cudaGetLastError();
 }
 
-// variant: 0 the default; 1 one thread per V channels also where the
-// 12-channel lanes apply (measurement only)
 template <typename T>
 static cudaError_t launch(const void* value, const void* shapes,
                           const void* starts, const void* loc, const void* aw,
                           void* out, int B, int S, int M, int D, int Lq,
-                          int L, int P, int run, int variant,
-                          cudaStream_t stream) {
+                          int L, int P, cudaStream_t stream) {
   const T* val = static_cast<const T*>(value);
   const int* sh = static_cast<const int*>(shapes);
   const int* st = static_cast<const int*>(starts);
@@ -327,13 +345,15 @@ static cudaError_t launch(const void* value, const void* shapes,
   const bool fixed = (uintptr_t)loc % 16 == 0 && (uintptr_t)aw % 16 == 0 &&
                      P == 2 && (L == 2 || L == 1);
   if constexpr (sizeof(T) == 2) {
-    if (variant != 1 && fixed && D % 12 == 0 &&
+    if (fixed && D % 12 == 0 &&
         (uintptr_t)value % 16 == 0 && (uintptr_t)out % 16 == 0 &&
         ((long long)M * D) % 8 == 0) {
       const int threads = block_threads(M * (D / 12));
+      int run;
       unsigned blocks;
       auto launch_k = [&](auto kernel) {
-        grid_for(kernel, threads, (long long)B * Lq, run, blocks);
+        grid_for((const void*)kernel, threads, (long long)B * Lq, run,
+                 blocks);
         kernel<<<blocks, threads, 0, stream>>>(val, sh, st, lc, a, o, B, S,
                                                M, D, Lq, run);
       };
@@ -346,32 +366,28 @@ static cudaError_t launch(const void* value, const void* shapes,
   }
   const int v = pick_vec(D, value, sizeof(T), out, sizeof(float));
   if (v == 4)
-    return launch_v<T, 4>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, run,
-                          fixed, stream);
+    return launch_v<T, 4>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
+                          stream);
   if (v == 2)
-    return launch_v<T, 2>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, run,
-                          fixed, stream);
-  return launch_v<T, 1>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, run,
-                        fixed, stream);
+    return launch_v<T, 2>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
+                          stream);
+  return launch_v<T, 1>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
+                        stream);
 }
 
 }  // namespace kinet
 
 // C entry bound with ctypes. Returns the launch's CUDA error (0 if none).
-// run: consecutive queries a block walks (0: an even share of the queries
-// for each block that fits on the card at once); variant: 0 (other values
-// for measurement, see launch).
 extern "C" int msda_fwd(const void* value, int dtype, const void* shapes,
                         const void* starts, const void* loc, const void* aw,
                         void* out, int B, int S, int M, int D, int Lq, int L,
-                        int P, int run, int variant, void* stream) {
+                        int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kinet::kBF16)
     return (int)kinet::launch<__nv_bfloat16>(value, shapes, starts, loc, aw,
-                                             out, B, S, M, D, Lq, L, P, run,
-                                             variant, s);
+                                             out, B, S, M, D, Lq, L, P, s);
   if (dtype == kinet::kF32)
     return (int)kinet::launch<float>(value, shapes, starts, loc, aw, out, B,
-                                     S, M, D, Lq, L, P, run, variant, s);
+                                     S, M, D, Lq, L, P, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,14 +41,11 @@
 // generic instance covers other (L, P), and 8-, 4- or 2-byte groups other
 // widths and alignments.
 //
-// Measured and kept only as a variant (msda_raw_pool_fwd_staged_kernel):
-// one block per query, which merges the corner pairs that its heads and
-// points share (__match_any_sync over a warp's units), fetches each
-// distinct row once into shared memory with cp.async.bulk and an mbarrier
-// per stage (a ring of two level stages), and sums each head's corners
-// from there. On the main path, on an H100, it takes 1.7x the direct
-// kernel's time: the per-level plan and the small bulk copies add latency
-// that merging does not win back where it merges nothing.
+// Tried and dropped (PERF.md): one block per query that merges the corner
+// pairs its heads and points share and fetches each distinct row once into
+// shared memory with cp.async.bulk and mbarriers. On the main path's
+// samples it took 1.7x this kernel's time on an H100: it merges almost
+// nothing there, and its per-level plan and small bulk copies add latency.
 #include "msda_common.cuh"
 
 namespace kinet {
@@ -56,73 +53,6 @@ namespace kinet {
 // Only the block size bounds ptxas (see msda_fwd.cu): with a minimum of
 // blocks an SM as well, the fixed instances spilled or took 150 registers.
 constexpr int kDirectThreads = 256;
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// One arrival that also announces the bytes the stage's copies will bring.
-__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
-                                                   unsigned bytes) {
-  asm volatile(
-      "{ .reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1; }" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{ .reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// 16 bytes of a staged row, converted to f32
-__device__ __forceinline__ void load_chunk(const float* p, float (&o)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  o[0] = t.x;
-  o[1] = t.y;
-  o[2] = t.z;
-  o[3] = t.w;
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&o)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = bf2_to_f2(w[i]);
-    o[2 * i] = t.x;
-    o[2 * i + 1] = t.y;
-  }
-}
 
 struct RawPoolArgs {
   const int* spatial_shapes;
@@ -132,104 +62,10 @@ struct RawPoolArgs {
   const float* valid_extents;
   float* wsum_out;
   int B, S, C, Lq, M, L, P;
-  int merge;  // staged variant: 0 fetches every unit on its own
 };
 
-// Shared memory of one block, carved from the dynamic allocation.
-struct Plan {
-  int* row[2];    // [M * P * 4] per stage: stage row of each corner; -1:
-                  // not read
-  float* wt[2];   // [M * P * 4] per stage: aw * bilinear weight, 0 if not read
-  int* copy_src;  // [M * P * 2]: a unit's first row in batch b's table
-  int* copy_dst;  // [M * P * 2]: its stage row * 2 + (rows - 1)
-};
-
-// The staged variant's plan. Warp 0 plans level l into stage s: every lane
-// takes the corner pair (m, p, dy) = unit u, a unit of one or two rows
-// (both corners inside: two adjacent cells); identical units of a round of
-// 32 lanes are merged. The entry of corner (m, p, dy, dx) at
-// (m * P + p) * 4 + dy * 2 + dx gets its stage row (-1: not read) and
-// weight. Then the warp issues one bulk copy per distinct unit.
-template <typename T>
-__device__ void plan_level(const RawPoolArgs& a, const T* __restrict__ src,
-                           const Plan& plan, T* stage,
-                           unsigned long long* bar, int bq, int l, int s) {
-  const int lane = threadIdx.x;
-  const int b = bq / a.Lq;
-  const int h = __ldg(a.spatial_shapes + 2 * l);
-  const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-  const int start = __ldg(a.level_start + l);
-  float vh = (float)h, vw = (float)w;
-  if (a.valid_extents != nullptr) {
-    vh = __ldg(a.valid_extents + ((long long)b * a.L + l) * 2);
-    vw = __ldg(a.valid_extents + ((long long)b * a.L + l) * 2 + 1);
-  }
-  const int units = a.M * a.P * 2;
-  int rows = 0, copies = 0;  // warp-uniform running totals
-  for (int u0 = 0; u0 < units; u0 += 32) {
-    const int u = u0 + lane;
-    const bool live = u < units;
-    const int m = u / (a.P * 2);
-    const int p = (u >> 1) % a.P;
-    const int dy = u & 1;
-    long long cell_l = 0, cell_r = 0;
-    float wy_l = 0.f, wx_l = 0.f, wy_r = 0.f, wx_r = 0.f, aw = 0.f;
-    bool in_l = false, in_r = false;
-    if (live) {
-      const long long k = (((long long)bq * a.M + m) * a.L + l) * a.P + p;
-      const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
-      const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
-      aw = __ldg(a.aw + k);
-      in_l = corner_at(dy * 2, h, w, x, y, vh, vw, cell_l, wy_l, wx_l);
-      in_r = corner_at(dy * 2 + 1, h, w, x, y, vh, vw, cell_r, wy_r, wx_r);
-    }
-    const int n = (int)in_l + (int)in_r;
-    const int first = start + (int)(in_l ? cell_l : cell_r);
-    // a unit is its first row and its length; lanes with nothing to read,
-    // and every lane when merging is off, get keys of their own
-    const long long key = (n > 0 && a.merge) ? (long long)first * 2 + (n - 1)
-                                             : -1LL - u;
-    const unsigned same = __match_any_sync(0xffffffffu, key);
-    const int leader = __ffs(same) - 1;
-    const bool lead = leader == lane && n > 0;
-    const unsigned ones = __ballot_sync(0xffffffffu, lead && n == 1);
-    const unsigned twos = __ballot_sync(0xffffffffu, lead && n == 2);
-    const unsigned below = (1u << lane) - 1u;
-    int base = rows + __popc(ones & below) + 2 * __popc(twos & below);
-    base = __shfl_sync(0xffffffffu, base, leader);
-    if (lead) {
-      const int ci = copies + __popc((ones | twos) & below);
-      plan.copy_src[ci] = first;
-      plan.copy_dst[ci] = base * 2 + (n - 1);
-    }
-    if (live) {
-      const int e = (m * a.P + p) * 4 + dy * 2;
-      plan.row[s][e] = in_l ? base : -1;
-      plan.wt[s][e] = in_l ? wy_l * wx_l * aw : 0.0f;
-      plan.row[s][e + 1] = in_r ? base + (int)in_l : -1;
-      plan.wt[s][e + 1] = in_r ? wy_r * wx_r * aw : 0.0f;
-    }
-    rows += __popc(ones) + 2 * __popc(twos);
-    copies += __popc(ones | twos);
-  }
-  const unsigned row_bytes = (unsigned)(a.C * sizeof(T));
-  // the stage was last read through the generic proxy before the block's
-  // barrier; order those reads before the async copies that overwrite it
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncwarp();
-  if (lane == 0) mbar_arrive_expect(bar, (unsigned)rows * row_bytes);
-  __syncwarp();
-  const T* src_b = src + (long long)b * a.S * a.C;
-  for (int i = lane; i < copies; i += 32) {
-    const int dst = plan.copy_dst[i];
-    bulk_copy(stage + (long long)(dst >> 1) * a.C,
-              src_b + (long long)plan.copy_src[i] * a.C,
-              ((dst & 1) + 1) * row_bytes, bar);
-  }
-}
-
-// The direct kernel (see the top): kL > 0 fixes L and P at compile time;
-// kL = 0 is the generic instance, one sample's corners at a time.
+// The kernel (see the top): kL > 0 fixes L and P at compile time; kL = 0 is
+// the generic instance, one sample's corners at a time.
 template <typename T, int V, int kL, int kP>
 __global__ void __launch_bounds__(kDirectThreads)
     msda_raw_pool_fwd_kernel(const T* __restrict__ src, RawPoolArgs a,
@@ -322,108 +158,8 @@ __global__ void __launch_bounds__(kDirectThreads)
   if (g == 0) a.wsum_out[bqm] = wsum;
 }
 
-// The staged variant: one block per (b, q), one thread per (m, 16-byte
-// channel group); levels go through a ring of two stages, the next level's
-// copies in flight while the block sums this one.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    msda_raw_pool_fwd_staged_kernel(const T* __restrict__ src, RawPoolArgs a,
-                                    T* __restrict__ pooled) {
-  constexpr int V = 16 / sizeof(T);
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int entries = a.M * a.P * 4;
-  const long long stage_elems = (long long)entries * a.C;
-  T* stages = reinterpret_cast<T*>(smem);
-  unsigned long long* bar =
-      reinterpret_cast<unsigned long long*>(stages + 2 * stage_elems);
-  Plan plan;
-  plan.row[0] = reinterpret_cast<int*>(bar + 2);
-  plan.row[1] = plan.row[0] + entries;
-  plan.wt[0] = reinterpret_cast<float*>(plan.row[1] + entries);
-  plan.wt[1] = plan.wt[0] + entries;
-  plan.copy_src = reinterpret_cast<int*>(plan.wt[1] + entries);
-  plan.copy_dst = plan.copy_src + entries / 2;
-
-  const int bq = blockIdx.x;  // b * Lq + q
-  const bool planner = threadIdx.x < 32;
-  if (threadIdx.x == 0) {
-    mbar_init(bar);
-    mbar_init(bar + 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  for (int l = 0; l < 2 && l < a.L; ++l)
-    if (planner)
-      plan_level<T>(a, src, plan, stages + l * stage_elems, bar + l, bq, l, l);
-  __syncthreads();
-
-  const int groups = a.C / V;
-  const int item = threadIdx.x;  // m * groups + g
-  const bool live = item < a.M * groups;
-  const int m = live ? item / groups : 0;
-  const int g = item - m * groups;
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
-  float wsum = 0.0f;
-  for (int l = 0; l < a.L; ++l) {
-    const int s = l & 1;
-    mbar_wait(bar + s, (unsigned)(l >> 1) & 1u);
-    if (live) {
-      const int* rows = plan.row[s] + m * a.P * 4;
-      const float* wts = plan.wt[s] + m * a.P * 4;
-      const T* stage = stages + s * stage_elems + (long long)g * V;
-#pragma unroll 8
-      for (int e = 0; e < a.P * 4; ++e) {
-        const int r = rows[e];
-        const float wt = wts[e];
-        if (r >= 0) {
-          float v[V];
-          load_chunk(stage + (long long)r * a.C, v);
-#pragma unroll
-          for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
-        }
-        wsum += wt;
-      }
-    }
-    __syncthreads();  // stage s and its plan are free again
-    if (planner && l + 2 < a.L)
-      plan_level<T>(a, src, plan, stages + s * stage_elems, bar + s, bq,
-                    l + 2, s);
-  }
-  if (live) {
-    const long long bqm = (long long)bq * a.M + m;
-    VecIO<T, V>::store(pooled + bqm * a.C + (long long)g * V, acc);
-    if (g == 0) a.wsum_out[bqm] = wsum;
-  }
-}
-
-inline long long staged_smem(int M, int P, int C, int esize) {
-  const long long entries = (long long)M * P * 4;
-  return 2 * entries * C * esize + 16 + entries * 4 * 4 + entries * 4;
-}
-
-template <typename T>
-static cudaError_t launch_staged(const T* src, const RawPoolArgs& a,
-                                 T* pooled, cudaStream_t stream) {
-  const int items = a.M * (a.C / (16 / (int)sizeof(T)));
-  const int threads = (items + 31) / 32 * 32;
-  const long long smem = staged_smem(a.M, a.P, a.C, sizeof(T));
-  auto kernel = msda_raw_pool_fwd_staged_kernel<T>;
-  static bool opted_in = false;  // once per instance: allow all of it
-  if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  kernel<<<(unsigned)(a.B * a.Lq), threads, (size_t)smem, stream>>>(src, a,
-                                                                  pooled);
-  return cudaGetLastError();
-}
-
 template <typename T, int V>
-static cudaError_t launch_direct(const T* src, const RawPoolArgs& a,
+static cudaError_t launch_v(const T* src, const RawPoolArgs& a,
                                  T* pooled, cudaStream_t stream) {
   const long long total = (long long)a.B * a.Lq * a.M * (a.C / V);
   const unsigned blocks =
@@ -442,28 +178,19 @@ static cudaError_t launch_direct(const T* src, const RawPoolArgs& a,
   return cudaGetLastError();
 }
 
-// variant: 0 the direct kernel; for measurement only: 1 the staged
-// variant, merged, 2 staged without merging (both where the shapes allow),
-// 3 the direct kernel with channel groups of at most 8 bytes
 template <typename T>
-static cudaError_t launch(const void* src, const void* pooled, RawPoolArgs a,
-                          int variant, cudaStream_t stream) {
+static cudaError_t launch(const void* src, const void* pooled,
+                          const RawPoolArgs& a, cudaStream_t stream) {
   const T* s = static_cast<const T*>(src);
   T* po = static_cast<T*>(const_cast<void*>(pooled));
   constexpr int kChunk = 16 / sizeof(T);  // channels of a 16-byte group
-  const bool aligned16 = (uintptr_t)src % 16 == 0 &&
-                         (uintptr_t)pooled % 16 == 0 && a.C % kChunk == 0;
-  a.merge = variant != 2;
-  if ((variant == 1 || variant == 2) && aligned16 &&
-      a.M * (a.C / kChunk) <= kMaxThreads &&
-      staged_smem(a.M, a.P, a.C, sizeof(T)) <= kMaxSmem)
-    return launch_staged<T>(s, a, po, stream);
-  if (aligned16 && variant != 3)
-    return launch_direct<T, kChunk>(s, a, po, stream);
+  if ((uintptr_t)src % 16 == 0 && (uintptr_t)pooled % 16 == 0 &&
+      a.C % kChunk == 0)
+    return launch_v<T, kChunk>(s, a, po, stream);
   const int v = pick_vec(a.C, src, sizeof(T), pooled, sizeof(T));
-  if (v == 4) return launch_direct<T, 4>(s, a, po, stream);
-  if (v == 2) return launch_direct<T, 2>(s, a, po, stream);
-  return launch_direct<T, 1>(s, a, po, stream);
+  if (v == 4) return launch_v<T, 4>(s, a, po, stream);
+  if (v == 2) return launch_v<T, 2>(s, a, po, stream);
+  return launch_v<T, 1>(s, a, po, stream);
 }
 
 }  // namespace kinet
@@ -474,8 +201,7 @@ extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
                                  const void* loc, const void* aw,
                                  const void* valid_extents, void* pooled,
                                  void* wsum, int B, int S, int C, int Lq,
-                                 int M, int L, int P, int variant,
-                                 void* stream) {
+                                 int M, int L, int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kinet::RawPoolArgs a{static_cast<const int*>(shapes),
                        static_cast<const int*>(starts),
@@ -483,10 +209,10 @@ extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
                        static_cast<const float*>(aw),
                        static_cast<const float*>(valid_extents),
                        static_cast<float*>(wsum),
-                       B, S, C, Lq, M, L, P, 1};
+                       B, S, C, Lq, M, L, P};
   if (dtype == kinet::kBF16)
-    return (int)kinet::launch<__nv_bfloat16>(src, pooled, a, variant, s);
+    return (int)kinet::launch<__nv_bfloat16>(src, pooled, a, s);
   if (dtype == kinet::kF32)
-    return (int)kinet::launch<float>(src, pooled, a, variant, s);
+    return (int)kinet::launch<float>(src, pooled, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,11 +32,11 @@ use wide loads: ``msda_fwd`` gives a thread 12 channels of a head in bf16
 raster-ordered queries, whose shared slices come from L1;
 ``msda_raw_pool_fwd`` gives a thread 16 bytes of a raw row. Both derive
 their corners from ``corner_at`` (``csrc/msda_common.cuh``), the corner
-rule of the backward kernels. The raw pool's staged variant, which merges
-the corners that a query's heads share and fetches each distinct row once
-with bulk copies, is kept for measurement only: on the main path's samples
-the heads share almost no row. The TPU's quad tables, per-head unrolls and
-level split existed for TPU gather-speed tiers and are not carried over.
+rule of the backward kernels. Merging the corners that a query's heads
+share, to fetch each distinct row once, does not pay: on the main path's
+samples the heads share almost no row (PERF.md). The TPU's quad tables,
+per-head unrolls and level split existed for TPU gather-speed tiers and
+are not carried over.
 
 Both are differentiable. A wrapper runs the plain version only for tensors
 on the CPU, and autograd differentiates it there. For CUDA tensors it goes
@@ -172,10 +172,7 @@ def _launch(name: str, argtypes, device, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _msda_fwd(value, spatial_shapes, loc, aw, run=0, variant=0):
-    """Launches ``msda_fwd``. ``run``: consecutive queries a block walks
-    (0: an even share for each block that fits on the card); ``variant`` 1:
-    4-channel lanes where bf16 takes 12-channel ones (only to measure)."""
+def _msda_fwd(value, spatial_shapes, loc, aw):
     b, s, m, d = value.shape
     _, lq, _, l, p, _ = loc.shape
     out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
@@ -183,10 +180,10 @@ def _msda_fwd(value, spatial_shapes, loc, aw, run=0, variant=0):
         return out.zero_()
     shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
     _launch(
-        "msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "msda_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
         value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
-        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p, run, variant,
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p,
     )
     ms_deform_attn.launches += 1
     return out
@@ -350,10 +347,7 @@ def ms_deform_attn_raw_pool_plain(
     return pooled.to(src.dtype), wsum
 
 
-def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext, variant=0):
-    """Launches ``msda_raw_pool_fwd``. ``variant`` 0: the direct kernel;
-    only to measure: 1 the staged variant, merged, 2 staged without
-    merging, 3 the direct kernel with channel groups of at most 8 bytes."""
+def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
     b, s, c = src.shape
     _, lq, m, l, p, _ = loc.shape
     pooled = torch.empty(b, lq, m, c, dtype=src.dtype, device=src.device)
@@ -362,11 +356,11 @@ def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext, variant=0):
         return pooled.zero_(), wsum.zero_()
     shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
     _launch(
-        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 8 + [_P],
+        "msda_raw_pool_fwd", [_P, _I] + [_P] * 7 + [_I] * 7 + [_P],
         src.device, src.data_ptr(), _DTYPE_CODE[src.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
         aw.data_ptr(), None if ext is None else ext.data_ptr(),
-        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p, variant,
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
     )
     ms_deform_attn_raw_pool.launches += 1
     return pooled, wsum

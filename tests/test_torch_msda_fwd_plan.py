@@ -9,12 +9,11 @@ and, for the edge samples, against the JAX package's XLA formulations:
   ``csrc/msda_raw_pool_fwd.cu``: every corner of every sample as a
   branch-free entry, its cell clamped to the level's cell 0 and its weight
   0 where ``corner_at`` reads nothing, summed in the kernels' order (level,
-  point, corner), whatever the lane width;
-- the raw pool's staged variant: per (query, level), the corner pairs
-  (m, p, dy) as units of one or two rows, identical units merged within a
-  round of 32 lanes (the kernel's ``__match_any_sync``), stage rows given
-  out in lane order as the kernel's ballots do, and each head's sum read
-  back from the merged stage rows.
+  point, corner), whatever the lane width.
+
+``chip_smoke.py::read_stats``, which counts the corner rows and distinct
+rows that the replay of the main path reports, is held to the same corner
+rule here.
 
 ``corner_rule`` is ``csrc/msda_common.cuh::corner_at`` in f32. Locations
 lie on a 2^-16 grid, where every pixel coordinate is exact in f32, so the
@@ -27,10 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kinet_tpu.ops import msda as jax_msda
 from kinet_tpu_torch.ops import msda
-
-LANES = 32
 
 
 def corner_rule(corner, h, w, x, y, vh, vw):
@@ -102,71 +100,6 @@ def raw_pool_direct_model(src, shapes, loc, aw, ext=None):
     return pooled, wsum
 
 
-def raw_pool_plan(shapes, loc, aw, ext, b, q, lid, merge=True):
-    """The staged variant's plan of one (batch, query, level): the copy
-    units [(first row of the level's table, rows)] in stage order, and per
-    corner entry (m, p, dy, dx) its stage row (-1: not read) and weight."""
-    _, _, m, _, p, _ = loc.shape
-    h, w = shapes[lid]
-    start = msda.level_start_index(shapes)[lid]
-    vh, vw = (ext[b, lid, 0], ext[b, lid, 1]) if ext is not None else \
-        (torch.tensor(float(h)), torch.tensor(float(w)))
-    x, y = pixels(loc[b, q], shapes, lid)  # [M, P]
-    units, rows, wts = [], {}, {}
-    n_units = m * p * 2
-    for u0 in range(0, n_units, LANES):
-        keys, info = [], []
-        for u in range(u0, min(u0 + LANES, n_units)):
-            mm, pt, dy = u // (p * 2), (u // 2) % p, u % 2
-            corners = []
-            for dx in (0, 1):
-                inside, cell, bil = corner_rule(dy * 2 + dx, h, w, x[mm, pt],
-                                                y[mm, pt], vh, vw)
-                corners.append((bool(inside), start + int(cell),
-                                bil * aw[b, q, mm, lid, pt]))
-            n = corners[0][0] + corners[1][0]
-            first = corners[0][1] if corners[0][0] else corners[1][1]
-            keys.append((first, n) if n and merge else ("own", u))
-            info.append((mm, pt, dy, n, first, corners))
-        leaders = {}
-        for key, (mm, pt, dy, n, first, corners) in zip(keys, info):
-            if n and key not in leaders:  # the lowest lane of its key leads
-                leaders[key] = sum(r for _, r in units)
-                units.append((first, n))
-            base = leaders.get(key, -1)
-            for dx, (inside, _, wt) in enumerate(corners):
-                e = (mm, pt, dy, dx)
-                rows[e] = base + (dx == 1 and corners[0][0]) if inside else -1
-                wts[e] = wt if inside else torch.tensor(0.0)
-    return units, rows, wts
-
-
-def raw_pool_model(src, shapes, loc, aw, ext=None, merge=True):
-    """The staged variant's sums from its merged stage rows: pooled
-    [B, Lq, M, C] and wsum [B, Lq, M] in f32."""
-    b, _, c = src.shape
-    lq, m, l, p = loc.shape[1:5]
-    pooled = torch.zeros(b, lq, m, c)
-    wsum = torch.zeros(b, lq, m)
-    for bi in range(b):
-        for q in range(lq):
-            for lid in range(l):
-                units, rows, wts = raw_pool_plan(shapes, loc, aw, ext, bi, q,
-                                                 lid, merge)
-                stage = torch.cat([src[bi, first:first + n].float()
-                                   for first, n in units] or
-                                  [torch.zeros(0, c)])
-                for mm in range(m):
-                    for pt in range(p):
-                        for dy in (0, 1):
-                            for dx in (0, 1):
-                                e = (mm, pt, dy, dx)
-                                if rows[e] >= 0:
-                                    pooled[bi, q, mm] += wts[e] * stage[rows[e]]
-                                wsum[bi, q, mm] += wts[e]
-    return pooled, wsum
-
-
 def _grid(a):
     return (np.round(a * 65536.0) / 65536.0).astype(np.float32)
 
@@ -200,47 +133,72 @@ def test_msda_fwd_model_matches_plain(shapes, p):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("p", [2, 3])
 @pytest.mark.parametrize("with_extents", [False, True])
 @pytest.mark.parametrize("shapes", SHAPES)
-def test_raw_pool_model_matches_plain(shapes, with_extents):
-    _, src, loc, aw = _inputs(1, shapes)
+def test_raw_pool_model_matches_plain(shapes, with_extents, p):
+    _, src, loc, aw = _inputs(1, shapes, p=p)
     ext = _extents(shapes, 2) if with_extents else None
     ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw, ext)
     pooled, wsum = raw_pool_direct_model(src, shapes, loc, aw, ext)
     torch.testing.assert_close(pooled, ref_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(wsum, ref_w, rtol=1e-5, atol=1e-6)
-    for merge in (True, False):
-        pooled, wsum = raw_pool_model(src, shapes, loc, aw, ext, merge)
-        torch.testing.assert_close(pooled, ref_p, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(wsum, ref_w, rtol=1e-5, atol=1e-6)
 
 
-def test_raw_pool_plan_merges_shared_cells():
-    """All heads of a query on the same point: one query-level fetches the
-    rows of one head's corners, P * 4 at most; without merging M times as
-    many; and more than 32 corner pairs (M * P * 2 = 48) plan in two rounds
-    whose shared units are fetched once per round."""
+def _shared_cells(m=8, p=3):
+    """Every head of a query on head 0's points, with head 0's weights."""
     shapes = ((6, 8), (3, 4))
-    _, src, loc, aw = _inputs(2, shapes, m=8, p=3)
+    _, src, loc, aw = _inputs(2, shapes, m=m, p=p)
     loc[:] = loc[:, :, :1]
-    for q in range(loc.shape[1]):
-        for lid in range(len(shapes)):
-            merged, _, _ = raw_pool_plan(shapes, loc, aw, None, 0, q, lid)
-            alone, _, _ = raw_pool_plan(shapes, loc, aw, None, 0, q, lid,
-                                        merge=False)
-            _, rows, _ = raw_pool_plan(shapes, loc, aw, None, 0, q, lid,
-                                       merge=False)
-            head_rows = sum(r >= 0 for e, r in rows.items() if e[0] == 0)
-            n_merged = sum(n for _, n in merged)
-            assert sum(n for _, n in alone) == 8 * head_rows
-            # lanes 0-31 are heads 0-4 and two pairs of head 5, lanes 32-47
-            # the rest: each round holds every pair of one head at least
-            assert n_merged <= 2 * head_rows
-            assert n_merged < 8 * head_rows or head_rows == 0
-    ref = msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw)
-    got = raw_pool_model(src, shapes, loc, aw)
-    for a, r in zip(got, ref):
-        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+    aw[:] = aw[:, :, :1]
+    return shapes, src, loc, aw
+
+
+def test_raw_pool_model_shared_cells():
+    """All heads of a query on the same cells: each head reads the same
+    rows on its own and pools the same sums as head 0."""
+    shapes, src, loc, aw = _shared_cells()
+    pooled, wsum = raw_pool_direct_model(src, shapes, loc, aw)
+    ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(src, shapes, loc, aw)
+    torch.testing.assert_close(pooled, ref_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(wsum, ref_w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(pooled, pooled[:, :, :1].expand_as(pooled))
+    torch.testing.assert_close(wsum, wsum[:, :, :1].expand_as(wsum))
+
+
+@pytest.mark.parametrize("with_extents", [False, True])
+def test_read_stats_counts_corner_rows(with_extents):
+    """The replay's counts: ``corners`` is the corners the rule reads,
+    ``distinct`` the distinct rows among them, and where every head of a
+    query shares head 0's cells, the distinct rows per query are head 0's
+    corners."""
+    m, c, esize = 8, 12, 2
+    shapes, _, loc, _ = _shared_cells(m=m)
+    b, lq, _, l, p, _ = loc.shape
+    ext = _extents(shapes, b) if with_extents else None
+    st = chip_smoke.read_stats(torch, "raw", loc, shapes, ext, c, esize)
+    starts = msda.level_start_index(shapes)
+    rows = []  # (b, q, m, row) of every corner the rule reads
+    for lid, (h, w) in enumerate(shapes):
+        x, y = pixels(loc, shapes, lid)
+        vh, vw = torch.tensor(float(h)), torch.tensor(float(w))
+        if ext is not None:
+            vh, vw = ext[:, lid, 0].view(b, 1, 1), ext[:, lid, 1].view(b, 1, 1)
+        for pt in range(p):
+            for corner in range(4):
+                inside, cell, _ = corner_rule(corner, h, w, x[..., pt],
+                                              y[..., pt], vh, vw)
+                for bi, q, mm in inside.nonzero().tolist():
+                    rows.append((bi, q, mm, starts[lid] + int(cell[bi, q, mm])))
+    assert st["corners"] == len(rows) > 0
+    assert st["distinct"] == len({(bi, r) for bi, _, _, r in rows})
+    head0 = [(bi, q, r) for bi, q, mm, r in rows if mm == 0]
+    assert st["query_distinct"] == len(set(head0))
+    assert st["corners"] == m * len(head0)
+    # every corner reads one 24-byte row: one sector, or two across a border
+    n_sectors = sum((esize * c * ((bi * sum(h * w for h, w in shapes)) + r)
+                     % 32) + esize * c > 32 for bi, _, _, r in rows)
+    assert st["l2_bytes"] == 32 * (len(rows) + n_sectors)
 
 
 def _edge_locs(shapes, m, p):
@@ -295,12 +253,11 @@ def test_edge_samples_match_plain_and_jax(shapes):
             jnp.asarray(src.numpy()), shapes, jnp.asarray(loc.numpy()),
             jnp.asarray(aw.numpy()), None,
             None if e is None else jnp.asarray(e.numpy()))
-        for got in (raw_pool_direct_model(src, shapes, loc, aw, e),
-                    raw_pool_model(src, shapes, loc, aw, e)):
-            for a, r, j in zip(got, ref, ref_j):
-                torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
-                np.testing.assert_allclose(a.numpy(), np.asarray(j),
-                                           rtol=1e-4, atol=1e-5)
+        got = raw_pool_direct_model(src, shapes, loc, aw, e)
+        for a, r, j in zip(got, ref, ref_j):
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(a.numpy(), np.asarray(j),
+                                       rtol=1e-4, atol=1e-5)
 
 
 def test_corner_rule_at_the_edges():

@@ -166,7 +166,8 @@ def test_kernels_match_plain_on_gpu(shapes, dtype):
 
 # ---------------------------------------------------------------------------
 # the forward kernels' own cases: query runs, compiled (L, P) instances and
-# the generic one, staged and direct raw-pool paths, merging, empty queries
+# the generic one, 16-byte and narrower channel groups, heads that share
+# every cell, empty queries
 
 
 def _grid(a):
@@ -175,18 +176,18 @@ def _grid(a):
     return (np.round(a * 65536.0) / 65536.0).astype(np.float32)
 
 
-def _case(name, seed):
+def _case(name, seed, lq=37, d=36):
     """(shapes, value, src, loc, aw, ext) of one named case, B = 2."""
     rng = np.random.default_rng(seed)
-    b, m, d, c = 2, 8, 36, 12
-    shapes, lq, p = ((9, 13), (5, 7)), 37, 2  # Lq not a multiple of a run
+    b, m, c = 2, 8, 12
+    shapes, p = ((9, 13), (5, 7)), 2
     if name == "generic_lp":  # (L, P) = (3, 3): the generic instance
         shapes, p = ((9, 13), (5, 7), (3, 4)), 3
     elif name == "one_level":  # (L, P) = (1, 2): the low-lite instance
         shapes = ((11, 17),)
     elif name == "wide_rows":  # C * esize a multiple of 16 in bf16 too
         c = 64
-    elif name == "many_units":  # M * P * 2 = 64 corner pairs: two rounds
+    elif name == "four_points":  # (L, P) = (2, 4): the generic instance
         p, c = 4, 64
     l = len(shapes)
     s = sum(h * w for h, w in shapes)
@@ -206,7 +207,7 @@ def _case(name, seed):
     return shapes, value, src, _grid(loc), aw, ext
 
 
-FWD_CASES = ["runs", "generic_lp", "one_level", "wide_rows", "many_units",
+FWD_CASES = ["runs", "generic_lp", "one_level", "wide_rows", "four_points",
              "merged", "empty"]
 
 
@@ -226,13 +227,9 @@ def test_forward_kernels_cases_on_gpu(case, dtype):
     for ext_t in (None, e):
         ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(s, shapes, lc, a,
                                                           ext_t)
-        # 0: the direct kernel; 1: staged and merged, 2: staged without
-        # merging (where the shapes allow), 3: direct with groups of at most
-        # 8 bytes
-        for variant in range(4):
-            pooled, wsum = msda._raw_pool_fwd(s, shapes, lc, a, ext_t, variant)
-            torch.testing.assert_close(pooled.float(), ref_p.float(), **tol)
-            torch.testing.assert_close(wsum, ref_w, rtol=1e-4, atol=1e-5)
+        pooled, wsum = msda.ms_deform_attn_raw_pool(s, shapes, lc, a, ext_t)
+        torch.testing.assert_close(pooled.float(), ref_p.float(), **tol)
+        torch.testing.assert_close(wsum, ref_w, rtol=1e-4, atol=1e-5)
     if case == "empty":
         # nothing of query 0 is read: exact zeros
         assert not out[:, 0].any() and not wsum[:, 0].any()
@@ -243,21 +240,21 @@ def test_forward_kernels_cases_on_gpu(case, dtype):
 
 @pytest.mark.gpu
 def test_forward_kernel_runs_match_plain_on_gpu():
-    """Every run length a block may walk, and every variant, gives the
-    same result."""
+    """Enough queries that each block walks a run of several, the last
+    run shorter than the others (B * Lq = 2 * 4999, 4999 prime: only runs
+    of 1, 2 or 4999 queries would divide it evenly), for both
+    compiled (L, P) instances, in f32 (16-byte lanes), in bf16 with D = 36
+    (12-channel lanes) and with D = 32 (8-byte lanes)."""
     dev = _cuda()
     for case in ("runs", "one_level"):  # (L, P) = (2, 2) and (1, 2)
-        shapes, value, _, loc, aw, _ = _case(case, 11)
-        v, lc, a = (t.to(dev) for t in _t(value, loc, aw))
-        for dtype in (torch.float32, torch.bfloat16):
-            vd = v.to(dtype)
-            ref = msda.ms_deform_attn_plain(vd, shapes, lc, a)
-            # run 0: an even share for each block; variant 1: 4-channel
-            # lanes where bf16 takes 12-channel ones
-            for run, variant in ((0, 0), (1, 0), (5, 0), (64, 0), (0, 1),
-                                 (3, 1), (16, 1)):
+        for d in (36, 32):
+            shapes, value, _, loc, aw, _ = _case(case, 11, lq=4999, d=d)
+            v, lc, a = (t.to(dev) for t in _t(value, loc, aw))
+            for dtype in (torch.float32, torch.bfloat16):
+                vd = v.to(dtype)
                 torch.testing.assert_close(
-                    msda._msda_fwd(vd, shapes, lc, a, run, variant), ref,
+                    msda.ms_deform_attn(vd, shapes, lc, a),
+                    msda.ms_deform_attn_plain(vd, shapes, lc, a),
                     rtol=1e-4, atol=1e-5)
 
 
