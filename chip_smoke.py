@@ -18,8 +18,13 @@ failing the run on any mismatch:
 3b. backward kernels vs the plain versions' autograd gradients at the
    training shapes (672x1184), f32 and bf16, with times and each pass's
    device time;
-P2. the row-gather probe kernel vs its plain version and torch.gather, then
-   the probe's entry point (kinet_tpu_torch.tools.gather_probe);
+P2. the row-gather probe kernel: each instance (the rule's, the strip
+   instance in clusters of 2, 4 and 8, the direct instance) exactly
+   against its plain version and torch.gather, with its plan, its device
+   time warm and with a cold L2 (``cold_ms``), the bound and torch.gather
+   in the same call; then the probe's entry point
+   (kinet_tpu_torch.tools.gather_probe), whose device time a launch must
+   agree with P2's within 25 %;
 4. the full-width flagship model (hidden 288, 8 heads, 6+6 layers, 500
    queries, 100 track slots, seeded random weights) on the card against the
    same model on the CPU, f32, over two chained frames at 256x448;
@@ -121,8 +126,8 @@ def nvidia_smi_line() -> str:
 
 
 def ptxas_entries(text):
-    """(mangled entry name, registers, spills) of every kernel instance in
-    nvcc's ``-Xptxas -v`` messages."""
+    """(mangled entry name, registers and static shared memory, spills) of
+    every kernel instance in nvcc's ``-Xptxas -v`` messages."""
     entries, name, spills = [], "?", ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -130,7 +135,7 @@ def ptxas_entries(text):
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
-            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            regs = line.split("Used", 1)[1].strip()
             entries.append((name, regs, spills))
     return entries
 
@@ -575,41 +580,111 @@ def phase_backward_kernels(torch, msda):
 # phase P2: the row-gather probe
 
 
+def cold_ms(torch, fn, iters=10):
+    """Device ms of one call of fn with a cold L2: before each call a buffer
+    of twice the L2 is written, and CUDA events around the call alone time
+    it (median of iters), all queued behind a spin kernel as in
+    ``device_ms``."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) \
+        or 50 * 2 ** 20
+    flush = torch.empty(2 * l2 // 4, dtype=torch.float32, device="cuda")
+    flush.fill_(0.0)
+    fn()
+    torch.cuda.synchronize()
+    host_s = 1e-3
+    for _ in range(6):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda._sleep(int((2.0 * iters * host_s + 2e-3) * SPIN_CYCLES_PER_S))
+        for i, (a, z) in enumerate(pairs):
+            flush.fill_(float(i))
+            a.record()
+            fn()
+            z.record()
+        covered = not pairs[0][0].query()
+        torch.cuda.synchronize()
+        if covered:
+            return statistics.median(a.elapsed_time(z) for a, z in pairs)
+        host_s *= 2.0
+    raise SmokeFailure("cold_ms: the host never got ahead of the card")
+
+
+def gather_l2_mb(plan, r, c):
+    """MB that a gather_rows launch moves between L2 and the SMs: the
+    staged strips (strip instance) or one 32-byte sector per table element
+    (direct instance), plus the indices read and the output written."""
+    if plan["cluster"]:
+        table = plan["ranges"] * r * c * 4
+    else:
+        table = r * c * 32
+    return (table + r * c * 8) / 1e6
+
+
 def phase_gather_probe(torch):
     from kinet_tpu_torch.ops import gather_probe
     from kinet_tpu_torch.tools import gather_probe as probe
 
     tbl, idx = probe.probe_inputs(DEVICE)
-    out = gather_probe.gather_rows(tbl, idx)
-    ref = gather_probe.gather_rows_plain(tbl, idx)
+    r, c = tbl.shape
     idx64 = idx.long()
+    ref = gather_probe.gather_rows_plain(tbl, idx)
     lib = torch.gather(tbl, 0, idx64)
     torch.cuda.synchronize()
-    # a gather copies values: exact
-    err = max((out - ref).abs().max().item(), (out - lib).abs().max().item())
-    check(err == 0.0, f"gather_rows differs from its plain version by {err}")
-    timed = time_kernel(torch, lambda: gather_probe.gather_rows(tbl, idx),
-                        lambda: gather_probe.gather_rows_plain(tbl, idx))
-    t_k = timed["ms"]
-    t_lib = device_ms(torch, lambda: torch.gather(tbl, 0, idx64))
-    r, c = tbl.shape
+    check(torch.equal(ref, lib), "gather_rows' plain version differs from "
+          "torch.gather")
     moved = r * c * 4 * 3  # index read, output written, table read once
     t_b, by = bound_ms(moved, 0)
-    log(f"  gather_rows [{r}, {c}] f32  max abs err {err:.3e} | "
-        f"{timed_text(timed)} ({r * c * 4 * 2 / t_k / 1e6:.1f} GB/s by the "
-        f"probe's count)  torch.gather {t_lib:.4f} ms device  bound "
-        f"{t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB)")
+    t_lib = device_ms(torch, lambda: torch.gather(tbl, 0, idx64))
+    cold_lib = cold_ms(torch, lambda: torch.gather(tbl, 0, idx64))
+    t_plain = device_ms(torch, lambda: gather_probe.gather_rows_plain(tbl, idx), 5)
+    log(f"  [{r}, {c}] f32: bound {t_b:.5f} ms ({by}: {moved / 1e6:.1f} MB); "
+        f"torch.gather {t_lib:.5f} ms device, {cold_lib:.5f} cold L2; plain "
+        f"{t_plain:.5f} ms device")
+    # each instance: the rule's (None), the strip instance in clusters of
+    # 2, 4, 8, and the direct instance (0); exact against the plain version
+    # and torch.gather
+    rows = {}
+    for cluster in (None, 2, 4, 8, 0):
+        run = lambda: gather_probe.gather_rows(tbl, idx, cluster=cluster)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(torch.equal(out, ref) and torch.equal(out, lib),
+              f"gather_rows (cluster {cluster}) differs from its plain "
+              f"version or torch.gather by {err}")
+        plan = gather_probe.gather_rows_plan(r, c, cluster)
+        t = dict(ms=device_ms(torch, run), cold_ms=cold_ms(torch, run),
+                 wrapper_ms=median_ms(torch, run), err=err, plan=plan)
+        rows[cluster] = t
+        ctas = plan["ranges"] * plan["strips"] * plan["cluster"]
+        where = (f"strips in clusters of {plan['cluster']}: {ctas} CTAs, "
+                 f"{plan['slice_rows'] * 32} B of shared memory each"
+                 if plan["cluster"] else "direct")
+        l2 = gather_l2_mb(plan, r, c)
+        log(f"  gather_rows {'rule' if cluster is None else cluster!s:>4} "
+            f"({where}): {t['ms']:.5f} ms device, {t['cold_ms']:.5f} cold "
+            f"L2 (wrapper {t['wrapper_ms']:.5f}), {100 * t_b / t['ms']:.1f} % "
+            f"of bound, {t_lib / t['ms']:.2f}x torch.gather; L2<->SM "
+            f"{l2:.1f} MB, {l2 / 1e3 / t['ms']:.2f} TB/s; exact")
+    t_k = rows[None]["ms"]
     gather_probe.gather_rows.launches = 0
     res = probe.main(["--device", DEVICE])  # the probe's entry point
     launches = gather_probe.gather_rows.launches
-    check(launches == probe.K + 1,
-          f"the probe launched gather_rows {launches} times, expected "
-          f"{probe.K + 1}")
-    log(f"  probe entry point: {res['us_per_op']:.2f} us/op, "
-        f"{res['gb_per_s']:.1f} GB/s, {launches} launches")
-    return dict(max_abs_err=err, ms=t_k, wrapper_ms=timed["wrapper_ms"],
-                plain_ms=timed["plain_ms"], bound_ms=t_b, bound_by=by,
-                library_ms=t_lib, launches=launches)
+    want = 1 + probe.K * res["timed_windows"]
+    check(launches == want, f"the probe launched gather_rows {launches} "
+          f"times, expected {want}")
+    probe_ms = res["us_per_op"] / 1e3
+    log(f"  probe entry point: {res['us_per_op']:.3f} us/op device, "
+        f"{res['gb_per_s']:.1f} GB/s, {launches} launches; P2's device_ms "
+        f"{t_k * 1e3:.3f} us ({probe_ms / t_k:.3f}x)")
+    check(abs(probe_ms / t_k - 1.0) <= 0.25,
+          f"the probe's {res['us_per_op']:.3f} us/op is not device time "
+          f"(device_ms {t_k * 1e3:.3f} us)")
+    return dict(max_abs_err=max(t["err"] for t in rows.values()), ms=t_k,
+                cold_ms=rows[None]["cold_ms"],
+                wrapper_ms=rows[None]["wrapper_ms"], plain_ms=t_plain,
+                bound_ms=t_b, bound_by=by, library_ms=t_lib,
+                launches=launches, probe_us_per_op=res["us_per_op"])
 
 
 # ---------------------------------------------------------------------------
@@ -1319,8 +1394,8 @@ def main(argv=None) -> int:
          "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms"),
-         **({"replay_ms": summary[k]["replay_ms"]}
-            if "replay_ms" in summary[k] else {})}
+         **{key: summary[k][key] for key in ("replay_ms", "cold_ms")
+            if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -8,40 +8,366 @@
 // take_along_axis: a negative index counts from the end, and an index
 // still outside [0, R) gives NaN (JAX's fill mode).
 //
-// Bound: bytes. Each element reads its index and one table element and
-// writes one output element. Design: one thread per element, so a warp
-// reads 32 consecutive indices and writes 32 consecutive outputs (one
-// 128-byte line each); the table reads are scattered across rows. The TPU
-// version holds the whole table in VMEM; here the 4 MB table at the probe's
-// shape stays in the 50 MB L2.
+// Bound: bytes. Each element reads its index and writes its output once,
+// and the table is read once: 12 MB at the probe's [8192, 128], 3.76 us
+// at 3.35 TB/s. The TPU kernel holds the whole table in VMEM and gathers
+// from there. A direct gather on this card reads each table element as its
+// own 32-byte sector from L2 (8 sectors for one useful 4-byte element:
+// 33.5 MB of sectors at the probe's shape), so read amplification through
+// L2, not HBM, bounded the first version (34.6 % of the bound).
+//
+// Design, the strip instance (gather_rows_strip_kernel): the table is cut
+// into column strips of 8 f32 columns, 32 bytes a row, so every table byte
+// moves from L2 to an SM in whole sectors. A strip of R rows is R * 32
+// bytes (256 KB at R = 8192), more than one block's shared memory, so a
+// thread block cluster of K CTAs holds it: CTA k stages the rows r with
+// r % K == k (16-byte cp.async; 4-byte copies where a strip is narrower
+// than 8 columns or rows are not 16-byte aligned), and the gather reads
+// every element from the shared memory of the CTA that holds its row
+// (distributed shared memory, ld.shared::cluster). Each CTA gathers a share
+// of the output rows of its cluster's row range: a row's 8 indices are read
+// as 32 bytes and its 8 outputs written as 32 bytes. Staging uses cp.async
+// rather than TMA because a slice is rows of 32 bytes at the table's pitch,
+// which 16-byte copies move in whole sectors too, and a tensor map would
+// have to be encoded on the host for every table pointer; the indices of
+// the first rows are loaded while the copies land.
+//
+// The rule (gather_rows_plan, mirrored by the wrapper's docstring): K is
+// kCluster (chosen by measurement, PERF.md), doubled while a CTA's slice,
+// ceil(R / K) rows of 32 bytes, exceeds a block's shared memory; clusters
+// over 8 CTAs are not portable, so a table of more than 58,112 rows (or of
+// more than 65,535 strips) takes the direct instance
+// (gather_rows_direct_kernel): 8 elements a thread, coalesced per load,
+// all 8 table loads in flight.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace kinet {
 
-__global__ void __launch_bounds__(256)
-    gather_rows_kernel(const float* __restrict__ tbl,
-                       const int* __restrict__ idx, float* __restrict__ out,
-                       int R, int C) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)R * C) return;
-  const int j = (int)(t % C);
-  int r = __ldg(idx + t);
-  if (r < 0) r += R;
-  out[t] = (r >= 0 && r < R) ? __ldg(tbl + (long long)r * C + j)
-                             : __int_as_float(0x7fc00000);  // NaN
+namespace cg = cooperative_groups;
+
+constexpr int kStripCols = 8;   // f32 columns of a strip: one 32-byte sector
+constexpr int kThreads = 256;   // threads of a block, both instances
+constexpr int kBatch = 4;       // rows a thread gathers with loads in flight
+constexpr int kCluster = 8;     // the rule's first cluster size
+constexpr int kMaxCluster = 8;  // portable cluster size limit
+constexpr int kMaxStrips = 65535;  // gridDim.y
+constexpr int kSmemCap = 232448;   // shared memory a block can use (227 KB)
+constexpr int kDirectItems = 8;    // elements a thread, direct instance
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The address of shared-memory address `a` in the CTA of cluster rank
+// `rank`, and a load from it.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float nan_f32() {
+  return __int_as_float(0x7fc00000);
+}
+
+// A row's kStripCols indices starting at column c0 (width of them valid).
+template <bool kVec>
+__device__ __forceinline__ void load_row(const int* __restrict__ p,
+                                         int width, int* ix) {
+  if (kVec && width == kStripCols) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(p) + 1);
+    ix[0] = a.x, ix[1] = a.y, ix[2] = a.z, ix[3] = a.w;
+    ix[4] = b.x, ix[5] = b.y, ix[6] = b.z, ix[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kStripCols; ++j) ix[j] = j < width ? __ldg(p + j) : 0;
+  }
+}
+
+// Grid (ranges * K, strips), cluster (K, 1, 1), K a power of two (shift =
+// log2 K); dynamic shared memory: slice_rows * 32 bytes.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_strip_kernel(const float* __restrict__ tbl,
+                             const int* __restrict__ idx,
+                             float* __restrict__ out, int R, int C,
+                             int shift, int range_rows) {
+  extern __shared__ __align__(16) float slice[];  // [slice rows][8]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank();
+  const int K = 1 << shift;
+  const int c0 = blockIdx.y * kStripCols;
+  const int width = min(kStripCols, C - c0);
+  const uint32_t base = smem_addr(slice);
+
+  // 1. stage rows k, k + K, k + 2K, ... of the strip
+  const int n_mine = R > k ? ((R - 1 - k) >> shift) + 1 : 0;
+  if (kVec && width == kStripCols) {
+    for (int t = threadIdx.x; t < 2 * n_mine; t += kThreads) {
+      const int local = t >> 1, half = t & 1;
+      cp_async16(base + (local * kStripCols + half * 4) * 4,
+                 tbl + (long long)((local << shift) + k) * C + c0 + half * 4);
+    }
+  } else {
+    for (int t = threadIdx.x; t < width * n_mine; t += kThreads) {
+      const int local = t / width, j = t - local * width;
+      cp_async4(base + (local * kStripCols + j) * 4,
+                tbl + (long long)((local << shift) + k) * C + c0 + j);
+    }
+  }
+
+  // 2. this CTA's output rows: its share of the cluster's row range
+  const int g_lo = (int)(blockIdx.x >> shift) * range_rows;
+  const int g_hi = min(R, g_lo + range_rows);
+  const int share = g_hi > g_lo ? (g_hi - g_lo + K - 1) >> shift : 0;
+  const int o_lo = g_lo + k * share;
+  const int o_hi = min(g_hi, o_lo + share);
+
+  int ix[kBatch][kStripCols];
+  auto load_batch = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads + (int)threadIdx.x;
+      if (i < o_hi) {
+        load_row<kVec>(idx + (long long)i * C + c0, width, ix[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kStripCols; ++j) ix[u][j] = 0;
+      }
+    }
+  };
+  load_batch(o_lo);  // in flight while the copies land
+  cp_async_wait_all();
+  cluster.sync();  // every slice of the strip is in place
+
+  for (int i0 = o_lo; i0 < o_hi; i0 += kBatch * kThreads) {
+    if (i0 != o_lo) load_batch(i0);
+    float v[kBatch][kStripCols];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+      for (int j = 0; j < kStripCols; ++j) {
+        int r = ix[u][j];
+        r += r < 0 ? R : 0;
+        const bool inside = (unsigned)r < (unsigned)R && j < width &&
+                            i0 + u * kThreads + (int)threadIdx.x < o_hi;
+        const uint32_t a = cluster_addr(
+            base + ((r >> shift) * kStripCols + j) * 4, r & (K - 1));
+        v[u][j] = inside ? ld_cluster(a) : nan_f32();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads + (int)threadIdx.x;
+      if (i >= o_hi) continue;
+      float* p = out + (long long)i * C + c0;
+      if (kVec && width == kStripCols) {
+        reinterpret_cast<float4*>(p)[0] =
+            make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+        reinterpret_cast<float4*>(p)[1] =
+            make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kStripCols; ++j)
+          if (j < width) p[j] = v[u][j];
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may read its slice
+}
+
+// Block b takes elements [b * 2048, (b + 1) * 2048) of the flat arrays,
+// thread t the elements b * 2048 + u * 256 + t: each load and store of a
+// warp is coalesced, and a thread's 8 table loads are all in flight.
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_direct_kernel(const float* __restrict__ tbl,
+                              const int* __restrict__ idx,
+                              float* __restrict__ out, int R, int C,
+                              long long n, int step) {
+  const long long t0 =
+      (long long)blockIdx.x * kThreads * kDirectItems + threadIdx.x;
+  if (t0 >= n) return;
+  int r[kDirectItems];
+#pragma unroll
+  for (int u = 0; u < kDirectItems; ++u) {
+    const long long t = t0 + (long long)u * kThreads;
+    r[u] = t < n ? __ldg(idx + t) : 0;
+  }
+  int col = (int)(t0 % C);  // the column advances by step = 256 % C
+  float v[kDirectItems];
+#pragma unroll
+  for (int u = 0; u < kDirectItems; ++u) {
+    const int row = r[u] + (r[u] < 0 ? R : 0);
+    v[u] = (unsigned)row < (unsigned)R
+               ? __ldg(tbl + (long long)row * C + col)
+               : nan_f32();
+    col += step;
+    col -= col >= C ? C : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kDirectItems; ++u) {
+    const long long t = t0 + (long long)u * kThreads;
+    if (t < n) out[t] = v[u];
+  }
+}
+
+// The plan of one call: cluster 0 is the direct instance; else cluster K
+// CTAs per strip and row range.
+struct Plan {
+  int cluster, ranges, strips, slice_rows;
+};
+
+static int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
+}
+
+inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// cluster -1: by the rule above; 0: direct; 1, 2, 4 or 8: the strip
+// instance with that cluster size. Returns false if the instance asked for
+// cannot take the shape.
+static bool plan_for(int R, int C, int cluster, int n_sm, Plan* p) {
+  p->strips = ceil_div(C, kStripCols);
+  int k = cluster;
+  if (k < 0) {
+    k = kCluster;
+    while (k < kMaxCluster &&
+           (long long)ceil_div(R, k) * kStripCols * 4 > kSmemCap)
+      k *= 2;
+    if ((long long)ceil_div(R, k) * kStripCols * 4 > kSmemCap ||
+        p->strips > kMaxStrips)
+      k = 0;
+  }
+  if (k == 0) {
+    p->cluster = p->ranges = p->slice_rows = 0;
+    return true;
+  }
+  if ((k & (k - 1)) != 0 || k > kMaxCluster || p->strips > kMaxStrips)
+    return false;
+  p->cluster = k;
+  p->slice_rows = ceil_div(R, k);
+  if ((long long)p->slice_rows * kStripCols * 4 > kSmemCap) return false;
+  // fill the SMs with clusters, but give each CTA at least a row a thread
+  int ranges = n_sm / (p->strips * k);
+  const int by_rows = R / (k * kThreads);
+  ranges = ranges < by_rows ? ranges : by_rows;
+  p->ranges = ranges > 1 ? ranges : 1;
+  return true;
+}
+
+template <bool kVec>
+static cudaError_t launch_strip(const float* tbl, const int* idx, float* out,
+                                int R, int C, const Plan& p,
+                                cudaStream_t stream) {
+  static bool raised[64];  // the shared-memory limit, raised once a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && !raised[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gather_rows_strip_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.ranges * p.cluster), (unsigned)p.strips, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)p.slice_rows * kStripCols * 4;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int shift = 0;
+  while ((1 << shift) < p.cluster) ++shift;
+  return cudaLaunchKernelEx(&cfg, gather_rows_strip_kernel<kVec>, tbl, idx,
+                            out, R, C, shift, ceil_div(R, p.ranges));
 }
 
 }  // namespace kinet
 
-// C entry bound with ctypes. Returns cudaGetLastError() after the launch.
+// C entries bound with ctypes. gather_rows_plan fills plan[0..3] with the
+// (cluster, ranges, strips, slice rows) of a call on the current device
+// (cluster 0: the direct instance); gather_rows_instance launches the
+// instance asked for (cluster as in plan_for); gather_rows launches the
+// rule's. Each returns 0, cudaErrorInvalidValue for an instance that
+// cannot take the shape, or cudaGetLastError() after the launch.
+extern "C" int gather_rows_plan(int R, int C, int cluster, int* plan) {
+  kinet::Plan p;
+  if (!kinet::plan_for(R, C, cluster, kinet::sm_count(), &p))
+    return (int)cudaErrorInvalidValue;
+  plan[0] = p.cluster;
+  plan[1] = p.ranges;
+  plan[2] = p.strips;
+  plan[3] = p.slice_rows;
+  return 0;
+}
+
+extern "C" int gather_rows_instance(const void* tbl_, const void* idx_,
+                                    void* out_, int R, int C, int cluster,
+                                    void* stream_) {
+  const float* tbl = static_cast<const float*>(tbl_);
+  const int* idx = static_cast<const int*>(idx_);
+  float* out = static_cast<float*>(out_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  kinet::Plan p;
+  if (R <= 0 || C <= 0 ||
+      !kinet::plan_for(R, C, cluster, kinet::sm_count(), &p))
+    return (int)cudaErrorInvalidValue;
+  if (p.cluster == 0) {
+    const long long n = (long long)R * C;
+    const long long per_block = kinet::kThreads * kinet::kDirectItems;
+    kinet::gather_rows_direct_kernel<<<(unsigned)((n + per_block - 1) /
+                                                  per_block),
+                                       kinet::kThreads, 0, stream>>>(
+        tbl, idx, out, R, C, n, kinet::kThreads % C);
+    return (int)cudaGetLastError();
+  }
+  const bool vec = C % 4 == 0 && ((uintptr_t)tbl | (uintptr_t)idx |
+                                  (uintptr_t)out) % 16 == 0;
+  cudaError_t err =
+      vec ? kinet::launch_strip<true>(tbl, idx, out, R, C, p, stream)
+          : kinet::launch_strip<false>(tbl, idx, out, R, C, p, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 extern "C" int gather_rows(const void* tbl, const void* idx, void* out, int R,
                            int C, void* stream) {
-  const long long n = (long long)R * C;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-  kinet::gather_rows_kernel<<<blocks, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tbl), static_cast<const int*>(idx),
-      static_cast<float*>(out), R, C);
-  return (int)cudaGetLastError();
+  return gather_rows_instance(tbl, idx, out, R, C, -1, stream);
 }

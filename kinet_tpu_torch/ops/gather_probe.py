@@ -11,6 +11,21 @@ gives NaN.
 kernel for CUDA tensors, adding one to ``gather_rows.launches``, or
 raises. ``torch.gather(tbl, 0, idx)`` computes the same function for valid
 indices; the probe times it as a yardstick and the port does not call it.
+
+The kernel has two instances, chosen by shape in its C entry:
+
+- the strip instance: the table in column strips of 8 columns (32 bytes a
+  row), each strip staged in the shared memory of a cluster of K CTAs (CTA
+  k holds the rows r with r % K == k) and gathered from there; a cluster
+  per strip and row range, as many row ranges as fill the SMs;
+- the direct instance: 8 elements a thread read straight from the table.
+
+The rule: K = 8 (``kCluster``), doubled while a CTA's slice of ceil(R / K)
+rows of 32 bytes exceeds a block's 227 KB of shared memory (never, as 8 is
+the largest portable cluster); so a table of more than 58,112 rows, or of
+more than 65,535 strips (C > 524,280), takes the direct instance.
+``gather_rows(..., cluster=k)`` asks for one instance (0: direct; 1, 2, 4,
+8: strips in clusters of k), for tests and measurements.
 """
 from __future__ import annotations
 
@@ -47,9 +62,35 @@ def gather_rows_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, out, torch.full_like(out, float("nan")))
 
 
-def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _lib_fn(name, argtypes):
+    fn = getattr(cuda_build.load("gather_rows"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_rows_plan(r: int, c: int, cluster: int | None = None,
+                     device=None) -> dict:
+    """The plan the C entry takes for an [r, c] table on a CUDA device:
+    ``cluster`` (0: the direct instance), ``ranges``, ``strips`` and
+    ``slice_rows``. Raises ValueError if the instance asked for cannot take
+    the shape."""
+    fn = _lib_fn("gather_rows_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = fn(r, c, -1 if cluster is None else cluster, plan)
+    if rc != 0:
+        raise ValueError(f"no gather_rows instance with cluster={cluster} "
+                         f"takes a [{r}, {c}] table")
+    return dict(zip(("cluster", "ranges", "strips", "slice_rows"), plan))
+
+
+def gather_rows(tbl: torch.Tensor, idx: torch.Tensor,
+                cluster: int | None = None) -> torch.Tensor:
     """``out[i, j] = tbl[idx[i, j], j]`` for tbl [R, C] float32 and idx
-    [R, C] int32."""
+    [R, C] int32, by the instance the rule picks (module docstring), or by
+    the one ``cluster`` names."""
     if tbl.device.type == "cpu":
         return gather_rows_plain(tbl, idx)
     if tbl.device.type != "cuda":
@@ -60,14 +101,12 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(tbl)
     if out.numel() == 0:
         return out
-    fn = cuda_build.load("gather_rows").gather_rows
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _lib_fn("gather_rows_instance", [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(tbl.device):
         stream = torch.cuda.current_stream(tbl.device).cuda_stream
-        rc = fn(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), r, c, stream)
+        rc = fn(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), r, c,
+                -1 if cluster is None else cluster, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
     gather_rows.launches += 1

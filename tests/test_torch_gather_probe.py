@@ -2,9 +2,12 @@
 scripts/pallas_gather_probe.py::run): the plain version against
 jnp.take_along_axis(tbl, idx, axis=0), the kernel's body, on the same
 numpy-seeded inputs (exact: a gather copies values), including negative and
-out-of-range indices; the probe's entry point on the CPU; and, where a card
-is present, the CUDA kernel against the plain version. The JAX probe script
-runs its benchmark when imported, so it is not imported here.
+out-of-range indices; a numpy model of the kernel's two instances (which
+strip, which cluster CTA and which row range holds each element, and the
+instance rule by shape) against take_along_axis; the probe's entry point
+on the CPU; and, where a card is present, each CUDA instance against the
+plain version and the C entry's plan against the model. The JAX probe
+script runs its benchmark when imported, so it is not imported here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,104 @@ import torch
 
 from kinet_tpu_torch.ops import gather_probe
 from kinet_tpu_torch.tools import gather_probe as probe
+
+
+STRIP = 8  # f32 columns of a strip: 32 bytes a row
+THREADS, DIRECT_ITEMS = 256, 8
+SLICE_ROWS_MAX = 232448 // (STRIP * 4)  # rows a block's shared memory holds
+MAX_CLUSTER, MAX_STRIPS = 8, 65535
+RULE_CLUSTER = 8  # csrc/gather_rows.cu kCluster
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _plan_model(r, c, cluster=None, n_sm=132):
+    """csrc/gather_rows.cu::plan_for: the instance and its grid for an
+    [r, c] table (cluster 0: the direct instance). None: the rule."""
+    strips = _cdiv(c, STRIP)
+    k = cluster
+    if k is None:
+        k = RULE_CLUSTER
+        while k < MAX_CLUSTER and _cdiv(r, k) > SLICE_ROWS_MAX:
+            k *= 2
+        if _cdiv(r, k) > SLICE_ROWS_MAX or strips > MAX_STRIPS:
+            k = 0
+    if k == 0:
+        return dict(cluster=0, ranges=0, strips=strips, slice_rows=0)
+    if k not in (1, 2, 4, 8) or _cdiv(r, k) > SLICE_ROWS_MAX or \
+            strips > MAX_STRIPS:
+        raise ValueError(f"cluster {k} cannot take [{r}, {c}]")
+    ranges = max(1, min(n_sm // (strips * k), r // (k * THREADS)))
+    return dict(cluster=k, ranges=ranges, strips=strips,
+                slice_rows=_cdiv(r, k))
+
+
+def _run_model(tbl, idx, plan):
+    """The kernel's data movement in numpy: returns the output and how many
+    times each output element was written. Strip instance: for each (row
+    range, strip), CTA k of the cluster stages rows k, k + K, ... of the
+    strip (at most 8 columns, the last strip narrower) into its slice, then
+    gathers its share of the range's output rows from the slice that holds
+    each index's row; every read must hit a staged element. Direct
+    instance: block b, thread t, item u take flat element b * 2048 + u *
+    256 + t, the column kept by adding 256 % C."""
+    r, c = tbl.shape
+    out = np.full((r, c), -7.0, np.float32)
+    writes = np.zeros((r, c), np.int64)
+    if plan["cluster"] == 0:
+        n = r * c
+        step = THREADS % c
+        flat_idx, flat_tbl = idx.reshape(-1), tbl.reshape(-1)
+        flat_out, flat_w = out.reshape(-1), writes.reshape(-1)
+        for b in range(_cdiv(n, THREADS * DIRECT_ITEMS)):
+            t0 = b * THREADS * DIRECT_ITEMS + np.arange(THREADS)
+            col = t0 % c
+            for u in range(DIRECT_ITEMS):
+                t = t0 + u * THREADS
+                ok = t < n
+                assert (col[ok] == t[ok] % c).all()
+                row = flat_idx[t[ok]].astype(np.int64)
+                row = np.where(row < 0, row + r, row)
+                inside = (row >= 0) & (row < r)
+                val = flat_tbl[np.clip(row, 0, r - 1) * c + col[ok]]
+                flat_out[t[ok]] = np.where(inside, val, np.nan)
+                flat_w[t[ok]] += 1
+                col = col + step
+                col = np.where(col >= c, col - c, col)
+        return out, writes
+    k_n, shift = plan["cluster"], plan["cluster"].bit_length() - 1
+    range_rows = _cdiv(r, plan["ranges"])
+    for s in range(plan["strips"]):
+        c0 = s * STRIP
+        width = min(STRIP, c - c0)
+        for g in range(plan["ranges"]):
+            slices = np.full((k_n, plan["slice_rows"], STRIP), np.inf, np.float32)
+            staged = np.zeros(slices.shape, bool)
+            for k in range(k_n):
+                rows = np.arange(k, r, k_n)
+                slices[k, rows >> shift, :width] = tbl[rows, c0:c0 + width]
+                staged[k, rows >> shift, :width] = True
+            g_lo = g * range_rows
+            g_hi = min(r, g_lo + range_rows)
+            share = _cdiv(g_hi - g_lo, k_n) if g_hi > g_lo else 0
+            for k in range(k_n):
+                o_lo = g_lo + k * share
+                o_hi = min(g_hi, o_lo + share)
+                if o_hi <= o_lo:
+                    continue
+                ix = idx[o_lo:o_hi, c0:c0 + width].astype(np.int64)
+                ix = np.where(ix < 0, ix + r, ix)
+                inside = (ix >= 0) & (ix < r)
+                ixc = np.clip(ix, 0, r - 1)
+                owner, local = ixc & (k_n - 1), ixc >> shift
+                cols = np.arange(width)[None, :]
+                assert staged[owner, local, cols][inside].all()
+                out[o_lo:o_hi, c0:c0 + width] = np.where(
+                    inside, slices[owner, local, cols], np.nan)
+                writes[o_lo:o_hi, c0:c0 + width] += 1
+    return out, writes
 
 
 def _inputs(seed, r=64, c=16, lo=0, hi=None):
@@ -28,6 +129,47 @@ def test_plain_matches_take_along_axis(bounds):
     ref = np.asarray(jnp.take_along_axis(jnp.asarray(tbl), jnp.asarray(idx), axis=0))
     out = gather_probe.gather_rows(torch.from_numpy(tbl), torch.from_numpy(idx))
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,cluster,bounds", [
+    ((8192, 128), None, (0, None)),  # the probe's shape
+    ((8192, 128), 2, (-8192, 8300)),
+    ((8193, 13), None, (-9000, 9000)),  # a last strip of 5 columns
+    ((1000, 20), 4, (-1000, 1100)),
+    ((300, 7), 1, (-400, 400)),
+    ((58113, 3), None, (-58113, 58200)),  # past the strip limit: direct
+    ((523, 300), 0, (-600, 600)),
+])
+def test_kernel_plan_model_matches_take_along_axis(shape, cluster, bounds):
+    tbl, idx = _inputs(3, *shape, lo=bounds[0], hi=bounds[1])
+    plan = _plan_model(*shape, cluster)
+    if cluster is None:
+        assert plan["cluster"] == (0 if shape[0] > 8 * SLICE_ROWS_MAX else 8)
+    if plan["cluster"]:
+        assert plan["slice_rows"] * STRIP * 4 <= 232448
+        assert plan["ranges"] * plan["strips"] * plan["cluster"] <= max(
+            132, plan["strips"] * plan["cluster"])
+    out, writes = _run_model(tbl, idx, plan)
+    assert (writes == 1).all()
+    ref = np.asarray(jnp.take_along_axis(jnp.asarray(tbl), jnp.asarray(idx), axis=0))
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_kernel_instance_rule_by_shape():
+    # the probe's shape: 16 strips in clusters of 8, one row range
+    assert _plan_model(8192, 128) == dict(cluster=8, ranges=1, strips=16,
+                                          slice_rows=1024)
+    assert _plan_model(8192, 128, 2) == dict(cluster=2, ranges=4, strips=16,
+                                             slice_rows=4096)
+    assert _plan_model(8 * SLICE_ROWS_MAX, 16)["cluster"] == 8
+    assert _plan_model(8 * SLICE_ROWS_MAX + 1, 16)["cluster"] == 0
+    assert _plan_model(64, STRIP * MAX_STRIPS)["cluster"] == 8
+    assert _plan_model(64, STRIP * MAX_STRIPS + 1)["cluster"] == 0
+    assert _plan_model(100, 8, n_sm=132)["ranges"] == 1  # < a row a thread
+    for cluster, r in ((1, SLICE_ROWS_MAX + 1), (2, 2 * SLICE_ROWS_MAX + 1),
+                       (3, 64), (16, 64)):
+        with pytest.raises(ValueError):
+            _plan_model(r, 16, cluster)
 
 
 def test_probe_entry_point_on_cpu(capsys):
@@ -66,3 +208,58 @@ def test_kernel_matches_plain_on_gpu():
     assert gather_probe.gather_rows.launches == before + 1
     ref = gather_probe.gather_rows_plain(tbl, idx)
     torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.gpu
+def test_kernel_plan_matches_model_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    for shape in ((8192, 128), (8193, 13), (58112, 8), (58113, 8), (64, 16),
+                  (1000, 20), (64, STRIP * MAX_STRIPS + 1)):
+        for cluster in (None, 0, 1, 2, 4, 8, 3):
+            try:
+                want = _plan_model(*shape, cluster, n_sm=_sm_count())
+            except ValueError:
+                with pytest.raises(ValueError):
+                    gather_probe.gather_rows_plan(*shape, cluster)
+                continue
+            assert gather_probe.gather_rows_plan(*shape, cluster) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cluster", [
+    ((8192, 128), None), ((8192, 128), 0), ((8192, 128), 2),
+    ((8192, 128), 4), ((8193, 13), None), ((8193, 13), 0),
+    ((1000, 20), 2), ((300, 7), 1), ((58113, 13), None),
+])
+def test_kernel_instances_match_plain_on_gpu(shape, cluster):
+    """Each instance exactly equals the plain version, NaNs in the same
+    places, with one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    r = shape[0]
+    tbl, idx = (torch.from_numpy(x).cuda()
+                for x in _inputs(4, *shape, lo=-r - 5, hi=r + 5))
+    before = gather_probe.gather_rows.launches
+    out = gather_probe.gather_rows(tbl, idx, cluster=cluster)
+    assert gather_probe.gather_rows.launches == before + 1
+    ref = gather_probe.gather_rows_plain(tbl, idx)
+    assert torch.isnan(ref).any() and not torch.isnan(ref).all()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_non_contiguous_inputs_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    tbl, idx = (torch.from_numpy(np.ascontiguousarray(x.T)).cuda().t()
+                for x in _inputs(5, 520, 96, lo=-530, hi=530))
+    assert not tbl.is_contiguous() and not idx.is_contiguous()
+    out = gather_probe.gather_rows(tbl, idx)
+    assert out.is_contiguous()
+    torch.testing.assert_close(out, gather_probe.gather_rows_plain(tbl, idx),
+                               rtol=0, atol=0, equal_nan=True)
