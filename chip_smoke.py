@@ -19,7 +19,7 @@ failing the run on any mismatch:
    training shapes (672x1184), f32 and bf16, with times and each pass's
    device time;
 P2. the row-gather probe kernel: each instance (the rule's, the strip
-   instance in clusters of 2, 4 and 8, the direct instance) exactly
+   instance in clusters of 1, 2, 4 and 8, the direct instance) exactly
    against its plain version and torch.gather, with its plan, its device
    time warm and with a cold L2 (``cold_ms``), the bound and torch.gather
    in the same call; then the probe's entry point
@@ -610,13 +610,11 @@ def cold_ms(torch, fn, iters=10):
 
 
 def gather_l2_mb(plan, r, c):
-    """MB that a gather_rows launch moves between L2 and the SMs: the
-    staged strips (strip instance) or one 32-byte sector per table element
-    (direct instance), plus the indices read and the output written."""
-    if plan["cluster"]:
-        table = plan["ranges"] * r * c * 4
-    else:
-        table = r * c * 32
+    """MB that a gather_rows launch reads from or writes to L2: the strips
+    (strip instance: each cluster's multicast reads its strip once per
+    row range) or one 32-byte sector per table element (direct instance),
+    plus the indices read and the output written."""
+    table = plan["ranges"] * r * c * 4 if plan["cluster"] else r * c * 32
     return (table + r * c * 8) / 1e6
 
 
@@ -641,10 +639,10 @@ def phase_gather_probe(torch):
         f"torch.gather {t_lib:.5f} ms device, {cold_lib:.5f} cold L2; plain "
         f"{t_plain:.5f} ms device")
     # each instance: the rule's (None), the strip instance in clusters of
-    # 2, 4, 8, and the direct instance (0); exact against the plain version
-    # and torch.gather
+    # 1, 2, 4, 8, and the direct instance (0); exact against the plain
+    # version and torch.gather
     rows = {}
-    for cluster in (None, 2, 4, 8, 0):
+    for cluster in (None, 1, 2, 4, 8, 0):
         run = lambda: gather_probe.gather_rows(tbl, idx, cluster=cluster)  # noqa: E731
         out = run()
         torch.cuda.synchronize()
@@ -658,8 +656,8 @@ def phase_gather_probe(torch):
         rows[cluster] = t
         ctas = plan["ranges"] * plan["strips"] * plan["cluster"]
         where = (f"strips in clusters of {plan['cluster']}: {ctas} CTAs, "
-                 f"{plan['slice_rows'] * 32} B of shared memory each"
-                 if plan["cluster"] else "direct")
+                 f"{plan['passes']} passes of {plan['pass_rows'] * 32} B of "
+                 f"shared memory" if plan["cluster"] else "direct")
         l2 = gather_l2_mb(plan, r, c)
         log(f"  gather_rows {'rule' if cluster is None else cluster!s:>4} "
             f"({where}): {t['ms']:.5f} ms device, {t['cold_ms']:.5f} cold "

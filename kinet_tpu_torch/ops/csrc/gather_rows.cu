@@ -14,32 +14,39 @@
 // from there. A direct gather on this card reads each table element as its
 // own 32-byte sector from L2 (8 sectors for one useful 4-byte element:
 // 33.5 MB of sectors at the probe's shape), so read amplification through
-// L2, not HBM, bounded the first version (34.6 % of the bound).
+// L2, not HBM, bounds it (35 % of the bound).
 //
 // Design, the strip instance (gather_rows_strip_kernel): the table is cut
 // into column strips of 8 f32 columns, 32 bytes a row, so every table byte
-// moves from L2 to an SM in whole sectors. A strip of R rows is R * 32
-// bytes (256 KB at R = 8192), more than one block's shared memory, so a
-// thread block cluster of K CTAs holds it: CTA k stages the rows r with
-// r % K == k (16-byte cp.async; 4-byte copies where a strip is narrower
-// than 8 columns or rows are not 16-byte aligned), and the gather reads
-// every element from the shared memory of the CTA that holds its row
-// (distributed shared memory, ld.shared::cluster). Each CTA gathers a share
-// of the output rows of its cluster's row range: a row's 8 indices are read
-// as 32 bytes and its 8 outputs written as 32 bytes. Staging uses cp.async
-// rather than TMA because a slice is rows of 32 bytes at the table's pitch,
-// which 16-byte copies move in whole sectors too, and a tensor map would
-// have to be encoded on the host for every table pointer; the indices of
-// the first rows are loaded while the copies land.
+// moves from L2 in whole sectors, and every gather reads the CTA's own
+// shared memory. A CTA takes up to 1,024 output rows of one strip (a warp
+// reads 4 rows x 8 columns of indices and writes the same of outputs:
+// whole sectors; the 8 lanes of a row read 8 banks, so the 32 random rows
+// of a warp's read meet about 2-way bank conflicts). A strip of R rows is R
+// * 32 bytes (256 KB at R = 8192), more than one block's shared memory, so
+// it is staged in passes of at most 7,168 rows (two of 4,096 at R = 8192);
+// an output element is filled in the pass that holds its row, and written
+// once after the last. The K CTAs of a thread block cluster take the same
+// strip for K shares of the output rows, and each pass is one TMA load of
+// the strip's rows in boxes of 256 rows x 32 bytes, multicast: each box
+// is read from L2 once and lands in all K CTAs' shared memory (CTA k issues
+// boxes k, k + K, ...), so the L2 reads of the table are R * C * 4 bytes
+// per cluster. Why not gather through distributed shared memory instead
+// (each CTA holding a slice of the strip's rows): measured on an H100, a
+// random 4-byte read of another CTA's shared memory costs about 8 SM
+// cycles, so with 7/8 of the reads remote the kernel took 0.033 ms, three
+// times the direct gather (PERF.md, PR 5). Why TMA rather than cp.async:
+// only TMA multicasts. The tensor map (cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint) is encoded on the host for each call.
 //
-// The rule (gather_rows_plan, mirrored by the wrapper's docstring): K is
-// kCluster (chosen by measurement, PERF.md), doubled while a CTA's slice,
-// ceil(R / K) rows of 32 bytes, exceeds a block's shared memory; clusters
-// over 8 CTAs are not portable, so a table of more than 58,112 rows (or of
-// more than 65,535 strips) takes the direct instance
-// (gather_rows_direct_kernel): 8 elements a thread, coalesced per load,
-// all 8 table loads in flight.
+// The rule (gather_rows_plan, mirrored by the wrapper's docstring): the
+// strip instance where TMA takes the table (C a multiple of 4 and at least
+// 8, the table 16-byte aligned), in at most 8 passes (R <= 57,344) and at
+// most 65,535 strips, in clusters of kCluster CTAs; every other shape takes
+// the direct instance (gather_rows_direct_kernel): 8 elements a thread,
+// coalesced per load, all 8 table loads in flight.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,159 +54,152 @@ namespace kinet {
 
 namespace cg = cooperative_groups;
 
-constexpr int kStripCols = 8;   // f32 columns of a strip: one 32-byte sector
-constexpr int kThreads = 256;   // threads of a block, both instances
-constexpr int kBatch = 4;       // rows a thread gathers with loads in flight
-constexpr int kCluster = 8;     // the rule's first cluster size
-constexpr int kMaxCluster = 8;  // portable cluster size limit
+constexpr int kStripCols = 8;    // f32 columns of a strip: one 32-byte sector
+constexpr int kThreads = 256;    // threads of a block, both instances
+constexpr int kRowLanes = kThreads / kStripCols;  // rows a block reads at once
+constexpr int kRowsPerThread = 32;
+constexpr int kCtaRows = kRowLanes * kRowsPerThread;  // output rows a CTA
+constexpr int kBoxRows = 256;    // rows of a TMA box (its limit)
+constexpr int kBoxBytes = kBoxRows * kStripCols * 4;
+constexpr int kCluster = 8;      // the rule's cluster size
+constexpr int kMaxCluster = 8;   // portable cluster size limit
 constexpr int kMaxStrips = 65535;  // gridDim.y
 constexpr int kSmemCap = 232448;   // shared memory a block can use (227 KB)
+constexpr int kMaxPassRows =       // strip rows of one pass, plus the barrier
+    (kSmemCap - 8) / (kStripCols * 4) / kBoxRows * kBoxRows;  // 7,168
+constexpr int kMaxPasses = 8;
 constexpr int kDirectItems = 8;    // elements a thread, direct instance
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
+// Waits for phase `parity` of the barrier; traps after about 10 s instead
+// of hanging the card if the expected bytes never land.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The address of shared-memory address `a` in the CTA of cluster rank
-// `rank`, and a load from it.
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, uint32_t rank) {
-  uint32_t r;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ float ld_cluster(uint32_t a) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
-               : "memory");
-  return v;
+// One box of the tensor map at (column c0, row r0) into shared memory
+// `dst` of every CTA in `mask` (of this CTA alone if mask is 0), counted
+// on the barrier at the same offset in each.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int c0, int r0, uint32_t bar,
+                                        uint16_t mask) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (mask)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+            dst),
+        "l"(m), "r"(c0), "r"(r0), "r"(bar), "h"(mask)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(m), "r"(c0), "r"(r0), "r"(bar)
+        : "memory");
 }
 
 __device__ __forceinline__ float nan_f32() {
   return __int_as_float(0x7fc00000);
 }
 
-// A row's kStripCols indices starting at column c0 (width of them valid).
-template <bool kVec>
-__device__ __forceinline__ void load_row(const int* __restrict__ p,
-                                         int width, int* ix) {
-  if (kVec && width == kStripCols) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
-    const int4 b = __ldg(reinterpret_cast<const int4*>(p) + 1);
-    ix[0] = a.x, ix[1] = a.y, ix[2] = a.z, ix[3] = a.w;
-    ix[4] = b.x, ix[5] = b.y, ix[6] = b.z, ix[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kStripCols; ++j) ix[j] = j < width ? __ldg(p + j) : 0;
-  }
-}
-
-// Grid (ranges * K, strips), cluster (K, 1, 1), K a power of two (shift =
-// log2 K); dynamic shared memory: slice_rows * 32 bytes.
-template <bool kVec>
+// Grid (ranges * K, strips), cluster (K, 1, 1); dynamic shared memory:
+// pass_rows * 32 bytes of strip, then the barrier.
 __global__ void __launch_bounds__(kThreads)
-    gather_rows_strip_kernel(const float* __restrict__ tbl,
+    gather_rows_strip_kernel(const __grid_constant__ CUtensorMap map,
                              const int* __restrict__ idx,
                              float* __restrict__ out, int R, int C,
-                             int shift, int range_rows) {
-  extern __shared__ __align__(16) float slice[];  // [slice rows][8]
+                             int pass_rows, int passes, int range_rows) {
+  extern __shared__ __align__(1024) float strip[];  // [pass_rows][8]
   cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
   const int k = (int)cluster.block_rank();
-  const int K = 1 << shift;
+  const int col = threadIdx.x % kStripCols;
+  const int lane_row = threadIdx.x / kStripCols;
   const int c0 = blockIdx.y * kStripCols;
-  const int width = min(kStripCols, C - c0);
-  const uint32_t base = smem_addr(slice);
+  const bool live_col = c0 + col < C;
+  const uint32_t base = smem_addr(strip);
+  const uint32_t bar = base + pass_rows * kStripCols * 4;
+  if (threadIdx.x == 0) mbar_init(bar, 1);
 
-  // 1. stage rows k, k + K, k + 2K, ... of the strip
-  const int n_mine = R > k ? ((R - 1 - k) >> shift) + 1 : 0;
-  if (kVec && width == kStripCols) {
-    for (int t = threadIdx.x; t < 2 * n_mine; t += kThreads) {
-      const int local = t >> 1, half = t & 1;
-      cp_async16(base + (local * kStripCols + half * 4) * 4,
-                 tbl + (long long)((local << shift) + k) * C + c0 + half * 4);
-    }
-  } else {
-    for (int t = threadIdx.x; t < width * n_mine; t += kThreads) {
-      const int local = t / width, j = t - local * width;
-      cp_async4(base + (local * kStripCols + j) * 4,
-                tbl + (long long)((local << shift) + k) * C + c0 + j);
-    }
-  }
-
-  // 2. this CTA's output rows: its share of the cluster's row range
-  const int g_lo = (int)(blockIdx.x >> shift) * range_rows;
+  // this CTA's output rows: its share of the cluster's row range
+  const int g_lo = (int)(blockIdx.x / K) * range_rows;
   const int g_hi = min(R, g_lo + range_rows);
-  const int share = g_hi > g_lo ? (g_hi - g_lo + K - 1) >> shift : 0;
+  const int share = g_hi > g_lo ? (g_hi - g_lo + K - 1) / K : 0;
   const int o_lo = g_lo + k * share;
   const int o_hi = min(g_hi, o_lo + share);
 
-  int ix[kBatch][kStripCols];
-  auto load_batch = [&](int i0) {
+  // every index of the CTA, in flight while the strip lands; -1: NaN
+  int rr[kRowsPerThread];
+  float v[kRowsPerThread];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kThreads + (int)threadIdx.x;
-      if (i < o_hi) {
-        load_row<kVec>(idx + (long long)i * C + c0, width, ix[u]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kStripCols; ++j) ix[u][j] = 0;
-      }
+  for (int m = 0; m < kRowsPerThread; ++m) {
+    const int i = o_lo + lane_row + m * kRowLanes;
+    int r = -1;
+    if (i < o_hi && live_col) {
+      r = __ldg(idx + (long long)i * C + c0 + col);
+      r += r < 0 ? R : 0;
+      r = (unsigned)r < (unsigned)R ? r : -1;
     }
-  };
-  load_batch(o_lo);  // in flight while the copies land
-  cp_async_wait_all();
-  cluster.sync();  // every slice of the strip is in place
-
-  for (int i0 = o_lo; i0 < o_hi; i0 += kBatch * kThreads) {
-    if (i0 != o_lo) load_batch(i0);
-    float v[kBatch][kStripCols];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-#pragma unroll
-      for (int j = 0; j < kStripCols; ++j) {
-        int r = ix[u][j];
-        r += r < 0 ? R : 0;
-        const bool inside = (unsigned)r < (unsigned)R && j < width &&
-                            i0 + u * kThreads + (int)threadIdx.x < o_hi;
-        const uint32_t a = cluster_addr(
-            base + ((r >> shift) * kStripCols + j) * 4, r & (K - 1));
-        v[u][j] = inside ? ld_cluster(a) : nan_f32();
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kThreads + (int)threadIdx.x;
-      if (i >= o_hi) continue;
-      float* p = out + (long long)i * C + c0;
-      if (kVec && width == kStripCols) {
-        reinterpret_cast<float4*>(p)[0] =
-            make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
-        reinterpret_cast<float4*>(p)[1] =
-            make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kStripCols; ++j)
-          if (j < width) p[j] = v[u][j];
-      }
-    }
+    rr[m] = r;
+    v[m] = nan_f32();
   }
-  cluster.sync();  // no CTA leaves while another may read its slice
+  cluster.sync();  // every barrier of the cluster is initialised
+
+  const uint16_t mask = K > 1 ? (uint16_t)((1u << K) - 1) : 0;
+  for (int p = 0; p < passes; ++p) {
+    const int row0 = p * pass_rows;
+    const int rows = min(pass_rows, R - row0);
+    if (threadIdx.x == 0) {
+      const int boxes = (rows + kBoxRows - 1) / kBoxRows;
+      mbar_expect_tx(bar, (uint32_t)(boxes * kBoxBytes));
+      for (int b = k; b < boxes; b += K)
+        tma_box(base + b * kBoxBytes, &map, c0, row0 + b * kBoxRows, bar,
+                mask);
+    }
+    mbar_wait(bar, (uint32_t)(p & 1));
+#pragma unroll
+    for (int m = 0; m < kRowsPerThread; ++m) {
+      const int local = rr[m] - row0;
+      if ((unsigned)local < (unsigned)rows)
+        v[m] = strip[local * kStripCols + col];
+    }
+    cluster.sync();  // no CTA's next pass lands while another still reads
+  }
+#pragma unroll
+  for (int m = 0; m < kRowsPerThread; ++m) {
+    const int i = o_lo + lane_row + m * kRowLanes;
+    if (i < o_hi && live_col) out[(long long)i * C + c0 + col] = v[m];
+  }
 }
 
 // Block b takes elements [b * 2048, (b + 1) * 2048) of the flat arrays,
@@ -237,10 +237,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The plan of one call: cluster 0 is the direct instance; else cluster K
-// CTAs per strip and row range.
+// The plan of one call: cluster 0 is the direct instance; else clusters
+// of K CTAs, one per strip and row range, staging passes of pass_rows.
 struct Plan {
-  int cluster, ranges, strips, slice_rows;
+  int cluster, ranges, strips, passes, pass_rows;
 };
 
 static int sm_count() {
@@ -257,54 +257,80 @@ inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // cluster -1: by the rule above; 0: direct; 1, 2, 4 or 8: the strip
 // instance with that cluster size. Returns false if the instance asked for
-// cannot take the shape.
-static bool plan_for(int R, int C, int cluster, int n_sm, Plan* p) {
-  p->strips = ceil_div(C, kStripCols);
-  int k = cluster;
-  if (k < 0) {
-    k = kCluster;
-    while (k < kMaxCluster &&
-           (long long)ceil_div(R, k) * kStripCols * 4 > kSmemCap)
-      k *= 2;
-    if ((long long)ceil_div(R, k) * kStripCols * 4 > kSmemCap ||
-        p->strips > kMaxStrips)
-      k = 0;
-  }
-  if (k == 0) {
-    p->cluster = p->ranges = p->slice_rows = 0;
-    return true;
-  }
-  if ((k & (k - 1)) != 0 || k > kMaxCluster || p->strips > kMaxStrips)
-    return false;
+// cannot take the shape (tma_ok: the table is 16-byte aligned).
+static bool plan_for(int R, int C, int cluster, int n_sm, bool tma_ok,
+                     Plan* p) {
+  *p = Plan{0, 0, ceil_div(C, kStripCols), 0, 0};
+  const int passes = ceil_div(R, kMaxPassRows);
+  const bool strips_ok = tma_ok && C % 4 == 0 && C >= kStripCols &&
+                         passes <= kMaxPasses && p->strips <= kMaxStrips;
+  int k = cluster < 0 ? (strips_ok ? kCluster : 0) : cluster;
+  if (k == 0) return true;
+  if (!strips_ok || (k & (k - 1)) != 0 || k > kMaxCluster) return false;
   p->cluster = k;
-  p->slice_rows = ceil_div(R, k);
-  if ((long long)p->slice_rows * kStripCols * 4 > kSmemCap) return false;
-  // fill the SMs with clusters, but give each CTA at least a row a thread
+  p->passes = passes;
+  p->pass_rows = ceil_div(ceil_div(R, passes), kBoxRows) * kBoxRows;
+  // fill the SMs with clusters, at most kCtaRows output rows a CTA and
+  // at least a row a thread
   int ranges = n_sm / (p->strips * k);
-  const int by_rows = R / (k * kThreads);
+  const int by_rows = ceil_div(R, k * kThreads);
   ranges = ranges < by_rows ? ranges : by_rows;
+  const int least = ceil_div(R, (long long)k * kCtaRows);
+  ranges = ranges > least ? ranges : least;
   p->ranges = ranges > 1 ? ranges : 1;
   return true;
 }
 
-template <bool kVec>
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
 static cudaError_t launch_strip(const float* tbl, const int* idx, float* out,
                                 int R, int C, const Plan& p,
                                 cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * 4};
+  const cuuint32_t box[2] = {kStripCols, kBoxRows};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(tbl), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
   static bool raised[64];  // the shared-memory limit, raised once a device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 0 && dev < 64 && !raised[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        gather_rows_strip_kernel<kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+        gather_rows_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemCap);
     if (err != cudaSuccess) return err;
     raised[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(p.ranges * p.cluster), (unsigned)p.strips, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)p.slice_rows * kStripCols * 4;
+  cfg.dynamicSmemBytes = (size_t)p.pass_rows * kStripCols * 4 + 8;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -313,28 +339,30 @@ static cudaError_t launch_strip(const float* tbl, const int* idx, float* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int shift = 0;
-  while ((1 << shift) < p.cluster) ++shift;
-  return cudaLaunchKernelEx(&cfg, gather_rows_strip_kernel<kVec>, tbl, idx,
-                            out, R, C, shift, ceil_div(R, p.ranges));
+  return cudaLaunchKernelEx(&cfg, gather_rows_strip_kernel, map, idx, out, R,
+                            C, p.pass_rows, p.passes,
+                            ceil_div(R, p.ranges));
 }
 
 }  // namespace kinet
 
-// C entries bound with ctypes. gather_rows_plan fills plan[0..3] with the
-// (cluster, ranges, strips, slice rows) of a call on the current device
-// (cluster 0: the direct instance); gather_rows_instance launches the
-// instance asked for (cluster as in plan_for); gather_rows launches the
-// rule's. Each returns 0, cudaErrorInvalidValue for an instance that
-// cannot take the shape, or cudaGetLastError() after the launch.
+// C entries bound with ctypes. gather_rows_plan fills plan[0..4] with the
+// (cluster, ranges, strips, passes, pass rows) of a call on the current
+// device for a 16-byte aligned table (cluster 0: the direct instance);
+// gather_rows_instance launches the instance asked for (cluster as in
+// plan_for); gather_rows launches the rule's. Each returns 0,
+// cudaErrorInvalidValue for an instance that cannot take the shape, or
+// the CUDA error of the launch.
 extern "C" int gather_rows_plan(int R, int C, int cluster, int* plan) {
   kinet::Plan p;
-  if (!kinet::plan_for(R, C, cluster, kinet::sm_count(), &p))
+  if (R <= 0 || C <= 0 ||
+      !kinet::plan_for(R, C, cluster, kinet::sm_count(), true, &p))
     return (int)cudaErrorInvalidValue;
   plan[0] = p.cluster;
   plan[1] = p.ranges;
   plan[2] = p.strips;
-  plan[3] = p.slice_rows;
+  plan[3] = p.passes;
+  plan[4] = p.pass_rows;
   return 0;
 }
 
@@ -347,7 +375,8 @@ extern "C" int gather_rows_instance(const void* tbl_, const void* idx_,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   kinet::Plan p;
   if (R <= 0 || C <= 0 ||
-      !kinet::plan_for(R, C, cluster, kinet::sm_count(), &p))
+      !kinet::plan_for(R, C, cluster, kinet::sm_count(),
+                       (uintptr_t)tbl % 16 == 0, &p))
     return (int)cudaErrorInvalidValue;
   if (p.cluster == 0) {
     const long long n = (long long)R * C;
@@ -358,11 +387,7 @@ extern "C" int gather_rows_instance(const void* tbl_, const void* idx_,
         tbl, idx, out, R, C, n, kinet::kThreads % C);
     return (int)cudaGetLastError();
   }
-  const bool vec = C % 4 == 0 && ((uintptr_t)tbl | (uintptr_t)idx |
-                                  (uintptr_t)out) % 16 == 0;
-  cudaError_t err =
-      vec ? kinet::launch_strip<true>(tbl, idx, out, R, C, p, stream)
-          : kinet::launch_strip<false>(tbl, idx, out, R, C, p, stream);
+  cudaError_t err = kinet::launch_strip(tbl, idx, out, R, C, p, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -15,17 +15,17 @@ indices; the probe times it as a yardstick and the port does not call it.
 The kernel has two instances, chosen by shape in its C entry:
 
 - the strip instance: the table in column strips of 8 columns (32 bytes a
-  row), each strip staged in the shared memory of a cluster of K CTAs (CTA
-  k holds the rows r with r % K == k) and gathered from there; a cluster
-  per strip and row range, as many row ranges as fill the SMs;
+  row); a CTA takes up to 1,024 output rows of one strip, stages the strip
+  in its shared memory in passes of at most 7,168 rows (TMA boxes of 256
+  rows, multicast to the K = 8 CTAs of a cluster that share the strip) and
+  gathers every element from there;
 - the direct instance: 8 elements a thread read straight from the table.
 
-The rule: K = 8 (``kCluster``), doubled while a CTA's slice of ceil(R / K)
-rows of 32 bytes exceeds a block's 227 KB of shared memory (never, as 8 is
-the largest portable cluster); so a table of more than 58,112 rows, or of
-more than 65,535 strips (C > 524,280), takes the direct instance.
-``gather_rows(..., cluster=k)`` asks for one instance (0: direct; 1, 2, 4,
-8: strips in clusters of k), for tests and measurements.
+The rule: the strip instance where TMA takes the table (C a multiple of 4
+and at least 8, the table 16-byte aligned), in at most 8 passes (R <=
+57,344) and at most 65,535 strips; the direct instance for every other
+shape. ``gather_rows(..., cluster=k)`` asks for one instance (0: direct;
+1, 2, 4, 8: strips in clusters of k), for tests and measurements.
 """
 from __future__ import annotations
 
@@ -73,17 +73,18 @@ def _lib_fn(name, argtypes):
 def gather_rows_plan(r: int, c: int, cluster: int | None = None,
                      device=None) -> dict:
     """The plan the C entry takes for an [r, c] table on a CUDA device:
-    ``cluster`` (0: the direct instance), ``ranges``, ``strips`` and
-    ``slice_rows``. Raises ValueError if the instance asked for cannot take
-    the shape."""
+    ``cluster`` (0: the direct instance), ``ranges``, ``strips``,
+    ``passes`` and ``pass_rows``, for a 16-byte aligned table. Raises
+    ValueError if the instance asked for cannot take the shape."""
     fn = _lib_fn("gather_rows_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    plan = (ctypes.c_int * 4)()
+    plan = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         rc = fn(r, c, -1 if cluster is None else cluster, plan)
     if rc != 0:
         raise ValueError(f"no gather_rows instance with cluster={cluster} "
                          f"takes a [{r}, {c}] table")
-    return dict(zip(("cluster", "ranges", "strips", "slice_rows"), plan))
+    return dict(zip(("cluster", "ranges", "strips", "passes", "pass_rows"),
+                    plan))
 
 
 def gather_rows(tbl: torch.Tensor, idx: torch.Tensor,

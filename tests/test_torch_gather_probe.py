@@ -20,8 +20,11 @@ from kinet_tpu_torch.tools import gather_probe as probe
 
 STRIP = 8  # f32 columns of a strip: 32 bytes a row
 THREADS, DIRECT_ITEMS = 256, 8
-SLICE_ROWS_MAX = 232448 // (STRIP * 4)  # rows a block's shared memory holds
-MAX_CLUSTER, MAX_STRIPS = 8, 65535
+ROW_LANES, ROWS_PER_THREAD = THREADS // STRIP, 32
+CTA_ROWS = ROW_LANES * ROWS_PER_THREAD  # output rows a CTA
+BOX_ROWS = 256  # rows of a TMA box
+MAX_PASS_ROWS = (232448 - 8) // (STRIP * 4) // BOX_ROWS * BOX_ROWS  # 7168
+MAX_PASSES, MAX_CLUSTER, MAX_STRIPS = 8, 8, 65535
 RULE_CLUSTER = 8  # csrc/gather_rows.cu kCluster
 
 
@@ -29,36 +32,35 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _plan_model(r, c, cluster=None, n_sm=132):
+def _plan_model(r, c, cluster=None, n_sm=132, aligned=True):
     """csrc/gather_rows.cu::plan_for: the instance and its grid for an
     [r, c] table (cluster 0: the direct instance). None: the rule."""
     strips = _cdiv(c, STRIP)
-    k = cluster
-    if k is None:
-        k = RULE_CLUSTER
-        while k < MAX_CLUSTER and _cdiv(r, k) > SLICE_ROWS_MAX:
-            k *= 2
-        if _cdiv(r, k) > SLICE_ROWS_MAX or strips > MAX_STRIPS:
-            k = 0
+    passes = _cdiv(r, MAX_PASS_ROWS)
+    strips_ok = aligned and c % 4 == 0 and c >= STRIP and \
+        passes <= MAX_PASSES and strips <= MAX_STRIPS
+    k = (RULE_CLUSTER if strips_ok else 0) if cluster is None else cluster
     if k == 0:
-        return dict(cluster=0, ranges=0, strips=strips, slice_rows=0)
-    if k not in (1, 2, 4, 8) or _cdiv(r, k) > SLICE_ROWS_MAX or \
-            strips > MAX_STRIPS:
+        return dict(cluster=0, ranges=0, strips=strips, passes=0, pass_rows=0)
+    if not strips_ok or k not in (1, 2, 4, 8):
         raise ValueError(f"cluster {k} cannot take [{r}, {c}]")
-    ranges = max(1, min(n_sm // (strips * k), r // (k * THREADS)))
-    return dict(cluster=k, ranges=ranges, strips=strips,
-                slice_rows=_cdiv(r, k))
+    ranges = min(n_sm // (strips * k), _cdiv(r, k * THREADS))
+    ranges = max(ranges, _cdiv(r, k * CTA_ROWS), 1)
+    return dict(cluster=k, ranges=ranges, strips=strips, passes=passes,
+                pass_rows=_cdiv(_cdiv(r, passes), BOX_ROWS) * BOX_ROWS)
 
 
 def _run_model(tbl, idx, plan):
     """The kernel's data movement in numpy: returns the output and how many
     times each output element was written. Strip instance: for each (row
-    range, strip), CTA k of the cluster stages rows k, k + K, ... of the
-    strip (at most 8 columns, the last strip narrower) into its slice, then
-    gathers its share of the range's output rows from the slice that holds
-    each index's row; every read must hit a staged element. Direct
-    instance: block b, thread t, item u take flat element b * 2048 + u *
-    256 + t, the column kept by adding 256 % C."""
+    range, strip), CTA k of the cluster takes its share of the range's
+    output rows (at most 1,024, thread (row lane, column) its rows lane,
+    lane + 32, ...); in pass p the cluster's CTAs issue the pass's boxes
+    k, k + K, ... of 256 rows x 8 columns (columns past C read as zeros),
+    which land in every CTA's buffer, and each element whose row the pass
+    holds is read from the buffer: every valid element exactly once, never
+    from a column past C. Direct instance: block b, thread t, item u take
+    flat element b * 2048 + u * 256 + t, the column kept by adding 256 % C."""
     r, c = tbl.shape
     out = np.full((r, c), -7.0, np.float32)
     writes = np.zeros((r, c), np.int64)
@@ -83,36 +85,54 @@ def _run_model(tbl, idx, plan):
                 col = col + step
                 col = np.where(col >= c, col - c, col)
         return out, writes
-    k_n, shift = plan["cluster"], plan["cluster"].bit_length() - 1
+    k_n, pass_rows = plan["cluster"], plan["pass_rows"]
+    assert pass_rows * STRIP * 4 + 8 <= 232448
     range_rows = _cdiv(r, plan["ranges"])
+    padded = np.zeros((r, plan["strips"] * STRIP), np.float32)
+    padded[:, :c] = tbl
     for s in range(plan["strips"]):
         c0 = s * STRIP
-        width = min(STRIP, c - c0)
         for g in range(plan["ranges"]):
-            slices = np.full((k_n, plan["slice_rows"], STRIP), np.inf, np.float32)
-            staged = np.zeros(slices.shape, bool)
-            for k in range(k_n):
-                rows = np.arange(k, r, k_n)
-                slices[k, rows >> shift, :width] = tbl[rows, c0:c0 + width]
-                staged[k, rows >> shift, :width] = True
             g_lo = g * range_rows
             g_hi = min(r, g_lo + range_rows)
             share = _cdiv(g_hi - g_lo, k_n) if g_hi > g_lo else 0
+            assert share <= CTA_ROWS
             for k in range(k_n):
                 o_lo = g_lo + k * share
                 o_hi = min(g_hi, o_lo + share)
                 if o_hi <= o_lo:
                     continue
-                ix = idx[o_lo:o_hi, c0:c0 + width].astype(np.int64)
+                rows_i = o_lo + np.arange(ROW_LANES)[:, None] + \
+                    ROW_LANES * np.arange(ROWS_PER_THREAD)[None, :]
+                mine = np.sort(rows_i[rows_i < o_hi])
+                assert (mine == np.arange(o_lo, o_hi)).all()
+                cols = np.arange(STRIP)[None, :]
+                live = (c0 + cols < c) & np.ones((o_hi - o_lo, 1), bool)
+                ix = idx[o_lo:o_hi, c0:min(c, c0 + STRIP)].astype(np.int64)
+                ix = np.pad(ix, ((0, 0), (0, STRIP - ix.shape[1])))
                 ix = np.where(ix < 0, ix + r, ix)
-                inside = (ix >= 0) & (ix < r)
-                ixc = np.clip(ix, 0, r - 1)
-                owner, local = ixc & (k_n - 1), ixc >> shift
-                cols = np.arange(width)[None, :]
-                assert staged[owner, local, cols][inside].all()
-                out[o_lo:o_hi, c0:c0 + width] = np.where(
-                    inside, slices[owner, local, cols], np.nan)
-                writes[o_lo:o_hi, c0:c0 + width] += 1
+                ix = np.where((ix >= 0) & (ix < r) & live, ix, -1)
+                v = np.full(ix.shape, np.nan, np.float32)
+                filled = np.zeros(ix.shape, np.int64)
+                for p in range(plan["passes"]):
+                    row0 = p * pass_rows
+                    rows = min(pass_rows, r - row0)
+                    boxes = _cdiv(rows, BOX_ROWS)
+                    issued = sorted(b for kk in range(k_n)
+                                    for b in range(kk, boxes, k_n))
+                    assert issued == list(range(boxes))
+                    buf = np.zeros((boxes * BOX_ROWS, STRIP), np.float32)
+                    held = padded[row0:row0 + rows, c0:c0 + STRIP]
+                    buf[:rows] = held
+                    local = ix - row0
+                    hit = (local >= 0) & (local < rows)
+                    v = np.where(hit, buf[np.clip(local, 0, len(buf) - 1),
+                                          np.broadcast_to(cols, ix.shape)], v)
+                    filled += hit
+                assert (filled[ix >= 0] == 1).all() and (filled[ix < 0] == 0).all()
+                w = min(c, c0 + STRIP) - c0
+                out[o_lo:o_hi, c0:c0 + w] = v[:, :w]
+                writes[o_lo:o_hi, c0:c0 + w] += 1
     return out, writes
 
 
@@ -132,23 +152,25 @@ def test_plain_matches_take_along_axis(bounds):
 
 
 @pytest.mark.parametrize("shape,cluster,bounds", [
-    ((8192, 128), None, (0, None)),  # the probe's shape
+    ((8192, 128), None, (0, None)),  # the probe's shape: 2 passes
     ((8192, 128), 2, (-8192, 8300)),
-    ((8193, 13), None, (-9000, 9000)),  # a last strip of 5 columns
+    ((8193, 20), None, (-9000, 9000)),  # a last strip of 4 columns
     ((1000, 20), 4, (-1000, 1100)),
-    ((300, 7), 1, (-400, 400)),
-    ((58113, 3), None, (-58113, 58200)),  # past the strip limit: direct
+    ((300, 8), 1, (-400, 400)),
+    ((8193, 13), None, (-9000, 9000)),  # a pitch TMA refuses: direct
+    ((57345, 12), None, (-57345, 57400)),  # past the pass limit: direct
     ((523, 300), 0, (-600, 600)),
 ])
 def test_kernel_plan_model_matches_take_along_axis(shape, cluster, bounds):
     tbl, idx = _inputs(3, *shape, lo=bounds[0], hi=bounds[1])
     plan = _plan_model(*shape, cluster)
     if cluster is None:
-        assert plan["cluster"] == (0 if shape[0] > 8 * SLICE_ROWS_MAX else 8)
+        strips_ok = shape[1] % 4 == 0 and shape[0] <= MAX_PASSES * MAX_PASS_ROWS
+        assert plan["cluster"] == (RULE_CLUSTER if strips_ok else 0)
     if plan["cluster"]:
-        assert plan["slice_rows"] * STRIP * 4 <= 232448
         assert plan["ranges"] * plan["strips"] * plan["cluster"] <= max(
-            132, plan["strips"] * plan["cluster"])
+            132, plan["strips"] * plan["cluster"] * _cdiv(
+                shape[0], plan["cluster"] * CTA_ROWS))
     out, writes = _run_model(tbl, idx, plan)
     assert (writes == 1).all()
     ref = np.asarray(jnp.take_along_axis(jnp.asarray(tbl), jnp.asarray(idx), axis=0))
@@ -156,20 +178,27 @@ def test_kernel_plan_model_matches_take_along_axis(shape, cluster, bounds):
 
 
 def test_kernel_instance_rule_by_shape():
-    # the probe's shape: 16 strips in clusters of 8, one row range
+    # the probe's shape: 16 strips in clusters of 8, one row range, the
+    # strip in two passes of 4,096 rows
     assert _plan_model(8192, 128) == dict(cluster=8, ranges=1, strips=16,
-                                          slice_rows=1024)
+                                          passes=2, pass_rows=4096)
     assert _plan_model(8192, 128, 2) == dict(cluster=2, ranges=4, strips=16,
-                                             slice_rows=4096)
-    assert _plan_model(8 * SLICE_ROWS_MAX, 16)["cluster"] == 8
-    assert _plan_model(8 * SLICE_ROWS_MAX + 1, 16)["cluster"] == 0
+                                             passes=2, pass_rows=4096)
+    assert MAX_PASS_ROWS == 7168
+    assert _plan_model(MAX_PASSES * MAX_PASS_ROWS, 16)["cluster"] == 8
+    assert _plan_model(MAX_PASSES * MAX_PASS_ROWS + 1, 16)["cluster"] == 0
     assert _plan_model(64, STRIP * MAX_STRIPS)["cluster"] == 8
-    assert _plan_model(64, STRIP * MAX_STRIPS + 1)["cluster"] == 0
-    assert _plan_model(100, 8, n_sm=132)["ranges"] == 1  # < a row a thread
-    for cluster, r in ((1, SLICE_ROWS_MAX + 1), (2, 2 * SLICE_ROWS_MAX + 1),
-                       (3, 64), (16, 64)):
+    assert _plan_model(64, STRIP * MAX_STRIPS + 4)["cluster"] == 0
+    for c in (4, 6, 13, 130):  # narrower than a strip, or a pitch TMA refuses
+        assert _plan_model(64, c)["cluster"] == 0
+    assert _plan_model(64, 16, aligned=False)["cluster"] == 0
+    # at most 1,024 output rows a CTA: more row ranges than the SMs ask for
+    assert _plan_model(40000, 128)["ranges"] == 5
+    assert _plan_model(100, 8)["ranges"] == 1  # less than a row a thread
+    for cluster, shape in ((3, (64, 16)), (16, (64, 16)), (2, (64, 13)),
+                           (1, (MAX_PASSES * MAX_PASS_ROWS + 1, 8))):
         with pytest.raises(ValueError):
-            _plan_model(r, 16, cluster)
+            _plan_model(*shape, cluster)
 
 
 def test_probe_entry_point_on_cpu(capsys):
@@ -218,8 +247,9 @@ def _sm_count():
 def test_kernel_plan_matches_model_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the GPU")
-    for shape in ((8192, 128), (8193, 13), (58112, 8), (58113, 8), (64, 16),
-                  (1000, 20), (64, STRIP * MAX_STRIPS + 1)):
+    for shape in ((8192, 128), (8193, 13), (8193, 20), (57344, 8),
+                  (57345, 8), (64, 16), (1000, 20), (40000, 128),
+                  (64, STRIP * MAX_STRIPS + 4)):
         for cluster in (None, 0, 1, 2, 4, 8, 3):
             try:
                 want = _plan_model(*shape, cluster, n_sm=_sm_count())
@@ -232,9 +262,10 @@ def test_kernel_plan_matches_model_on_gpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,cluster", [
-    ((8192, 128), None), ((8192, 128), 0), ((8192, 128), 2),
-    ((8192, 128), 4), ((8193, 13), None), ((8193, 13), 0),
-    ((1000, 20), 2), ((300, 7), 1), ((58113, 13), None),
+    ((8192, 128), None), ((8192, 128), 0), ((8192, 128), 1),
+    ((8192, 128), 2), ((8192, 128), 4), ((8193, 20), None),
+    ((8193, 13), None), ((1000, 20), 2), ((300, 8), 1),
+    ((57344, 12), None), ((57345, 12), None),
 ])
 def test_kernel_instances_match_plain_on_gpu(shape, cluster):
     """Each instance exactly equals the plain version, NaNs in the same
@@ -253,7 +284,9 @@ def test_kernel_instances_match_plain_on_gpu(shape, cluster):
 
 
 @pytest.mark.gpu
-def test_kernel_takes_non_contiguous_inputs_on_gpu():
+def test_kernel_takes_non_contiguous_and_unaligned_inputs_on_gpu():
+    """A transposed view is copied to a contiguous one; a table that is not
+    16-byte aligned takes the direct instance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the GPU")
     tbl, idx = (torch.from_numpy(np.ascontiguousarray(x.T)).cuda().t()
@@ -263,3 +296,11 @@ def test_kernel_takes_non_contiguous_inputs_on_gpu():
     assert out.is_contiguous()
     torch.testing.assert_close(out, gather_probe.gather_rows_plain(tbl, idx),
                                rtol=0, atol=0, equal_nan=True)
+    shifted = torch.empty(520 * 96 + 1, device="cuda")[1:].view(520, 96)
+    shifted.copy_(tbl)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(gather_probe.gather_rows(shifted, idx),
+                               gather_probe.gather_rows_plain(shifted, idx),
+                               rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(RuntimeError):
+        gather_probe.gather_rows(shifted, idx, cluster=8)

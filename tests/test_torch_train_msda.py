@@ -338,6 +338,43 @@ def _heavy_loc(loc, shapes, n_heavy):
     return loc
 
 
+def _square_sums(keys, weights, grad_rows, n_keys):
+    """Per key and channel, the sum over its entries of (weight * grad)^2,
+    in float64 ([n_keys, width])."""
+    per_row = keys.numel() // grad_rows.shape[0]
+    e = torch.nonzero(keys >= 0).flatten()
+    terms = weights[e].double()[:, None] * grad_rows.double().cpu()[e // per_row]
+    return torch.zeros(n_keys, grad_rows.shape[1], dtype=torch.float64).index_add_(
+        0, keys[e], terms * terms)
+
+
+def _assert_segment_sums(g, ref64, abs_sum, sq_sum, counts, name):
+    """g: a table gradient summed in float32 over segments of n = counts
+    terms w * g (w = wy * wx * aw, rounded twice; w * g exact inside a fused
+    multiply-add), added one by one in an order that follows int atomics;
+    ref64: the same gradient in float64. Two bounds on |g - ref64|, each
+    element held to the smaller:
+    - whatever the order: gamma(n + 2) * sum |w g|, gamma(k) = k u / (1 -
+      k u), u = 2^-24;
+    - for an order with no structure, as the atomics give: 8 standard
+      deviations of the rounding errors taken as independent, the
+      partial sums as a random walk to the total T over the terms:
+      var = u^2 / 3 * (n * sum (w g)^2 / 6 + n T^2 / 3 + 4 sum (w g)^2).
+    An empty segment gives an exact zero."""
+    u = 2.0 ** -24
+    n = counts.double()
+    worst_case = (n + 2) * u / (1.0 - (n + 2) * u) * abs_sum
+    var = u * u / 3.0 * (n * sq_sum / 6.0 + n * ref64 * ref64 / 3.0 + 4.0 * sq_sum)
+    bound = torch.minimum(worst_case, 8.0 * var.sqrt())
+    err = (g.double() - ref64).abs()
+    ratio = torch.where(bound > 0, err / bound, torch.where(err > 0, torch.inf, 0.0))
+    worst = int(ratio.argmax())
+    assert ratio.max() <= 1.0, (
+        f"{name}: error {err.reshape(-1)[worst]:.3e} > bound "
+        f"{bound.reshape(-1)[worst]:.3e} (n {int(counts.reshape(-1)[worst])}, "
+        f"sum |w g| {abs_sum.reshape(-1)[worst]:.4g})")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_heavy_and_empty_segments_on_gpu(dtype):
@@ -345,7 +382,14 @@ def test_backward_kernels_heavy_and_empty_segments_on_gpu(dtype):
     one cell) and keys with no entry at all: the backward kernels against
     autograd through the plain versions at the tolerances above; the rows
     of empty keys are exact zeros in the output's type; each backward is
-    one launch and its outputs carry a grad_fn."""
+    one launch and its outputs carry a grad_fn.
+
+    The f32 table gradients (dvalue, dsrc) are held to float64 autograd of
+    the plain versions within the summation bound of
+    ``_assert_segment_sums``: at 1,000-4,600 terms a segment, two f32 sums
+    in orders that change from run to run (the kernel's int atomics, the
+    reference's f32 atomics) differed by more than rtol 1e-4, atol 1e-5
+    in about 1 % of runs, each within the bounds."""
     dev = _cuda()
     shapes = SHAPES[0]
     value, src, loc, aw, ext = (torch.from_numpy(x) for x in _inputs(
@@ -364,14 +408,23 @@ def test_backward_kernels_heavy_and_empty_segments_on_gpu(dtype):
     assert out[0].grad_fn is not None
     assert msda.ms_deform_attn.bwd_launches == before + 1
     assert g[0].dtype == dtype
-    _, ref = _grads_on(dev, lambda v, lc, a: msda.ms_deform_attn_plain(v, shapes, lc, a),
-                       [cot], value.to(dtype), loc, aw)
-    torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
-    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
-    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
-    keys, _ = _corner_entries_plain(shapes, loc, aw)
+    plain = lambda v, lc, a: msda.ms_deform_attn_plain(v, shapes, lc, a)  # noqa: E731
+    _, ref = _grads_on(dev, plain, [cot], value.to(dtype), loc, aw)
+    keys, w = _corner_entries_plain(shapes, loc, aw)
     counts = torch.bincount(keys[keys >= 0], minlength=b * s * m)
     assert counts.max() > 1024 // 3 and (counts == 0).any()
+    if dtype == torch.float32:
+        f64 = (value.double(), loc.double(), aw.double())
+        ref64 = _grads_on(dev, plain, [cot], *f64)[1][0]
+        abs_sum = _grads_on(dev, plain, [cot.abs()], *f64)[1][0]
+        sq_sum = _square_sums(keys, w, cot.view(b * lq * m, -1), b * s * m)
+        _assert_segment_sums(g[0], ref64, abs_sum, sq_sum.view_as(ref64).to(dev),
+                             counts.to(dev).view(b, s, m, 1).expand_as(ref64),
+                             "dvalue")
+    else:
+        torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
     assert (g[0].reshape(-1, value.shape[-1])[counts.to(dev) == 0] == 0).all()
 
     e = ext.to(dev)
@@ -384,13 +437,21 @@ def test_backward_kernels_heavy_and_empty_segments_on_gpu(dtype):
     assert out[0].grad_fn is not None
     assert msda.ms_deform_attn_raw_pool.bwd_launches == before + 1
     assert g[0].dtype == dtype
-    _, ref = _grads_on(
-        dev, lambda s_, lc, a: msda.ms_deform_attn_raw_pool_plain(s_, shapes, lc, a, e),
-        [cot_p, cot_w], src.to(dtype), loc, aw)
-    torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
-    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
-    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
-    keys, _ = _corner_entries_plain(shapes, loc, aw, ext, per_head=False)
+    plain = lambda s_, lc, a: msda.ms_deform_attn_raw_pool_plain(s_, shapes, lc, a, e)  # noqa: E731
+    _, ref = _grads_on(dev, plain, [cot_p, cot_w], src.to(dtype), loc, aw)
+    keys, w = _corner_entries_plain(shapes, loc, aw, ext, per_head=False)
     counts = torch.bincount(keys[keys >= 0], minlength=b * s)
     assert counts.max() > 1024 and (counts == 0).any()
+    if dtype == torch.float32:
+        f64 = (src.double(), loc.double(), aw.double())
+        ref64 = _grads_on(dev, plain, [cot_p, cot_w], *f64)[1][0]
+        # wsum has no dsrc term: its cotangent adds nothing to the sums
+        abs_sum = _grads_on(dev, plain, [cot_p.abs(), cot_w], *f64)[1][0]
+        sq_sum = _square_sums(keys, w, cot_p.view(b * lq * m, -1), b * s)
+        _assert_segment_sums(g[0], ref64, abs_sum, sq_sum.view_as(ref64).to(dev),
+                             counts.to(dev).view(b, s, 1).expand_as(ref64), "dsrc")
+    else:
+        torch.testing.assert_close(g[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(g[1], ref[1], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(g[2], ref[2], rtol=1e-4, atol=1e-5)
     assert (g[0].reshape(-1, src.shape[-1])[counts.to(dev) == 0] == 0).all()
