@@ -18,13 +18,11 @@ failing the run on any mismatch:
 3b. backward kernels vs the plain versions' autograd gradients at the
    training shapes (672x1184), f32 and bf16, with times and each pass's
    device time;
-P2. the row-gather probe kernel: each instance (the rule's, the strip
-   instance in clusters of 1, 2, 4 and 8, the direct instance) exactly
-   against its plain version and torch.gather, with its plan, its device
-   time warm and with a cold L2 (``cold_ms``), the bound and torch.gather
-   in the same call; then the probe's entry point
-   (kinet_tpu_torch.tools.gather_probe), whose device time a launch must
-   agree with P2's within 25 %;
+P2. the row-gather probe kernel exactly against its plain version and
+   torch.gather, with its device time warm and with a cold L2
+   (``cold_ms``), and torch.gather's, in the same call; then the probe's
+   entry point (kinet_tpu_torch.tools.gather_probe), whose device time a
+   launch must agree with P2's within 25 %;
 4. the full-width flagship model (hidden 288, 8 heads, 6+6 layers, 500
    queries, 100 track slots, seeded random weights) on the card against the
    same model on the CPU, f32, over two chained frames at 256x448;
@@ -609,15 +607,6 @@ def cold_ms(torch, fn, iters=10):
     raise SmokeFailure("cold_ms: the host never got ahead of the card")
 
 
-def gather_l2_mb(plan, r, c):
-    """MB that a gather_rows launch reads from or writes to L2: the strips
-    (strip instance: each cluster's multicast reads its strip once per
-    row range) or one 32-byte sector per table element (direct instance),
-    plus the indices read and the output written."""
-    table = plan["ranges"] * r * c * 4 if plan["cluster"] else r * c * 32
-    return (table + r * c * 8) / 1e6
-
-
 def phase_gather_probe(torch):
     from kinet_tpu_torch.ops import gather_probe
     from kinet_tpu_torch.tools import gather_probe as probe
@@ -625,46 +614,29 @@ def phase_gather_probe(torch):
     tbl, idx = probe.probe_inputs(DEVICE)
     r, c = tbl.shape
     idx64 = idx.long()
+    out = gather_probe.gather_rows(tbl, idx)
     ref = gather_probe.gather_rows_plain(tbl, idx)
     lib = torch.gather(tbl, 0, idx64)
     torch.cuda.synchronize()
-    check(torch.equal(ref, lib), "gather_rows' plain version differs from "
-          "torch.gather")
+    # a gather copies values: exact
+    err = max((out - ref).abs().max().item(), (out - lib).abs().max().item())
+    check(torch.equal(out, ref) and torch.equal(out, lib),
+          f"gather_rows differs from its plain version or torch.gather by {err}")
+    run = lambda: gather_probe.gather_rows(tbl, idx)  # noqa: E731
+    run_lib = lambda: torch.gather(tbl, 0, idx64)  # noqa: E731
+    timed = time_kernel(torch, run, lambda: gather_probe.gather_rows_plain(tbl, idx))
+    t_k = timed["ms"]
+    t_lib = device_ms(torch, run_lib)
+    cold_k, cold_lib = cold_ms(torch, run), cold_ms(torch, run_lib)
     moved = r * c * 4 * 3  # index read, output written, table read once
     t_b, by = bound_ms(moved, 0)
-    t_lib = device_ms(torch, lambda: torch.gather(tbl, 0, idx64))
-    cold_lib = cold_ms(torch, lambda: torch.gather(tbl, 0, idx64))
-    t_plain = device_ms(torch, lambda: gather_probe.gather_rows_plain(tbl, idx), 5)
-    log(f"  [{r}, {c}] f32: bound {t_b:.5f} ms ({by}: {moved / 1e6:.1f} MB); "
-        f"torch.gather {t_lib:.5f} ms device, {cold_lib:.5f} cold L2; plain "
-        f"{t_plain:.5f} ms device")
-    # each instance: the rule's (None), the strip instance in clusters of
-    # 1, 2, 4, 8, and the direct instance (0); exact against the plain
-    # version and torch.gather
-    rows = {}
-    for cluster in (None, 1, 2, 4, 8, 0):
-        run = lambda: gather_probe.gather_rows(tbl, idx, cluster=cluster)  # noqa: E731
-        out = run()
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(torch.equal(out, ref) and torch.equal(out, lib),
-              f"gather_rows (cluster {cluster}) differs from its plain "
-              f"version or torch.gather by {err}")
-        plan = gather_probe.gather_rows_plan(r, c, cluster)
-        t = dict(ms=device_ms(torch, run), cold_ms=cold_ms(torch, run),
-                 wrapper_ms=median_ms(torch, run), err=err, plan=plan)
-        rows[cluster] = t
-        ctas = plan["ranges"] * plan["strips"] * plan["cluster"]
-        where = (f"strips in clusters of {plan['cluster']}: {ctas} CTAs, "
-                 f"{plan['passes']} passes of {plan['pass_rows'] * 32} B of "
-                 f"shared memory" if plan["cluster"] else "direct")
-        l2 = gather_l2_mb(plan, r, c)
-        log(f"  gather_rows {'rule' if cluster is None else cluster!s:>4} "
-            f"({where}): {t['ms']:.5f} ms device, {t['cold_ms']:.5f} cold "
-            f"L2 (wrapper {t['wrapper_ms']:.5f}), {100 * t_b / t['ms']:.1f} % "
-            f"of bound, {t_lib / t['ms']:.2f}x torch.gather; L2<->SM "
-            f"{l2:.1f} MB, {l2 / 1e3 / t['ms']:.2f} TB/s; exact")
-    t_k = rows[None]["ms"]
+    sectors = r * c * (32 + 8)  # a 32-byte sector per table element
+    log(f"  gather_rows [{r}, {c}] f32  max abs err {err:.3e} | "
+        f"{timed_text(timed)}; cold L2 {cold_k:.5f} ms | torch.gather "
+        f"{t_lib:.5f} ms device, cold L2 {cold_lib:.5f} | bound {t_b:.5f} ms "
+        f"({by}: {moved / 1e6:.1f} MB): {100 * t_b / t_k:.1f} % of it, "
+        f"{t_lib / t_k:.3f}x torch.gather; {sectors / 1e6:.1f} MB of L2 "
+        f"sectors, {sectors / 1e9 / t_k:.2f} TB/s")
     gather_probe.gather_rows.launches = 0
     res = probe.main(["--device", DEVICE])  # the probe's entry point
     launches = gather_probe.gather_rows.launches
@@ -678,11 +650,11 @@ def phase_gather_probe(torch):
     check(abs(probe_ms / t_k - 1.0) <= 0.25,
           f"the probe's {res['us_per_op']:.3f} us/op is not device time "
           f"(device_ms {t_k * 1e3:.3f} us)")
-    return dict(max_abs_err=max(t["err"] for t in rows.values()), ms=t_k,
-                cold_ms=rows[None]["cold_ms"],
-                wrapper_ms=rows[None]["wrapper_ms"], plain_ms=t_plain,
+    return dict(max_abs_err=err, ms=t_k, cold_ms=cold_k,
+                wrapper_ms=timed["wrapper_ms"], plain_ms=timed["plain_ms"],
                 bound_ms=t_b, bound_by=by, library_ms=t_lib,
-                launches=launches, probe_us_per_op=res["us_per_op"])
+                library_cold_ms=cold_lib, launches=launches,
+                probe_us_per_op=res["us_per_op"])
 
 
 # ---------------------------------------------------------------------------
@@ -1392,7 +1364,8 @@ def main(argv=None) -> int:
          "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms"),
-         **{key: summary[k][key] for key in ("replay_ms", "cold_ms")
+         **{key: summary[k][key]
+            for key in ("replay_ms", "cold_ms", "library_cold_ms")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

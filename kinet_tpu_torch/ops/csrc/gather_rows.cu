@@ -11,388 +11,74 @@
 // Bound: bytes. Each element reads its index and writes its output once,
 // and the table is read once: 12 MB at the probe's [8192, 128], 3.76 us
 // at 3.35 TB/s. The TPU kernel holds the whole table in VMEM and gathers
-// from there. A direct gather on this card reads each table element as its
-// own 32-byte sector from L2 (8 sectors for one useful 4-byte element:
-// 33.5 MB of sectors at the probe's shape), so read amplification through
-// L2, not HBM, bounds it (35 % of the bound).
+// from there. Here each table element is its own 32-byte sector from L2
+// (33.5 MB of sectors at the probe's shape, the 4 MB table staying in L2
+// from call to call), and what bounds the kernel is how many sectors an
+// SM has in flight: it reads about 3.8 TB/s of sectors, 34 % of the bound.
 //
-// Design, the strip instance (gather_rows_strip_kernel): the table is cut
-// into column strips of 8 f32 columns, 32 bytes a row, so every table byte
-// moves from L2 in whole sectors, and every gather reads the CTA's own
-// shared memory. A CTA takes up to 1,024 output rows of one strip (a warp
-// reads 4 rows x 8 columns of indices and writes the same of outputs:
-// whole sectors; the 8 lanes of a row read 8 banks, so the 32 random rows
-// of a warp's read meet about 2-way bank conflicts). A strip of R rows is R
-// * 32 bytes (256 KB at R = 8192), more than one block's shared memory, so
-// it is staged in passes of at most 7,168 rows (two of 4,096 at R = 8192);
-// an output element is filled in the pass that holds its row, and written
-// once after the last. The K CTAs of a thread block cluster take the same
-// strip for K shares of the output rows, and each pass is one TMA load of
-// the strip's rows in boxes of 256 rows x 32 bytes, multicast: each box
-// is read from L2 once and lands in all K CTAs' shared memory (CTA k issues
-// boxes k, k + K, ...), so the L2 reads of the table are R * C * 4 bytes
-// per cluster. Why not gather through distributed shared memory instead
-// (each CTA holding a slice of the strip's rows): measured on an H100, a
-// random 4-byte read of another CTA's shared memory costs about 8 SM
-// cycles, so with 7/8 of the reads remote the kernel took 0.033 ms, three
-// times the direct gather (PERF.md, PR 5). Why TMA rather than cp.async:
-// only TMA multicasts. The tensor map (cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint) is encoded on the host for each call.
+// Design: block b takes the flat elements [b * 2048, (b + 1) * 2048),
+// thread t the elements b * 2048 + u * 256 + t for u < 8, so each load and
+// store of a warp is coalesced and a thread's 8 table loads are all in
+// flight; the column advances by 256 % C from one item to the next.
 //
-// The rule (gather_rows_plan, mirrored by the wrapper's docstring): the
-// strip instance where TMA takes the table (C a multiple of 4 and at least
-// 8, the table 16-byte aligned), in at most 8 passes (R <= 57,344) and at
-// most 65,535 strips, in clusters of kCluster CTAs; every other shape takes
-// the direct instance (gather_rows_direct_kernel): 8 elements a thread,
-// coalesced per load, all 8 table loads in flight.
-#include <cooperative_groups.h>
-#include <cuda.h>
+// Staging the table in shared memory in column strips of 8 columns (32
+// bytes a row: whole sectors), so that gathers read shared memory, was
+// built and measured on an H100 (PERF.md, PR 5) and ran slower in every
+// form: a strip is 256 KB at R = 8192, more than a block holds. Slices of
+// it in the CTAs of a cluster, gathered through distributed shared memory:
+// a random 4-byte remote read costs about 8 SM cycles (0.019-0.033 ms).
+// The whole strip in each CTA in two passes, staged by TMA (multicast to
+// 2, 4 or 8 CTAs) or by 16-byte cp.async: each SM then receives as many
+// sectors as the direct gather reads (0.016-0.028 ms). The direct gather
+// takes 0.011 ms.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace kinet {
 
-namespace cg = cooperative_groups;
+constexpr int kThreads = 256;
+constexpr int kItems = 8;  // elements a thread
 
-constexpr int kStripCols = 8;    // f32 columns of a strip: one 32-byte sector
-constexpr int kThreads = 256;    // threads of a block, both instances
-constexpr int kRowLanes = kThreads / kStripCols;  // rows a block reads at once
-constexpr int kRowsPerThread = 32;
-constexpr int kCtaRows = kRowLanes * kRowsPerThread;  // output rows a CTA
-constexpr int kBoxRows = 256;    // rows of a TMA box (its limit)
-constexpr int kBoxBytes = kBoxRows * kStripCols * 4;
-constexpr int kCluster = 8;      // the rule's cluster size
-constexpr int kMaxCluster = 8;   // portable cluster size limit
-constexpr int kMaxStrips = 65535;  // gridDim.y
-constexpr int kSmemCap = 232448;   // shared memory a block can use (227 KB)
-constexpr int kMaxPassRows =       // strip rows of one pass, plus the barrier
-    (kSmemCap - 8) / (kStripCols * 4) / kBoxRows * kBoxRows;  // 7,168
-constexpr int kMaxPasses = 8;
-constexpr int kDirectItems = 8;    // elements a thread, direct instance
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for phase `parity` of the barrier; traps after about 10 s instead
-// of hanging the card if the expected bytes never land.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// One box of the tensor map at (column c0, row r0) into shared memory
-// `dst` of every CTA in `mask` (of this CTA alone if mask is 0), counted
-// on the barrier at the same offset in each.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        int c0, int r0, uint32_t bar,
-                                        uint16_t mask) {
-  const uint64_t m = reinterpret_cast<uint64_t>(map);
-  if (mask)
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-            dst),
-        "l"(m), "r"(c0), "r"(r0), "r"(bar), "h"(mask)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-        "l"(m), "r"(c0), "r"(r0), "r"(bar)
-        : "memory");
-}
-
-__device__ __forceinline__ float nan_f32() {
-  return __int_as_float(0x7fc00000);
-}
-
-// Grid (ranges * K, strips), cluster (K, 1, 1); dynamic shared memory:
-// pass_rows * 32 bytes of strip, then the barrier.
 __global__ void __launch_bounds__(kThreads)
-    gather_rows_strip_kernel(const __grid_constant__ CUtensorMap map,
-                             const int* __restrict__ idx,
-                             float* __restrict__ out, int R, int C,
-                             int pass_rows, int passes, int range_rows) {
-  extern __shared__ __align__(1024) float strip[];  // [pass_rows][8]
-  cg::cluster_group cluster = cg::this_cluster();
-  const int K = (int)cluster.num_blocks();
-  const int k = (int)cluster.block_rank();
-  const int col = threadIdx.x % kStripCols;
-  const int lane_row = threadIdx.x / kStripCols;
-  const int c0 = blockIdx.y * kStripCols;
-  const bool live_col = c0 + col < C;
-  const uint32_t base = smem_addr(strip);
-  const uint32_t bar = base + pass_rows * kStripCols * 4;
-  if (threadIdx.x == 0) mbar_init(bar, 1);
-
-  // this CTA's output rows: its share of the cluster's row range
-  const int g_lo = (int)(blockIdx.x / K) * range_rows;
-  const int g_hi = min(R, g_lo + range_rows);
-  const int share = g_hi > g_lo ? (g_hi - g_lo + K - 1) / K : 0;
-  const int o_lo = g_lo + k * share;
-  const int o_hi = min(g_hi, o_lo + share);
-
-  // every index of the CTA, in flight while the strip lands; -1: NaN
-  int rr[kRowsPerThread];
-  float v[kRowsPerThread];
-#pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) {
-    const int i = o_lo + lane_row + m * kRowLanes;
-    int r = -1;
-    if (i < o_hi && live_col) {
-      r = __ldg(idx + (long long)i * C + c0 + col);
-      r += r < 0 ? R : 0;
-      r = (unsigned)r < (unsigned)R ? r : -1;
-    }
-    rr[m] = r;
-    v[m] = nan_f32();
-  }
-  cluster.sync();  // every barrier of the cluster is initialised
-
-  const uint16_t mask = K > 1 ? (uint16_t)((1u << K) - 1) : 0;
-  for (int p = 0; p < passes; ++p) {
-    const int row0 = p * pass_rows;
-    const int rows = min(pass_rows, R - row0);
-    if (threadIdx.x == 0) {
-      const int boxes = (rows + kBoxRows - 1) / kBoxRows;
-      mbar_expect_tx(bar, (uint32_t)(boxes * kBoxBytes));
-      for (int b = k; b < boxes; b += K)
-        tma_box(base + b * kBoxBytes, &map, c0, row0 + b * kBoxRows, bar,
-                mask);
-    }
-    mbar_wait(bar, (uint32_t)(p & 1));
-#pragma unroll
-    for (int m = 0; m < kRowsPerThread; ++m) {
-      const int local = rr[m] - row0;
-      if ((unsigned)local < (unsigned)rows)
-        v[m] = strip[local * kStripCols + col];
-    }
-    cluster.sync();  // no CTA's next pass lands while another still reads
-  }
-#pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) {
-    const int i = o_lo + lane_row + m * kRowLanes;
-    if (i < o_hi && live_col) out[(long long)i * C + c0 + col] = v[m];
-  }
-}
-
-// Block b takes elements [b * 2048, (b + 1) * 2048) of the flat arrays,
-// thread t the elements b * 2048 + u * 256 + t: each load and store of a
-// warp is coalesced, and a thread's 8 table loads are all in flight.
-__global__ void __launch_bounds__(kThreads)
-    gather_rows_direct_kernel(const float* __restrict__ tbl,
-                              const int* __restrict__ idx,
-                              float* __restrict__ out, int R, int C,
-                              long long n, int step) {
-  const long long t0 =
-      (long long)blockIdx.x * kThreads * kDirectItems + threadIdx.x;
+    gather_rows_kernel(const float* __restrict__ tbl,
+                       const int* __restrict__ idx, float* __restrict__ out,
+                       int R, int C, long long n, int step) {
+  const long long t0 = (long long)blockIdx.x * kThreads * kItems + threadIdx.x;
   if (t0 >= n) return;
-  int r[kDirectItems];
+  int r[kItems];
 #pragma unroll
-  for (int u = 0; u < kDirectItems; ++u) {
+  for (int u = 0; u < kItems; ++u) {
     const long long t = t0 + (long long)u * kThreads;
     r[u] = t < n ? __ldg(idx + t) : 0;
   }
-  int col = (int)(t0 % C);  // the column advances by step = 256 % C
-  float v[kDirectItems];
+  int col = (int)(t0 % C);
+  float v[kItems];
 #pragma unroll
-  for (int u = 0; u < kDirectItems; ++u) {
+  for (int u = 0; u < kItems; ++u) {
     const int row = r[u] + (r[u] < 0 ? R : 0);
     v[u] = (unsigned)row < (unsigned)R
                ? __ldg(tbl + (long long)row * C + col)
-               : nan_f32();
+               : __int_as_float(0x7fc00000);  // NaN
     col += step;
     col -= col >= C ? C : 0;
   }
 #pragma unroll
-  for (int u = 0; u < kDirectItems; ++u) {
+  for (int u = 0; u < kItems; ++u) {
     const long long t = t0 + (long long)u * kThreads;
     if (t < n) out[t] = v[u];
   }
 }
 
-// The plan of one call: cluster 0 is the direct instance; else clusters
-// of K CTAs, one per strip and row range, staging passes of pass_rows.
-struct Plan {
-  int cluster, ranges, strips, passes, pass_rows;
-};
-
-static int sm_count() {
-  static int counts[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev] > 0 ? counts[dev] : 132;
-}
-
-inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// cluster -1: by the rule above; 0: direct; 1, 2, 4 or 8: the strip
-// instance with that cluster size. Returns false if the instance asked for
-// cannot take the shape (tma_ok: the table is 16-byte aligned).
-static bool plan_for(int R, int C, int cluster, int n_sm, bool tma_ok,
-                     Plan* p) {
-  *p = Plan{0, 0, ceil_div(C, kStripCols), 0, 0};
-  const int passes = ceil_div(R, kMaxPassRows);
-  const bool strips_ok = tma_ok && C % 4 == 0 && C >= kStripCols &&
-                         passes <= kMaxPasses && p->strips <= kMaxStrips;
-  int k = cluster < 0 ? (strips_ok ? kCluster : 0) : cluster;
-  if (k == 0) return true;
-  if (!strips_ok || (k & (k - 1)) != 0 || k > kMaxCluster) return false;
-  p->cluster = k;
-  p->passes = passes;
-  p->pass_rows = ceil_div(ceil_div(R, passes), kBoxRows) * kBoxRows;
-  // fill the SMs with clusters, at most kCtaRows output rows a CTA and
-  // at least a row a thread
-  int ranges = n_sm / (p->strips * k);
-  const int by_rows = ceil_div(R, k * kThreads);
-  ranges = ranges < by_rows ? ranges : by_rows;
-  const int least = ceil_div(R, (long long)k * kCtaRows);
-  ranges = ranges > least ? ranges : least;
-  p->ranges = ranges > 1 ? ranges : 1;
-  return true;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-static cudaError_t launch_strip(const float* tbl, const int* idx, float* out,
-                                int R, int C, const Plan& p,
-                                cudaStream_t stream) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)R};
-  const cuuint64_t strides[1] = {(cuuint64_t)C * 4};
-  const cuuint32_t box[2] = {kStripCols, kBoxRows};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-             const_cast<float*>(tbl), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  static bool raised[64];  // the shared-memory limit, raised once a device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && !raised[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gather_rows_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemCap);
-    if (err != cudaSuccess) return err;
-    raised[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(p.ranges * p.cluster), (unsigned)p.strips, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)p.pass_rows * kStripCols * 4 + 8;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gather_rows_strip_kernel, map, idx, out, R,
-                            C, p.pass_rows, p.passes,
-                            ceil_div(R, p.ranges));
-}
-
 }  // namespace kinet
 
-// C entries bound with ctypes. gather_rows_plan fills plan[0..4] with the
-// (cluster, ranges, strips, passes, pass rows) of a call on the current
-// device for a 16-byte aligned table (cluster 0: the direct instance);
-// gather_rows_instance launches the instance asked for (cluster as in
-// plan_for); gather_rows launches the rule's. Each returns 0,
-// cudaErrorInvalidValue for an instance that cannot take the shape, or
-// the CUDA error of the launch.
-extern "C" int gather_rows_plan(int R, int C, int cluster, int* plan) {
-  kinet::Plan p;
-  if (R <= 0 || C <= 0 ||
-      !kinet::plan_for(R, C, cluster, kinet::sm_count(), true, &p))
-    return (int)cudaErrorInvalidValue;
-  plan[0] = p.cluster;
-  plan[1] = p.ranges;
-  plan[2] = p.strips;
-  plan[3] = p.passes;
-  plan[4] = p.pass_rows;
-  return 0;
-}
-
-extern "C" int gather_rows_instance(const void* tbl_, const void* idx_,
-                                    void* out_, int R, int C, int cluster,
-                                    void* stream_) {
-  const float* tbl = static_cast<const float*>(tbl_);
-  const int* idx = static_cast<const int*>(idx_);
-  float* out = static_cast<float*>(out_);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  kinet::Plan p;
-  if (R <= 0 || C <= 0 ||
-      !kinet::plan_for(R, C, cluster, kinet::sm_count(),
-                       (uintptr_t)tbl % 16 == 0, &p))
-    return (int)cudaErrorInvalidValue;
-  if (p.cluster == 0) {
-    const long long n = (long long)R * C;
-    const long long per_block = kinet::kThreads * kinet::kDirectItems;
-    kinet::gather_rows_direct_kernel<<<(unsigned)((n + per_block - 1) /
-                                                  per_block),
-                                       kinet::kThreads, 0, stream>>>(
-        tbl, idx, out, R, C, n, kinet::kThreads % C);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = kinet::launch_strip(tbl, idx, out, R, C, p, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
+// C entry bound with ctypes. Returns cudaGetLastError() after the launch.
 extern "C" int gather_rows(const void* tbl, const void* idx, void* out, int R,
                            int C, void* stream) {
-  return gather_rows_instance(tbl, idx, out, R, C, -1, stream);
+  const long long n = (long long)R * C;
+  const long long per_block = kinet::kThreads * kinet::kItems;
+  kinet::gather_rows_kernel<<<(unsigned int)((n + per_block - 1) / per_block),
+                              kinet::kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tbl), static_cast<const int*>(idx),
+      static_cast<float*>(out), R, C, n, kinet::kThreads % C);
+  return (int)cudaGetLastError();
 }

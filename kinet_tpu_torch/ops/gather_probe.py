@@ -12,20 +12,10 @@ kernel for CUDA tensors, adding one to ``gather_rows.launches``, or
 raises. ``torch.gather(tbl, 0, idx)`` computes the same function for valid
 indices; the probe times it as a yardstick and the port does not call it.
 
-The kernel has two instances, chosen by shape in its C entry:
-
-- the strip instance: the table in column strips of 8 columns (32 bytes a
-  row); a CTA takes up to 1,024 output rows of one strip, stages the strip
-  in its shared memory in passes of at most 7,168 rows (TMA boxes of 256
-  rows, multicast to the K = 8 CTAs of a cluster that share the strip) and
-  gathers every element from there;
-- the direct instance: 8 elements a thread read straight from the table.
-
-The rule: the strip instance where TMA takes the table (C a multiple of 4
-and at least 8, the table 16-byte aligned), in at most 8 passes (R <=
-57,344) and at most 65,535 strips; the direct instance for every other
-shape. ``gather_rows(..., cluster=k)`` asks for one instance (0: direct;
-1, 2, 4, 8: strips in clusters of k), for tests and measurements.
+The kernel is a direct gather, 8 elements a thread (all 8 table loads in
+flight, each load and store of a warp coalesced), for any shape and
+alignment. Staging the table in shared memory in column strips was built
+and measured slower on the H100 (the kernel's source note, PERF.md).
 """
 from __future__ import annotations
 
@@ -62,36 +52,9 @@ def gather_rows_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, out, torch.full_like(out, float("nan")))
 
 
-def _lib_fn(name, argtypes):
-    fn = getattr(cuda_build.load("gather_rows"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def gather_rows_plan(r: int, c: int, cluster: int | None = None,
-                     device=None) -> dict:
-    """The plan the C entry takes for an [r, c] table on a CUDA device:
-    ``cluster`` (0: the direct instance), ``ranges``, ``strips``,
-    ``passes`` and ``pass_rows``, for a 16-byte aligned table. Raises
-    ValueError if the instance asked for cannot take the shape."""
-    fn = _lib_fn("gather_rows_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    plan = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        rc = fn(r, c, -1 if cluster is None else cluster, plan)
-    if rc != 0:
-        raise ValueError(f"no gather_rows instance with cluster={cluster} "
-                         f"takes a [{r}, {c}] table")
-    return dict(zip(("cluster", "ranges", "strips", "passes", "pass_rows"),
-                    plan))
-
-
-def gather_rows(tbl: torch.Tensor, idx: torch.Tensor,
-                cluster: int | None = None) -> torch.Tensor:
+def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i, j] = tbl[idx[i, j], j]`` for tbl [R, C] float32 and idx
-    [R, C] int32, by the instance the rule picks (module docstring), or by
-    the one ``cluster`` names."""
+    [R, C] int32."""
     if tbl.device.type == "cpu":
         return gather_rows_plain(tbl, idx)
     if tbl.device.type != "cuda":
@@ -102,12 +65,14 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor,
     out = torch.empty_like(tbl)
     if out.numel() == 0:
         return out
-    fn = _lib_fn("gather_rows_instance", [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = cuda_build.load("gather_rows").gather_rows
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     with torch.cuda.device(tbl.device):
         stream = torch.cuda.current_stream(tbl.device).cuda_stream
-        rc = fn(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), r, c,
-                -1 if cluster is None else cluster, stream)
+        rc = fn(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), r, c, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
     gather_rows.launches += 1

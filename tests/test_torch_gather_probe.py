@@ -2,12 +2,12 @@
 scripts/pallas_gather_probe.py::run): the plain version against
 jnp.take_along_axis(tbl, idx, axis=0), the kernel's body, on the same
 numpy-seeded inputs (exact: a gather copies values), including negative and
-out-of-range indices; a numpy model of the kernel's two instances (which
-strip, which cluster CTA and which row range holds each element, and the
-instance rule by shape) against take_along_axis; the probe's entry point
-on the CPU; and, where a card is present, each CUDA instance against the
-plain version and the C entry's plan against the model. The JAX probe
-script runs its benchmark when imported, so it is not imported here.
+out-of-range indices; a numpy model of the kernel's work split (which
+block, thread and item takes each element, and its column) against
+take_along_axis; the probe's entry point on the CPU; and, where a card is
+present, the CUDA kernel against the plain version at odd shapes, on
+non-contiguous and unaligned inputs. The JAX probe script runs its
+benchmark when imported, so it is not imported here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,122 +18,41 @@ from kinet_tpu_torch.ops import gather_probe
 from kinet_tpu_torch.tools import gather_probe as probe
 
 
-STRIP = 8  # f32 columns of a strip: 32 bytes a row
-THREADS, DIRECT_ITEMS = 256, 8
-ROW_LANES, ROWS_PER_THREAD = THREADS // STRIP, 32
-CTA_ROWS = ROW_LANES * ROWS_PER_THREAD  # output rows a CTA
-BOX_ROWS = 256  # rows of a TMA box
-MAX_PASS_ROWS = (232448 - 8) // (STRIP * 4) // BOX_ROWS * BOX_ROWS  # 7168
-MAX_PASSES, MAX_CLUSTER, MAX_STRIPS = 8, 8, 65535
-RULE_CLUSTER = 8  # csrc/gather_rows.cu kCluster
+THREADS, ITEMS = 256, 8  # csrc/gather_rows.cu kThreads, kItems
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def _plan_model(r, c, cluster=None, n_sm=132, aligned=True):
-    """csrc/gather_rows.cu::plan_for: the instance and its grid for an
-    [r, c] table (cluster 0: the direct instance). None: the rule."""
-    strips = _cdiv(c, STRIP)
-    passes = _cdiv(r, MAX_PASS_ROWS)
-    strips_ok = aligned and c % 4 == 0 and c >= STRIP and \
-        passes <= MAX_PASSES and strips <= MAX_STRIPS
-    k = (RULE_CLUSTER if strips_ok else 0) if cluster is None else cluster
-    if k == 0:
-        return dict(cluster=0, ranges=0, strips=strips, passes=0, pass_rows=0)
-    if not strips_ok or k not in (1, 2, 4, 8):
-        raise ValueError(f"cluster {k} cannot take [{r}, {c}]")
-    ranges = min(n_sm // (strips * k), _cdiv(r, k * THREADS))
-    ranges = max(ranges, _cdiv(r, k * CTA_ROWS), 1)
-    return dict(cluster=k, ranges=ranges, strips=strips, passes=passes,
-                pass_rows=_cdiv(_cdiv(r, passes), BOX_ROWS) * BOX_ROWS)
-
-
-def _run_model(tbl, idx, plan):
-    """The kernel's data movement in numpy: returns the output and how many
-    times each output element was written. Strip instance: for each (row
-    range, strip), CTA k of the cluster takes its share of the range's
-    output rows (at most 1,024, thread (row lane, column) its rows lane,
-    lane + 32, ...); in pass p the cluster's CTAs issue the pass's boxes
-    k, k + K, ... of 256 rows x 8 columns (columns past C read as zeros),
-    which land in every CTA's buffer, and each element whose row the pass
-    holds is read from the buffer: every valid element exactly once, never
-    from a column past C. Direct instance: block b, thread t, item u take
-    flat element b * 2048 + u * 256 + t, the column kept by adding 256 % C."""
+def _run_model(tbl, idx):
+    """The kernel's work split in numpy: block b, thread t, item u take flat
+    element b * 2048 + u * 256 + t, the column kept by adding 256 % C from
+    one item to the next. Returns the output and how many times each
+    element was written."""
     r, c = tbl.shape
-    out = np.full((r, c), -7.0, np.float32)
-    writes = np.zeros((r, c), np.int64)
-    if plan["cluster"] == 0:
-        n = r * c
-        step = THREADS % c
-        flat_idx, flat_tbl = idx.reshape(-1), tbl.reshape(-1)
-        flat_out, flat_w = out.reshape(-1), writes.reshape(-1)
-        for b in range(_cdiv(n, THREADS * DIRECT_ITEMS)):
-            t0 = b * THREADS * DIRECT_ITEMS + np.arange(THREADS)
-            col = t0 % c
-            for u in range(DIRECT_ITEMS):
-                t = t0 + u * THREADS
-                ok = t < n
-                assert (col[ok] == t[ok] % c).all()
-                row = flat_idx[t[ok]].astype(np.int64)
-                row = np.where(row < 0, row + r, row)
-                inside = (row >= 0) & (row < r)
-                val = flat_tbl[np.clip(row, 0, r - 1) * c + col[ok]]
-                flat_out[t[ok]] = np.where(inside, val, np.nan)
-                flat_w[t[ok]] += 1
-                col = col + step
-                col = np.where(col >= c, col - c, col)
-        return out, writes
-    k_n, pass_rows = plan["cluster"], plan["pass_rows"]
-    assert pass_rows * STRIP * 4 + 8 <= 232448
-    range_rows = _cdiv(r, plan["ranges"])
-    padded = np.zeros((r, plan["strips"] * STRIP), np.float32)
-    padded[:, :c] = tbl
-    for s in range(plan["strips"]):
-        c0 = s * STRIP
-        for g in range(plan["ranges"]):
-            g_lo = g * range_rows
-            g_hi = min(r, g_lo + range_rows)
-            share = _cdiv(g_hi - g_lo, k_n) if g_hi > g_lo else 0
-            assert share <= CTA_ROWS
-            for k in range(k_n):
-                o_lo = g_lo + k * share
-                o_hi = min(g_hi, o_lo + share)
-                if o_hi <= o_lo:
-                    continue
-                rows_i = o_lo + np.arange(ROW_LANES)[:, None] + \
-                    ROW_LANES * np.arange(ROWS_PER_THREAD)[None, :]
-                mine = np.sort(rows_i[rows_i < o_hi])
-                assert (mine == np.arange(o_lo, o_hi)).all()
-                cols = np.arange(STRIP)[None, :]
-                live = (c0 + cols < c) & np.ones((o_hi - o_lo, 1), bool)
-                ix = idx[o_lo:o_hi, c0:min(c, c0 + STRIP)].astype(np.int64)
-                ix = np.pad(ix, ((0, 0), (0, STRIP - ix.shape[1])))
-                ix = np.where(ix < 0, ix + r, ix)
-                ix = np.where((ix >= 0) & (ix < r) & live, ix, -1)
-                v = np.full(ix.shape, np.nan, np.float32)
-                filled = np.zeros(ix.shape, np.int64)
-                for p in range(plan["passes"]):
-                    row0 = p * pass_rows
-                    rows = min(pass_rows, r - row0)
-                    boxes = _cdiv(rows, BOX_ROWS)
-                    issued = sorted(b for kk in range(k_n)
-                                    for b in range(kk, boxes, k_n))
-                    assert issued == list(range(boxes))
-                    buf = np.zeros((boxes * BOX_ROWS, STRIP), np.float32)
-                    held = padded[row0:row0 + rows, c0:c0 + STRIP]
-                    buf[:rows] = held
-                    local = ix - row0
-                    hit = (local >= 0) & (local < rows)
-                    v = np.where(hit, buf[np.clip(local, 0, len(buf) - 1),
-                                          np.broadcast_to(cols, ix.shape)], v)
-                    filled += hit
-                assert (filled[ix >= 0] == 1).all() and (filled[ix < 0] == 0).all()
-                w = min(c, c0 + STRIP) - c0
-                out[o_lo:o_hi, c0:c0 + w] = v[:, :w]
-                writes[o_lo:o_hi, c0:c0 + w] += 1
-    return out, writes
+    n = r * c
+    step = THREADS % c
+    flat_idx, flat_tbl = idx.reshape(-1), tbl.reshape(-1)
+    out = np.full(n, -7.0, np.float32)
+    writes = np.zeros(n, np.int64)
+    for b in range(_cdiv(n, THREADS * ITEMS)):
+        t0 = b * THREADS * ITEMS + np.arange(THREADS)
+        live = t0 < n
+        col = t0 % c
+        for u in range(ITEMS):
+            t = t0 + u * THREADS
+            ok = live & (t < n)
+            assert (col[ok] == t[ok] % c).all()
+            row = flat_idx[t[ok]].astype(np.int64)
+            row = np.where(row < 0, row + r, row)
+            inside = (row >= 0) & (row < r)
+            val = flat_tbl[np.clip(row, 0, r - 1) * c + col[ok]]
+            out[t[ok]] = np.where(inside, val, np.nan)
+            writes[t[ok]] += 1
+            col = col + step
+            col = np.where(col >= c, col - c, col)
+    return out.reshape(r, c), writes.reshape(r, c)
 
 
 def _inputs(seed, r=64, c=16, lo=0, hi=None):
@@ -151,54 +70,21 @@ def test_plain_matches_take_along_axis(bounds):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
-@pytest.mark.parametrize("shape,cluster,bounds", [
-    ((8192, 128), None, (0, None)),  # the probe's shape: 2 passes
-    ((8192, 128), 2, (-8192, 8300)),
-    ((8193, 20), None, (-9000, 9000)),  # a last strip of 4 columns
-    ((1000, 20), 4, (-1000, 1100)),
-    ((300, 8), 1, (-400, 400)),
-    ((8193, 13), None, (-9000, 9000)),  # a pitch TMA refuses: direct
-    ((57345, 12), None, (-57345, 57400)),  # past the pass limit: direct
-    ((523, 300), 0, (-600, 600)),
-])
-def test_kernel_plan_model_matches_take_along_axis(shape, cluster, bounds):
-    tbl, idx = _inputs(3, *shape, lo=bounds[0], hi=bounds[1])
-    plan = _plan_model(*shape, cluster)
-    if cluster is None:
-        strips_ok = shape[1] % 4 == 0 and shape[0] <= MAX_PASSES * MAX_PASS_ROWS
-        assert plan["cluster"] == (RULE_CLUSTER if strips_ok else 0)
-    if plan["cluster"]:
-        assert plan["ranges"] * plan["strips"] * plan["cluster"] <= max(
-            132, plan["strips"] * plan["cluster"] * _cdiv(
-                shape[0], plan["cluster"] * CTA_ROWS))
-    out, writes = _run_model(tbl, idx, plan)
+# the probe's shape; a column count under, at and over one block's 256
+# threads; a single column; a table of more than 65,536 rows
+SHAPES = [(8192, 128), (8193, 13), (1000, 20), (300, 7), (64, 256),
+          (523, 300), (3, 1), (57345, 12)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_model_matches_take_along_axis(shape):
+    r = shape[0]
+    tbl, idx = _inputs(3, *shape, lo=-r - 5, hi=r + 5)
+    out, writes = _run_model(tbl, idx)
     assert (writes == 1).all()
     ref = np.asarray(jnp.take_along_axis(jnp.asarray(tbl), jnp.asarray(idx), axis=0))
+    assert np.isnan(ref).any()
     np.testing.assert_array_equal(out, ref)
-
-
-def test_kernel_instance_rule_by_shape():
-    # the probe's shape: 16 strips in clusters of 8, one row range, the
-    # strip in two passes of 4,096 rows
-    assert _plan_model(8192, 128) == dict(cluster=8, ranges=1, strips=16,
-                                          passes=2, pass_rows=4096)
-    assert _plan_model(8192, 128, 2) == dict(cluster=2, ranges=4, strips=16,
-                                             passes=2, pass_rows=4096)
-    assert MAX_PASS_ROWS == 7168
-    assert _plan_model(MAX_PASSES * MAX_PASS_ROWS, 16)["cluster"] == 8
-    assert _plan_model(MAX_PASSES * MAX_PASS_ROWS + 1, 16)["cluster"] == 0
-    assert _plan_model(64, STRIP * MAX_STRIPS)["cluster"] == 8
-    assert _plan_model(64, STRIP * MAX_STRIPS + 4)["cluster"] == 0
-    for c in (4, 6, 13, 130):  # narrower than a strip, or a pitch TMA refuses
-        assert _plan_model(64, c)["cluster"] == 0
-    assert _plan_model(64, 16, aligned=False)["cluster"] == 0
-    # at most 1,024 output rows a CTA: more row ranges than the SMs ask for
-    assert _plan_model(40000, 128)["ranges"] == 5
-    assert _plan_model(100, 8)["ranges"] == 1  # less than a row a thread
-    for cluster, shape in ((3, (64, 16)), (16, (64, 16)), (2, (64, 13)),
-                           (1, (MAX_PASSES * MAX_PASS_ROWS + 1, 8))):
-        with pytest.raises(ValueError):
-            _plan_model(*shape, cluster)
 
 
 def test_probe_entry_point_on_cpu(capsys):
@@ -239,54 +125,28 @@ def test_kernel_matches_plain_on_gpu():
     torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
 
 
-def _sm_count():
-    return torch.cuda.get_device_properties(0).multi_processor_count
-
-
 @pytest.mark.gpu
-def test_kernel_plan_matches_model_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
-    for shape in ((8192, 128), (8193, 13), (8193, 20), (57344, 8),
-                  (57345, 8), (64, 16), (1000, 20), (40000, 128),
-                  (64, STRIP * MAX_STRIPS + 4)):
-        for cluster in (None, 0, 1, 2, 4, 8, 3):
-            try:
-                want = _plan_model(*shape, cluster, n_sm=_sm_count())
-            except ValueError:
-                with pytest.raises(ValueError):
-                    gather_probe.gather_rows_plan(*shape, cluster)
-                continue
-            assert gather_probe.gather_rows_plan(*shape, cluster) == want
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,cluster", [
-    ((8192, 128), None), ((8192, 128), 0), ((8192, 128), 1),
-    ((8192, 128), 2), ((8192, 128), 4), ((8193, 20), None),
-    ((8193, 13), None), ((1000, 20), 2), ((300, 8), 1),
-    ((57344, 12), None), ((57345, 12), None),
-])
-def test_kernel_instances_match_plain_on_gpu(shape, cluster):
-    """Each instance exactly equals the plain version, NaNs in the same
-    places, with one launch a call."""
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_plain_at_odd_shapes_on_gpu(shape):
+    """Exactly the plain version, NaNs in the same places, one launch a
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the GPU")
     r = shape[0]
     tbl, idx = (torch.from_numpy(x).cuda()
                 for x in _inputs(4, *shape, lo=-r - 5, hi=r + 5))
     before = gather_probe.gather_rows.launches
-    out = gather_probe.gather_rows(tbl, idx, cluster=cluster)
+    out = gather_probe.gather_rows(tbl, idx)
     assert gather_probe.gather_rows.launches == before + 1
     ref = gather_probe.gather_rows_plain(tbl, idx)
-    assert torch.isnan(ref).any() and not torch.isnan(ref).all()
+    assert torch.isnan(ref).any()
     torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.gpu
 def test_kernel_takes_non_contiguous_and_unaligned_inputs_on_gpu():
     """A transposed view is copied to a contiguous one; a table that is not
-    16-byte aligned takes the direct instance."""
+    16-byte aligned is gathered as it lies."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the GPU")
     tbl, idx = (torch.from_numpy(np.ascontiguousarray(x.T)).cuda().t()
@@ -302,5 +162,3 @@ def test_kernel_takes_non_contiguous_and_unaligned_inputs_on_gpu():
     torch.testing.assert_close(gather_probe.gather_rows(shifted, idx),
                                gather_probe.gather_rows_plain(shifted, idx),
                                rtol=0, atol=0, equal_nan=True)
-    with pytest.raises(RuntimeError):
-        gather_probe.gather_rows(shifted, idx, cluster=8)
