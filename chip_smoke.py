@@ -124,8 +124,8 @@ def nvidia_smi_line() -> str:
 
 
 def ptxas_entries(text):
-    """(mangled entry name, registers and static shared memory, spills) of
-    every kernel instance in nvcc's ``-Xptxas -v`` messages."""
+    """(mangled entry name, registers, spills) of every kernel instance in
+    nvcc's ``-Xptxas -v`` messages."""
     entries, name, spills = [], "?", ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -133,7 +133,7 @@ def ptxas_entries(text):
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
-            regs = line.split("Used", 1)[1].strip()
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
             entries.append((name, regs, spills))
     return entries
 
@@ -653,8 +653,7 @@ def phase_gather_probe(torch):
     return dict(max_abs_err=err, ms=t_k, cold_ms=cold_k,
                 wrapper_ms=timed["wrapper_ms"], plain_ms=timed["plain_ms"],
                 bound_ms=t_b, bound_by=by, library_ms=t_lib,
-                library_cold_ms=cold_lib, launches=launches,
-                probe_us_per_op=res["us_per_op"])
+                library_cold_ms=cold_lib, launches=launches)
 
 
 # ---------------------------------------------------------------------------

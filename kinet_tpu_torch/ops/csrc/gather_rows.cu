@@ -23,7 +23,7 @@
 //
 // Staging the table in shared memory in column strips of 8 columns (32
 // bytes a row: whole sectors), so that gathers read shared memory, was
-// built and measured on an H100 (PERF.md, PR 5) and ran slower in every
+// built and measured on an H100 (PERF.md, Findings) and ran slower in every
 // form: a strip is 256 KB at R = 8192, more than a block holds. Slices of
 // it in the CTAs of a cluster, gathered through distributed shared memory:
 // a random 4-byte remote read costs about 8 SM cycles (0.019-0.033 ms).

@@ -39,15 +39,15 @@ def probe_inputs(device, seed: int = 0):
     return tbl.to(device), idx.to(device)
 
 
-def device_seconds(fn, n: int, host_s: float = 1e-3) -> tuple[float, int]:
+def device_seconds(fn, n: int) -> tuple[float, int]:
     """Device seconds per call of fn over n back-to-back calls, and the
     number of timed windows of n calls it took. The calls are queued behind
-    a spin kernel sized for host_s seconds of host time a call (about 16
-    times what a ``gather_rows`` call takes), so that the interval between
-    the CUDA events holds the calls' device work and none of the host's. If
-    the first event has fired by the time the last call is enqueued, the
-    spin was too short: the window is timed again with a spin twice as
-    long."""
+    a spin kernel sized for 1 ms of host time a call (about 16 times what a
+    ``gather_rows`` call takes), so that the interval between the CUDA
+    events holds the calls' device work and none of the host's. If the
+    first event has fired by the time the last call is enqueued, the spin
+    was too short: the window is timed again with a spin twice as long."""
+    host_s = 1e-3
     for window in range(1, 7):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

@@ -38,11 +38,10 @@ def _run_model(tbl, idx):
     writes = np.zeros(n, np.int64)
     for b in range(_cdiv(n, THREADS * ITEMS)):
         t0 = b * THREADS * ITEMS + np.arange(THREADS)
-        live = t0 < n
         col = t0 % c
         for u in range(ITEMS):
             t = t0 + u * THREADS
-            ok = live & (t < n)
+            ok = t < n
             assert (col[ok] == t[ok] % c).all()
             row = flat_idx[t[ok]].astype(np.int64)
             row = np.where(row < 0, row + r, row)
