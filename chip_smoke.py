@@ -8,12 +8,14 @@ toolkit's nvcc; imports nothing of JAX or of the JAX package. Phases, each
 failing the run on any mismatch:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the five kernels from kinet_tpu_torch/ops/csrc;
+2. build: nvcc builds the five kernel sources of kinet_tpu_torch/ops/csrc
+   (six kernels: msda_raw_pool_fwd.cu also holds the int8 instance);
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
    updates, decoder raw-pool with a bottom/right pad; a random reference
-   point per query), f32 (TF32 off) and bf16, with times and what the
-   corners read (corners, distinct rows, L2 bytes of the corner reads in
+   point per query; the int8 raw pool over each frame's half quantized
+   on its own, pooled in f32 and bf16), f32 (TF32 off) and bf16, with
+   times and what the corners read (corners, distinct rows, L2 bytes of the corner reads in
    32-byte sectors, that over the device time);
 3b. backward kernels vs the plain versions' autograd gradients at the
    training shapes (672x1184), f32 and bf16, with times and each pass's
@@ -33,6 +35,10 @@ P2. the row-gather probe kernel exactly against its plain version and
    recorded by wrapping the two entry points where the model binds them,
    each call's kernel against its plain version (bf16 and f32) and its
    device time and reads on the main path's own samples (``replay_ms``);
+   then the same with the served config's int8 decoder table
+   (dec_msda_int8): 6 + 6 launches a frame of msda_fwd and the int8 raw
+   pool, whose replay also times the bf16 kernel on the same calls
+   (``replay_bf16_ms``);
 6. one full-width f32 train step (dropout 0) on the card against the CPU
    at 256x448, on the same augmented targets: loss, gradient norm and the
    MSDA linears' gradients;
@@ -42,7 +48,12 @@ P2. the row-gather probe kernel exactly against its plain version and
    earlier f32-atomic backward kernels, each backward kernel's device
    time a call and each forward kernel's a launch); then
    train(cfg), the entry point, on a synthetic MOT dataset,
-   writing a checkpoint and resuming from it.
+   writing a checkpoint and resuming from it;
+T. the tracking CLI, ``python -m kinet_tpu_torch.engine.track``, as a
+   subprocess on a synthetic MOT17-02-FRCNN (1080x1920 JPEGs, 16 frames)
+   with a saved full-width bf16 run that has dec_msda_int8: exit 0, 6 + 6
+   launches a frame, a result file, finite MOTA / IDF1 / HOTA, and the
+   frames/s of its RUNTIME line.
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -61,6 +72,10 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 Then one JSON line listing every kernel with its launches, error and times;
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run) and prints no result line.
+``--serve-profile [--package DIR]`` only times the served frame as phase 5
+does and profiles its host side (cProfile), for this checkout or the
+kinet_tpu_torch of another one (it uses only entry points the port has had
+since its first slice), and prints no result line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 kinet_tpu_torch package beside this file.
@@ -87,6 +102,10 @@ FLAGSHIP = ["train_deformable", "train_tracking", "train_multi_frame"]
 LEVELS = ((100, 180), (50, 90), (25, 45), (13, 23))
 N_FRAMES, WARMUP = 14, 2
 MAIN_HW = (800, 1440)
+# the tracking CLI's sequence: MOT17-02's size and name
+T_SEQ, T_FRAMES, T_HW = "MOT17-02-FRCNN", 16, (1080, 1920)
+# its val transform: 800 rows, at most 1440 columns (1080x1920 -> 800x1422)
+T_TRANSFORM = {"img_transform.max_size": 1440, "img_transform.val_width": 800}
 # training: bench_train.py's 672x1184, levels at strides 8, 16, 32, 64
 TRAIN_LEVELS = ((84, 148), (42, 74), (21, 37), (11, 19))
 TRAIN_HW, TRAIN_OBJECTS = (672, 1184), 20
@@ -352,6 +371,34 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         st = read_stats(torch, "msda", loc, shapes, None, d, esize)
         moved = st["distinct"] * d * esize + sample_bytes + b * lq * m * d * 4
         flops = st["corners"] * d * 2 + n_samples * 20
+    elif kind == "raw_i8":
+        # the decoder's int8 table: each frame's half (the first and last
+        # L / 2 levels) quantized on its own; dtype is pooled's
+        c = 288
+        src = torch.randn(b, s, c, generator=gen, device=gen.device)
+        split = sum(h * w for h, w in shapes[:l // 2])
+        (q_cur, s_cur), (q_prev, s_prev) = (msda.quantize_rows(src[:, :split]),
+                                            msda.quantize_rows(src[:, split:]))
+        q8 = torch.cat([q_cur, q_prev], dim=1)
+        scales = torch.cat([s_cur[:, None].expand(b, l // 2),
+                            s_prev[:, None].expand(b, l - l // 2)], 1).contiguous()
+        args = (q8, shapes, loc, aw, extents, scales, dtype)
+        out, wsum = msda.ms_deform_attn_raw_pool(*args)
+        torch.cuda.synchronize()
+        ref, ref_w = msda.ms_deform_attn_raw_pool_plain(*args)
+        tol = dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else \
+            dict(rtol=1e-4, atol=1e-5)
+        assert_close(torch, f"{name} {dtype}", out, ref, **tol)
+        assert_close(torch, f"{name} wsum {dtype}", wsum, ref_w, 1e-4, 1e-5)
+        err = max(errors(torch, out, ref), errors(torch, wsum, ref_w))
+        run_k = lambda: msda.ms_deform_attn_raw_pool(*args)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_raw_pool_plain(*args)  # noqa: E731
+        st = read_stats(torch, "raw", loc, shapes, extents, c, 1)
+        # int8 rows, the samples, extents and scales read; pooled (in
+        # dtype) and wsum written
+        moved = st["distinct"] * c + sample_bytes + l * b * (8 + 4) + \
+            b * lq * m * (c * esize + 4)
+        flops = st["corners"] * c * 2 + n_samples * 20
     else:
         c = 288
         src = torch.randn(b, s, c, generator=gen, device=gen.device).to(dtype)
@@ -411,12 +458,14 @@ def phase_kernels(torch, msda):
          LEVELS[0][0] * LEVELS[0][1], 2, 1),
         ("msda_raw_pool_fwd", "msda_raw_pool_fwd", "raw", dec_shapes,
          600, 2, 6),
+        ("msda_raw_pool_fwd_i8", "msda_raw_pool_fwd_i8", "raw_i8", dec_shapes,
+         600, 2, 6),
     ]
     results = {}
     for name, kernel, kind, shapes, lq, p, per_frame in cases:
         for dtype in (torch.float32, torch.bfloat16):
             r = kernel_case(torch, msda, gen, name, kind, shapes, lq, p,
-                            dtype, ext if kind == "raw" else None)
+                            dtype, None if kind == "msda" else ext)
             results.setdefault(kernel, []).append((dtype, per_frame, r))
     return results
 
@@ -728,19 +777,27 @@ def phase_model_vs_cpu(torch):
             assert_close(torch, f"model frame {f} {k}", a, r, rtol, atol)
 
 
-def moving_boxes(np, h, w, n_frames, seed=0):
-    """Synthetic sequence: eight bright boxes moving over a fixed noisy
-    background, normalized like an image batch."""
+def box_tracks(np, h, w, n_frames, seed=0):
+    """Eight boxes moving at constant speed, clipped to the frame: per frame
+    a list of (y0, x0, box height, box width)."""
     rng = np.random.default_rng(seed)
-    background = rng.normal(0, 0.5, size=(h, w, 3)).astype(np.float32)
     sizes = rng.integers([h // 10, w // 36], [h // 4, w // 12], size=(8, 2))
     starts = rng.uniform([0, 0], [h - h // 4, w - w // 12], size=(8, 2))
     vel = rng.uniform(-0.015, 0.015, size=(8, 2)) * [h, w]
-    for f in range(n_frames):
+    return [[(int(np.clip(y + vy * f, 0, h - bh)),
+              int(np.clip(x + vx * f, 0, w - bw)), int(bh), int(bw))
+             for (y, x), (vy, vx), (bh, bw) in zip(starts, vel, sizes)]
+            for f in range(n_frames)]
+
+
+def moving_boxes(np, h, w, n_frames, seed=0):
+    """Synthetic sequence: eight bright boxes moving over a fixed noisy
+    background, normalized like an image batch."""
+    background = np.random.default_rng(seed).normal(
+        0, 0.5, size=(h, w, 3)).astype(np.float32)
+    for boxes in box_tracks(np, h, w, n_frames, seed):
         img = background.copy()
-        for (y, x), (vy, vx), (bh, bw) in zip(starts, vel, sizes):
-            y0 = int(np.clip(y + vy * f, 0, h - bh))
-            x0 = int(np.clip(x + vx * f, 0, w - bw))
+        for y0, x0, bh, bw in boxes:
             img[y0:y0 + bh, x0:x0 + bw] += 2.0
         yield {
             "images": img[None], "pad_mask": np.zeros((1, h, w), bool),
@@ -748,16 +805,21 @@ def moving_boxes(np, h, w, n_frames, seed=0):
         }
 
 
-def phase_main_path(torch, msda):
+def served_tracker(torch, cfg, seed=1):
+    """The served model (random weights from ``seed``, class heads biased to
+    class 0, bf16) and a Tracker whose thresholds are calibrated on one
+    frame so that about 7 detections a frame start tracks, which live 3
+    frames: about 20 active track slots, as in the JAX bench. Uses only
+    entry points the port has had since its first slice. Returns
+    (tracker, model, frames)."""
     import numpy as np
 
     from kinet_tpu_torch.models.build import build_model
     from kinet_tpu_torch.structs import ImageBatch
     from kinet_tpu_torch.tracking.tracker import Tracker, make_forward_fn
 
-    cfg = flagship_cfg()
     t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
-    model, post = build_model(cfg, seed=1)
+    model, post = build_model(cfg, seed=seed)
     # the tracker keeps class 0 (person); random heads rarely rank it first,
     # so the other classes' biases are pushed down
     with torch.no_grad():
@@ -767,9 +829,8 @@ def phase_main_path(torch, msda):
     h, w = MAIN_HW
     frames = list(moving_boxes(np, h, w, N_FRAMES + 3))
 
-    # random weights give low, random scores: set the thresholds from one
-    # calibration frame so about 7 detections a frame start tracks, which
-    # live 3 frames: about 20 active track slots, as in the JAX bench
+    # random weights give low, random scores: the thresholds come from one
+    # calibration frame
     blob, dev = frames[0], next(model.parameters()).device
     batch = ImageBatch(torch.from_numpy(blob["images"]).to(dev),
                        torch.from_numpy(blob["pad_mask"]).to(dev))
@@ -787,24 +848,40 @@ def phase_main_path(torch, msda):
     )
     tracker = Tracker(model, post["bbox"], tracker_cfg, 500, t_slots, hidden,
                       overflow_boxes=bool(cfg.overflow_boxes))
-    del res, batch
     log(f"  tracker thresholds {thresh:.5f} (calibrated), steps_termination 3")
+    return tracker, model, frames
+
+
+def timed_frames(torch, tracker, frames):
+    """Steps the tracker over frames: (ms of each frame, host clock, each
+    ending in its device-to-host copy; active track slots before each)."""
+    times, active = [], []
+    for blob in frames:
+        active.append(min(len(tracker.tracks) + len(tracker.inactive_tracks),
+                          tracker.num_track_slots))
+        t0 = time.perf_counter()
+        tracker.step(blob)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, active
+
+
+def phase_main_path(torch, msda, int8=False):
+    """The served frame through Tracker.step: bf16 decoder table, or with
+    ``int8`` the served config's int8 one (dec_msda_int8). Returns
+    (launches, median ms/frame, replay device ms per kernel)."""
+    import numpy as np
+
+    cfg = flagship_cfg()
+    if int8:
+        cfg = cfg.replace(dec_msda_int8=True, allow_lossy=True)
+    raw = "msda_raw_pool_fwd_i8" if int8 else "msda_raw_pool_fwd"
+    tracker, model, frames = served_tracker(torch, cfg)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    msda.ms_deform_attn.launches = 0
-    msda.ms_deform_attn_raw_pool.launches = 0
-    times, active = [], []
-    for blob in frames[:N_FRAMES]:
-        active.append(min(len(tracker.tracks) + len(tracker.inactive_tracks),
-                          t_slots))
-        t0 = time.perf_counter()
-        tracker.step(blob)  # ends in the device-to-host copy of its rows
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {
-        "msda_fwd": msda.ms_deform_attn.launches,
-        "msda_raw_pool_fwd": msda.ms_deform_attn_raw_pool.launches,
-    }
+    reset_launches(msda)
+    times, active = timed_frames(torch, tracker, frames[:N_FRAMES])
+    launches = read_launches(msda)
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(times[WARMUP:])
     log(f"  per-frame ms: {' '.join(f'{t:.2f}' for t in times)}")
@@ -813,8 +890,9 @@ def phase_main_path(torch, msda):
         f"{1000.0 / med:.3f} frames/s; peak device memory {peak:.2f} GiB")
     log(f"  launches over {N_FRAMES} frames: {launches}")
     for k, n in launches.items():
-        check(n == 6 * N_FRAMES,
-              f"{k} launched {n} times, expected 6 per frame x {N_FRAMES}")
+        want = 6 * N_FRAMES if k in ("msda_fwd", raw) else 0
+        check(n == want, f"{k} launched {n} times, expected {want} over "
+              f"{N_FRAMES} frames")
     check(max(active[WARMUP:]) > 0, "no track was ever active")
 
     # results: finite boxes in the tracker's output
@@ -830,10 +908,11 @@ def phase_main_path(torch, msda):
     # the forward kernels on one served frame's own samples
     calls = record_forward_calls(torch, lambda: tracker.step(frames[N_FRAMES]))
     kinds = [k for k, _ in calls]
-    check(kinds.count("msda_fwd") == 6 and kinds.count("msda_raw_pool_fwd") == 6,
-          f"a frame made {len(calls)} forward MSDA calls, expected 6 + 6")
-    log("  replay of one frame's 12 forward MSDA calls (bf16; compared on "
-        "locations snapped to a 2^-16 grid):")
+    check(kinds.count("msda_fwd") == 6 and kinds.count(raw) == 6
+          and len(kinds) == 12,
+          f"a frame made the forward MSDA calls {kinds}, expected 6 + 6")
+    log(f"  replay of one frame's 12 forward MSDA calls (bf16 memory; "
+        f"compared on locations snapped to a 2^-16 grid):")
     replay = phase_replay(torch, msda, calls)
     del calls
 
@@ -862,6 +941,21 @@ def phase_main_path(torch, msda):
     return launches, med, replay
 
 
+def reset_launches(msda):
+    """Sets the forward kernels' launch counts to 0."""
+    msda.ms_deform_attn.launches = 0
+    msda.ms_deform_attn_raw_pool.launches = 0
+    msda.ms_deform_attn_raw_pool.i8_launches = 0
+
+
+def read_launches(msda):
+    return {
+        "msda_fwd": msda.ms_deform_attn.launches,
+        "msda_raw_pool_fwd": msda.ms_deform_attn_raw_pool.launches,
+        "msda_raw_pool_fwd_i8": msda.ms_deform_attn_raw_pool.i8_launches,
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 5's replay: the forward kernels on the main path's own samples
 
@@ -882,8 +976,13 @@ def record_forward_calls(torch, fn):
             return f(*args)
         return wrapped
 
+    def raw_pool(*args):
+        int8 = len(args) > 5 and args[5] is not None  # quad_scales
+        kernel = "msda_raw_pool_fwd_i8" if int8 else "msda_raw_pool_fwd"
+        return recording(kernel, orig[1])(*args)
+
     dt.ms_deform_attn = recording("msda_fwd", orig[0])
-    dt.ms_deform_attn_raw_pool = recording("msda_raw_pool_fwd", orig[1])
+    dt.ms_deform_attn_raw_pool = raw_pool
     try:
         fn()
     finally:
@@ -903,12 +1002,15 @@ def snapped(torch, loc):
 def replay_call(torch, msda, kernel, args):
     """One recorded call: the kernel against its plain version on the
     snapped samples, bf16 as recorded and f32; the kernel's device ms on
-    the recorded inputs, and what its corners read."""
+    the recorded inputs, and what its corners read. {name: device ms}:
+    for an int8 call also the bf16 kernel's, on the same samples over the
+    bf16 table of the same values (the int8 rows times their level's
+    scale)."""
     table, shapes, loc, aw = args[:4]
     lq, l = loc.shape[1], loc.shape[3]
-    esize = torch.finfo(table.dtype).bits // 8
+    esize = 1 if table.dtype == torch.int8 else torch.finfo(table.dtype).bits // 8
     loc_s = snapped(torch, loc)
-    err = 0.0
+    err, times = 0.0, {}
     if kernel == "msda_fwd":
         for v in (table, table.float()):
             out = msda.ms_deform_attn(v, shapes, loc_s, aw)
@@ -920,24 +1022,38 @@ def replay_call(torch, msda, kernel, args):
         st = read_stats(torch, "msda", loc, shapes, None, table.shape[3], esize)
     else:
         ext = args[4]
-        for v in (table, table.float()):
-            pooled, wsum = msda.ms_deform_attn_raw_pool(v, shapes, loc_s, aw, ext)
-            ref, ref_w = msda.ms_deform_attn_raw_pool_plain(v, shapes, loc_s,
-                                                            aw, ext)
-            rtol = 1e-2 if v.dtype == torch.bfloat16 else 1e-4
-            assert_close(torch, f"replay {kernel} {v.dtype}", pooled, ref,
+        int8 = kernel == "msda_raw_pool_fwd_i8"
+        scales, out_dtype = (args[5], args[6]) if int8 else (None, None)
+        tables = ((table, out_dtype), (table, torch.float32)) if int8 else \
+            ((table, None), (table.float(), None))
+        for v, dt_out in tables:
+            pooled, wsum = msda.ms_deform_attn_raw_pool(
+                v, shapes, loc_s, aw, ext, scales, dt_out)
+            ref, ref_w = msda.ms_deform_attn_raw_pool_plain(
+                v, shapes, loc_s, aw, ext, scales, dt_out)
+            rtol = 1e-2 if pooled.dtype == torch.bfloat16 else 1e-4
+            assert_close(torch, f"replay {kernel} {pooled.dtype}", pooled, ref,
                          rtol, 1e-5)
-            assert_close(torch, f"replay {kernel} wsum {v.dtype}", wsum,
+            assert_close(torch, f"replay {kernel} wsum {pooled.dtype}", wsum,
                          ref_w, 1e-4, 1e-5)
             err = max(err, errors(torch, pooled, ref)[0],
                       errors(torch, wsum, ref_w)[0])
         run_k = lambda: msda.ms_deform_attn_raw_pool(  # noqa: E731
-            table, shapes, loc, aw, ext)
+            table, shapes, loc, aw, ext, scales, out_dtype)
         st = read_stats(torch, "raw", loc, shapes, ext, table.shape[2], esize)
-    ms = device_ms(torch, run_k)
-    log(f"  {kernel:<18} Lq {lq:5d} L {l}: {ms:.5f} ms device, max abs err "
-        f"{err:.3e}; {stats_text(st, ms)}")
-    return ms
+        if int8:
+            per_row = torch.cat([
+                scales[:, lid:lid + 1].expand(-1, h * w)
+                for lid, (h, w) in enumerate(shapes)], dim=1)
+            bf16 = (table.float() * per_row[..., None]).to(out_dtype)
+            times["msda_raw_pool_fwd (bf16 table)"] = device_ms(
+                torch, lambda: msda.ms_deform_attn_raw_pool(
+                    bf16, shapes, loc, aw, ext))
+    ms = times[kernel] = device_ms(torch, run_k)
+    other = "".join(f"; {k} {t:.5f} ms" for k, t in times.items() if k != kernel)
+    log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
+        f"err {err:.3e}; {stats_text(st, ms)}")
+    return times
 
 
 def phase_replay(torch, msda, calls):
@@ -946,8 +1062,8 @@ def phase_replay(torch, msda, calls):
     per_kernel = {}
     with torch.inference_mode():
         for kernel, args in calls:
-            per_kernel.setdefault(kernel, []).append(
-                replay_call(torch, msda, kernel, args))
+            for k, t in replay_call(torch, msda, kernel, args).items():
+                per_kernel.setdefault(k, []).append(t)
     for k, t in per_kernel.items():
         log(f"  {k}: {statistics.mean(t):.5f} ms a launch over the frame's "
             f"{len(t)} calls, {sum(t):.5f} ms a frame")
@@ -959,7 +1075,8 @@ def forward_launch_ms(by_name, calls):
     profile of ``calls`` calls (device_profile's by_name)."""
     found = {}
     for k, (t, n) in by_name.items():
-        kernel = ("msda_raw_pool_fwd" if "raw_pool_fwd" in k else
+        kernel = ("msda_raw_pool_fwd_i8" if "raw_pool_fwd_i8" in k else
+                  "msda_raw_pool_fwd" if "raw_pool_fwd" in k else
                   "msda_fwd" if "msda_fwd" in k else None)
         if kernel:
             t0, n0 = found.get(kernel, (0.0, 0))
@@ -1256,6 +1373,224 @@ def phase_train_entry(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase T: the tracking CLI
+
+
+# runs ``python -m kinet_tpu_torch.engine.track`` (runpy, as -m does) with
+# its arguments, then prints the forward kernels' launch counts and the
+# host-clock ms of each Tracker.step as JSON
+CLI_RUNNER = """
+import json, runpy, sys, time
+from kinet_tpu_torch.ops import msda
+from kinet_tpu_torch.tracking.tracker import Tracker
+msda.ms_deform_attn.launches = 0
+msda.ms_deform_attn_raw_pool.launches = 0
+msda.ms_deform_attn_raw_pool.i8_launches = 0
+step, step_ms = Tracker.step, []
+def timed_step(self, blob):
+    t0 = time.perf_counter()
+    step(self, blob)
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+Tracker.step = timed_step
+sys.argv = ["kinet_tpu_torch.engine.track"] + sys.argv[1:]
+runpy.run_module("kinet_tpu_torch.engine.track", run_name="__main__",
+                 alter_sys=True)
+print(json.dumps({"launches": {
+    "msda_fwd": msda.ms_deform_attn.launches,
+    "msda_raw_pool_fwd": msda.ms_deform_attn_raw_pool.launches,
+    "msda_raw_pool_fwd_i8": msda.ms_deform_attn_raw_pool.i8_launches,
+}, "step_ms": step_ms}))
+"""
+
+
+def write_mot17_sequence(root: Path, n_frames, h, w):
+    """MOT17/train/MOT17-02-FRCNN in the MOTChallenge layout: seqinfo.ini,
+    img1/*.jpg (eight boxes of box_tracks moving over noise), det/det.txt
+    and gt/gt.txt with the boxes (1-based pixels and frames)."""
+    import configparser
+
+    import numpy as np
+    from PIL import Image
+
+    seq = root / "MOT17" / "train" / T_SEQ
+    for d in ("img1", "det", "gt"):
+        (seq / d).mkdir(parents=True)
+    info = configparser.ConfigParser()
+    info["Sequence"] = {"name": T_SEQ, "imDir": "img1", "frameRate": "30",
+                        "seqLength": str(n_frames), "imWidth": str(w),
+                        "imHeight": str(h), "imExt": ".jpg"}
+    with open(seq / "seqinfo.ini", "w") as f:
+        info.write(f)
+    rng = np.random.default_rng(7)
+    background = rng.integers(40, 120, size=(h, w, 3)).astype(np.uint8)
+    det, gt = [], []
+    for f, boxes in enumerate(box_tracks(np, h, w, n_frames), start=1):
+        img = background.copy()
+        for tid, (y0, x0, bh, bw) in enumerate(boxes, start=1):
+            img[y0:y0 + bh, x0:x0 + bw] = 230
+            det.append(f"{f},-1,{x0 + 1},{y0 + 1},{bw},{bh},0.9,-1,-1,-1")
+            gt.append(f"{f},{tid},{x0 + 1},{y0 + 1},{bw},{bh},1,1,1.0")
+        Image.fromarray(img).save(seq / "img1" / f"{f:06d}.jpg", quality=90)
+    (seq / "det" / "det.txt").write_text("\n".join(det) + "\n")
+    (seq / "gt" / "gt.txt").write_text("\n".join(gt) + "\n")
+
+
+def phase_track_cli(torch, msda):
+    """``python -m kinet_tpu_torch.engine.track`` on a synthetic
+    MOT17-02-FRCNN at its 1080x1920 (800x1422 after the val transform), with
+    a saved full-width flagship run: its config with dec_msda_int8 and the
+    checkpoint of seeded bf16 weights, class heads biased to class 0 and
+    the class-0 bias moved so that the track config's default thresholds
+    (0.4) keep about 7 new detections a frame, as phase 5's calibrated
+    ones do. Returns (launches, frames/s of the CLI's RUNTIME line)."""
+    import math
+    import re
+
+    import numpy as np
+
+    from kinet_tpu_torch.config import save_config
+    from kinet_tpu_torch.data.sequences import MOT17Sequence
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.structs import ImageBatch
+    from kinet_tpu_torch.tracking.tracker import make_forward_fn
+    from kinet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_mot17_sequence(tmp / "data", T_FRAMES, *T_HW)
+        cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True,
+                                     **T_TRANSFORM)
+        model, post = build_model(cfg, device=DEVICE, seed=2)
+        t_slots = int(cfg.max_track_queries)
+        with torch.no_grad():
+            for i in range(model.dec_layers):
+                model.class_head(i).bias[1:] -= 20.0
+        model.to(torch.bfloat16)
+        seq = MOT17Sequence(str(tmp / "data"), "MOT17-02", "FRCNN",
+                            img_transform=cfg.img_transform)
+        t1 = time.perf_counter()
+        for i in range(4):
+            blob = seq[i]
+        load_ms = (time.perf_counter() - t1) * 1e3 / 4
+        blob = seq[0]
+        h, w = blob["images"].shape[1:3]
+        batch = ImageBatch(torch.from_numpy(blob["images"]).to(DEVICE),
+                           torch.from_numpy(blob["pad_mask"]).to(DEVICE))
+        res = make_forward_fn(model, post["bbox"])(
+            batch, None, torch.tensor([[float(h), float(w)]], device=DEVICE),
+            None, None, None)
+        scores = res["scores"][0, t_slots:].float().sort(descending=True).values
+        s8 = min(max(scores[7].item(), 1e-6), 1 - 1e-6)
+        shift = math.log(0.4 / 0.6) - math.log(s8 / (1 - s8))
+        with torch.no_grad():
+            for i in range(model.dec_layers):
+                model.class_head(i).bias[0] += shift
+        run = tmp / "run"
+        save_config(cfg, run)
+        CheckpointManager(str(run)).save_epoch(
+            model, torch.optim.SGD(model.parameters(), lr=0.0), 0, 0)
+        del model, res, batch
+        torch.cuda.empty_cache()
+        log(f"  sequence {T_SEQ}: {T_FRAMES} frames {T_HW[0]}x{T_HW[1]}, "
+            f"{h}x{w} after the val transform, {load_ms:.1f} ms a frame to "
+            f"decode and transform (host, one thread); run saved (class-0 "
+            f"bias {shift:+.3f}) in {time.perf_counter() - t0:.1f} s")
+
+        out = tmp / "out"
+        cmd = [sys.executable, "-c", CLI_RUNNER,
+               f"obj_detect_checkpoint_dir={run}",
+               f"data_root_dir={tmp / 'data'}", f"dataset_name={T_SEQ}",
+               f"output_dir={out}", "tracker_cfg.steps_termination=3",
+               "tracker_cfg.inactive_patience=0"]
+        if DEVICE != "cuda":  # a rehearsal on the CPU
+            cmd.append(f"device={DEVICE}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        text = proc.stdout
+        check(proc.returncode == 0, f"the tracking CLI exited "
+              f"{proc.returncode}:\n{text[-3000:]}\n{proc.stderr[-3000:]}")
+        for line in text.strip().splitlines()[:-1]:
+            log(f"  | {line}")
+        child = json.loads(text.strip().splitlines()[-1])
+        launches, step_ms = child["launches"], child["step_ms"]
+        log(f"  launches over {T_FRAMES} frames: {launches} "
+            f"(CLI process {wall:.1f} s)")
+        log(f"  Tracker.step in the CLI: first frame {step_ms[0]:.1f} ms, "
+            f"then median {statistics.median(step_ms[1:]):.3f} ms; "
+            f"{sum(step_ms):.1f} ms of steps in all")
+        for k, n in launches.items():
+            want = 0 if k == "msda_raw_pool_fwd" else 6 * T_FRAMES
+            check(n == want, f"the CLI launched {k} {n} times, expected {want}")
+        hz = re.search(r"for (\d+) frames \(([\d.]+) Hz\)", text)
+        check(hz is not None and int(hz.group(1)) == T_FRAMES,
+              "no RUNTIME line for every frame")
+        row = [ln for ln in text.splitlines() if ln.startswith(T_SEQ)]
+        check(len(row) == 1, "no summary row")
+        vals = [float(v) for v in row[0].split()[1:]]
+        check(len(vals) == 7 and all(math.isfinite(v) for v in vals),
+              f"summary row {row[0]!r}")
+        rows = np.loadtxt(out / T_SEQ / f"{T_SEQ}.txt", delimiter=",", ndmin=2)
+        check(rows.shape[0] > 0 and rows.shape[1] == 10
+              and bool(np.isfinite(rows).all()), "result file")
+        log(f"  {rows.shape[0]} result rows, {len(set(rows[:, 1]))} tracks; "
+            f"MOTA {vals[0]:.3f} IDF1 {vals[1]:.3f} HOTA {vals[2]:.3f}")
+    # the frame loops' time that is not Tracker.step: waiting for frames
+    loop_s = int(hz.group(1)) / float(hz.group(2))
+    log(f"  of the RUNTIME line's {loop_s * 1e3:.0f} ms, "
+        f"{loop_s * 1e3 - sum(step_ms):.0f} ms outside Tracker.step "
+        f"(waiting for the prefetch thread's frames)")
+    return launches, float(hz.group(2))
+
+
+# ---------------------------------------------------------------------------
+# --serve-profile: the host side of the served frame
+
+
+def serve_profile(torch):
+    """The served frame (bf16 table) timed as phase 5 times it, then a
+    cProfile of the host over as many frames: the median ms/frame and the
+    host functions that take the most time. Uses only entry points the
+    port has had since its first slice, so it runs against an older tree
+    (``--package``)."""
+    import cProfile
+    import io
+    import pstats
+
+    tracker, model, frames = served_tracker(torch, flagship_cfg())
+    times, _ = timed_frames(torch, tracker, frames[:N_FRAMES])
+    med = statistics.median(times[WARMUP:])
+    prof = cProfile.Profile()
+    more = frames[N_FRAMES:] + frames[1:N_FRAMES]
+    prof.enable()
+    t0 = time.perf_counter()
+    for blob in more[:N_FRAMES - WARMUP]:
+        tracker.step(blob)
+    prof_ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
+    prof.disable()
+    log(f"  per-frame ms: {' '.join(f'{t:.2f}' for t in times)}")
+    log(f"  median {med:.3f} ms/frame after {WARMUP} warm-up frames; "
+        f"{prof_ms:.3f} ms/frame under cProfile")
+    stats = pstats.Stats(prof)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:20]
+    frames_n = N_FRAMES - WARMUP
+    host = [{"fn": f"{Path(k[0]).name}:{k[1]}:{k[2]}",
+             "tottime_ms_per_frame": v[2] * 1e3 / frames_n,
+             "cumtime_ms_per_frame": v[3] * 1e3 / frames_n, "calls": v[1]}
+            for k, v in top]
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(25)
+    log(buf.getvalue())
+    print(json.dumps({"serve_profile": {"ms_per_frame": med,
+                                        "profiled_ms_per_frame": prof_ms,
+                                        "frame_ms": times, "host_top": host}}))
+    del tracker, model
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -1264,6 +1599,9 @@ KERNEL_META = {
                  "kinet_tpu/ops/pallas_msda.py:91"),
     "msda_raw_pool_fwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_fwd.cu",
                           "kinet_tpu/ops/msda.py:691"),
+    # the same function over the int8 table (quad_scales, quantize_rows)
+    "msda_raw_pool_fwd_i8": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_fwd.cu",
+                             "kinet_tpu/ops/msda.py:691"),
     "msda_bwd": ("kinet_tpu_torch/ops/csrc/msda_bwd.cu",
                  "kinet_tpu/ops/pallas_msda.py:220"),
     "msda_raw_pool_bwd": ("kinet_tpu_torch/ops/csrc/msda_raw_pool_bwd.cu",
@@ -1271,19 +1609,26 @@ KERNEL_META = {
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
 }
-PHASES = ("3", "3b", "P2", "4", "5", "6", "7")
+PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of kinet_tpu_torch")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--serve-profile", action="store_true",
+                    help="only the served frame's times and a host profile "
+                    "(after phases 1 and 2)")
+    ap.add_argument("--package", default=None,
+                    help="the checkout whose kinet_tpu_torch to run "
+                    "(default: this script's; with --serve-profile)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    root = Path(__file__).resolve().parent
+    root = Path(args.package or __file__).resolve()
+    root = root if args.package else root.parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
-        print("chip_smoke: the kinet_tpu_torch package is not beside this "
-              "script", file=sys.stderr)
+        print(f"chip_smoke: no kinet_tpu_torch package in {root}",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -1311,6 +1656,12 @@ def main(argv=None) -> int:
         for entry, regs, spills in ptxas_entries(text):
             log(f"  {kernel}: {entry[:72]}: {regs}; {spills}")
 
+    if args.serve_profile:
+        log(f"== serve profile: Tracker.step, bf16, 800x1440, {N_FRAMES} "
+            f"frames, then a host profile of {N_FRAMES - WARMUP} ({root})")
+        serve_profile(torch)
+        return 0
+
     summary, launches = {}, {}
     if "3" in phases:
         log("== 3. forward kernels vs plain (800x1440 shapes, B=1)")
@@ -1334,10 +1685,20 @@ def main(argv=None) -> int:
         log(f"== 5. serving main path: Tracker.step, bf16, 800x1440, "
             f"{N_FRAMES} frames")
         served, frame_ms, replay = phase_main_path(torch, msda)
-        launches.update(served)
+        launches.update({k: v for k, v in served.items() if "i8" not in k})
         for k, t in replay.items():
             summary.setdefault(k, {})["replay_ms"] = t
         log(f"  {1000.0 / frame_ms:.3f} frames/s")
+        log(f"== 5 (int8). the served config: Tracker.step with "
+            f"dec_msda_int8, bf16, 800x1440, {N_FRAMES} frames")
+        _, frame_ms, replay = phase_main_path(torch, msda, int8=True)
+        i8 = summary.setdefault("msda_raw_pool_fwd_i8", {})
+        i8["replay_ms"] = replay["msda_raw_pool_fwd_i8"]
+        i8["replay_bf16_ms"] = replay["msda_raw_pool_fwd (bf16 table)"]
+        log(f"  {1000.0 / frame_ms:.3f} frames/s; the decoder's int8 kernel "
+            f"{i8['replay_ms']:.5f} ms a launch, the bf16 kernel on the same "
+            f"calls {i8['replay_bf16_ms']:.5f} "
+            f"({i8['replay_ms'] / i8['replay_bf16_ms']:.3f}x)")
     if "6" in phases:
         log("== 6. train step: card vs CPU, f32, dropout 0, 256x448")
         phase_train_vs_cpu(torch)
@@ -1350,6 +1711,13 @@ def main(argv=None) -> int:
         launches.update({k: v for k, v in trained.items() if "bwd" in k})
         log("== 7b. train(cfg): the entry point on a synthetic MOT dataset")
         phase_train_entry(torch)
+    if "T" in phases:
+        log(f"== T. tracking CLI: python -m kinet_tpu_torch.engine.track, "
+            f"dec_msda_int8, bf16, {T_FRAMES} frames {T_HW[0]}x{T_HW[1]}")
+        tracked, hz = phase_track_cli(torch, msda)
+        launches["msda_raw_pool_fwd_i8"] = tracked["msda_raw_pool_fwd_i8"]
+        log(f"  {hz:.2f} frames/s (the CLI's RUNTIME line, prefetched JPEG "
+            f"decode and first-frame warm-up included) on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -1364,7 +1732,8 @@ def main(argv=None) -> int:
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
-            for key in ("replay_ms", "cold_ms", "library_cold_ms")
+            for key in ("replay_ms", "replay_bf16_ms", "cold_ms",
+                        "library_cold_ms")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

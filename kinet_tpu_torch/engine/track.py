@@ -1,0 +1,294 @@
+"""Tracking entry point (port of ``kinet_tpu/engine/track.py``; reference:
+TrackFormer's src/track.py).
+
+    python -m kinet_tpu_torch.engine.track --config track.yaml \
+        obj_detect_checkpoint_dir=models/exp1 dataset_name=MOT17-02-FRCNN
+
+runs on the GPU; ``device=cpu`` runs it on the CPU. Pipeline, as in the
+JAX package:
+- reload the train-time ``config.yaml`` of the checkpoint and rebuild the
+  model exactly, then restore its weights (``utils/checkpoint.py``); the
+  model runs in the dtype its weights were saved in;
+- ``Tracker`` over every sequence of ``TrackDatasetFactory``, a worker
+  thread decoding frame i + 1 while the tracker steps frame i;
+- write MOTChallenge result files, optional linear gap interpolation;
+- CLEAR-MOT, IDF1 and HOTA over all sequences with ground truth.
+
+Not ported yet, and raising NotImplementedError with their ROADMAP item:
+the KineT tracker ("KineT"), decoder attention maps ("Vanilla DETR"),
+``batch_sequences > 1``, ``spatial_parallel > 1`` and runs over more than
+one process ("Scale-out"), ``write_images`` ("Host tools").
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import time
+
+import numpy as np
+import torch
+
+from ..config import Config, load_config, load_saved_config, parse_cli_overrides
+from ..data.sequences import TrackDatasetFactory
+from ..models.build import build_model, not_ported, resolve_device
+from ..models.postprocess import build_postprocessors
+from ..tracking.tracker import Tracker
+from ..utils.checkpoint import CheckpointManager
+from ..utils.mot_metrics import evaluate_mot_accums, format_summary, get_mot_accum
+
+
+def _dataset_dirname(dataset_name) -> str:
+    """Output subdir for result files: dataset_name may be a YAML list
+    or a comma-separated string; normalize to one path-safe token."""
+    if isinstance(dataset_name, (list, tuple)):
+        return ",".join(str(n).strip() for n in dataset_name)
+    return str(dataset_name).strip()
+
+
+def interpolate_tracks(tracks: dict) -> dict:
+    """Linear gap interpolation (the evident intent of the reference's
+    track_utils.py:240-272)."""
+    out = {}
+    for tid, frames in tracks.items():
+        out[tid] = dict(frames)
+        keys = sorted(frames.keys())
+        for a, b in zip(keys[:-1], keys[1:]):
+            if b - a <= 1:
+                continue
+            ba = np.asarray(frames[a]["bbox"], np.float64)
+            bb = np.asarray(frames[b]["bbox"], np.float64)
+            for f in range(a + 1, b):
+                t = (f - a) / (b - a)
+                out[tid][f] = {
+                    "bbox": (ba * (1 - t) + bb * t).astype(np.float32),
+                    "score": frames[a]["score"],
+                    "obj_ind": frames[a].get("obj_ind", -1),
+                }
+    return out
+
+
+class _Prefetcher:
+    """Single-worker look-ahead frame loader: decodes + preprocesses frame
+    i+1 on a thread while the tracker steps frame i, overlapping host IO
+    with device work. Worker exceptions are re-raised in the consumer."""
+
+    def __init__(self, seq, start: int, end: int, depth: int = 2):
+        import queue
+        import threading
+
+        self._q = queue.Queue(maxsize=depth)
+        self._exc = None
+        self._stop = threading.Event()
+        self._t = threading.Thread(
+            target=self._work, args=(seq, start, end), daemon=True
+        )
+        self._t.start()
+
+    def _work(self, seq, start, end):
+        import queue
+
+        try:
+            for i in range(start, end):
+                blob = seq[i]
+                # bounded put + stop checks: if the consumer aborts its
+                # frame loop (e.g. a tracker exception), close() raises the
+                # stop flag and this worker exits instead of blocking on a
+                # full queue forever
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(blob, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised in consumer
+            self._exc = e
+        finally:
+            # the sentinel MUST be delivered (a dropped sentinel deadlocks
+            # the consumer at q.get() once it drains the remaining blobs,
+            # when the consumer lags the producer by >= depth at the end of
+            # a sequence); retry until it lands or close() stops us
+            while not self._stop.is_set():
+                try:
+                    self._q.put(None, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def close(self):
+        """Unblock and join the worker (idempotent; safe mid-iteration)."""
+        import queue
+
+        self._stop.set()
+        while self._t.is_alive():
+            try:  # drain so a blocked put can observe the stop flag
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._t.join(timeout=0.05)
+
+    def __iter__(self):
+        while True:
+            blob = self._q.get()
+            if blob is None:
+                if self._exc is not None:
+                    raise self._exc
+                return
+            yield blob
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc_info):
+        self.close()
+        return False
+
+
+def _process_count() -> int:
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def restore_model(ckpt_dir, device):
+    """(model, train_cfg) from a training run's output directory: its saved
+    config rebuilds the model, its checkpoint fills the weights (strictly),
+    and the model takes the dtype the weights were saved in."""
+    train_cfg = load_saved_config(ckpt_dir)
+    model, _ = build_model(train_cfg, device=device)
+    restored = CheckpointManager(ckpt_dir).restore()
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    params = restored["params"]
+    dtypes = {t.dtype for t in params.values() if t.is_floating_point()}
+    if len(dtypes) != 1:
+        raise ValueError(f"checkpoint weights in several dtypes: {dtypes}")
+    model.to(dtypes.pop())
+    model.load_state_dict(params)
+    model.eval()
+    return model, train_cfg
+
+
+def main_track(cfg, obj_detector_model=None):
+    """Tracks every sequence of ``cfg.dataset_name`` and returns the
+    metrics summary (None without ground truth). ``obj_detector_model``:
+    (model, postprocessors, train_cfg) instead of the checkpoint in
+    ``cfg.obj_detect_checkpoint_dir``; the model holds its weights."""
+    seed = int(cfg.get("seed", 333))
+    np.random.seed(seed)
+    device = resolve_device(cfg.get("device"))
+
+    if cfg.get("kinet", False):
+        not_ported("the KineT tracker", "KineT")
+    if cfg.get("generate_attention_maps", False):
+        not_ported("generate_attention_maps (decoder attention maps)",
+                    "Vanilla DETR")
+    if int(cfg.get("batch_sequences", 1)) > 1:
+        not_ported("batch_sequences > 1 (BatchedTracker)", "Scale-out")
+    if int(cfg.get("spatial_parallel", 0)) > 1:
+        not_ported("spatial_parallel > 1", "Scale-out")
+    if _process_count() > 1:
+        not_ported("tracking over more than one process", "Scale-out")
+    if cfg.get("write_images", False):
+        not_ported("write_images (utils/vis.py::plot_sequence)", "Host tools")
+
+    if obj_detector_model is None:
+        model, train_cfg = restore_model(cfg.obj_detect_checkpoint_dir, device)
+    else:
+        model, _, train_cfg = obj_detector_model
+        model.to(device).eval()
+    if train_cfg.get("kine", False):
+        not_ported("the KineT tracker", "KineT")
+
+    post = build_postprocessors(train_cfg)["bbox"]
+    tracker_cfg = (
+        cfg.tracker_cfg.to_dict()
+        if isinstance(cfg.tracker_cfg, Config)
+        else dict(cfg.tracker_cfg)
+    )
+    tracker = Tracker(
+        model,
+        post,
+        tracker_cfg,
+        num_object_queries=int(train_cfg.num_queries),
+        num_track_slots=int(train_cfg.get("max_track_queries", 100)),
+        hidden_dim=int(train_cfg.hidden_dim),
+        overflow_boxes=bool(train_cfg.get("overflow_boxes", False)),
+    )
+
+    dataset = TrackDatasetFactory(
+        cfg.dataset_name,
+        root_dir=cfg.data_root_dir,
+        img_transform=train_cfg.img_transform,
+    )
+
+    time_total = 0.0
+    num_frames = 0
+    accums, accum_names = [], []
+    for seq in dataset:
+        tracker.reset()
+        print(f"TRACK SEQ: {seq}", flush=True)
+        start_frame = int(cfg.frame_range.start * len(seq))
+        end_frame = int(cfg.frame_range.end * len(seq))
+        t0 = time.time()
+        results = None
+        if cfg.get("load_results_dir"):
+            results = seq.load_results(cfg.load_results_dir)
+        if not results:
+            # the context manager stops the worker thread even if
+            # tracker.step raises mid-sequence
+            with _Prefetcher(seq, start_frame, end_frame) as frames:
+                for blob in frames:
+                    tracker.step(blob)
+                    num_frames += 1
+            results = tracker.get_results()
+        time_total += time.time() - t0
+
+        if cfg.get("interpolate", False):
+            results = interpolate_tracks(results)
+
+        if cfg.output_dir:
+            seq.write_results(
+                results, osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
+            )
+
+        if not seq.no_gt:
+            accums.append(get_mot_accum(results, seq))
+            accum_names.append(str(seq))
+
+        print(
+            f"NUM TRACKS: {len(results)} ReIDs: {tracker.num_reids}",
+            flush=True,
+        )
+
+    if num_frames:
+        print(
+            f"RUNTIME ALL SEQS (w/o EVAL or IMG WRITE): "
+            f"{time_total:.2f} s for {num_frames} frames "
+            f"({num_frames / max(time_total, 1e-9):.2f} Hz)",
+            flush=True,
+        )
+    if accums:
+        summary = evaluate_mot_accums(accums, accum_names)
+        print(format_summary(summary), flush=True)
+        return summary
+    return None
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", default="track.yaml")
+    p.add_argument("--named", nargs="*", default=[])
+    p.add_argument("overrides", nargs="*", default=[])
+    args = p.parse_args(argv)
+    cfg = load_config(
+        args.config, named=args.named,
+        overrides=parse_cli_overrides(args.overrides),
+    )
+    main_track(cfg)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,34 +32,32 @@ import torch
 from ..config import load_config, parse_cli_overrides, save_config
 from ..data.builder import build_dataset
 from ..data.loader import DataLoader, WeightedRandomSampler
-from ..models.build import build_criterion, build_model, resolve_device
+from ..models.build import (
+    build_criterion,
+    build_model,
+    not_ported,
+    resolve_device,
+)
 from ..utils.checkpoint import CheckpointManager, load_for_resume
 from ..utils.logging import MetricLogger
 from .state import Optimizer
 from .train_step import make_train_step
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to kinet_tpu_torch yet "
-        f"(ROADMAP.md, 'Modules to port': {item})"
-    )
-
-
 def _check_supported(cfg, device: torch.device):
     if cfg.get("kine", False):
-        _not_ported("KineT training", "KineT")
+        not_ported("KineT training", "KineT")
     if int(cfg.val_interval) > 0:
-        _not_ported("evaluation during training (val_interval > 0)",
+        not_ported("evaluation during training (val_interval > 0)",
                     "Evaluation")
     if cfg.get("metrics_sink"):
-        _not_ported("the metrics sink", "Evaluation")
+        not_ported("the metrics sink", "Evaluation")
     n_model, n_data = int(cfg.mesh.model), int(cfg.mesh.data)
     if n_data == -1:
         n_data = torch.cuda.device_count() if device.type == "cuda" else 1
     n_data = math.gcd(n_data, int(cfg.batch_size)) or 1
     if n_model * n_data > 1:
-        _not_ported(f"a device mesh of {n_data} x {n_model} devices",
+        not_ported(f"a device mesh of {n_data} x {n_model} devices",
                     "Scale-out")
 
 

@@ -36,7 +36,8 @@ def num_classes_for(dataset: str) -> int:
     return 20
 
 
-def _not_ported(what: str, item: str):
+def not_ported(what: str, item: str):
+    """Raises NotImplementedError naming the ROADMAP item that ports ``what``."""
     raise NotImplementedError(
         f"{what} is not ported to kinet_tpu_torch yet "
         f"(ROADMAP.md, 'Modules to port': {item})"
@@ -58,15 +59,15 @@ def resolve_device(device=None) -> torch.device:
 def build_model(cfg, device=None, seed: int = 0):
     device = resolve_device(device)
     if cfg.get("kine", False):
-        _not_ported("the KineT model family", "KineT")
+        not_ported("the KineT model family", "KineT")
     if not cfg.get("deformable", False):
-        _not_ported("vanilla DETR", "Vanilla DETR")
+        not_ported("vanilla DETR", "Vanilla DETR")
     if cfg.masks:
-        _not_ported("segmentation masks (MOTS)", "MOTS")
+        not_ported("segmentation masks (MOTS)", "MOTS")
     if cfg.two_stage:
-        _not_ported("two-stage Deformable DETR", "Deformable two-stage")
+        not_ported("two-stage Deformable DETR", "Deformable two-stage")
     if cfg.merge_frame_features:
-        _not_ported("merge_frame_features", "Deformable two-stage")
+        not_ported("merge_frame_features", "Deformable two-stage")
     if cfg.activation != "relu":  # the only activation the configs use
         raise ValueError(f"activation {cfg.activation!r}: only relu is supported")
 
@@ -82,13 +83,12 @@ def build_model(cfg, device=None, seed: int = 0):
             "JAX package); set allow_lossy=true to enable them anyway"
         )
     for key, item in (
-        ("enc_msda_int8", "int8 serving variants"),
-        ("dec_msda_int8", "int8 serving variants"),
+        ("enc_msda_int8", "MSDA variants off the flagship"),
         ("enc_msda_topk", "MSDA variants off the flagship"),
         ("enc_msda_shared_locs", "MSDA variants off the flagship"),
     ):
         if cfg.get(key, 0):
-            _not_ported(key, item)
+            not_ported(key, item)
 
     tracking = bool(cfg.get("tracking", False))
     with torch.device("meta"):
@@ -114,6 +114,7 @@ def build_model(cfg, device=None, seed: int = 0):
             enc_lite_high_klevels=int(cfg.get("enc_lite_high_klevels", 0)),
             dec_gather_raw=bool(cfg.get("dec_gather_raw", False)),
             dec_klevels=int(cfg.get("dec_klevels", 0)),
+            dec_msda_int8=bool(cfg.get("dec_msda_int8", False)),
             msda_ref_normalizer=bool(cfg.get("msda_ref_normalizer", False)),
             num_track_slots=(
                 int(cfg.get("max_track_queries", 100)) if tracking else 0
@@ -143,7 +144,7 @@ def build_weight_dict(cfg) -> dict:
         "loss_giou": cfg.giou_loss_coef,
     }
     if cfg.masks:
-        _not_ported("segmentation masks (MOTS)", "MOTS")
+        not_ported("segmentation masks (MOTS)", "MOTS")
     if cfg.aux_loss:
         aux = {}
         for i in range(cfg.dec_layers - 1):
@@ -157,7 +158,7 @@ def build_criterion(cfg) -> SetCriterion:
     """The Hungarian set criterion of the deformable tracking models
     (labels, boxes, cardinality)."""
     if cfg.get("kine", False):
-        _not_ported("the KineT model family", "KineT")
+        not_ported("the KineT model family", "KineT")
     return SetCriterion(
         num_classes=num_classes_for(cfg.get("dataset", "coco")),
         weight_dict=build_weight_dict(cfg),

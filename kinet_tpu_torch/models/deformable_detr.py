@@ -8,6 +8,9 @@
   passes last frame's ``out["frame_memory"]`` as ``prev_memory`` and the
   previous frame is never re-encoded; ``out["pos_cache"]`` likewise skips
   the sine embeddings while the pad mask is unchanged.
+- ``dec_msda_int8`` (inference only, lossy): the decoder samples an int8
+  table of its memory, one scale per frame's half (see
+  ``DeformableTransformer``).
 - Iterative box refinement with per-layer heads; the class-head bias uses
   the focal prior (0.01).
 - Track queries occupy fixed leading decoder slots; their boxes give the
@@ -62,6 +65,7 @@ class DeformableDETR(nn.Module):
         enc_lite_high_klevels: int = 0,
         dec_gather_raw: bool = False,
         dec_klevels: int = 0,
+        dec_msda_int8: bool = False,
         msda_ref_normalizer: bool = False,
         num_track_slots: int = 0,
         focal_loss: bool = True,
@@ -111,6 +115,7 @@ class DeformableDETR(nn.Module):
             enc_lite=enc_lite, enc_lite_klevels=enc_lite_klevels,
             enc_lite_high_klevels=enc_lite_high_klevels,
             dec_gather_raw=dec_gather_raw, dec_klevels=dec_klevels,
+            dec_msda_int8=dec_msda_int8,
             msda_ref_normalizer=msda_ref_normalizer,
             dropout=dropout, rng=self.dropout_rng, remat=remat,
         )

@@ -6,7 +6,8 @@
 - ``MSDeformAttn`` samples through ``ops.msda``: the encoder's
   project-then-sample path runs the ``msda_fwd`` kernel, the decoder's
   gather-then-project path (``gather_raw``) the ``msda_raw_pool_fwd``
-  kernel.
+  kernel, or its int8 instance over the table that ``dec_msda_int8``
+  quantizes once a frame for all decoder layers.
 - Track queries occupy fixed leading decoder slots with a key-pad mask.
 - Sampling offsets are normalized by (W, H) per level; ``ref_normalizer``
   selects the (H, W) order of checkpoints trained with the fork.
@@ -34,6 +35,7 @@ from ..ops.msda import (
     device_constant,
     ms_deform_attn,
     ms_deform_attn_raw_pool,
+    quantize_rows,
 )
 
 
@@ -134,7 +136,10 @@ class MSDeformAttn(nn.Module):
 
     gather_raw: sample RAW src rows and apply the value projection after
     pooling (exact by linearity; ``value_proj`` then acts on pooled rows and
-    its bias is restored through the pooled weight sum)."""
+    its bias is restored through the pooled weight sum). ``src_table``
+    (gather_raw, inference only): (int8 [B, S, C], scales [B, L]), the
+    masked src quantized by the caller; it is sampled in place of src, and
+    pooled comes back in src's dtype."""
 
     def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4,
                  gather_raw=False, ref_normalizer=False):
@@ -156,6 +161,7 @@ class MSDeformAttn(nn.Module):
         spatial_shapes: Sequence[Tuple[int, int]],
         src_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True=pad
         query_mask: Optional[torch.Tensor] = None,  # [B, Lq] True=masked
+        src_table=None,  # (int8 [B, S, C], scales [B, L]), gather_raw only
     ) -> torch.Tensor:
         b, lq, _ = query.shape
         m, l, p = self.n_heads, self.n_levels, self.n_points
@@ -185,11 +191,18 @@ class MSDeformAttn(nn.Module):
         if self.gather_raw:
             ext = None
             if src_padding_mask is not None:
-                src = src.masked_fill(src_padding_mask[..., None], 0.0)
                 ext = valid_extents(src_padding_mask, spatial_shapes)
-            pooled, wsum = ms_deform_attn_raw_pool(
-                src, spatial_shapes, loc, attn, ext
-            )
+            if src_table is not None:
+                pooled, wsum = ms_deform_attn_raw_pool(
+                    src_table[0], spatial_shapes, loc, attn, ext,
+                    src_table[1], src.dtype,
+                )
+            else:
+                if src_padding_mask is not None:
+                    src = src.masked_fill(src_padding_mask[..., None], 0.0)
+                pooled, wsum = ms_deform_attn_raw_pool(
+                    src, spatial_shapes, loc, attn, ext
+                )
             out = self._project_pooled(pooled, wsum)
         else:
             value = self.value_proj(src)
@@ -378,7 +391,7 @@ class DeformableDecoderLayer(nn.Module):
         self.dropout3 = Dropout(dropout, rng)  # FFN output
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                src_padding_mask=None, query_pad_mask=None):
+                src_padding_mask=None, query_pad_mask=None, src_table=None):
         q = tgt + query_pos if query_pos is not None else tgt
         key_valid = ~query_pad_mask if query_pad_mask is not None else None
         tgt = self.norm1(
@@ -387,7 +400,7 @@ class DeformableDecoderLayer(nn.Module):
         tgt2 = self.cross_attn(
             tgt + query_pos if query_pos is not None else tgt,
             reference_points, src, spatial_shapes, src_padding_mask,
-            query_mask=query_pad_mask,
+            query_mask=query_pad_mask, src_table=src_table,
         )
         tgt = self.norm2(tgt + self.dropout2(tgt2))
         h = self.linear2(self.dropout_ffn(F.relu(self.linear1(tgt))))
@@ -413,7 +426,7 @@ class DeformableDecoder(nn.Module):
 
     def forward(self, tgt, reference_points, src, spatial_shapes,
                 valid_ratios, query_pos=None, src_padding_mask=None,
-                query_pad_mask=None, bbox_embeds=None):
+                query_pad_mask=None, bbox_embeds=None, src_table=None):
         output = tgt
         intermediates, inter_refs = [], []
         for i in range(self.num_layers):
@@ -426,7 +439,7 @@ class DeformableDecoder(nn.Module):
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
             output = getattr(self, f"layer{i}")(
                 output, query_pos, ref_input, src, spatial_shapes,
-                src_padding_mask, query_pad_mask,
+                src_padding_mask, query_pad_mask, src_table,
             )
             if bbox_embeds is not None:
                 tmp = bbox_embeds[i](output).float()
@@ -463,6 +476,12 @@ class DeformableTransformer(nn.Module):
     frame's encoded memory is the same as current or as previous frame, and
     the caller can pass last step's memory as ``prev_encoded``.
 
+    ``dec_msda_int8`` (with ``dec_gather_raw``; inference only, a no-op in
+    ``train()`` mode, as in the JAX package): the decoder's cross-attention
+    samples an int8 table of its masked memory, made once a frame for all
+    layers, with one scale per frame's half in the cached-memory path and
+    one for the whole table otherwise (see ``_dec_table``).
+
     Returns (hs, memory, init_reference, inter_references, query_pad_mask);
     query_pad_mask [B, Q] is True at inactive track slots (None without
     track queries)."""
@@ -473,7 +492,7 @@ class DeformableTransformer(nn.Module):
                  enc_n_points=4, multi_frame_attention_separate_encoder=False,
                  frame_agnostic_levels=False, enc_lite=False,
                  enc_lite_klevels=0, enc_lite_high_klevels=0,
-                 dec_gather_raw=False, dec_klevels=0,
+                 dec_gather_raw=False, dec_klevels=0, dec_msda_int8=False,
                  msda_ref_normalizer=False, dropout=0.0, rng=None,
                  remat=False):
         super().__init__()
@@ -483,6 +502,7 @@ class DeformableTransformer(nn.Module):
         self.separate_encoder = multi_frame_attention_separate_encoder
         self.frame_agnostic_levels = frame_agnostic_levels
         self.dec_klevels = dec_klevels
+        self.dec_int8 = dec_msda_int8 and dec_gather_raw
         enc_levels = num_feature_levels // (2 if self.separate_encoder else 1)
         self.encoder = DeformableEncoder(
             num_encoder_layers, d_model, dim_feedforward,
@@ -506,6 +526,35 @@ class DeformableTransformer(nn.Module):
         half = self.num_feature_levels // frames
         k = min(self.dec_klevels, half) if self.dec_klevels else half
         return frames, half, k
+
+    @staticmethod
+    def _dec_table(dec_memory, dec_mask, dec_shapes, halves: bool):
+        """The decoder's int8 table (JAX ``deformable_transformer.py``
+        881-958): (int8 [B, S, C], per-level scales [B, L]) of the memory
+        with pad rows zeroed. With ``halves`` (the cached-memory path) each
+        frame's half is quantized on its own, current frame first, each
+        with its own scale; otherwise the whole table with one.
+
+        The JAX package caches the previous half's int8 table and scale from
+        the step where that frame was current; the port quantizes the
+        previous half again from the cached memory. Both are the same bits:
+        the cached memory is that step's current-frame memory unchanged
+        (same dtype), and its pad mask is downsampled from the same frame's
+        pad mask by the same rule, so the masked rows, their absmax, the
+        scale and every rounded value are equal."""
+        b = dec_memory.shape[0]
+        n_l = len(dec_shapes)
+        masked = dec_memory.masked_fill(dec_mask[..., None], 0.0)
+        if not halves:
+            q8, scale = quantize_rows(masked)
+            return q8, scale[:, None].expand(b, n_l).contiguous()
+        half = n_l // 2
+        split = sum(h * w for h, w in dec_shapes[:half])
+        q_cur, s_cur = quantize_rows(masked[:, :split])
+        q_prev, s_prev = quantize_rows(masked[:, split:])
+        scales = torch.cat([s_cur[:, None].expand(b, half),
+                            s_prev[:, None].expand(b, n_l - half)], dim=1)
+        return torch.cat([q_cur, q_prev], dim=1), scales.contiguous()
 
     def _flat_inputs(self, srcs, masks, pos_embeds, embed_idx):
         b = srcs[0].shape[0]
@@ -644,9 +693,15 @@ class DeformableTransformer(nn.Module):
         # The JAX package caches the decoder's 4C quad table of the previous
         # frame's half. The raw-pool kernel reads src rows directly, so the
         # port caches nothing here: each cross-attention masks the decoder
-        # memory (both halves) itself.
+        # memory (both halves) itself, or samples the int8 table.
+        table = None
+        if self.dec_int8 and not self.training:
+            table = self._dec_table(
+                dec_memory, dec_mask, dec_shapes,
+                prev_encoded is not None or prev_is_current,
+            )
         hs, inter_refs = self.decoder(
             tgt, reference_points, dec_memory, dec_shapes, dec_vr,
-            query_pos, dec_mask, query_pad_mask, bbox_embeds,
+            query_pos, dec_mask, query_pad_mask, bbox_embeds, table,
         )
         return hs, memory, init_reference, inter_refs, query_pad_mask

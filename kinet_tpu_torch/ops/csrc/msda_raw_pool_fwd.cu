@@ -41,6 +41,22 @@
 // generic instance covers other (L, P), and 8-, 4- or 2-byte groups other
 // widths and alignments.
 //
+// The int8 instance (msda_raw_pool_fwd_i8_kernel, C entry
+// msda_raw_pool_fwd_i8) replaces the same function over an int8 table
+// (dec_msda_int8: ms_deform_attn_raw_pool with quad_scales, the table from
+// quantize_rows): src is int8 with one dequantization scale per batch
+// element and level, quad_scales [B, L] f32, folded into each corner's
+// pooling weight (w * scale), while wsum sums the unscaled w (it restores
+// the projection's bias). A row is 288 bytes at C = 288, half the bf16
+// row, so a launch reads half the corner bytes. The design is the bf16
+// one with 16-byte lanes of 16 channels (18 lanes a row): (L, P) fixed at
+// compile time for the decoder's (4, 2) and (2, 2), corners branch-free
+// through corner_at, all of a thread's corner loads in flight before its
+// first FMA, f32 sums, pooled written in f32 or bf16. A channel is
+// converted without I2F (a quarter-rate instruction on the SM): its byte,
+// offset by 128, becomes the low byte of the float 2^23 + byte (one
+// PRMT), and one FADD takes the offset off, exactly.
+//
 // Tried and dropped (PERF.md): one block per query that merges the corner
 // pairs its heads and points share and fetches each distinct row once into
 // shared memory with cp.async.bulk and mbarriers. On the main path's
@@ -193,6 +209,192 @@ static cudaError_t launch(const void* src, const void* pooled,
   return launch_v<T, 1>(s, a, po, stream);
 }
 
+// ---------------------------------------------------------------------------
+// int8 table (see the top)
+
+// Channel k (0-3) of a word of 4 int8 channels, as f32: the byte with its
+// sign bit flipped (b + 128) under the exponent of 2^23, minus 2^23 + 128.
+__device__ __forceinline__ float i8_at(unsigned int flipped, int k) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
+         8388736.0f;
+}
+
+// V consecutive int8 channels as raw 32-bit words (V / 4 of them; V = 1
+// keeps its byte in the low 8 bits) and their f32 values.
+template <int V>
+struct I8Row {
+  static constexpr int kWords = V >= 4 ? V / 4 : 1;
+  __device__ __forceinline__ static void load(const int8_t* p,
+                                              unsigned int (&w)[kWords]) {
+    if constexpr (V == 16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    } else if constexpr (V == 4) {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      w[0] = (unsigned int)(unsigned char)__ldg(p);
+    }
+  }
+  __device__ __forceinline__ static void fma(float wt,
+                                             const unsigned int (&w)[kWords],
+                                             float (&acc)[V]) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      const unsigned int f = w[j] ^ 0x80808080u;
+#pragma unroll
+      for (int k = 0; k < (V >= 4 ? 4 : 1); ++k)
+        acc[4 * j + k] = fmaf(wt, i8_at(f, k), acc[4 * j + k]);
+    }
+  }
+};
+
+// V f32 sums stored as V channels of TO, in stores of up to 16 bytes.
+template <typename TO, int V>
+__device__ __forceinline__ void store_channels(TO* p, const float (&acc)[V]) {
+  constexpr int kW = V < 16 / (int)sizeof(TO) ? V : 16 / (int)sizeof(TO);
+#pragma unroll
+  for (int j = 0; j < V; j += kW) VecIO<TO, kW>::store(p + j, acc + j);
+}
+
+struct RawPoolI8Args {
+  RawPoolArgs a;
+  const float* quad_scales;  // [B, L]
+};
+
+// One thread per (b, q, m, V-channel group) of an int8 table; kL > 0 fixes
+// L and P at compile time, kL = 0 is the generic instance.
+template <typename TO, int V, int kL, int kP>
+__global__ void __launch_bounds__(kDirectThreads)
+    msda_raw_pool_fwd_i8_kernel(const int8_t* __restrict__ src,
+                                RawPoolI8Args ai, TO* __restrict__ pooled) {
+  const RawPoolArgs& a = ai.a;
+  const int groups = a.C / V;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= (long long)a.B * a.Lq * a.M * groups) return;
+  const int g = (int)(tid % groups);
+  const long long bqm = tid / groups;  // (b * Lq + q) * M + m
+  const int b = (int)(bqm / ((long long)a.M * a.Lq));
+  const int L = kL > 0 ? kL : a.L;
+  const int P = kL > 0 ? kP : a.P;
+  const int8_t* src_b = src + (long long)b * a.S * a.C + (long long)g * V;
+  constexpr int kWords = I8Row<V>::kWords;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  float wsum = 0.0f;
+  if constexpr (kL > 0) {
+    constexpr int kLP = kL * kP;
+    float xy[2 * kLP], aw[kLP];
+    load_floats<2 * kLP>(a.loc + bqm * 2 * kLP, xy);
+    load_floats<kLP>(a.aw + bqm * kLP, aw);
+    unsigned int raw[4 * kLP][kWords];
+    float wt[4 * kLP];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const int start = __ldg(a.level_start + l);
+      const float scale = __ldg(ai.quad_scales + b * kL + l);
+      float vh = (float)h, vw = (float)w;
+      if (a.valid_extents != nullptr) {
+        vh = __ldg(a.valid_extents + ((long long)b * kL + l) * 2);
+        vw = __ldg(a.valid_extents + ((long long)b * kL + l) * 2 + 1);
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = l * kP + p;
+        const float x = xy[2 * k] * w - 0.5f;
+        const float y = xy[2 * k + 1] * h - 0.5f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          long long cell;
+          float wy, wx;
+          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
+          const float wc = in ? wy * wx * aw[k] : 0.0f;
+          wsum += wc;
+          wt[4 * k + c] = wc * scale;
+          I8Row<V>::load(src_b + (start + (in ? cell : 0)) * a.C,
+                         raw[4 * k + c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4 * kLP; ++k) I8Row<V>::fma(wt[k], raw[k], acc);
+  } else {
+    for (int l = 0; l < L; ++l) {
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const int start = __ldg(a.level_start + l);
+      const float scale = __ldg(ai.quad_scales + b * L + l);
+      float vh = (float)h, vw = (float)w;
+      if (a.valid_extents != nullptr) {
+        vh = __ldg(a.valid_extents + ((long long)b * L + l) * 2);
+        vw = __ldg(a.valid_extents + ((long long)b * L + l) * 2 + 1);
+      }
+      for (int p = 0; p < P; ++p) {
+        const long long k = (bqm * L + l) * P + p;
+        const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
+        const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
+        const float aw = __ldg(a.aw + k);
+        unsigned int raw[4][kWords];
+        float wt[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          long long cell;
+          float wy, wx;
+          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
+          const float wc = in ? wy * wx * aw : 0.0f;
+          wsum += wc;
+          wt[c] = wc * scale;
+          I8Row<V>::load(src_b + (start + (in ? cell : 0)) * a.C, raw[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) I8Row<V>::fma(wt[c], raw[c], acc);
+      }
+    }
+  }
+  store_channels<TO, V>(pooled + bqm * a.C + (long long)g * V, acc);
+  if (g == 0) a.wsum_out[bqm] = wsum;
+}
+
+template <typename TO, int V>
+static cudaError_t launch_i8_v(const int8_t* src, const RawPoolI8Args& ai,
+                               TO* pooled, cudaStream_t stream) {
+  const RawPoolArgs& a = ai.a;
+  const long long total = (long long)a.B * a.Lq * a.M * (a.C / V);
+  const unsigned blocks =
+      (unsigned)((total + kDirectThreads - 1) / kDirectThreads);
+  const bool vec = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0;
+  if (vec && a.L == 4 && a.P == 2)
+    msda_raw_pool_fwd_i8_kernel<TO, V, 4, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+  else if (vec && a.L == 2 && a.P == 2)
+    msda_raw_pool_fwd_i8_kernel<TO, V, 2, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+  else
+    msda_raw_pool_fwd_i8_kernel<TO, V, 0, 0>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+static cudaError_t launch_i8(const void* src, void* pooled,
+                             const RawPoolI8Args& ai, cudaStream_t stream) {
+  const int8_t* s = static_cast<const int8_t*>(src);
+  TO* po = static_cast<TO*>(pooled);
+  const int C = ai.a.C;
+  const uintptr_t sp = (uintptr_t)src, pp = (uintptr_t)pooled;
+  // 16 channels: a 16-byte table load, 16-byte-aligned stores of pooled
+  if (C % 16 == 0 && sp % 16 == 0 && pp % 16 == 0)
+    return launch_i8_v<TO, 16>(s, ai, po, stream);
+  if (C % 4 == 0 && sp % 4 == 0 && pp % (4 * sizeof(TO)) == 0)
+    return launch_i8_v<TO, 4>(s, ai, po, stream);
+  return launch_i8_v<TO, 1>(s, ai, po, stream);
+}
+
 }  // namespace kinet
 
 // C entry bound with ctypes. Returns the launch's CUDA error (0 if none).
@@ -214,5 +416,30 @@ extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
     return (int)kinet::launch<__nv_bfloat16>(src, pooled, a, s);
   if (dtype == kinet::kF32)
     return (int)kinet::launch<float>(src, pooled, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry of the int8 instance, bound with ctypes: src int8 [B, S, C],
+// quad_scales [B, L] f32, pooled in out_dtype (f32 or bf16). Returns the
+// launch's CUDA error (0 if none).
+extern "C" int msda_raw_pool_fwd_i8(const void* src, const void* quad_scales,
+                                    int out_dtype, const void* shapes,
+                                    const void* starts, const void* loc,
+                                    const void* aw,
+                                    const void* valid_extents, void* pooled,
+                                    void* wsum, int B, int S, int C, int Lq,
+                                    int M, int L, int P, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kinet::RawPoolI8Args ai{{static_cast<const int*>(shapes),
+                           static_cast<const int*>(starts),
+                           static_cast<const float*>(loc),
+                           static_cast<const float*>(aw),
+                           static_cast<const float*>(valid_extents),
+                           static_cast<float*>(wsum), B, S, C, Lq, M, L, P},
+                          static_cast<const float*>(quad_scales)};
+  if (out_dtype == kinet::kBF16)
+    return (int)kinet::launch_i8<__nv_bfloat16>(src, pooled, ai, s);
+  if (out_dtype == kinet::kF32)
+    return (int)kinet::launch_i8<float>(src, pooled, ai, s);
   return (int)cudaErrorInvalidValue;
 }

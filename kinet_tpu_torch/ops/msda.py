@@ -14,7 +14,9 @@ weights and summed over levels and points.
 - ``ms_deform_attn_raw_pool``: the decoder's gather-then-project pooling of
   raw (pre-projection) rows. Kernel ``csrc/msda_raw_pool_fwd.cu``. Replaces
   ``kinet_tpu/ops/msda.py::ms_deform_attn_raw_pool`` with its
-  ``build_raw_quad`` table.
+  ``build_raw_quad`` table; over an int8 table from ``quantize_rows`` with
+  per-level ``quad_scales`` (``dec_msda_int8``, forward only), its int8
+  instance (C entry ``msda_raw_pool_fwd_i8``).
 
 What bounds both on an H100: the corner reads from L2 and their latency,
 not HBM. Every sample reads four corner rows at data-dependent cells (a
@@ -65,6 +67,19 @@ import torch.nn.functional as F
 from . import cuda_build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def quantize_rows(src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, C] -> (int8 [B, S, C], scale [B] float32): symmetric int8 with
+    one scale per batch element, max(absmax / 127, 1e-8), values rounded
+    half to even and clipped to +-127 (the port's copy of
+    ``kinet_tpu/ops/msda.py::quantize_rows``). One scalar a table, so it
+    folds into the pooling weights per level."""
+    x = src.float()
+    absmax = x.abs().amax(dim=(1, 2))
+    scale = torch.clamp(absmax / 127.0, min=1e-8)
+    q8 = torch.clamp(torch.round(x / scale[:, None, None]), -127, 127)
+    return q8.to(torch.int8), scale
 
 
 def level_start_index(spatial_shapes) -> Tuple[int, ...]:
@@ -161,10 +176,10 @@ def ms_deform_attn_plain(
     return out.view(n, m, d, lq).permute(0, 3, 1, 2).reshape(n, lq, m * d)
 
 
-def _launch(name: str, argtypes, device, *args):
-    """Launches kernel ``name`` on the current stream of ``device``; raises
-    if the launch fails."""
-    fn = _kernel_fn(name, argtypes)
+def _launch(name: str, argtypes, device, *args, lib: Optional[str] = None):
+    """Launches kernel ``name`` (of library ``lib``, default ``name``) on
+    the current stream of ``device``; raises if the launch fails."""
+    fn = _kernel_fn(name, argtypes, lib)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -295,16 +310,25 @@ ms_deform_attn.bwd_launches = 0
 # decoder gather-then-project pooling
 
 
+def _pooled_dtype(src: torch.Tensor, pooled_dtype) -> torch.dtype:
+    if pooled_dtype is not None:
+        return pooled_dtype
+    return src.dtype if src.is_floating_point() else torch.float32
+
+
 def ms_deform_attn_raw_pool_plain(
     src: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
     valid_extents: Optional[torch.Tensor] = None,
+    quad_scales: Optional[torch.Tensor] = None,
+    pooled_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``ms_deform_attn_raw_pool``: an explicit gather of
     the four bilinear corners of every sample, in float32 (float64 for
-    float64 src)."""
+    float64 src); with ``quad_scales`` each level's scale multiplies the
+    pooling weights, not wsum's."""
     b, _, c = src.shape
     _, lq, m, _, p, _ = sampling_locations.shape
     ct = torch.promote_types(src.dtype, torch.float32)
@@ -334,6 +358,8 @@ def ms_deform_attn_raw_pool_plain(
                 wt = torch.where(
                     inside, wy * (fx if dx else 1.0 - fx) * aw, 0.0
                 )
+                w_pool = wt if quad_scales is None else \
+                    wt * quad_scales[:, lid].view(b, 1, 1, 1)
                 cell = (
                     start
                     + yi.clamp(0, h - 1).long() * w
@@ -342,9 +368,9 @@ def ms_deform_attn_raw_pool_plain(
                 rows = torch.gather(
                     srcf, 1, cell.reshape(b, -1, 1).expand(-1, -1, c)
                 ).view(b, lq, m, p, c)
-                pooled += (wt[..., None] * rows).sum(3)
+                pooled += (w_pool[..., None] * rows).sum(3)
                 wsum += wt.sum(-1)
-    return pooled.to(src.dtype), wsum
+    return pooled.to(_pooled_dtype(src, pooled_dtype)), wsum
 
 
 def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
@@ -363,6 +389,26 @@ def _raw_pool_fwd(src, spatial_shapes, loc, aw, ext):
         pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
     )
     ms_deform_attn_raw_pool.launches += 1
+    return pooled, wsum
+
+
+def _raw_pool_fwd_i8(src, scales, spatial_shapes, loc, aw, ext, pooled_dtype):
+    b, s, c = src.shape
+    _, lq, m, l, p, _ = loc.shape
+    pooled = torch.empty(b, lq, m, c, dtype=pooled_dtype, device=src.device)
+    wsum = torch.empty(b, lq, m, dtype=torch.float32, device=src.device)
+    if pooled.numel() == 0:
+        return pooled.zero_(), wsum.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, src.device)
+    _launch(
+        "msda_raw_pool_fwd_i8", [_P, _P, _I] + [_P] * 7 + [_I] * 7 + [_P],
+        src.device, src.data_ptr(), scales.data_ptr(),
+        _DTYPE_CODE[pooled_dtype], shapes_t.data_ptr(), starts_t.data_ptr(),
+        loc.data_ptr(), aw.data_ptr(), None if ext is None else ext.data_ptr(),
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
+        lib="msda_raw_pool_fwd",
+    )
+    ms_deform_attn_raw_pool.i8_launches += 1
     return pooled, wsum
 
 
@@ -420,11 +466,13 @@ def ms_deform_attn_raw_pool(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
     valid_extents: Optional[torch.Tensor] = None,
+    quad_scales: Optional[torch.Tensor] = None,
+    pooled_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather-then-project pooling of RAW src rows [B, S, C] (pad rows
-    zeroed by the caller). Returns (pooled [B, Lq, M, C] in src's dtype,
-    wsum [B, Lq, M] float32); the caller projects after pooling and restores
-    the projection bias through wsum, exact by linearity:
+    zeroed by the caller). Returns (pooled [B, Lq, M, C], wsum [B, Lq, M]
+    float32); the caller projects after pooling and restores the
+    projection bias through wsum, exact by linearity:
       sum_k w_k (src_k W + b) = (sum_k w_k src_k) W + (sum_k w_k) b.
     Differentiable in src, sampling_locations and attention_weights.
 
@@ -433,13 +481,31 @@ def ms_deform_attn_raw_pool(
     project-first path, which zeroes the projected value, bias included, at
     padded tokens.
 
+    quad_scales [B, L] float32, with an int8 src from ``quantize_rows``
+    (each frame's table quantized on its own): the dequantization scale of
+    each level, folded into the pooling weights; wsum stays unscaled. This
+    path is forward only, as in the JAX package (which quantizes only in
+    its deterministic forward): with autograd on inputs that require grad
+    it raises. pooled comes back in ``pooled_dtype``: by default src's
+    dtype, float32 for an int8 src.
+
     CPU tensors take ``ms_deform_attn_raw_pool_plain``; CUDA tensors go
     through ``MSDeformAttnRawPoolFunction`` (kernels ``msda_raw_pool_fwd`` /
-    ``msda_raw_pool_bwd``)."""
+    ``msda_raw_pool_bwd``), or, with quad_scales, the int8 instance
+    ``msda_raw_pool_fwd_i8`` (count ``i8_launches``)."""
+    int8 = quad_scales is not None
+    if int8:
+        if src.dtype != torch.int8:
+            raise TypeError(f"quad_scales need an int8 src, got {src.dtype}")
+        if torch.is_grad_enabled() and (sampling_locations.requires_grad
+                                        or attention_weights.requires_grad):
+            raise RuntimeError(
+                "the int8 raw pool (quad_scales) is forward only: call it "
+                "under torch.no_grad() or torch.inference_mode()")
     if src.device.type == "cpu":
         return ms_deform_attn_raw_pool_plain(
             src, spatial_shapes, sampling_locations, attention_weights,
-            valid_extents,
+            valid_extents, quad_scales, pooled_dtype,
         )
     if src.device.type != "cuda":
         raise ValueError(
@@ -447,7 +513,7 @@ def ms_deform_attn_raw_pool(
         )
     if src.dim() != 3:
         raise ValueError("src must be [B, S, C]")
-    if src.dtype not in _DTYPE_CODE:
+    if not int8 and src.dtype not in _DTYPE_CODE:
         raise TypeError(f"src must be float32 or bfloat16, got {src.dtype}")
     b, s, c = src.shape
     if s != sum(h * w for h, w in spatial_shapes):
@@ -465,6 +531,23 @@ def ms_deform_attn_raw_pool(
             )
         valid_extents = valid_extents.detach().contiguous()
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if int8:
+        if (tuple(quad_scales.shape) != (b, l)
+                or quad_scales.dtype != torch.float32
+                or quad_scales.device != src.device):
+            raise ValueError(
+                f"quad_scales must be float32 [{b}, {l}] on {src.device}")
+        out_dtype = _pooled_dtype(src, pooled_dtype)
+        if out_dtype not in _DTYPE_CODE:
+            raise TypeError(f"pooled_dtype must be float32 or bfloat16, "
+                            f"got {out_dtype}")
+        return _raw_pool_fwd_i8(
+            src.contiguous(), quad_scales.contiguous(), shapes,
+            sampling_locations.contiguous(), attention_weights.contiguous(),
+            valid_extents, out_dtype,
+        )
+    if pooled_dtype is not None and pooled_dtype != src.dtype:
+        raise TypeError("pooled comes back in src's dtype for a float table")
     return MSDeformAttnRawPoolFunction.apply(
         src.contiguous(), shapes, sampling_locations.contiguous(),
         attention_weights.contiguous(), valid_extents,
@@ -473,4 +556,4 @@ def ms_deform_attn_raw_pool(
 
 ms_deform_attn_raw_pool.launches = 0
 ms_deform_attn_raw_pool.bwd_launches = 0
-
+ms_deform_attn_raw_pool.i8_launches = 0

@@ -76,6 +76,12 @@ class CheckpointManager:
         if self.save_model_interval and epoch % self.save_model_interval == 0:
             self._save(self.dir / f"checkpoint_epoch_{epoch}.pth", payload)
 
+    def restore(self):
+        """The payload of the latest checkpoint (``checkpoint.pth``), on the
+        CPU, or None if there is none."""
+        p = self.dir / "checkpoint.pth"
+        return load_checkpoint(p) if p.exists() else None
+
 
 def load_checkpoint(path) -> dict:
     return torch.load(Path(path), map_location="cpu", weights_only=True)

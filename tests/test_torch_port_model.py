@@ -189,8 +189,7 @@ def test_build_model_defaults_to_cuda(monkeypatch):
         (dict(masks=True), "MOTS"),
         (dict(two_stage=True), "two-stage"),
         (dict(merge_frame_features=True), "two-stage"),
-        (dict(enc_msda_int8=True, allow_lossy=True), "int8"),
-        (dict(dec_msda_int8=True, allow_lossy=True), "int8"),
+        (dict(enc_msda_int8=True, allow_lossy=True), "off the flagship"),
         (dict(enc_msda_topk=4, allow_lossy=True), "off the flagship"),
         (dict(enc_msda_shared_locs=True), "off the flagship"),
     ],
