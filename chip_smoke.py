@@ -72,10 +72,6 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 Then one JSON line listing every kernel with its launches, error and times;
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run) and prints no result line.
-``--serve-profile [--package DIR]`` only times the served frame as phase 5
-does and profiles its host side (cProfile), for this checkout or the
-kinet_tpu_torch of another one (it uses only entry points the port has had
-since its first slice), and prints no result line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 kinet_tpu_torch package beside this file.
@@ -1075,7 +1071,8 @@ def forward_launch_ms(by_name, calls):
     profile of ``calls`` calls (device_profile's by_name)."""
     found = {}
     for k, (t, n) in by_name.items():
-        kernel = ("msda_raw_pool_fwd_i8" if "raw_pool_fwd_i8" in k else
+        # the int8 table's instance: msda_raw_pool_fwd_kernel<signed char, ..>
+        kernel = ("msda_raw_pool_fwd_i8" if "pool_fwd_kernel<signed" in k else
                   "msda_raw_pool_fwd" if "raw_pool_fwd" in k else
                   "msda_fwd" if "msda_fwd" in k else None)
         if kernel:
@@ -1442,7 +1439,10 @@ def phase_track_cli(torch, msda):
     checkpoint of seeded bf16 weights, class heads biased to class 0 and
     the class-0 bias moved so that the track config's default thresholds
     (0.4) keep about 7 new detections a frame, as phase 5's calibrated
-    ones do. Returns (launches, frames/s of the CLI's RUNTIME line)."""
+    ones do. Returns (launches, steady-state frames/s: the RUNTIME line's
+    window less the first frame's step, over the other frames; frames/s of
+    the whole RUNTIME line, which at 16 frames is mostly the first frame's
+    start-up)."""
     import math
     import re
 
@@ -1504,8 +1504,6 @@ def phase_track_cli(torch, msda):
                f"data_root_dir={tmp / 'data'}", f"dataset_name={T_SEQ}",
                f"output_dir={out}", "tracker_cfg.steps_termination=3",
                "tracker_cfg.inactive_patience=0"]
-        if DEVICE != "cuda":  # a rehearsal on the CPU
-            cmd.append(f"device={DEVICE}")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
                               timeout=900)
@@ -1543,51 +1541,8 @@ def phase_track_cli(torch, msda):
     log(f"  of the RUNTIME line's {loop_s * 1e3:.0f} ms, "
         f"{loop_s * 1e3 - sum(step_ms):.0f} ms outside Tracker.step "
         f"(waiting for the prefetch thread's frames)")
-    return launches, float(hz.group(2))
-
-
-# ---------------------------------------------------------------------------
-# --serve-profile: the host side of the served frame
-
-
-def serve_profile(torch):
-    """The served frame (bf16 table) timed as phase 5 times it, then a
-    cProfile of the host over as many frames: the median ms/frame and the
-    host functions that take the most time. Uses only entry points the
-    port has had since its first slice, so it runs against an older tree
-    (``--package``)."""
-    import cProfile
-    import io
-    import pstats
-
-    tracker, model, frames = served_tracker(torch, flagship_cfg())
-    times, _ = timed_frames(torch, tracker, frames[:N_FRAMES])
-    med = statistics.median(times[WARMUP:])
-    prof = cProfile.Profile()
-    more = frames[N_FRAMES:] + frames[1:N_FRAMES]
-    prof.enable()
-    t0 = time.perf_counter()
-    for blob in more[:N_FRAMES - WARMUP]:
-        tracker.step(blob)
-    prof_ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
-    prof.disable()
-    log(f"  per-frame ms: {' '.join(f'{t:.2f}' for t in times)}")
-    log(f"  median {med:.3f} ms/frame after {WARMUP} warm-up frames; "
-        f"{prof_ms:.3f} ms/frame under cProfile")
-    stats = pstats.Stats(prof)
-    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:20]
-    frames_n = N_FRAMES - WARMUP
-    host = [{"fn": f"{Path(k[0]).name}:{k[1]}:{k[2]}",
-             "tottime_ms_per_frame": v[2] * 1e3 / frames_n,
-             "cumtime_ms_per_frame": v[3] * 1e3 / frames_n, "calls": v[1]}
-            for k, v in top]
-    buf = io.StringIO()
-    pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(25)
-    log(buf.getvalue())
-    print(json.dumps({"serve_profile": {"ms_per_frame": med,
-                                        "profiled_ms_per_frame": prof_ms,
-                                        "frame_ms": times, "host_top": host}}))
-    del tracker, model
+    steady = (T_FRAMES - 1) / (loop_s - step_ms[0] / 1e3)
+    return launches, steady, float(hz.group(2))
 
 
 # ---------------------------------------------------------------------------
@@ -1616,19 +1571,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of kinet_tpu_torch")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--serve-profile", action="store_true",
-                    help="only the served frame's times and a host profile "
-                    "(after phases 1 and 2)")
-    ap.add_argument("--package", default=None,
-                    help="the checkout whose kinet_tpu_torch to run "
-                    "(default: this script's; with --serve-profile)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    root = Path(args.package or __file__).resolve()
-    root = root if args.package else root.parent
+    root = Path(__file__).resolve().parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
-        print(f"chip_smoke: no kinet_tpu_torch package in {root}",
-              file=sys.stderr)
+        print("chip_smoke: the kinet_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
         return 2
     import torch
 
@@ -1655,12 +1603,6 @@ def main(argv=None) -> int:
     for kernel, text in messages.items():
         for entry, regs, spills in ptxas_entries(text):
             log(f"  {kernel}: {entry[:72]}: {regs}; {spills}")
-
-    if args.serve_profile:
-        log(f"== serve profile: Tracker.step, bf16, 800x1440, {N_FRAMES} "
-            f"frames, then a host profile of {N_FRAMES - WARMUP} ({root})")
-        serve_profile(torch)
-        return 0
 
     summary, launches = {}, {}
     if "3" in phases:
@@ -1714,10 +1656,13 @@ def main(argv=None) -> int:
     if "T" in phases:
         log(f"== T. tracking CLI: python -m kinet_tpu_torch.engine.track, "
             f"dec_msda_int8, bf16, {T_FRAMES} frames {T_HW[0]}x{T_HW[1]}")
-        tracked, hz = phase_track_cli(torch, msda)
+        tracked, steady, hz = phase_track_cli(torch, msda)
         launches["msda_raw_pool_fwd_i8"] = tracked["msda_raw_pool_fwd_i8"]
-        log(f"  {hz:.2f} frames/s (the CLI's RUNTIME line, prefetched JPEG "
-            f"decode and first-frame warm-up included) on {smi}")
+        log(f"  {steady:.2f} frames/s steady state (the RUNTIME window less "
+            f"the first frame's step, {T_FRAMES - 1} frames, prefetched JPEG "
+            f"decode included); {hz:.2f} frames/s over the whole RUNTIME "
+            f"line, mostly the first frame's start-up at {T_FRAMES} frames; "
+            f"on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")

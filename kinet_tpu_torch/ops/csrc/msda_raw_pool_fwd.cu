@@ -41,21 +41,19 @@
 // generic instance covers other (L, P), and 8-, 4- or 2-byte groups other
 // widths and alignments.
 //
-// The int8 instance (msda_raw_pool_fwd_i8_kernel, C entry
-// msda_raw_pool_fwd_i8) replaces the same function over an int8 table
-// (dec_msda_int8: ms_deform_attn_raw_pool with quad_scales, the table from
-// quantize_rows): src is int8 with one dequantization scale per batch
-// element and level, quad_scales [B, L] f32, folded into each corner's
-// pooling weight (w * scale), while wsum sums the unscaled w (it restores
-// the projection's bias). A row is 288 bytes at C = 288, half the bf16
-// row, so a launch reads half the corner bytes. The design is the bf16
-// one with 16-byte lanes of 16 channels (18 lanes a row): (L, P) fixed at
-// compile time for the decoder's (4, 2) and (2, 2), corners branch-free
-// through corner_at, all of a thread's corner loads in flight before its
-// first FMA, f32 sums, pooled written in f32 or bf16. A channel is
-// converted without I2F (a quarter-rate instruction on the SM): its byte,
-// offset by 128, becomes the low byte of the float 2^23 + byte (one
-// PRMT), and one FADD takes the offset off, exactly.
+// Over an int8 table (C entry msda_raw_pool_fwd_i8; dec_msda_int8:
+// ms_deform_attn_raw_pool with quad_scales, the table from quantize_rows)
+// the same kernel replaces the same function: src is int8 with one
+// dequantization scale per batch element and level, quad_scales [B, L] f32,
+// folded into each corner's pooling weight (w * scale), while wsum sums the
+// unscaled w (it restores the projection's bias). A row is 288 bytes at
+// C = 288, half the bf16 row, so a launch reads half the corner bytes, in
+// 16-byte lanes of 16 channels (18 lanes a row). The row loader (RowIO) is
+// the only difference: it keeps a corner's int8 channels as raw words until
+// its FMA and converts a channel without I2F (a quarter-rate instruction on
+// the SM): its byte, offset by 128, becomes the low byte of the float
+// 2^23 + byte (one PRMT), and one FADD takes the offset off, exactly.
+// pooled is written in f32 or bf16.
 //
 // Tried and dropped (PERF.md): one block per query that merges the corner
 // pairs its heads and points share and fetches each distinct row once into
@@ -76,16 +74,93 @@ struct RawPoolArgs {
   const float* loc;
   const float* aw;
   const float* valid_extents;
+  const float* quad_scales;  // [B, L] for an int8 table, else null
   float* wsum_out;
   int B, S, C, Lq, M, L, P;
 };
 
-// The kernel (see the top): kL > 0 fixes L and P at compile time; kL = 0 is
-// the generic instance, one sample's corners at a time.
-template <typename T, int V, int kL, int kP>
+// Channel k (0-3) of a word of 4 int8 channels, as f32: the byte with its
+// sign bit flipped (b + 128) under the exponent of 2^23, minus 2^23 + 128.
+__device__ __forceinline__ float i8_at(unsigned int flipped, int k) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
+         8388736.0f;
+}
+
+// V consecutive channels of a table row of TS: Raw holds them between the
+// load and the FMA that adds them, weighted, to V f32 sums. A float table
+// (f32, bf16) converts at the load; an int8 table keeps its raw words
+// (V / 4 of them; V = 1 or 2 keeps its bytes in the low bits of one) and
+// is scaled by its level's quad_scales (a float table's scale is 1, which
+// the compiler folds away).
+template <typename TS, int V>
+struct RowIO {
+  using Raw = float[V];
+  __device__ __forceinline__ static float level_scale(const float*,
+                                                      long long) {
+    return 1.0f;
+  }
+  __device__ __forceinline__ static void load(const TS* p, Raw& r) {
+    VecIO<TS, V>::load(p, r);
+  }
+  __device__ __forceinline__ static void fma(float wt, const Raw& r,
+                                             float (&acc)[V]) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, r[i], acc[i]);
+  }
+};
+
+template <int V>
+struct RowIO<int8_t, V> {
+  static constexpr int kWords = V >= 4 ? V / 4 : 1;
+  static constexpr int kPerWord = V >= 4 ? 4 : V;
+  using Raw = unsigned int[kWords];
+  __device__ __forceinline__ static float level_scale(const float* q,
+                                                      long long i) {
+    return __ldg(q + i);
+  }
+  __device__ __forceinline__ static void load(const int8_t* p, Raw& w) {
+    if constexpr (V == 16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    } else if constexpr (V == 4) {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else if constexpr (V == 2) {
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    } else {
+      w[0] = (unsigned int)(unsigned char)__ldg(p);
+    }
+  }
+  __device__ __forceinline__ static void fma(float wt, const Raw& w,
+                                             float (&acc)[V]) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      const unsigned int f = w[j] ^ 0x80808080u;
+#pragma unroll
+      for (int k = 0; k < kPerWord; ++k)
+        acc[kPerWord * j + k] = fmaf(wt, i8_at(f, k), acc[kPerWord * j + k]);
+    }
+  }
+};
+
+// V f32 sums stored as V channels of TO, in stores of up to 16 bytes.
+template <typename TO, int V>
+__device__ __forceinline__ void store_channels(TO* p, const float (&acc)[V]) {
+  constexpr int kW = V < 16 / (int)sizeof(TO) ? V : 16 / (int)sizeof(TO);
+#pragma unroll
+  for (int j = 0; j < V; j += kW) VecIO<TO, kW>::store(p + j, acc + j);
+}
+
+// The kernel (see the top): a table of TS, pooled written as TO. kL > 0
+// fixes L and P at compile time; kL = 0 is the generic instance, one
+// sample's corners at a time.
+template <typename TS, typename TO, int V, int kL, int kP>
 __global__ void __launch_bounds__(kDirectThreads)
-    msda_raw_pool_fwd_kernel(const T* __restrict__ src, RawPoolArgs a,
-                             T* __restrict__ pooled) {
+    msda_raw_pool_fwd_kernel(const TS* __restrict__ src, RawPoolArgs a,
+                             TO* __restrict__ pooled) {
+  using Row = RowIO<TS, V>;
   const int groups = a.C / V;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (long long)a.B * a.Lq * a.M * groups) return;
@@ -94,22 +169,24 @@ __global__ void __launch_bounds__(kDirectThreads)
   const int b = (int)(bqm / ((long long)a.M * a.Lq));
   const int L = kL > 0 ? kL : a.L;
   const int P = kL > 0 ? kP : a.P;
-  const T* src_b = src + (long long)b * a.S * a.C + (long long)g * V;
+  const TS* src_b = src + (long long)b * a.S * a.C + (long long)g * V;
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.0f;
   float wsum = 0.0f;
   if constexpr (kL > 0) {
     constexpr int kLP = kL * kP;
-    float xy[2 * kLP], aw[kLP];
+    float xy[2 * kLP], aw[kLP], scale[kL];
     load_floats<2 * kLP>(a.loc + bqm * 2 * kLP, xy);
     load_floats<kLP>(a.aw + bqm * kLP, aw);
-    float v[4 * kLP][V], wt[4 * kLP];
+    typename Row::Raw v[4 * kLP];
+    float wt[4 * kLP];
 #pragma unroll
     for (int l = 0; l < kL; ++l) {
       const int h = __ldg(a.spatial_shapes + 2 * l);
       const int w = __ldg(a.spatial_shapes + 2 * l + 1);
       const int start = __ldg(a.level_start + l);
+      scale[l] = Row::level_scale(a.quad_scales, (long long)b * kL + l);
       float vh = (float)h, vw = (float)w;
       if (a.valid_extents != nullptr) {
         vh = __ldg(a.valid_extents + ((long long)b * kL + l) * 2);
@@ -126,15 +203,13 @@ __global__ void __launch_bounds__(kDirectThreads)
           float wy, wx;
           const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
           wt[4 * k + c] = in ? wy * wx * aw[k] : 0.0f;
-          VecIO<T, V>::load(src_b + (start + (in ? cell : 0)) * a.C,
-                            v[4 * k + c]);
+          Row::load(src_b + (start + (in ? cell : 0)) * a.C, v[4 * k + c]);
         }
       }
     }
 #pragma unroll
     for (int k = 0; k < 4 * kLP; ++k) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = fmaf(wt[k], v[k][i], acc[i]);
+      Row::fma(wt[k] * scale[k / (4 * kP)], v[k], acc);
       wsum += wt[k];
     }
   } else {
@@ -142,6 +217,8 @@ __global__ void __launch_bounds__(kDirectThreads)
       const int h = __ldg(a.spatial_shapes + 2 * l);
       const int w = __ldg(a.spatial_shapes + 2 * l + 1);
       const int start = __ldg(a.level_start + l);
+      const float scale =
+          Row::level_scale(a.quad_scales, (long long)b * L + l);
       float vh = (float)h, vw = (float)w;
       if (a.valid_extents != nullptr) {
         vh = __ldg(a.valid_extents + ((long long)b * L + l) * 2);
@@ -152,207 +229,21 @@ __global__ void __launch_bounds__(kDirectThreads)
         const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
         const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
         const float aw = __ldg(a.aw + k);
-        float v[4][V], wt[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          long long cell;
-          float wy, wx;
-          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
-          wt[c] = in ? wy * wx * aw : 0.0f;
-          VecIO<T, V>::load(src_b + (start + (in ? cell : 0)) * a.C, v[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-#pragma unroll
-          for (int i = 0; i < V; ++i) acc[i] = fmaf(wt[c], v[c][i], acc[i]);
-          wsum += wt[c];
-        }
-      }
-    }
-  }
-  VecIO<T, V>::store(pooled + bqm * a.C + (long long)g * V, acc);
-  if (g == 0) a.wsum_out[bqm] = wsum;
-}
-
-template <typename T, int V>
-static cudaError_t launch_v(const T* src, const RawPoolArgs& a,
-                                 T* pooled, cudaStream_t stream) {
-  const long long total = (long long)a.B * a.Lq * a.M * (a.C / V);
-  const unsigned blocks =
-      (unsigned)((total + kDirectThreads - 1) / kDirectThreads);
-  // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
-  const bool vec = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0;
-  if (vec && a.L == 4 && a.P == 2)
-    msda_raw_pool_fwd_kernel<T, V, 4, 2>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
-  else if (vec && a.L == 2 && a.P == 2)
-    msda_raw_pool_fwd_kernel<T, V, 2, 2>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
-  else
-    msda_raw_pool_fwd_kernel<T, V, 0, 0>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
-  return cudaGetLastError();
-}
-
-template <typename T>
-static cudaError_t launch(const void* src, const void* pooled,
-                          const RawPoolArgs& a, cudaStream_t stream) {
-  const T* s = static_cast<const T*>(src);
-  T* po = static_cast<T*>(const_cast<void*>(pooled));
-  constexpr int kChunk = 16 / sizeof(T);  // channels of a 16-byte group
-  if ((uintptr_t)src % 16 == 0 && (uintptr_t)pooled % 16 == 0 &&
-      a.C % kChunk == 0)
-    return launch_v<T, kChunk>(s, a, po, stream);
-  const int v = pick_vec(a.C, src, sizeof(T), pooled, sizeof(T));
-  if (v == 4) return launch_v<T, 4>(s, a, po, stream);
-  if (v == 2) return launch_v<T, 2>(s, a, po, stream);
-  return launch_v<T, 1>(s, a, po, stream);
-}
-
-// ---------------------------------------------------------------------------
-// int8 table (see the top)
-
-// Channel k (0-3) of a word of 4 int8 channels, as f32: the byte with its
-// sign bit flipped (b + 128) under the exponent of 2^23, minus 2^23 + 128.
-__device__ __forceinline__ float i8_at(unsigned int flipped, int k) {
-  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
-         8388736.0f;
-}
-
-// V consecutive int8 channels as raw 32-bit words (V / 4 of them; V = 1
-// keeps its byte in the low 8 bits) and their f32 values.
-template <int V>
-struct I8Row {
-  static constexpr int kWords = V >= 4 ? V / 4 : 1;
-  __device__ __forceinline__ static void load(const int8_t* p,
-                                              unsigned int (&w)[kWords]) {
-    if constexpr (V == 16) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = u.x;
-      w[1] = u.y;
-      w[2] = u.z;
-      w[3] = u.w;
-    } else if constexpr (V == 4) {
-      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-    } else {
-      w[0] = (unsigned int)(unsigned char)__ldg(p);
-    }
-  }
-  __device__ __forceinline__ static void fma(float wt,
-                                             const unsigned int (&w)[kWords],
-                                             float (&acc)[V]) {
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      const unsigned int f = w[j] ^ 0x80808080u;
-#pragma unroll
-      for (int k = 0; k < (V >= 4 ? 4 : 1); ++k)
-        acc[4 * j + k] = fmaf(wt, i8_at(f, k), acc[4 * j + k]);
-    }
-  }
-};
-
-// V f32 sums stored as V channels of TO, in stores of up to 16 bytes.
-template <typename TO, int V>
-__device__ __forceinline__ void store_channels(TO* p, const float (&acc)[V]) {
-  constexpr int kW = V < 16 / (int)sizeof(TO) ? V : 16 / (int)sizeof(TO);
-#pragma unroll
-  for (int j = 0; j < V; j += kW) VecIO<TO, kW>::store(p + j, acc + j);
-}
-
-struct RawPoolI8Args {
-  RawPoolArgs a;
-  const float* quad_scales;  // [B, L]
-};
-
-// One thread per (b, q, m, V-channel group) of an int8 table; kL > 0 fixes
-// L and P at compile time, kL = 0 is the generic instance.
-template <typename TO, int V, int kL, int kP>
-__global__ void __launch_bounds__(kDirectThreads)
-    msda_raw_pool_fwd_i8_kernel(const int8_t* __restrict__ src,
-                                RawPoolI8Args ai, TO* __restrict__ pooled) {
-  const RawPoolArgs& a = ai.a;
-  const int groups = a.C / V;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (long long)a.B * a.Lq * a.M * groups) return;
-  const int g = (int)(tid % groups);
-  const long long bqm = tid / groups;  // (b * Lq + q) * M + m
-  const int b = (int)(bqm / ((long long)a.M * a.Lq));
-  const int L = kL > 0 ? kL : a.L;
-  const int P = kL > 0 ? kP : a.P;
-  const int8_t* src_b = src + (long long)b * a.S * a.C + (long long)g * V;
-  constexpr int kWords = I8Row<V>::kWords;
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
-  float wsum = 0.0f;
-  if constexpr (kL > 0) {
-    constexpr int kLP = kL * kP;
-    float xy[2 * kLP], aw[kLP];
-    load_floats<2 * kLP>(a.loc + bqm * 2 * kLP, xy);
-    load_floats<kLP>(a.aw + bqm * kLP, aw);
-    unsigned int raw[4 * kLP][kWords];
-    float wt[4 * kLP];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      const int h = __ldg(a.spatial_shapes + 2 * l);
-      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-      const int start = __ldg(a.level_start + l);
-      const float scale = __ldg(ai.quad_scales + b * kL + l);
-      float vh = (float)h, vw = (float)w;
-      if (a.valid_extents != nullptr) {
-        vh = __ldg(a.valid_extents + ((long long)b * kL + l) * 2);
-        vw = __ldg(a.valid_extents + ((long long)b * kL + l) * 2 + 1);
-      }
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const int k = l * kP + p;
-        const float x = xy[2 * k] * w - 0.5f;
-        const float y = xy[2 * k + 1] * h - 0.5f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          long long cell;
-          float wy, wx;
-          const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
-          const float wc = in ? wy * wx * aw[k] : 0.0f;
-          wsum += wc;
-          wt[4 * k + c] = wc * scale;
-          I8Row<V>::load(src_b + (start + (in ? cell : 0)) * a.C,
-                         raw[4 * k + c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4 * kLP; ++k) I8Row<V>::fma(wt[k], raw[k], acc);
-  } else {
-    for (int l = 0; l < L; ++l) {
-      const int h = __ldg(a.spatial_shapes + 2 * l);
-      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-      const int start = __ldg(a.level_start + l);
-      const float scale = __ldg(ai.quad_scales + b * L + l);
-      float vh = (float)h, vw = (float)w;
-      if (a.valid_extents != nullptr) {
-        vh = __ldg(a.valid_extents + ((long long)b * L + l) * 2);
-        vw = __ldg(a.valid_extents + ((long long)b * L + l) * 2 + 1);
-      }
-      for (int p = 0; p < P; ++p) {
-        const long long k = (bqm * L + l) * P + p;
-        const float x = __ldg(a.loc + 2 * k) * w - 0.5f;
-        const float y = __ldg(a.loc + 2 * k + 1) * h - 0.5f;
-        const float aw = __ldg(a.aw + k);
-        unsigned int raw[4][kWords];
+        typename Row::Raw v[4];
         float wt[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           long long cell;
           float wy, wx;
           const bool in = corner_at(c, h, w, x, y, vh, vw, cell, wy, wx);
-          const float wc = in ? wy * wx * aw : 0.0f;
-          wsum += wc;
-          wt[c] = wc * scale;
-          I8Row<V>::load(src_b + (start + (in ? cell : 0)) * a.C, raw[c]);
+          wt[c] = in ? wy * wx * aw : 0.0f;
+          Row::load(src_b + (start + (in ? cell : 0)) * a.C, v[c]);
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) I8Row<V>::fma(wt[c], raw[c], acc);
+        for (int c = 0; c < 4; ++c) {
+          Row::fma(wt[c] * scale, v[c], acc);
+          wsum += wt[c];
+        }
       }
     }
   }
@@ -360,44 +251,62 @@ __global__ void __launch_bounds__(kDirectThreads)
   if (g == 0) a.wsum_out[bqm] = wsum;
 }
 
-template <typename TO, int V>
-static cudaError_t launch_i8_v(const int8_t* src, const RawPoolI8Args& ai,
-                               TO* pooled, cudaStream_t stream) {
-  const RawPoolArgs& a = ai.a;
+template <typename TS, typename TO, int V>
+static cudaError_t launch_v(const TS* src, const RawPoolArgs& a, TO* pooled,
+                            cudaStream_t stream) {
   const long long total = (long long)a.B * a.Lq * a.M * (a.C / V);
   const unsigned blocks =
       (unsigned)((total + kDirectThreads - 1) / kDirectThreads);
+  // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
   const bool vec = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0;
   if (vec && a.L == 4 && a.P == 2)
-    msda_raw_pool_fwd_i8_kernel<TO, V, 4, 2>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+    msda_raw_pool_fwd_kernel<TS, TO, V, 4, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
   else if (vec && a.L == 2 && a.P == 2)
-    msda_raw_pool_fwd_i8_kernel<TO, V, 2, 2>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+    msda_raw_pool_fwd_kernel<TS, TO, V, 2, 2>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
   else
-    msda_raw_pool_fwd_i8_kernel<TO, V, 0, 0>
-        <<<blocks, kDirectThreads, 0, stream>>>(src, ai, pooled);
+    msda_raw_pool_fwd_kernel<TS, TO, V, 0, 0>
+        <<<blocks, kDirectThreads, 0, stream>>>(src, a, pooled);
   return cudaGetLastError();
 }
 
-template <typename TO>
-static cudaError_t launch_i8(const void* src, void* pooled,
-                             const RawPoolI8Args& ai, cudaStream_t stream) {
-  const int8_t* s = static_cast<const int8_t*>(src);
+template <typename TS, typename TO>
+static cudaError_t launch(const void* src, void* pooled, const RawPoolArgs& a,
+                          cudaStream_t stream) {
+  const TS* s = static_cast<const TS*>(src);
   TO* po = static_cast<TO*>(pooled);
-  const int C = ai.a.C;
-  const uintptr_t sp = (uintptr_t)src, pp = (uintptr_t)pooled;
-  // 16 channels: a 16-byte table load, 16-byte-aligned stores of pooled
-  if (C % 16 == 0 && sp % 16 == 0 && pp % 16 == 0)
-    return launch_i8_v<TO, 16>(s, ai, po, stream);
-  if (C % 4 == 0 && sp % 4 == 0 && pp % (4 * sizeof(TO)) == 0)
-    return launch_i8_v<TO, 4>(s, ai, po, stream);
-  return launch_i8_v<TO, 1>(s, ai, po, stream);
+  constexpr int kChunk = 16 / sizeof(TS);  // channels of a 16-byte row load
+  if ((uintptr_t)src % 16 == 0 && (uintptr_t)pooled % 16 == 0 &&
+      a.C % kChunk == 0)
+    return launch_v<TS, TO, kChunk>(s, a, po, stream);
+  const int v = pick_vec(a.C, src, sizeof(TS), pooled, sizeof(TO));
+  if (v == 4) return launch_v<TS, TO, 4>(s, a, po, stream);
+  if (v == 2) return launch_v<TS, TO, 2>(s, a, po, stream);
+  return launch_v<TS, TO, 1>(s, a, po, stream);
 }
 
 }  // namespace kinet
 
-// C entry bound with ctypes. Returns the launch's CUDA error (0 if none).
+// C entries bound with ctypes. Each returns the launch's CUDA error (0 if
+// none).
+static kinet::RawPoolArgs raw_pool_args(const void* shapes, const void* starts,
+                                        const void* loc, const void* aw,
+                                        const void* valid_extents,
+                                        const void* quad_scales, void* wsum,
+                                        int B, int S, int C, int Lq, int M,
+                                        int L, int P) {
+  return {static_cast<const int*>(shapes),
+          static_cast<const int*>(starts),
+          static_cast<const float*>(loc),
+          static_cast<const float*>(aw),
+          static_cast<const float*>(valid_extents),
+          static_cast<const float*>(quad_scales),
+          static_cast<float*>(wsum),
+          B, S, C, Lq, M, L, P};
+}
+
+// src f32 or bf16 (dtype), pooled in the same dtype.
 extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
                                  const void* shapes, const void* starts,
                                  const void* loc, const void* aw,
@@ -405,23 +314,18 @@ extern "C" int msda_raw_pool_fwd(const void* src, int dtype,
                                  void* wsum, int B, int S, int C, int Lq,
                                  int M, int L, int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kinet::RawPoolArgs a{static_cast<const int*>(shapes),
-                       static_cast<const int*>(starts),
-                       static_cast<const float*>(loc),
-                       static_cast<const float*>(aw),
-                       static_cast<const float*>(valid_extents),
-                       static_cast<float*>(wsum),
-                       B, S, C, Lq, M, L, P};
+  const kinet::RawPoolArgs a = raw_pool_args(
+      shapes, starts, loc, aw, valid_extents, nullptr, wsum, B, S, C, Lq, M,
+      L, P);
   if (dtype == kinet::kBF16)
-    return (int)kinet::launch<__nv_bfloat16>(src, pooled, a, s);
+    return (int)kinet::launch<__nv_bfloat16, __nv_bfloat16>(src, pooled, a, s);
   if (dtype == kinet::kF32)
-    return (int)kinet::launch<float>(src, pooled, a, s);
+    return (int)kinet::launch<float, float>(src, pooled, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// C entry of the int8 instance, bound with ctypes: src int8 [B, S, C],
-// quad_scales [B, L] f32, pooled in out_dtype (f32 or bf16). Returns the
-// launch's CUDA error (0 if none).
+// src int8 [B, S, C], quad_scales [B, L] f32, pooled in out_dtype (f32 or
+// bf16).
 extern "C" int msda_raw_pool_fwd_i8(const void* src, const void* quad_scales,
                                     int out_dtype, const void* shapes,
                                     const void* starts, const void* loc,
@@ -430,16 +334,12 @@ extern "C" int msda_raw_pool_fwd_i8(const void* src, const void* quad_scales,
                                     void* wsum, int B, int S, int C, int Lq,
                                     int M, int L, int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kinet::RawPoolI8Args ai{{static_cast<const int*>(shapes),
-                           static_cast<const int*>(starts),
-                           static_cast<const float*>(loc),
-                           static_cast<const float*>(aw),
-                           static_cast<const float*>(valid_extents),
-                           static_cast<float*>(wsum), B, S, C, Lq, M, L, P},
-                          static_cast<const float*>(quad_scales)};
+  const kinet::RawPoolArgs a = raw_pool_args(
+      shapes, starts, loc, aw, valid_extents, quad_scales, wsum, B, S, C, Lq,
+      M, L, P);
   if (out_dtype == kinet::kBF16)
-    return (int)kinet::launch_i8<__nv_bfloat16>(src, pooled, ai, s);
+    return (int)kinet::launch<int8_t, __nv_bfloat16>(src, pooled, a, s);
   if (out_dtype == kinet::kF32)
-    return (int)kinet::launch_i8<float>(src, pooled, ai, s);
+    return (int)kinet::launch<int8_t, float>(src, pooled, a, s);
   return (int)cudaErrorInvalidValue;
 }
