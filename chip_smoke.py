@@ -46,14 +46,31 @@ P2. the row-gather probe kernel exactly against its plain version and
    (3 warm-up, 10 timed steps), launch counts per step, peak memory and a
    profile (the MSDA kernels' device time per step beside that of the
    earlier f32-atomic backward kernels, each backward kernel's device
-   time a call and each forward kernel's a launch); then
-   train(cfg), the entry point, on a synthetic MOT dataset,
-   writing a checkpoint and resuming from it;
+   time a call and each forward kernel's a launch); then 7b, train(cfg),
+   the entry point, on the published MOT17 recipe as it stands
+   (train_deformable train_tracking train_multi_frame
+   train_mot17_crowdhuman) over a synthetic MOT tree and a synthetic
+   CrowdHuman train_val tree: two epochs, each ending in evaluate() with
+   the tracking eval, metrics.jsonl with finite AP / AP50 / MOTA / IDF1,
+   checkpoint_best_*, the model back in train mode after each evaluation,
+   and a resume that ends at the expected step;
 T. the tracking CLI, ``python -m kinet_tpu_torch.engine.track``, as a
    subprocess on a synthetic MOT17-02-FRCNN (1080x1920 JPEGs, 16 frames)
    with a saved full-width bf16 run that has dec_msda_int8: exit 0, 6 + 6
    launches a frame, a result file, finite MOTA / IDF1 / HOTA, and the
-   frames/s of its RUNTIME line.
+   frames/s of its RUNTIME line;
+E. evaluation at full width: evaluate() on the flagship in bf16 (class
+   heads calibrated as in phase T) over a synthetic MOT val set of 33
+   1080x1920 JPEG frames (800x1422 after the val transform; 33 is odd, so
+   the batch of 2 leaves a partial last batch), then the tracking eval over
+   the same sequence: every image in the evaluator, 12 finite stats, finite
+   MOTA / IDF1, 6 + 6 forward launches a batch and a tracked frame; ms per
+   val image, the eval's seconds and the device's busy share (profiler);
+A. accuracy on the card: the simple synthetic-MOT gate of
+   kinet_tpu_torch.tools.mota_gates (350 training steps of a tiny tracking
+   model through the MSDA forward and backward kernels, then main_track),
+   held to the JAX gate's thresholds (MOTA > 0.5, IDF1 > 0.5, ID switches
+   <= 2).
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -69,7 +86,8 @@ the argument checks, the allocations and the ctypes call while the card
 waits, is reported beside it as ``wrapper_ms``. The plain versions and
 ``torch.gather`` are timed by ``device_ms`` too.
 
-Then one JSON line listing every kernel with its launches, error and times;
+Then one JSON line listing every kernel with its launches, error and times
+(``eval_launches``: phase E's detection-eval launches);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run) and prints no result line.
 
@@ -1308,8 +1326,8 @@ def phase_train_main_path(torch, msda):
 
 def write_mot_dataset(root: Path, n_frames=6, h=360, w=640):
     """A synthetic MOT sequence in the MOT-to-COCO layout the trainer reads
-    (root/train/*.jpg, root/annotations/train.json): four boxes moving over
-    noise."""
+    (root/train/*.jpg, root/annotations/{train,val}.json): four boxes
+    moving over noise."""
     import numpy as np
     from PIL import Image
 
@@ -1335,38 +1353,337 @@ def write_mot_dataset(root: Path, n_frames=6, h=360, w=640):
     coco = {"images": images, "annotations": annotations,
             "categories": [{"id": 1, "name": "person"}],
             "sequences": ["SEQ-01"]}
-    (root / "annotations" / "train.json").write_text(json.dumps(coco))
+    for split in ("train", "val"):
+        (root / "annotations" / f"{split}.json").write_text(json.dumps(coco))
+
+
+def write_crowdhuman_dataset(root: Path, split: str, n_images=4, h=360,
+                             w=640):
+    """Synthetic CrowdHuman images in its COCO-converted layout
+    (root/{split}/*.jpg, root/annotations/{split}.json): five people a
+    picture, one of them an ignore region."""
+    import numpy as np
+    from PIL import Image
+
+    (root / split).mkdir(parents=True)
+    (root / "annotations").mkdir(exist_ok=True)
+    rng = np.random.default_rng(1)
+    images, annotations = [], []
+    for i in range(n_images):
+        name = f"ch_{i:04d}.jpg"
+        arr = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        for k in range(5):
+            bw, bh = int(rng.integers(30, 80)), int(rng.integers(80, 200))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            arr[y:y + bh, x:x + bw] = 200
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i, "category_id": 1,
+                "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0,
+                "ignore": int(k == 4)})
+        Image.fromarray(arr).save(root / split / name)
+        images.append({"id": i, "file_name": name, "height": h, "width": w})
+    (root / "annotations" / f"{split}.json").write_text(json.dumps({
+        "images": images, "annotations": annotations,
+        "categories": [{"id": 1, "name": "person"}]}))
+
+
+RECIPE = FLAGSHIP + ["train_mot17_crowdhuman"]
 
 
 def phase_train_entry(torch):
-    from kinet_tpu_torch.engine.train import train
+    """train(cfg) on the published MOT17 recipe (train_mot17_crowdhuman: a
+    synthetic MOT tree and a synthetic CrowdHuman train_val tree, the MOT
+    tree also holding a MOT17 sequence for the tracking eval), two epochs,
+    evaluating after each; then a resume for a third."""
+    from kinet_tpu_torch.config import load_config
+    from kinet_tpu_torch.engine import train as train_mod
+
+    modes = []
+    evaluate = train_mod.evaluate
+
+    def recording(model, *args, **kw):
+        t0 = time.perf_counter()
+        stats = evaluate(model, *args, **kw)
+        modes.append((model.training, time.perf_counter() - t0))
+        return stats
+
+    train_mod.evaluate = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_mot_dataset(root / "mot")
+            write_mot17_sequence(root / "mot", 6, 360, 640)
+            write_crowdhuman_dataset(root / "crowdhuman", "train_val")
+            out = root / "out"
+            cfg = load_config("train.yaml", named=RECIPE).replace(
+                mot_path_train=str(root / "mot"),
+                mot_path_val=str(root / "mot"),
+                crowdhuman_path=str(root / "crowdhuman"),
+                output_dir=str(out), epochs=2, val_interval=1,
+                tracking_eval_dataset=T_SEQ)
+            t0 = time.perf_counter()
+            model, _, steps = train_mod.train(cfg, device=DEVICE)
+            first_s = time.perf_counter() - t0
+            check(model.training, "the model left train() in eval mode")
+            check([m for m, _ in modes] == [True, True],
+                  f"the model's mode after each evaluation: {modes}")
+            lines = [json.loads(ln) for ln in
+                     (out / "metrics.jsonl").read_text().splitlines()]
+            check([ln.get("epoch") for ln in lines] == [1, 2],
+                  f"metrics.jsonl: {lines}")
+            for ln in lines:
+                check(all(isinstance(ln.get(k), float) and ln[k] == ln[k]
+                          and abs(ln[k]) < 1e6
+                          for k in ("AP", "AP50", "mota", "idf1")),
+                      f"metrics.jsonl line {ln}")
+            best = sorted(p.name for p in out.glob("checkpoint_best_*"))
+            check("checkpoint_best_AP.pth" in best
+                  and (out / "checkpoint.pth").exists(),
+                  f"best checkpoints {best}")
+            log(f"  train(cfg) {' '.join(RECIPE)}: {steps} steps over 2 "
+                f"epochs (6 MOT frames + 4 CrowdHuman images, batch "
+                f"{cfg.batch_size}) in {first_s:.1f} s, model build and "
+                f"{len(modes)} evaluations ({', '.join(f'{t:.1f}' for _, t in modes)}"
+                f" s) included")
+            for ln in lines:
+                log(f"  metrics.jsonl: {json.dumps(ln)}")
+            log(f"  best checkpoints: {best}")
+            t0 = time.perf_counter()
+            _, _, resumed = train_mod.train(cfg.replace(
+                resume=str(out / "checkpoint.pth"), resume_optim=True,
+                epochs=3), device=DEVICE)
+            check(resumed == steps // 2 * 3,
+                  f"the resumed run ended at step {resumed}, expected "
+                  f"{steps // 2 * 3}")
+            check(len((out / "metrics.jsonl").read_text().splitlines()) == 3,
+                  "the resumed epoch wrote no metrics line")
+            log(f"  resumed at epoch 3: {resumed - steps} more steps and an "
+                f"evaluation in {time.perf_counter() - t0:.1f} s")
+    finally:
+        train_mod.evaluate = evaluate
+
+
+# ---------------------------------------------------------------------------
+# phase E: evaluation at full width
+
+
+E_FRAMES = 33  # odd: the batch of 2 leaves a partial last batch
+
+
+def write_mot_val_tree(root: Path, n_frames, h, w):
+    """MOT17/train/MOT17-02-FRCNN as phase T writes it, and the same frames
+    as a MOT-to-COCO val set (root/train -> MOT17/train,
+    root/annotations/val.json with its gt boxes)."""
+    import numpy as np
+
+    write_mot17_sequence(root, n_frames, h, w)
+    (root / "train").symlink_to(root / "MOT17" / "train")
+    (root / "annotations").mkdir()
+    images, annotations = [], []
+    for f, boxes in enumerate(box_tracks(np, h, w, n_frames)):
+        images.append({"id": f, "file_name": f"{T_SEQ}/img1/{f + 1:06d}.jpg",
+                       "height": h, "width": w, "frame_id": f,
+                       "first_frame_image_id": 0, "seq_length": n_frames})
+        for tid, (y0, x0, bh, bw) in enumerate(boxes, start=1):
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": f, "category_id": 1,
+                "bbox": [int(x0), int(y0), int(bw), int(bh)],
+                "area": int(bw * bh), "iscrowd": 0, "track_id": tid})
+    (root / "annotations" / "val.json").write_text(json.dumps({
+        "images": images, "annotations": annotations,
+        "categories": [{"id": 1, "name": "person"}]}))
+
+
+def synced_spans(torch, model, criterion, post):
+    """Wraps the model's forward, the criterion, its matching and the
+    postprocess so that each synchronises the card before and after it and
+    adds its host-clock seconds (its enqueue and its device work) to
+    ``spans``. Returns (criterion, postprocessors, spans, undo)."""
+    import collections
+
+    spans = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    model.forward = timed("model forward", model.forward)
+    criterion.match = timed("matching (cost + host LSAP)", criterion.match)
+
+    def undo():
+        del model.forward, criterion.match
+
+    return (timed("criterion", criterion),
+            {"bbox": timed("postprocess", post["bbox"])}, spans, undo)
+
+
+def phase_eval(torch, msda):
+    """evaluate() on the full-width flagship in bf16 over a 1080x1920 val
+    set of E_FRAMES frames (800x1422 after the val transform), with the
+    tracking eval over the same sequence. Returns its launch counts."""
+    import math
+
+    from kinet_tpu_torch.data.builder import build_dataset
+    from kinet_tpu_torch.data.sequences import MOT17Sequence
+    from kinet_tpu_torch.engine import evaluate as eval_mod
+    from kinet_tpu_torch.engine import track
+    from kinet_tpu_torch.models.build import build_criterion
+    from kinet_tpu_torch.models.postprocess import build_postprocessors
+
+    seen, marks = set(), {}
+
+    class Evaluator(eval_mod.CocoEvaluator):
+        def update(self, predictions):
+            seen.update(predictions)
+            super().update(predictions)
+
+    main_track = track.main_track
+
+    def timed_track(*args, **kw):
+        # the detection part ends here; the tracking eval starts
+        marks["bbox"] = (time.perf_counter(), read_launches(msda))
+        reset_launches(msda)
+        out = main_track(*args, **kw)
+        marks["track"] = (time.perf_counter(), read_launches(msda))
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        write_mot_dataset(root / "mot")
-        out = root / "out"
+        root = Path(tmp) / "mot"
+        t0 = time.perf_counter()
+        write_mot_val_tree(root, E_FRAMES, *T_HW)
         cfg = flagship_cfg().replace(
-            mot_path_train=str(root / "mot"), mot_path_val=str(root / "mot"),
-            val_interval=0, epochs=2, debug=True, batch_size=1,
-            num_workers=2, log_interval=1, dropout=0.1, remat=True,
-            compute_dtype="bfloat16", output_dir=str(out),
-            **{"img_transform.max_size": 666},
-        )
-        t0 = time.perf_counter()
-        _, _, steps = train(cfg, device=DEVICE)
-        first_s = time.perf_counter() - t0
-        ckpt = out / "checkpoint.pth"
-        check(ckpt.exists() and (out / "config.yaml").exists(),
-              "train(cfg) wrote no checkpoint or config")
-        t0 = time.perf_counter()
-        _, _, resumed = train(cfg.replace(resume=str(ckpt), resume_optim=True),
+            mot_path_val=str(root), tracking_eval_dataset=T_SEQ,
+            size_buckets=[[800, 1440]], **T_TRANSFORM)
+        seq = MOT17Sequence(str(root), "MOT17-02", "FRCNN",
+                            img_transform=cfg.img_transform)
+        model, shift = calibrated_model(torch, cfg, seq[0])
+        criterion, post = build_criterion(cfg), build_postprocessors(cfg)
+        dataset = build_dataset("val", cfg)
+        check(len(dataset) == E_FRAMES, f"val set of {len(dataset)} images")
+        log(f"  val set: {E_FRAMES} JPEG frames {T_HW[0]}x{T_HW[1]}, batch "
+            f"{cfg.batch_size}; model bf16, class-0 bias {shift:+.3f}; "
+            f"set-up {time.perf_counter() - t0:.1f} s")
+
+        eval_mod.CocoEvaluator, track.main_track = Evaluator, timed_track
+        try:
+            torch.cuda.synchronize()
+            reset_launches(msda)
+            t0 = time.perf_counter()
+            stats = eval_mod.evaluate(model, criterion, post, dataset, cfg,
+                                      device=DEVICE)
+            t_end = time.perf_counter()
+        finally:
+            eval_mod.CocoEvaluator, track.main_track = (
+                Evaluator.__bases__[0], main_track)
+        check(not model.training, "evaluate() changed the model's mode")
+        bbox_s = marks["bbox"][0] - t0
+        track_s = marks["track"][0] - marks["bbox"][0]
+        launches = {"bbox": marks["bbox"][1], "track": marks["track"][1]}
+        batches = -(-E_FRAMES // int(cfg.batch_size))
+        # a batch (a tracked frame) launches msda_fwd once a layer of the
+        # encoder (the first frame's one encoder run) and the bf16 raw pool
+        # once a decoder layer
+        per_run = {"msda_fwd": int(cfg.enc_layers),
+                   "msda_raw_pool_fwd": int(cfg.dec_layers),
+                   "msda_raw_pool_fwd_i8": 0}
+        for part, runs in (("bbox", batches), ("track", E_FRAMES)):
+            for k, n in per_run.items():
+                check(launches[part][k] == n * runs,
+                      f"{part}: {k} launched {launches[part][k]} times, "
+                      f"expected {n} x {runs}")
+        check(seen == set(range(E_FRAMES)),
+              f"images missing from the evaluator: "
+              f"{sorted(set(range(E_FRAMES)) - seen)}")
+        coco = stats["coco_eval_bbox"]
+        check(len(coco) == 12 and all(math.isfinite(v) for v in coco),
+              f"stats {coco}")
+        check(all(math.isfinite(stats.get(k, math.nan))
+                  for k in ("mota", "idf1")), f"MOTA/IDF1 {stats}")
+
+        # the detection part again, profiled, for the device's busy time;
+        # then once more with each part synchronised, for where the time
+        # goes
+        det_cfg = cfg.replace(tracking_eval=False)
+        busy = sum(t for t, _ in device_profile(torch, lambda: eval_mod.evaluate(
+            model, criterion, post, dataset, det_cfg, device=DEVICE), 1)
+            .values())
+        crit, posts, spans, undo = synced_spans(torch, model, criterion, post)
+        try:
+            t1 = time.perf_counter()
+            eval_mod.evaluate(model, crit, posts, dataset, det_cfg,
                               device=DEVICE)
-        check(resumed == 2 * steps,
-              f"the resumed run ended at step {resumed}, expected {2 * steps}")
-        log(f"  train(cfg): {steps} steps in {first_s:.1f} s (model build "
-            f"included), checkpoint {ckpt.stat().st_size / 2**20:.1f} MiB; "
-            f"resumed at epoch 2, {resumed - steps} more steps in "
-            f"{time.perf_counter() - t0:.1f} s")
+            spans["the synchronised pass"] = time.perf_counter() - t1
+        finally:
+            undo()
+    ms_img = 1e3 * bbox_s / E_FRAMES
+    log(f"  detection eval: {ms_img:.3f} ms per val image ({bbox_s:.2f} s "
+        f"for {E_FRAMES} images in {batches} batches, the last partial); "
+        f"tracking eval {track_s:.2f} s ({E_FRAMES} frames, "
+        f"{1e3 * track_s / E_FRAMES:.1f} ms a frame); the eval's wall "
+        f"{t_end - t0:.2f} s")
+    log(f"  launches per val image: "
+        f"{ {k: round(n / E_FRAMES, 4) for k, n in launches['bbox'].items()} }"
+        f" ({launches['bbox']} over {batches} batches); tracking eval "
+        f"{launches['track']}")
+    if busy > 0:
+        log(f"  profiler (detection eval again): device busy "
+            f"{busy / E_FRAMES:.3f} ms per image = "
+            f"{100 * busy / (1e3 * bbox_s):.1f}% of the timed pass (idle "
+            f"{100 * (1 - busy / (1e3 * bbox_s)):.1f}%)")
+    else:
+        log("  profiler: no device time recorded")
+    log("  detection eval once more, each part synchronised (ms per image; "
+        "the matching is part of the criterion): " + ", ".join(
+            f"{k} {1e3 * t / E_FRAMES:.1f}" for k, t in spans.items()))
+    names = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+             "AR100", "ARs", "ARm", "ARl"]
+    log("  stats: " + " ".join(f"{n} {v:.4f}" for n, v in zip(names, coco)))
+    log(f"  MOTA {stats['mota']:.4f} IDF1 {stats['idf1']:.4f} (seeded "
+        f"random weights)")
+    del model
+    torch.cuda.empty_cache()
+    return launches["bbox"], ms_img, t_end - t0
+
+
+# ---------------------------------------------------------------------------
+# phase A: accuracy on the card
+
+
+def phase_accuracy(torch, msda, gate="simple"):
+    """A synthetic-MOT accuracy gate (kinet_tpu_torch.tools.mota_gates):
+    train a tiny tracking model on the card, track its sequence, hold it
+    to the JAX gate's thresholds."""
+    from kinet_tpu_torch.tools import mota_gates
+
+    reset_launches(msda)
+    msda.ms_deform_attn.bwd_launches = 0
+    msda.ms_deform_attn_raw_pool.bwd_launches = 0
+    run = mota_gates.run_simple if gate == "simple" else mota_gates.run_hard
+    t0 = time.perf_counter()
+    scores = run(device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(msda),
+                "msda_bwd": msda.ms_deform_attn.bwd_launches,
+                "msda_raw_pool_bwd": msda.ms_deform_attn_raw_pool.bwd_launches}
+    log(f"  {gate} gate: {scores['steps']} steps in {scores['train_s']:.1f} s "
+        f"({1e3 * scores['train_s'] / scores['steps']:.1f} ms a step), last "
+        f"loss {scores['last_loss']:.4f}; {wall:.1f} s in all")
+    log(f"  scores: {json.dumps({k: v for k, v in scores.items() if k not in ('steps', 'train_s', 'last_loss')})}")
+    log(f"  launches: {launches}")
+    for k in ("msda_fwd", "msda_bwd", "msda_raw_pool_fwd", "msda_raw_pool_bwd"):
+        check(launches[k] >= scores["steps"], f"{k} launched {launches[k]} "
+              f"times in {scores['steps']} steps")
+    missed = mota_gates.misses(gate, scores)
+    check(not missed, f"the {gate} gate missed the JAX gate's thresholds: "
+          f"{missed}")
+    log(f"  thresholds {mota_gates.THRESHOLDS[gate]}: met")
+    return scores
 
 
 # ---------------------------------------------------------------------------
@@ -1432,6 +1749,39 @@ def write_mot17_sequence(root: Path, n_frames, h, w):
     (seq / "gt" / "gt.txt").write_text("\n".join(gt) + "\n")
 
 
+def calibrated_model(torch, cfg, blob):
+    """The full-width model of ``cfg`` in bf16 with seeded weights, class
+    heads biased to class 0 and the class-0 bias moved so that the track
+    config's default thresholds (0.4) keep about 7 new detections a frame
+    on ``blob`` (a sequence's first frame), as phase 5's calibrated ones
+    do. Returns (model, the bias shift)."""
+    import math
+
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.structs import ImageBatch
+    from kinet_tpu_torch.tracking.tracker import make_forward_fn
+
+    model, post = build_model(cfg, device=DEVICE, seed=2)
+    t_slots = int(cfg.max_track_queries)
+    with torch.no_grad():
+        for i in range(model.dec_layers):
+            model.class_head(i).bias[1:] -= 20.0
+    model.to(torch.bfloat16)
+    h, w = blob["images"].shape[1:3]
+    batch = ImageBatch(torch.from_numpy(blob["images"]).to(DEVICE),
+                       torch.from_numpy(blob["pad_mask"]).to(DEVICE))
+    res = make_forward_fn(model, post["bbox"])(
+        batch, None, torch.tensor([[float(h), float(w)]], device=DEVICE),
+        None, None, None)
+    scores = res["scores"][0, t_slots:].float().sort(descending=True).values
+    s8 = min(max(scores[7].item(), 1e-6), 1 - 1e-6)
+    shift = math.log(0.4 / 0.6) - math.log(s8 / (1 - s8))
+    with torch.no_grad():
+        for i in range(model.dec_layers):
+            model.class_head(i).bias[0] += shift
+    return model, shift
+
+
 def phase_track_cli(torch, msda):
     """``python -m kinet_tpu_torch.engine.track`` on a synthetic
     MOT17-02-FRCNN at its 1080x1920 (800x1422 after the val transform), with
@@ -1450,9 +1800,6 @@ def phase_track_cli(torch, msda):
 
     from kinet_tpu_torch.config import save_config
     from kinet_tpu_torch.data.sequences import MOT17Sequence
-    from kinet_tpu_torch.models.build import build_model
-    from kinet_tpu_torch.structs import ImageBatch
-    from kinet_tpu_torch.tracking.tracker import make_forward_fn
     from kinet_tpu_torch.utils.checkpoint import CheckpointManager
 
     root = Path(__file__).resolve().parent
@@ -1462,36 +1809,19 @@ def phase_track_cli(torch, msda):
         write_mot17_sequence(tmp / "data", T_FRAMES, *T_HW)
         cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True,
                                      **T_TRANSFORM)
-        model, post = build_model(cfg, device=DEVICE, seed=2)
-        t_slots = int(cfg.max_track_queries)
-        with torch.no_grad():
-            for i in range(model.dec_layers):
-                model.class_head(i).bias[1:] -= 20.0
-        model.to(torch.bfloat16)
         seq = MOT17Sequence(str(tmp / "data"), "MOT17-02", "FRCNN",
                             img_transform=cfg.img_transform)
         t1 = time.perf_counter()
         for i in range(4):
             blob = seq[i]
         load_ms = (time.perf_counter() - t1) * 1e3 / 4
-        blob = seq[0]
-        h, w = blob["images"].shape[1:3]
-        batch = ImageBatch(torch.from_numpy(blob["images"]).to(DEVICE),
-                           torch.from_numpy(blob["pad_mask"]).to(DEVICE))
-        res = make_forward_fn(model, post["bbox"])(
-            batch, None, torch.tensor([[float(h), float(w)]], device=DEVICE),
-            None, None, None)
-        scores = res["scores"][0, t_slots:].float().sort(descending=True).values
-        s8 = min(max(scores[7].item(), 1e-6), 1 - 1e-6)
-        shift = math.log(0.4 / 0.6) - math.log(s8 / (1 - s8))
-        with torch.no_grad():
-            for i in range(model.dec_layers):
-                model.class_head(i).bias[0] += shift
+        h, w = seq[0]["images"].shape[1:3]
+        model, shift = calibrated_model(torch, cfg, seq[0])
         run = tmp / "run"
         save_config(cfg, run)
         CheckpointManager(str(run)).save_epoch(
             model, torch.optim.SGD(model.parameters(), lr=0.0), 0, 0)
-        del model, res, batch
+        del model
         torch.cuda.empty_cache()
         log(f"  sequence {T_SEQ}: {T_FRAMES} frames {T_HW[0]}x{T_HW[1]}, "
             f"{h}x{w} after the val transform, {load_ms:.1f} ms a frame to "
@@ -1564,7 +1894,7 @@ KERNEL_META = {
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
 }
-PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T")
+PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A")
 
 
 def main(argv=None) -> int:
@@ -1663,6 +1993,18 @@ def main(argv=None) -> int:
             f"decode included); {hz:.2f} frames/s over the whole RUNTIME "
             f"line, mostly the first frame's start-up at {T_FRAMES} frames; "
             f"on {smi}")
+    if "E" in phases:
+        log(f"== E. evaluate(): the flagship in bf16 over {E_FRAMES} val "
+            f"frames {T_HW[0]}x{T_HW[1]}, with the tracking eval")
+        eval_launches, ms_img, eval_s = phase_eval(torch, msda)
+        for k, n in eval_launches.items():
+            if n:
+                summary.setdefault(k, {})["eval_launches"] = n
+        log(f"  {ms_img:.3f} ms per val image, {eval_s:.2f} s for the whole "
+            f"evaluation; on {smi}")
+    if "A" in phases:
+        log("== A. accuracy on the card: the simple synthetic-MOT gate")
+        phase_accuracy(torch, msda)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -1678,7 +2020,7 @@ def main(argv=None) -> int:
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
             for key in ("replay_ms", "replay_bf16_ms", "cold_ms",
-                        "library_cold_ms")
+                        "library_cold_ms", "eval_launches")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

@@ -1,11 +1,37 @@
-"""Dataset dispatch (port of the ``mot`` branch of
-``kinet_tpu/data/builder.py``). The other datasets of the JAX package raise
-NotImplementedError naming their ROADMAP item."""
+"""Dataset dispatch (port of ``kinet_tpu/data/builder.py``; reference:
+src/trackformer/datasets/__init__.py:29-52): coco, coco_person, mot,
+crowdhuman, mot_crowdhuman, mot_coco_person. ``coco_panoptic`` and
+``mot_kine`` raise NotImplementedError naming their ROADMAP item."""
 from __future__ import annotations
 
 import os.path as osp
 
-from .mot import MOT
+from ..models.build import not_ported
+from .coco import CocoDetection
+from .crowdhuman import build_crowdhuman
+from .mot import MOT, WeightedConcatDataset
+
+
+def _build_coco(split: str, cfg, mode="instances", sel=None):
+    root = cfg.coco_path
+    # reference coco.py:315-333: the {split}_split key selects which COCO
+    # half ('train' -> train2017, 'val' -> val2017) regardless of the
+    # engine-level split being built; mot_coco_person routes
+    # coco_person_train_split here instead (mot.py:614-621)
+    if sel is None:
+        sel = cfg.get(f"{split}_split") or split
+    split_name = "train2017" if sel == "train" else "val2017"
+    return CocoDetection(
+        img_folder=osp.join(root, split_name),
+        ann_file=osp.join(root, "annotations", f"{mode}_{split_name}.json"),
+        split=split,
+        img_transform=cfg.img_transform,
+        overflow_boxes=cfg.overflow_boxes,
+        prev_frame=cfg.tracking,
+        prev_frame_rnd_augs=cfg.coco_and_crowdhuman_prev_frame_rnd_augs,
+        prev_prev_frame=cfg.track_prev_prev_frame,
+        min_num_objects=cfg.coco_min_num_objects,
+    )
 
 
 def _build_mot(split: str, cfg):
@@ -24,9 +50,38 @@ def _build_mot(split: str, cfg):
 
 
 def build_dataset(split: str, cfg):
-    if cfg.dataset == "mot":
+    name = cfg.dataset
+    if name == "coco":
+        return _build_coco(split, cfg)
+    if name == "coco_person":
+        return _build_coco(split, cfg, mode="person_keypoints")
+    if name == "mot":
         return _build_mot(split, cfg)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset!r} is not ported to kinet_tpu_torch yet "
-        "(ROADMAP.md, 'Modules to port': Other datasets)"
-    )
+    if name == "crowdhuman":
+        return build_crowdhuman(split, cfg)
+    if name == "mot_crowdhuman":
+        # reference mot.py:595-611: with train_split null, train on
+        # CrowdHuman alone (the MOT half is skipped entirely)
+        if split == "train":
+            ch = build_crowdhuman("train", cfg)
+            if cfg.get("train_split") is None:
+                return ch
+            return WeightedConcatDataset([_build_mot(split, cfg), ch])
+        return _build_mot(split, cfg)
+    if name == "mot_coco_person":
+        # reference mot.py:614-630: coco_person_train_split picks the COCO
+        # half; with train_split null, train on COCO persons alone
+        if split == "train":
+            coco = _build_coco(
+                "train", cfg, mode="person_keypoints",
+                sel=cfg.get("coco_person_train_split") or "train",
+            )
+            if cfg.get("train_split") is None:
+                return coco
+            return WeightedConcatDataset([_build_mot(split, cfg), coco])
+        return _build_mot(split, cfg)
+    if name == "coco_panoptic":
+        not_ported("the coco_panoptic dataset", "MOTS")
+    if name == "mot_kine":
+        not_ported("the mot_kine dataset", "KineT")
+    raise ValueError(f"unknown dataset {name}")

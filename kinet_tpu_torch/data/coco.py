@@ -1,17 +1,15 @@
-"""COCO-style annotations and the frame loading of the MOT dataset (the
-port's own copy of the parts of ``kinet_tpu/data/coco.py`` that ``MOT``
-uses, without the MOTS masks; reference: src/trackformer/datasets/coco.py).
+"""COCO-style detection dataset with the tracking previous-frame
+simulation (the port's own copy of ``kinet_tpu/data/coco.py`` without the
+MOTS masks; reference: src/trackformer/datasets/coco.py).
 
 Self-contained COCO json handling (pycocotools is not available in this
 environment); annotations are converted to numpy target dicts
 (≙ ConvertCocoPolysToMask, reference coco.py:191-267) with:
 - crowd/ignore annotations split into `*_ignore` fields (reference :71-76),
 - track_ids (or per-annotation synthetic ids for static images),
-- a shared RNG seed, so a previous frame re-applies the current frame's
-  augmentation draw (reference :48-86 `_getitem_from_id`).
-
-The COCO dataset itself (a static image and its jittered copy as the
-previous frame) comes with the other datasets (ROADMAP.md).
+- dual-frame sampling: the (simulated) previous frame re-applies the same
+  augmentation via a shared RNG seed plus an independent jitter crop
+  (reference :48-103 `_getitem_from_id` / `_add_random_jitter`).
 """
 from __future__ import annotations
 
@@ -94,8 +92,10 @@ def convert_anns_to_target(anns, img_hw, image_id):
 
 
 class CocoDetection:
-    """Frames of a COCO json: loading, target conversion and seeded
-    augmentation; ``MOT`` adds the sampling of previous frames."""
+    """Images of a COCO json: loading, target conversion and seeded
+    augmentation; with ``prev_frame`` the previous frame is the same image,
+    re-augmented with the same draw and cropped by a jitter (``MOT``
+    samples real previous frames instead)."""
 
     def __init__(
         self,
@@ -105,16 +105,25 @@ class CocoDetection:
         img_transform=None,
         overflow_boxes: bool = False,
         prev_frame: bool = False,
+        prev_frame_rnd_augs: float = 0.0,
         prev_prev_frame: bool = False,
+        min_num_objects: int = 0,
     ):
         self.root = img_folder
         self.coco = CocoIndex(ann_file)
         self.ids = list(self.coco.img_ids)
+        if min_num_objects:
+            self.ids = [
+                i
+                for i in self.ids
+                if len(self.coco.anns_by_img[i]) >= min_num_objects
+            ]
         self.split = split
         self.transforms = T.make_coco_transforms(
             "train" if split == "train" else "val", img_transform, overflow_boxes
         )
         self._prev_frame = prev_frame
+        self._prev_frame_rnd_augs = prev_frame_rnd_augs
         self._prev_prev_frame = prev_prev_frame
         # deterministic per-item augmentation seeds: drawn from the
         # process-seeded global RNG at construction, mixed with
@@ -144,10 +153,53 @@ class CocoDetection:
         )
         return img, target
 
-    def _getitem_from_id(self, image_id, shared_seed):
+    def _add_random_jitter(self, img, target, rng):
+        """Random crop shrinking each side by <= prev_frame_rnd_augs
+        (reference coco.py:89-103) to simulate inter-frame motion."""
+        if not self._prev_frame_rnd_augs:
+            return img, target
+        h, w = img.shape[:2]
+        f = self._prev_frame_rnd_augs
+        ch = int(h - rng.uniform(0, f) * h)
+        cw = int(w - rng.uniform(0, f) * w)
+        i = int(rng.integers(0, h - ch + 1))
+        j = int(rng.integers(0, w - cw + 1))
+        img = img[i : i + ch, j : j + cw].copy()
+        target = T._crop_target(target, (i, j, ch, cw))
+        return img, target
+
+    def _getitem_from_id(self, image_id, shared_seed, jitter=False):
         """Shared-seed augmentation so the previous frame sees the same
-        transform draw (reference coco.py:48-86)."""
+        transform draw (reference coco.py:48-86); ``jitter`` crops first,
+        with its own generator."""
         img, target = self._load(image_id)
+        if jitter:
+            jrng = np.random.default_rng((shared_seed * 7919 + 13) % 2**31)
+            img, target = self._add_random_jitter(img, target, jrng)
         rng = np.random.default_rng(shared_seed)
         img, target = self.transforms(img, target, rng)
         return img, target
+
+    def sample_prev_image_id(self, idx, rng):
+        """COCO: the same image re-augmented (reference coco.py:146-164)."""
+        return self.ids[idx]
+
+    def __getitem__(self, idx):
+        image_id = self.ids[idx]
+        seed = self._item_seed(idx)
+        img, target = self._getitem_from_id(image_id, seed, jitter=False)
+        sample = {"image": img, "target": target}
+        if self._prev_frame:
+            rng = np.random.default_rng(seed + 1)
+            prev_id = self.sample_prev_image_id(idx, rng)
+            prev_img, prev_target = self._getitem_from_id(
+                prev_id, seed, jitter=True
+            )
+            sample["prev_image"] = prev_img
+            sample["prev_target"] = prev_target
+            if self._prev_prev_frame:
+                pp_id = self.sample_prev_image_id(idx, rng)
+                pp_img, pp_target = self._getitem_from_id(pp_id, seed, jitter=True)
+                sample["prev_prev_image"] = pp_img
+                sample["prev_prev_target"] = pp_target
+        return sample

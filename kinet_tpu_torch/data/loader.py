@@ -6,10 +6,11 @@ tensors (``ImageBatch``, ``Targets``) that the train loop moves to the
 device. Background threads prepare the next batches while the device
 steps, and a reorder buffer keeps the sampler's order.
 
-``WeightedRandomSampler``, the MOT dataset's sampler, weights samples by
-1 / seq_length (reference util/misc.py:580-606, train.py:131) and draws
-from a numpy generator seeded by (seed + epoch). One process reads the
-whole dataset: sharding over processes comes with the scale-out slice.
+``WeightedRandomSampler`` weights samples by the dataset's
+``sample_weight`` (1 / seq_length for MOT; reference util/misc.py:580-606,
+train.py:131), ``RandomSampler`` permutes them; both draw from a numpy
+generator seeded by (seed + epoch) and take every ``world_size``-th index
+from ``rank``, as the JAX package's samplers do.
 """
 from __future__ import annotations
 
@@ -65,7 +66,8 @@ def collate_tracking(samples: list[dict], buckets, max_objects: int,
                      num_track_queries: int, hidden_dim: int) -> dict:
     """Collate {image, target, prev_image?, prev_target?, ...} samples into
     {image, target, prev_image, prev_target, prev_prev_image,
-    prev_prev_target} (None where absent)."""
+    prev_prev_target} (None where absent), with each sample's
+    ``image_ids`` and (h, w) ``orig_sizes`` as numpy arrays."""
     out = {}
     for key, tkey in (("image", "target"), ("prev_image", "prev_target"),
                       ("prev_prev_image", "prev_prev_target")):
@@ -75,14 +77,22 @@ def collate_tracking(samples: list[dict], buckets, max_objects: int,
         out[key] = pad_images([s[key] for s in samples], buckets)
         out[tkey] = pad_targets([s[tkey] for s in samples], max_objects,
                                 num_track_queries, hidden_dim)
+    out["image_ids"] = np.asarray(
+        [s["target"].get("image_id", -1) for s in samples], np.int64)
+    out["orig_sizes"] = np.asarray(
+        [s["target"].get("orig_size", s["image"].shape[:2]) for s in samples],
+        np.float32)
     return out
 
 
 class WeightedRandomSampler:
-    """Epoch-length weighted sampling with replacement."""
+    """Epoch-length weighted sampling with replacement, every
+    ``world_size``-th draw from ``rank``."""
 
-    def __init__(self, dataset, seed=0):
+    def __init__(self, dataset, rank=0, world_size=1, seed=0):
         self.dataset = dataset
+        self.rank = rank
+        self.world_size = world_size
         self.seed = seed
         self.epoch = 0
 
@@ -94,19 +104,43 @@ class WeightedRandomSampler:
         w = np.array([self.dataset.sample_weight(i) for i in range(n)])
         rng = np.random.default_rng(self.seed + self.epoch)
         idx = rng.choice(n, size=n, replace=True, p=w / w.sum())
-        return iter(idx.tolist())
+        return iter(idx[self.rank :: self.world_size].tolist())
 
     def __len__(self):
-        return len(self.dataset)
+        return len(self.dataset) // self.world_size
+
+
+class RandomSampler:
+    """A permutation per epoch, every ``world_size``-th index from ``rank``."""
+
+    def __init__(self, dataset, rank=0, world_size=1, seed=0):
+        self.dataset = dataset
+        self.rank = rank
+        self.world_size = world_size
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[int]:
+        rng = np.random.default_rng(self.seed + self.epoch)
+        idx = rng.permutation(len(self.dataset))
+        return iter(idx[self.rank :: self.world_size].tolist())
+
+    def __len__(self):
+        return len(self.dataset) // self.world_size
 
 
 class DataLoader:
     """Threaded prefetching loader of collated, statically padded batches,
-    delivered in the sampler's order; a last, partial batch is dropped."""
+    delivered in the sampler's order; a last, partial batch is dropped
+    unless ``drop_last`` is False (evaluation)."""
 
     def __init__(self, dataset, batch_size: int, sampler, buckets,
                  max_objects: int, num_track_queries: int = 0,
-                 hidden_dim: int = 256, num_workers: int = 2):
+                 hidden_dim: int = 256, num_workers: int = 2,
+                 drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -115,15 +149,18 @@ class DataLoader:
         self.num_track_queries = num_track_queries
         self.hidden_dim = hidden_dim
         self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
 
     def __len__(self):
-        return len(self.sampler) // self.batch_size
+        n = len(self.sampler)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self):
         indices = list(self.sampler)
         batches = [indices[i : i + self.batch_size]
-                   for i in range(0, len(indices) - self.batch_size + 1,
-                                  self.batch_size)]
+                   for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
         q: queue.Queue = queue.Queue(maxsize=self.num_workers * 2)
         stop = threading.Event()
         errors: list = []

@@ -1,11 +1,17 @@
-"""MOT training dataset (the port's own copy of ``kinet_tpu/data/mot.py``;
-reference: src/trackformer/datasets/mot.py).
+"""MOT training datasets (the port's own copy of the ``MOT`` and
+``WeightedConcatDataset`` of ``kinet_tpu/data/mot.py``; reference:
+src/trackformer/datasets/mot.py).
 
-MOT: CocoDetection over the MOT->COCO converted jsons; the previous frame
-is a REAL frame sampled within prev_frame_range of the current one using
-the extended json fields frame_id / first_frame_image_id / seq_length
-(reference mot.py:58-79); items are weighted by 1 / seq_length for the
-sampler.
+- MOT: CocoDetection over the MOT->COCO converted jsons; the previous
+  frame is a REAL frame sampled within prev_frame_range of the current one
+  using the extended json fields frame_id / first_frame_image_id /
+  seq_length (reference mot.py:58-79); items are weighted by 1 / seq_length
+  for the sampler. Its frames are never jittered.
+- WeightedConcatDataset: datasets concatenated, each item keeping its
+  dataset's sample weight, or 1 / len for a dataset without one
+  (reference mot.py:501-513). As in the JAX package it has no
+  ``set_epoch``, so its datasets replay epoch 0's augmentation draws in
+  every epoch (ROADMAP.md, faults: inherited semantics).
 """
 from __future__ import annotations
 
@@ -56,3 +62,29 @@ class MOT(CocoDetection):
                 sample["prev_prev_image"] = pp_img
                 sample["prev_prev_target"] = pp_target
         return sample
+
+
+class WeightedConcatDataset:
+    """Concat datasets, sampling each by per-item weights
+    (reference mot.py:501-513)."""
+
+    def __init__(self, datasets):
+        self.datasets = datasets
+        self.cum = np.cumsum([len(d) for d in datasets])
+
+    def __len__(self):
+        return int(self.cum[-1])
+
+    def _locate(self, idx):
+        d = int(np.searchsorted(self.cum, idx, side="right"))
+        return self.datasets[d], idx - (0 if d == 0 else int(self.cum[d - 1]))
+
+    def __getitem__(self, idx):
+        ds, i = self._locate(idx)
+        return ds[i]
+
+    def sample_weight(self, idx):
+        ds, i = self._locate(idx)
+        if hasattr(ds, "sample_weight"):
+            return ds.sample_weight(i)
+        return 1.0 / len(ds)

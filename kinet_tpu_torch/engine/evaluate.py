@@ -1,0 +1,97 @@
+"""Evaluation during training (port of the detection and tracking
+branches of ``kinet_tpu/engine/evaluate.py``; reference:
+src/trackformer/engine.py:179-364).
+
+- detection: the model's forward and the criterion over the val set in
+  eval mode without gradients, every image included (the loader keeps a
+  last, partial batch), the losses logged, the postprocessed boxes in each
+  image's original size scored by the self-contained ``CocoEvaluator``;
+- tracking (``tracking_eval`` with a tracking model): ``main_track`` with
+  the live model on ``track.yaml`` over ``mot_path_val``
+  (``tracking_eval_dataset`` names the sequences), on the evaluation's
+  device.
+
+Returns {"coco_eval_bbox": the 12 COCO stats, "mota"?, "idf1"?}. The
+model is left in the mode, and on the device, it had. Runs on the card
+unless ``device="cpu"``. KineT evaluation and evaluation over several
+processes raise NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import load_config
+from ..data.loader import DataLoader, RandomSampler
+from ..models.build import not_ported, resolve_device
+from ..utils.coco_eval import CocoEvaluator
+from ..utils.logging import MetricLogger
+from . import track
+
+
+def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
+    device = resolve_device(device)
+    if cfg.get("kine", False):
+        not_ported("KineT evaluation", "KineT")
+    if track._process_count() > 1:
+        not_ported("evaluation over more than one process", "Scale-out")
+    n_track = int(cfg.max_track_queries) if cfg.tracking else 0
+    loader = DataLoader(
+        dataset_val,
+        batch_size=int(cfg.batch_size),
+        sampler=RandomSampler(dataset_val, seed=0),
+        buckets=cfg.size_buckets,
+        max_objects=int(cfg.max_objects),
+        num_track_queries=n_track,
+        hidden_dim=int(cfg.hidden_dim),
+        num_workers=int(cfg.num_workers),
+        drop_last=False,
+    )
+    post = postprocessors["bbox"]
+    mode, where = model.training, next(model.parameters()).device
+    model.to(device).eval()
+    try:
+        evaluator = CocoEvaluator(dataset_val.coco)
+        logger = MetricLogger(print_freq=int(cfg.log_interval),
+                              debug=bool(cfg.debug))
+        for batch in logger.log_every(loader, "Eval"):
+            # boxes in each image's original size (reference
+            # engine.py:203-255)
+            sizes = torch.from_numpy(batch["orig_sizes"]).to(device)
+            with torch.no_grad():
+                out = model(batch["image"].to(device),
+                            batch["target"].to(device), aux_outputs=True)
+                losses = criterion(out, batch["target"].to(device))
+                results = post(out, sizes)
+            logger.update(**{k: float(v) for k, v in losses.items()})
+            res = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                   for k, v in results.items()
+                   if k in ("boxes", "scores", "labels")}
+            evaluator.update({
+                int(img_id): {k: v[i] for k, v in res.items()}
+                for i, img_id in enumerate(batch["image_ids"].tolist())
+            })
+        evaluator.synchronize_between_processes()
+        evaluator.accumulate()
+        stats = {"coco_eval_bbox": evaluator.summarize()}
+
+        if cfg.get("tracking_eval", False) and cfg.tracking:
+            overrides = {}
+            if cfg.get("tracking_eval_dataset"):
+                # e.g. 'MOT17-TRAIN-ALL' or a single sequence; the
+                # track.yaml default (MOT17-ALL-ALL) needs every standard
+                # sequence under mot_path_val
+                overrides["dataset_name"] = cfg.tracking_eval_dataset
+            track_cfg = load_config("track.yaml").replace(
+                data_root_dir=cfg.mot_path_val, output_dir="",
+                device=str(device), **overrides,
+            )
+            summary = track.main_track(
+                track_cfg, obj_detector_model=(model, postprocessors, cfg))
+            if summary:
+                overall = summary.get("OVERALL") or next(iter(summary.values()))
+                stats["mota"] = overall["mota"]
+                stats["idf1"] = overall["idf1"]
+    finally:
+        model.to(where).train(mode)
+    return stats

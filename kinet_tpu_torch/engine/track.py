@@ -175,7 +175,9 @@ def main_track(cfg, obj_detector_model=None):
     """Tracks every sequence of ``cfg.dataset_name`` and returns the
     metrics summary (None without ground truth). ``obj_detector_model``:
     (model, postprocessors, train_cfg) instead of the checkpoint in
-    ``cfg.obj_detect_checkpoint_dir``; the model holds its weights."""
+    ``cfg.obj_detect_checkpoint_dir``; the model holds its weights, runs
+    on ``cfg.device`` (the card when it is not set) and is left in the
+    mode, and on the device, it had."""
     seed = int(cfg.get("seed", 333))
     np.random.seed(seed)
     device = resolve_device(cfg.get("device"))
@@ -196,9 +198,19 @@ def main_track(cfg, obj_detector_model=None):
 
     if obj_detector_model is None:
         model, train_cfg = restore_model(cfg.obj_detect_checkpoint_dir, device)
-    else:
-        model, _, train_cfg = obj_detector_model
-        model.to(device).eval()
+        return _track_sequences(cfg, model, train_cfg)
+    # a live model (evaluation during training) goes back to its mode and
+    # device afterwards
+    model, _, train_cfg = obj_detector_model
+    mode, where = model.training, next(model.parameters()).device
+    model.to(device).eval()
+    try:
+        return _track_sequences(cfg, model, train_cfg)
+    finally:
+        model.to(where).train(mode)
+
+
+def _track_sequences(cfg, model, train_cfg):
     if train_cfg.get("kine", False):
         not_ported("the KineT tracker", "KineT")
 

@@ -2,28 +2,37 @@
 src/train.py + src/trackformer/engine.py).
 
     python -m kinet_tpu_torch.engine.train --config train.yaml \\
-        --named train_deformable train_tracking train_multi_frame -- \\
-        dataset=mot mot_path_train=data/MOT17 val_interval=0 output_dir=runs/exp1
+        --named train_deformable train_tracking train_multi_frame \\
+        train_mot17_crowdhuman -- mot_path_train=data/MOT17 \\
+        mot_path_val=data/MOT17 crowdhuman_path=data/CrowdHuman \\
+        output_dir=runs/exp1
 
 (``--`` ends the ``--named`` list; ``--device cpu`` trains on the CPU.)
 
 - config composition, dumped to output_dir/config.yaml;
 - the model, its criterion and the optimizer with the reference's
   parameter groups;
-- the MOT dataset, the 1/seq_length weighted sampler and the loader;
+- the dataset (``data/builder.py``), the weighted sampler where it has
+  sample weights (MOT: 1 / seq_length), else a random one, and the loader;
 - resume (``resume``, ``resume_optim``);
-- the epoch loop of tracking train steps, a checkpoint every epoch.
+- the epoch loop of tracking train steps; every ``val_interval`` epochs
+  the evaluation (``engine/evaluate.py``: COCO AP and, with
+  ``tracking_eval``, MOTA / IDF1), appended to output_dir/metrics.jsonl;
+  a checkpoint every epoch and ``checkpoint_best_{metric}.pth`` on each
+  improvement; the loss and eval curves (``utils/vis.py``) and the
+  ``metrics_sink`` stream.
 
 Runs on the card (``device=None``); ``train(cfg, device="cpu")`` runs on
-the CPU. What the JAX trainer does that is not ported yet raises
-NotImplementedError naming its ROADMAP item: evaluation
-(``val_interval > 0``), a metrics sink, a device mesh of more than one
-device, KineT, and datasets other than ``mot``.
+the CPU. A device mesh of more than one device and KineT are not ported
+yet and raise NotImplementedError naming their ROADMAP item; the JAX
+trainer's preemption checkpoint comes with the scale-out slice.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import os.path as osp
 import sys
 
 import numpy as np
@@ -31,7 +40,7 @@ import torch
 
 from ..config import load_config, parse_cli_overrides, save_config
 from ..data.builder import build_dataset
-from ..data.loader import DataLoader, WeightedRandomSampler
+from ..data.loader import DataLoader, RandomSampler, WeightedRandomSampler
 from ..models.build import (
     build_criterion,
     build_model,
@@ -40,6 +49,8 @@ from ..models.build import (
 )
 from ..utils.checkpoint import CheckpointManager, load_for_resume
 from ..utils.logging import MetricLogger
+from ..utils.vis import build_visualizers
+from .evaluate import evaluate
 from .state import Optimizer
 from .train_step import make_train_step
 
@@ -47,11 +58,6 @@ from .train_step import make_train_step
 def _check_supported(cfg, device: torch.device):
     if cfg.get("kine", False):
         not_ported("KineT training", "KineT")
-    if int(cfg.val_interval) > 0:
-        not_ported("evaluation during training (val_interval > 0)",
-                    "Evaluation")
-    if cfg.get("metrics_sink"):
-        not_ported("the metrics sink", "Evaluation")
     n_model, n_data = int(cfg.mesh.model), int(cfg.mesh.data)
     if n_data == -1:
         n_data = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -74,10 +80,11 @@ def train(cfg, device=None):
     seed = int(cfg.seed)
     np.random.seed(seed)  # the datasets' augmentation base seed
 
-    model, _ = build_model(cfg, device=device, seed=seed)
+    model, postprocessors = build_model(cfg, device=device, seed=seed)
     criterion = build_criterion(cfg)
     dataset = build_dataset("train", cfg)
-    sampler = WeightedRandomSampler(dataset, seed=seed)
+    sampler = (WeightedRandomSampler if hasattr(dataset, "sample_weight")
+               else RandomSampler)(dataset, seed=seed)
     loader = DataLoader(
         dataset, batch_size=int(cfg.batch_size), sampler=sampler,
         buckets=cfg.size_buckets, max_objects=int(cfg.max_objects),
@@ -97,10 +104,14 @@ def train(cfg, device=None):
     )
     ckpt = (CheckpointManager(cfg.output_dir, int(cfg.save_model_interval))
             if cfg.output_dir else None)
+    visualizers = build_visualizers(cfg)
+    iter_vis = visualizers["train"].get("iter_metrics")
+    epoch_vis = visualizers["train"].get("epoch_metrics")
 
     for epoch in range(start_epoch, int(cfg.epochs) + 1):
         sampler.set_epoch(epoch)
-        dataset.set_epoch(epoch)  # fresh, run-deterministic augmentations
+        if hasattr(dataset, "set_epoch"):
+            dataset.set_epoch(epoch)  # fresh, run-deterministic augmentations
         logger = MetricLogger(print_freq=int(cfg.log_interval),
                               debug=bool(cfg.debug))
         for batch in logger.log_every(loader, f"Epoch [{epoch}]"):
@@ -113,10 +124,41 @@ def train(cfg, device=None):
                 print("Loss is NaN, stopping (reference engine.py:140-143)")
                 sys.exit(1)
             logger.update(**scalars)
+            if iter_vis is not None:
+                iter_vis.plot([scalars.get(k, 0.0) for k in (
+                    "loss", "loss_ce", "loss_bbox", "loss_giou")], step)
+
+        eval_stats = None
+        if (int(cfg.val_interval) > 0 and epoch % int(cfg.val_interval) == 0
+                and not cfg.eval_only):
+            try:
+                stats = evaluate(model, criterion, postprocessors,
+                                 build_dataset("val", cfg), cfg, device=device)
+                eval_stats = {
+                    "AP": stats["coco_eval_bbox"][0],
+                    "AP50": stats["coco_eval_bbox"][1],
+                    "mota": stats.get("mota"),
+                    "idf1": stats.get("idf1"),
+                }
+                if cfg.output_dir:
+                    with open(osp.join(cfg.output_dir, "metrics.jsonl"),
+                              "a") as f:
+                        f.write(json.dumps({"epoch": epoch, **eval_stats})
+                                + "\n")
+            except FileNotFoundError as e:
+                print(f"eval skipped (no val data): {e}")
         if ckpt is not None:
-            ckpt.save_epoch(model, optimizer, step, epoch)
+            ckpt.save_epoch(model, optimizer, step, epoch, eval_stats)
+        if epoch_vis is not None and eval_stats:
+            epoch_vis.plot([float(eval_stats.get(k) or 0.0)
+                            for k in ("AP", "AP50", "mota", "idf1")], epoch)
+            epoch_vis.save()
+        if iter_vis is not None:
+            iter_vis.save()
         if cfg.debug:
             break
+    if visualizers.get("sink") is not None:
+        visualizers["sink"].close()
     return model, optimizer, step
 
 

@@ -20,6 +20,8 @@
 - Training: in ``train()`` mode with ``aux_loss`` the output carries
   ``aux_outputs`` (the heads of the first ``dec_layers - 1`` decoder
   layers) for the criterion; ``query_valid`` marks the active queries.
+  Evaluation asks for them in eval mode too (``aux_outputs=True``), as
+  the JAX model always gives them.
   Dropout draws from ``self.dropout_rng``.
 """
 from __future__ import annotations
@@ -39,6 +41,16 @@ from .deformable_transformer import (
 )
 from .detr import MLP
 from .position_encoding import sine3d_position_encoding, sine_position_encoding
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm that also normalizes a group of one value (a 1x1 level
+    with one channel a group), to its bias as flax's GroupNorm does;
+    ``F.group_norm`` refuses such an input."""
+
+    def forward(self, x):
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps)
 
 
 class DeformableDETR(nn.Module):
@@ -100,7 +112,7 @@ class DeformableDETR(nn.Module):
                 conv = nn.Conv2d(in_ch, hidden_dim, 3, stride=2, padding=1)
             self.add_module(f"input_proj{i}", conv)
             self.add_module(
-                f"input_proj_gn{i}", nn.GroupNorm(gn_groups, hidden_dim, eps=1e-5)
+                f"input_proj_gn{i}", GroupNorm(gn_groups, hidden_dim, eps=1e-5)
             )
 
         total_levels = num_feature_levels * (2 if multi_frame_attention else 1)
@@ -187,6 +199,7 @@ class DeformableDETR(nn.Module):
         prev_memory=None,  # (encoded memory [B, S_half, C], pad_mask) of the
         # previous frame, as out["frame_memory"] (cache_prev_encoder)
         pos_cache=None,  # out["pos_cache"] of an earlier frame, same pad mask
+        aux_outputs: Optional[bool] = None,  # default: in train() mode
     ) -> dict:
         images = batch.images.to(self.query_embed.dtype)
         feats, _ = self.backbone(images, batch.pad_mask)  # C3..C5
@@ -245,9 +258,11 @@ class DeformableDETR(nn.Module):
         )
 
         # the last decoder layer's heads; the other layers' heads (the
-        # aux_outputs) feed only the training losses, so inference skips them
+        # aux_outputs) feed only the losses, so inference skips them
         last = self.dec_layers - 1
-        layers = range(last + 1) if self.aux_loss and self.training else [last]
+        if aux_outputs is None:
+            aux_outputs = self.training
+        layers = range(last + 1) if self.aux_loss and aux_outputs else [last]
         heads = {i: self._heads(i, hs, init_ref, inter_refs) for i in layers}
         nq = hs.shape[2]
         out = {

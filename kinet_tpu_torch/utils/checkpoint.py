@@ -4,9 +4,9 @@
 
 A checkpoint is one file holding {"params": the model's state dict,
 "opt_state": the optimizer's state dict, "step", "epoch"}:
-``checkpoint.pth`` every epoch and ``checkpoint_epoch_{e}.pth`` every
-``save_model_interval`` epochs (the best-metric checkpoints come with the
-evaluation slice).
+``checkpoint.pth`` every epoch, ``checkpoint_epoch_{e}.pth`` every
+``save_model_interval`` epochs and ``checkpoint_best_{metric}.pth`` each
+time an evaluation improves AP, AP50, mota or idf1.
 
 On resume a tensor whose shape differs from the model's is adapted as the
 reference does: the class head keeps its first rows (optionally the
@@ -16,6 +16,7 @@ the port's layout (a linear weight is [out, in]).
 """
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 import torch
@@ -56,25 +57,35 @@ def adapt_params(model: torch.nn.Module, state: dict,
 
 
 class CheckpointManager:
-    """Epoch checkpoints."""
+    """Epoch checkpoints + best-metric bookkeeping (reference
+    train.py:312-357)."""
 
     def __init__(self, output_dir: str, save_model_interval: int = 5):
         self.dir = Path(output_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.save_model_interval = save_model_interval
+        self.best = {}
 
     def _save(self, path: Path, payload):
         tmp = path.with_suffix(".tmp")
         torch.save(payload, tmp)
         tmp.replace(path)
 
-    def save_epoch(self, model, optimizer, step: int, epoch: int):
+    def save_epoch(self, model, optimizer, step: int, epoch: int,
+                   eval_stats: dict | None = None):
+        """``eval_stats``: {metric: value or None} of this epoch's
+        evaluation; a value above the best so far saves
+        ``checkpoint_best_{metric}.pth``."""
         payload = {"params": model.state_dict(),
                    "opt_state": optimizer.state_dict(),
                    "step": int(step), "epoch": int(epoch)}
         self._save(self.dir / "checkpoint.pth", payload)
         if self.save_model_interval and epoch % self.save_model_interval == 0:
             self._save(self.dir / f"checkpoint_epoch_{epoch}.pth", payload)
+        for metric, value in (eval_stats or {}).items():
+            if value is not None and value > self.best.get(metric, -math.inf):
+                self.best[metric] = value
+                self._save(self.dir / f"checkpoint_best_{metric}.pth", payload)
 
     def restore(self):
         """The payload of the latest checkpoint (``checkpoint.pth``), on the

@@ -83,10 +83,10 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
 
 
 @pytest.mark.parametrize("over, item", [
-    ({"val_interval": 1}, "Evaluation"),
+    ({"mesh.model": 2}, "Scale-out"),
     ({"kine": True}, "KineT"),
-    ({"metrics_sink": "jsonl"}, "Evaluation"),
-    ({"dataset": "crowdhuman"}, "Other datasets"),
+    ({"dataset": "mot_kine"}, "KineT"),
+    ({"dataset": "coco_panoptic"}, "MOTS"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=item):
