@@ -1,7 +1,7 @@
 """Dataset dispatch (port of ``kinet_tpu/data/builder.py``; reference:
 src/trackformer/datasets/__init__.py:29-52): coco, coco_person, mot,
-crowdhuman, mot_crowdhuman, mot_coco_person. ``coco_panoptic`` and
-``mot_kine`` raise NotImplementedError naming their ROADMAP item."""
+mot_kine, crowdhuman, mot_crowdhuman, mot_coco_person. ``coco_panoptic``
+raises NotImplementedError naming its ROADMAP item."""
 from __future__ import annotations
 
 import os.path as osp
@@ -9,6 +9,7 @@ import os.path as osp
 from ..models.build import not_ported
 from .coco import CocoDetection
 from .crowdhuman import build_crowdhuman
+from .kinematic import build_mot_kine
 from .mot import MOT, WeightedConcatDataset
 
 
@@ -57,6 +58,8 @@ def build_dataset(split: str, cfg):
         return _build_coco(split, cfg, mode="person_keypoints")
     if name == "mot":
         return _build_mot(split, cfg)
+    if name == "mot_kine":
+        return build_mot_kine(split, cfg)
     if name == "crowdhuman":
         return build_crowdhuman(split, cfg)
     if name == "mot_crowdhuman":
@@ -82,6 +85,4 @@ def build_dataset(split: str, cfg):
         return _build_mot(split, cfg)
     if name == "coco_panoptic":
         not_ported("the coco_panoptic dataset", "MOTS")
-    if name == "mot_kine":
-        not_ported("the mot_kine dataset", "KineT")
     raise ValueError(f"unknown dataset {name}")

@@ -135,12 +135,13 @@ class RandomSampler:
 class DataLoader:
     """Threaded prefetching loader of collated, statically padded batches,
     delivered in the sampler's order; a last, partial batch is dropped
-    unless ``drop_last`` is False (evaluation)."""
+    unless ``drop_last`` is False (evaluation). ``collate_fn(samples)``
+    replaces the image collate (the KineT datasets' ``collate_kine``)."""
 
     def __init__(self, dataset, batch_size: int, sampler, buckets,
                  max_objects: int, num_track_queries: int = 0,
                  hidden_dim: int = 256, num_workers: int = 2,
-                 drop_last: bool = True):
+                 drop_last: bool = True, collate_fn=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -150,6 +151,7 @@ class DataLoader:
         self.hidden_dim = hidden_dim
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.collate_fn = collate_fn
 
     def __len__(self):
         n = len(self.sampler)
@@ -180,10 +182,13 @@ class DataLoader:
                     if stop.is_set():
                         return
                     samples = [self.dataset[i] for i in idxs]
-                    put((bi, collate_tracking(
-                        samples, self.buckets, self.max_objects,
-                        self.num_track_queries, self.hidden_dim,
-                    )))
+                    if self.collate_fn is not None:
+                        put((bi, self.collate_fn(samples)))
+                    else:
+                        put((bi, collate_tracking(
+                            samples, self.buckets, self.max_objects,
+                            self.num_track_queries, self.hidden_dim,
+                        )))
             except Exception as e:  # re-raised by the consumer
                 errors.append(e)
             finally:

@@ -11,14 +11,17 @@ src/trackformer/engine.py:179-364).
   (``tracking_eval_dataset`` names the sequences), on the evaluation's
   device.
 
+KineT configs batch with ``collate_kine`` and run the model on the
+detections with empty track slots (the reference zero-fills them at
+evaluation); the tracking eval then runs the kinematic tracker.
+
 Returns {"coco_eval_bbox": the 12 COCO stats, "mota"?, "idf1"?}. The
 model is left in the mode, and on the device, it had. Runs on the card
-unless ``device="cpu"``. KineT evaluation and evaluation over several
-processes raise NotImplementedError naming their ROADMAP item.
+unless ``device="cpu"``. Evaluation over several processes raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import load_config
@@ -27,12 +30,12 @@ from ..models.build import not_ported, resolve_device
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.logging import MetricLogger
 from . import track
+from .train_step import kine_batch, kine_collate, kine_targets
 
 
 def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
     device = resolve_device(device)
-    if cfg.get("kine", False):
-        not_ported("KineT evaluation", "KineT")
+    kine = bool(cfg.get("kine", False))
     if track._process_count() > 1:
         not_ported("evaluation over more than one process", "Scale-out")
     n_track = int(cfg.max_track_queries) if cfg.tracking else 0
@@ -46,6 +49,7 @@ def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
         hidden_dim=int(cfg.hidden_dim),
         num_workers=int(cfg.num_workers),
         drop_last=False,
+        collate_fn=kine_collate(cfg),
     )
     post = postprocessors["bbox"]
     mode, where = model.training, next(model.parameters()).device
@@ -58,10 +62,15 @@ def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
             # boxes in each image's original size (reference
             # engine.py:203-255)
             sizes = torch.from_numpy(batch["orig_sizes"]).to(device)
+            if kine:
+                inputs = (kine_batch(batch, device),
+                          kine_targets(batch, cfg, device, n_track))
+            else:
+                inputs = (batch["image"].to(device),
+                          batch["target"].to(device))
             with torch.no_grad():
-                out = model(batch["image"].to(device),
-                            batch["target"].to(device), aux_outputs=True)
-                losses = criterion(out, batch["target"].to(device))
+                out = model(*inputs, aux_outputs=True)
+                losses = criterion(out, inputs[1])
                 results = post(out, sizes)
             logger.update(**{k: float(v) for k, v in losses.items()})
             res = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()

@@ -10,12 +10,17 @@ JAX package:
   model exactly, then restore its weights (``utils/checkpoint.py``); the
   model runs in the dtype its weights were saved in;
 - ``Tracker`` over every sequence of ``TrackDatasetFactory``, a worker
-  thread decoding frame i + 1 while the tracker steps frame i;
+  thread decoding frame i + 1 while the tracker steps frame i; a KineT
+  model (``kinet`` in the track config or ``kine`` in the model's)
+  runs ``TrackerKinematic`` on each frame's public detections
+  (``_kine_blob``; the frame's JPEG is decoded all the same, as in the JAX
+  package);
+- ``generate_attention_maps`` (vanilla DETR only): per-query decoder
+  attention maps in the results;
 - write MOTChallenge result files, optional linear gap interpolation;
 - CLEAR-MOT, IDF1 and HOTA over all sequences with ground truth.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the KineT tracker ("KineT"), decoder attention maps ("Vanilla DETR"),
 ``batch_sequences > 1``, ``spatial_parallel > 1`` and runs over more than
 one process ("Scale-out"), ``write_images`` ("Host tools").
 """
@@ -31,8 +36,9 @@ import torch
 
 from ..config import Config, load_config, load_saved_config, parse_cli_overrides
 from ..data.sequences import TrackDatasetFactory
-from ..models.build import build_model, not_ported, resolve_device
+from ..models.build import build_model, kine_dims, not_ported, resolve_device
 from ..models.postprocess import build_postprocessors
+from ..tracking.kine_tracker import TrackerKinematic
 from ..tracking.tracker import Tracker
 from ..utils.checkpoint import CheckpointManager
 from ..utils.mot_metrics import evaluate_mot_accums, format_summary, get_mot_accum
@@ -152,11 +158,13 @@ def _process_count() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def restore_model(ckpt_dir, device):
+def restore_model(ckpt_dir, device, train_cfg=None):
     """(model, train_cfg) from a training run's output directory: its saved
-    config rebuilds the model, its checkpoint fills the weights (strictly),
-    and the model takes the dtype the weights were saved in."""
-    train_cfg = load_saved_config(ckpt_dir)
+    config (``train_cfg`` if given) rebuilds the model, its checkpoint fills
+    the weights (strictly), and the model takes the dtype the weights were
+    saved in."""
+    if train_cfg is None:
+        train_cfg = load_saved_config(ckpt_dir)
     model, _ = build_model(train_cfg, device=device)
     restored = CheckpointManager(ckpt_dir).restore()
     if restored is None:
@@ -182,11 +190,6 @@ def main_track(cfg, obj_detector_model=None):
     np.random.seed(seed)
     device = resolve_device(cfg.get("device"))
 
-    if cfg.get("kinet", False):
-        not_ported("the KineT tracker", "KineT")
-    if cfg.get("generate_attention_maps", False):
-        not_ported("generate_attention_maps (decoder attention maps)",
-                    "Vanilla DETR")
     if int(cfg.get("batch_sequences", 1)) > 1:
         not_ported("batch_sequences > 1 (BatchedTracker)", "Scale-out")
     if int(cfg.get("spatial_parallel", 0)) > 1:
@@ -197,38 +200,75 @@ def main_track(cfg, obj_detector_model=None):
         not_ported("write_images (utils/vis.py::plot_sequence)", "Host tools")
 
     if obj_detector_model is None:
-        model, train_cfg = restore_model(cfg.obj_detect_checkpoint_dir, device)
-        return _track_sequences(cfg, model, train_cfg)
+        train_cfg = load_saved_config(cfg.obj_detect_checkpoint_dir)
+    else:
+        model, _, train_cfg = obj_detector_model
+    # attention maps: vanilla DETR only (the KineT tracker ignores them)
+    gen_attn = bool(cfg.get("generate_attention_maps", False))
+    if gen_attn and train_cfg.get("deformable", False):
+        raise ValueError(
+            "Generation of attention maps not possible for deformable DETR.")
+    if obj_detector_model is None:
+        model, _ = restore_model(cfg.obj_detect_checkpoint_dir, device,
+                                 train_cfg)
     # a live model (evaluation during training) goes back to its mode and
     # device afterwards
-    model, _, train_cfg = obj_detector_model
     mode, where = model.training, next(model.parameters()).device
     model.to(device).eval()
     try:
-        return _track_sequences(cfg, model, train_cfg)
+        return _track_sequences(cfg, model, train_cfg, gen_attn)
     finally:
         model.to(where).train(mode)
 
 
-def _track_sequences(cfg, model, train_cfg):
-    if train_cfg.get("kine", False):
-        not_ported("the KineT tracker", "KineT")
+def _kine_blob(blob: dict, max_det: int) -> dict:
+    """An image-sequence blob as the kinematic tracker's input: the public
+    detections as normalized cxcywh with their confidences, and the
+    absolute boxes for public-detection filtering."""
+    h0, w0 = blob["orig_size"]
+    d = blob["dets"]
+    cxcywh = np.stack(
+        [
+            (d[:, 0] + d[:, 2]) / 2 / w0,
+            (d[:, 1] + d[:, 3]) / 2 / h0,
+            (d[:, 2] - d[:, 0]) / w0,
+            (d[:, 3] - d[:, 1]) / h0,
+        ],
+        axis=1,
+    ) if len(d) else np.zeros((0, 4), np.float32)
+    return {
+        "detections": cxcywh.astype(np.float32),
+        "metadata": blob.get("dets_conf", np.ones(len(d), np.float32))[:, None],
+        "orig_size": blob["orig_size"],
+        "max_detections": max_det,
+        "dets": d,
+    }
 
+
+def _make_tracker(cfg, model, train_cfg, gen_attn):
     post = build_postprocessors(train_cfg)["bbox"]
     tracker_cfg = (
         cfg.tracker_cfg.to_dict()
         if isinstance(cfg.tracker_cfg, Config)
         else dict(cfg.tracker_cfg)
     )
-    tracker = Tracker(
-        model,
-        post,
-        tracker_cfg,
+    common = dict(
         num_object_queries=int(train_cfg.num_queries),
         num_track_slots=int(train_cfg.get("max_track_queries", 100)),
-        hidden_dim=int(train_cfg.hidden_dim),
         overflow_boxes=bool(train_cfg.get("overflow_boxes", False)),
     )
+    if cfg.get("kinet", False) or train_cfg.get("kine", False):
+        trail_len, enc, meta_dim = kine_dims(train_cfg)
+        return TrackerKinematic(model, post, tracker_cfg, trail_len=trail_len,
+                                trail_enc_dim=enc, meta_dim=meta_dim, **common)
+    return Tracker(model, post, tracker_cfg,
+                   hidden_dim=int(train_cfg.hidden_dim),
+                   generate_attention_maps=gen_attn, **common)
+
+
+def _track_sequences(cfg, model, train_cfg, gen_attn=False):
+    tracker = _make_tracker(cfg, model, train_cfg, gen_attn)
+    kinet = isinstance(tracker, TrackerKinematic)
 
     dataset = TrackDatasetFactory(
         cfg.dataset_name,
@@ -253,6 +293,9 @@ def _track_sequences(cfg, model, train_cfg):
             # tracker.step raises mid-sequence
             with _Prefetcher(seq, start_frame, end_frame) as frames:
                 for blob in frames:
+                    if kinet:
+                        blob = _kine_blob(
+                            blob, int(train_cfg.max_number_detection))
                     tracker.step(blob)
                     num_frames += 1
             results = tracker.get_results()

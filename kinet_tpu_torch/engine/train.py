@@ -22,10 +22,13 @@ src/train.py + src/trackformer/engine.py).
   improvement; the loss and eval curves (``utils/vis.py``) and the
   ``metrics_sink`` stream.
 
+KineT configs (``kine``, dataset ``mot_kine``) batch with ``collate_kine``
+and step with ``make_kine_train_step``.
+
 Runs on the card (``device=None``); ``train(cfg, device="cpu")`` runs on
-the CPU. A device mesh of more than one device and KineT are not ported
-yet and raise NotImplementedError naming their ROADMAP item; the JAX
-trainer's preemption checkpoint comes with the scale-out slice.
+the CPU. A device mesh of more than one device is not ported yet and
+raises NotImplementedError naming its ROADMAP item; the JAX trainer's
+preemption checkpoint comes with the scale-out slice.
 """
 from __future__ import annotations
 
@@ -52,12 +55,10 @@ from ..utils.logging import MetricLogger
 from ..utils.vis import build_visualizers
 from .evaluate import evaluate
 from .state import Optimizer
-from .train_step import make_train_step
+from .train_step import kine_collate, make_kine_train_step, make_train_step
 
 
 def _check_supported(cfg, device: torch.device):
-    if cfg.get("kine", False):
-        not_ported("KineT training", "KineT")
     n_model, n_data = int(cfg.mesh.model), int(cfg.mesh.data)
     if n_data == -1:
         n_data = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -90,6 +91,7 @@ def train(cfg, device=None):
         buckets=cfg.size_buckets, max_objects=int(cfg.max_objects),
         num_track_queries=int(cfg.max_track_queries) if cfg.tracking else 0,
         hidden_dim=int(cfg.hidden_dim), num_workers=int(cfg.num_workers),
+        collate_fn=kine_collate(cfg),
     )
     steps_per_epoch = max(len(loader), 1)
     n_params = sum(p.numel() for p in model.parameters())
@@ -98,7 +100,8 @@ def train(cfg, device=None):
     optimizer = Optimizer(model, cfg, steps_per_epoch)
     start_epoch, step = load_for_resume(cfg, model, optimizer)
     model.train()
-    step_fn = make_train_step(
+    kine = bool(cfg.get("kine", False))
+    step_fn = (make_kine_train_step if kine else make_train_step)(
         model, criterion, optimizer, cfg,
         generator=torch.Generator().manual_seed(seed),
     )
@@ -115,9 +118,12 @@ def train(cfg, device=None):
         logger = MetricLogger(print_freq=int(cfg.log_interval),
                               debug=bool(cfg.debug))
         for batch in logger.log_every(loader, f"Epoch [{epoch}]"):
-            losses = step_fn(*(to_device(batch[k], device) for k in (
-                "image", "target", "prev_image", "prev_target",
-                "prev_prev_image", "prev_prev_target")))
+            if kine:
+                losses = step_fn(batch)
+            else:
+                losses = step_fn(*(to_device(batch[k], device) for k in (
+                    "image", "target", "prev_image", "prev_target",
+                    "prev_prev_image", "prev_prev_target")))
             step += 1
             scalars = {k: float(v) for k, v in losses.items()}
             if not math.isfinite(scalars["loss"]):

@@ -11,13 +11,23 @@ differentiated function (``torch.func.functional_call`` over the casts), so
 the whole forward runs in bfloat16 and the gradients come back to the
 float32 masters through the casts. autocast's per-op policy would keep
 some ops in float32 and is a different numeric recipe.
+
+``make_kine_train_step``: the KineT step (reference KinetTrackingBase2):
+trail augmentation (``tracking/kine_augment.py``, no previous-frame
+forward), the forward, the criterion and the update, in float32 as the JAX
+package's KineT step runs whatever ``compute_dtype`` says.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.func import functional_call
 
-from ..structs import ImageBatch
+from ..data.kinematic import collate_kine
+from ..models.build import kine_dims
+from ..structs import ImageBatch, KineBatch, Targets
+from ..tracking.kine_augment import add_kine_track_queries, kine_track_embed_dims
 from ..tracking.train_augment import tracking_train_forward
 
 
@@ -68,6 +78,77 @@ def make_train_step(model, criterion, optimizer, cfg, generator=None):
         else:
             out, aug_targets = forward(batch, targets), targets
         losses = criterion(out, aug_targets)
+        total = criterion.total_loss(losses)
+        total.backward()
+        grad_norm = optimizer.step()
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["loss"] = total.detach()
+        losses["grad_norm"] = grad_norm
+        return losses
+
+    return step
+
+
+def kine_collate(cfg):
+    """``collate_kine`` at the config's static shapes, or None for a config
+    that is not KineT's."""
+    if not cfg.get("kine", False):
+        return None
+    trail_len, _, meta_dim = kine_dims(cfg)
+    return functools.partial(
+        collate_kine, max_detections=int(cfg.max_number_detection),
+        max_objects=int(cfg.max_objects), trail_len=trail_len,
+        meta_dim=meta_dim, empty_start=bool(cfg.use_empty_start),
+    )
+
+
+def kine_batch(batch: dict, device) -> KineBatch:
+    """The ``KineBatch`` of a ``collate_kine`` batch (numpy arrays)."""
+    def put(k):
+        return torch.from_numpy(batch[k]).to(device)
+    return KineBatch(put("detections"), put("metadata"), put("det_pad_mask"))
+
+
+def kine_targets(batch: dict, cfg, device, num_track_queries: int) -> Targets:
+    """The GT ``Targets`` of a ``collate_kine`` batch, with
+    ``num_track_queries`` empty track slots of the config's embedding
+    width."""
+    trail_len, enc, meta_dim = kine_dims(cfg)
+    return Targets.create(
+        torch.from_numpy(batch["boxes"]), torch.from_numpy(batch["labels"]),
+        torch.from_numpy(batch["valid"]), torch.from_numpy(batch["track_ids"]),
+        num_track_queries=num_track_queries,
+        hidden_dim=sum(kine_track_embed_dims(trail_len, enc, meta_dim)),
+        device=device,
+    )
+
+
+def make_kine_train_step(model, criterion, optimizer, cfg, generator=None):
+    """Returns ``step(batch) -> losses`` over one ``collate_kine`` batch (a
+    dict of numpy arrays), with the losses as ``make_train_step``'s. The
+    trail augmentation draws from ``generator`` (a CPU ``torch.Generator``,
+    seeded from ``cfg.seed`` by default)."""
+    _, trail_enc, _ = kine_dims(cfg)
+    ratio = float(cfg.get("ratio_add_tracklets", 1.0))
+    rand_count = bool(cfg.get("kine_random_tracklet_count", False))
+    ratio_dets = float(cfg.get("ratio_add_detections", 0.5))
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    device = next(model.parameters()).device
+
+    def step(batch: dict):
+        optimizer.zero_grad()
+        kb = kine_batch(batch, device)
+        aug = add_kine_track_queries(
+            generator, kine_targets(batch, cfg, device,
+                                    int(cfg.max_track_queries)),
+            torch.from_numpy(batch["trails"]).to(device), kb.detections,
+            kb.metadata, ~kb.pad_mask, trail_enc_dim=trail_enc,
+            ratio_add_tracklets=ratio, random_count=rand_count,
+            ratio_add_detections=ratio_dets,
+        )
+        out = model(kb, aug)
+        losses = criterion(out, aug)
         total = criterion.total_loss(losses)
         total.backward()
         grad_norm = optimizer.step()

@@ -12,6 +12,9 @@ convolution with the same [7, 7, 3, 64] parameter; here it is that plain
 Training: the stem convolution and ``layer1_*`` are frozen, as are all
 FrozenBatchNorm tensors; the rest of the trunk trains at ``lr_backbone``
 (the labels are ``engine/state.py::param_labels``).
+
+``LayerBackboneFC`` / ``KinetBackbone`` are the KineT family's MLP
+"backbones" over detection and metadata vectors.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from .deformable_transformer import Dropout, DropoutRNG
 
 
 class FrozenBatchNorm(nn.Module):
@@ -161,3 +166,44 @@ class Backbone(nn.Module):
     @property
     def num_channels(self):
         return [512, 1024, 2048] if self.return_interm_layers else [2048]
+
+
+class LayerBackboneFC(nn.Module):
+    """3-linear MLP + LayerNorm over detection vectors, with the single
+    activation after ``linear2``:
+    ``norm(linear3(dropout(relu(linear2(dropout(linear1(x)))))))``."""
+
+    # the flax layers are named explicitly, not Dense_{i}
+    flax_names = {"linear1": "linear1", "linear2": "linear2",
+                  "linear3": "linear3"}
+
+    def __init__(self, in_dim: int, hidden_dim: int, dropout: float = 0.1,
+                 rng: DropoutRNG = None):
+        super().__init__()
+        rng = rng or DropoutRNG()
+        self.linear1 = nn.Linear(in_dim, hidden_dim)
+        self.linear2 = nn.Linear(hidden_dim, hidden_dim)
+        self.linear3 = nn.Linear(hidden_dim, hidden_dim)
+        self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.dropout1 = Dropout(dropout, rng)
+        self.dropout2 = Dropout(dropout, rng)
+
+    def forward(self, x):
+        x = self.dropout1(self.linear1(x))
+        x = self.dropout2(torch.relu(self.linear2(x)))
+        return self.norm(self.linear3(x))
+
+
+class KinetBackbone(nn.Module):
+    """Two ``LayerBackboneFC``: detections [.., det_dim] and metadata
+    [.., meta_dim] both to ``hidden_dim``."""
+
+    def __init__(self, det_dim: int, meta_dim: int, hidden_dim: int,
+                 dropout: float = 0.1, rng: DropoutRNG = None):
+        super().__init__()
+        self.det_backbone = LayerBackboneFC(det_dim, hidden_dim, dropout, rng)
+        self.meta_backbone = LayerBackboneFC(meta_dim, hidden_dim, dropout,
+                                             rng)
+
+    def forward(self, detections, metadata):
+        return self.det_backbone(detections), self.meta_backbone(metadata)

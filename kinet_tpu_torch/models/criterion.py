@@ -1,7 +1,11 @@
 """Set-prediction losses (port of ``kinet_tpu/models/criterion.py``, the
-labels / boxes / cardinality losses of the deformable tracking models).
+labels / boxes / cardinality losses of the DETR, Deformable DETR and KineT
+models).
 
-- the match is query4target [B, N] from ``matcher.hungarian_match``;
+- the match is query4target [B, N] from ``matcher.hungarian_match``, or for
+  the KineT models with ordered queries from the ordered matchers
+  (``matcher_kind`` "ordered_encoder" / "ordered_transformer"), which read
+  the input detections from the model outputs;
 - per-query target classes are a masked scatter of the target labels;
 - ``num_boxes`` is the count of valid targets in the batch;
 - padded query slots (inactive track slots) are left out of every loss via
@@ -19,7 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou
-from .matcher import hungarian_match
+from .matcher import (
+    hungarian_match,
+    ordered_match_from_track_ids,
+    ordered_match_transformer,
+)
 
 
 def sigmoid_ce(logits, labels):
@@ -52,7 +60,8 @@ class SetCriterion:
                  focal_gamma: float = 2.0, tracking: bool = False,
                  track_query_false_positive_eos_weight: bool = True,
                  cost_class: float = 1.0, cost_bbox: float = 5.0,
-                 cost_giou: float = 2.0):
+                 cost_giou: float = 2.0, matcher_kind: str = "hungarian",
+                 ordered_n_assign: int = 1, ordered_num_track_slots: int = 0):
         self.num_classes = num_classes
         self.weight_dict = weight_dict
         self.eos_coef = eos_coef
@@ -65,8 +74,23 @@ class SetCriterion:
         self.cost_class = cost_class
         self.cost_bbox = cost_bbox
         self.cost_giou = cost_giou
+        self.matcher_kind = matcher_kind
+        self.ordered_n_assign = ordered_n_assign
+        self.ordered_num_track_slots = ordered_num_track_slots
 
     def match(self, outputs, targets) -> torch.Tensor:
+        if self.matcher_kind == "ordered_encoder":
+            return ordered_match_from_track_ids(
+                targets, outputs.get("detections"), outputs.get("det_valid"),
+                cost_bbox=self.cost_bbox, cost_giou=self.cost_giou,
+            )
+        if self.matcher_kind == "ordered_transformer":
+            return ordered_match_transformer(
+                targets, outputs["detections"], outputs["det_valid"],
+                num_track_slots=self.ordered_num_track_slots,
+                n_assign=self.ordered_n_assign, cost_bbox=self.cost_bbox,
+                cost_giou=self.cost_giou,
+            )
         return hungarian_match(
             outputs["pred_logits"], outputs["pred_boxes"], targets,
             self.cost_class, self.cost_bbox, self.cost_giou, self.focal_loss,

@@ -342,7 +342,10 @@ class MultiheadAttention(nn.Module):
     ``MultiHeadDotProductAttention``: the query is scaled by 1/sqrt(d_head)
     and masked keys get the dtype's most negative logit; in ``train()`` mode
     the attention weights get dropout with one mask shared by the batch and
-    the heads (flax's ``broadcast_dropout``)."""
+    the heads (flax's ``broadcast_dropout``). A query whose keys are all
+    masked attends uniformly, as in flax, not NaN. ``return_weights`` also
+    returns the softmax weights [B, H, Lq, Lk] before dropout (what flax's
+    ``sow_weights`` records)."""
 
     def __init__(self, d_model, n_heads, dropout=0.0, rng=None):
         super().__init__()
@@ -353,7 +356,8 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
         self.attn_dropout = Dropout(dropout, rng or DropoutRNG(), (0, 1))
 
-    def forward(self, q, k, v, key_valid=None):  # key_valid [B, Lk] bool
+    def forward(self, q, k, v, key_valid=None, return_weights=False):
+        # key_valid [B, Lk] bool
         b, lq, c = q.shape
         h = self.n_heads
         dh = c // h
@@ -365,8 +369,10 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(
                 ~key_valid[:, None, None, :], torch.finfo(logits.dtype).min
             )
-        out = self.attn_dropout(logits.softmax(-1)) @ vh
-        return self.out_proj(out.transpose(1, 2).reshape(b, lq, c))
+        weights = logits.softmax(-1)
+        out = self.attn_dropout(weights) @ vh
+        out = self.out_proj(out.transpose(1, 2).reshape(b, lq, c))
+        return (out, weights) if return_weights else out
 
 
 class DeformableDecoderLayer(nn.Module):

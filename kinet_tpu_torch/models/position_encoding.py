@@ -4,7 +4,9 @@ Pure functions of the pad mask (True = padded pixel), channel-last like the
 JAX package: [B, H, W] -> [B, H, W, C].
 - sine_position_encoding   : 2-D image sine,
 - sine3d_position_encoding : adds a frame axis for multi-frame attention;
-                             the hidden % 3 channel remainder is zero-padded.
+                             the hidden % 3 channel remainder is zero-padded,
+- sine_detection_encoding  : 1-D detection-slot encoding of the KineT
+                             family, [B, N] -> [B, N, C].
 """
 from __future__ import annotations
 
@@ -81,3 +83,26 @@ def sine3d_position_encoding(
     if pad_to is not None and pos.shape[-1] < pad_to:
         pos = torch.nn.functional.pad(pos, (0, pad_to - pos.shape[-1]))
     return pos
+
+
+def sine_detection_encoding(
+    pad_mask: torch.Tensor,
+    num_pos_feats: int,
+    temperature: float = 10000.0,
+    scale: float | None = None,
+    max_detections: int = 60,
+) -> torch.Tensor:
+    """Detection-slot index encoding: pad_mask [B, N] -> [B, N, 2*F].
+
+    Not the paired variant: the slot index is the cumsum of the valid slots
+    taken mod ``max_detections``, ``dim_t = T**(t/F)``, and the output is
+    ``stack([sin, cos], -1)`` flattened per frequency."""
+    if scale is None:
+        scale = 2 * math.pi
+    not_mask = (~pad_mask).float()
+    y_embed = not_mask.cumsum(1) % max_detections
+    y_embed = (y_embed - 0.5) / max_detections * scale
+    t = torch.arange(num_pos_feats, dtype=torch.float32, device=pad_mask.device)
+    dim_t = temperature ** (t / num_pos_feats)
+    pos = y_embed[..., None] / dim_t
+    return torch.stack([pos.sin(), pos.cos()], dim=-1).flatten(-2)

@@ -4,7 +4,9 @@ Layouts stay those of the JAX package, so the two compare like with like:
 - images are [B, H, W, 3] float (ImageNet-normalized); the model permutes
   them to NCHW for its convolutions,
 - ``pad_mask`` is True at padded pixels,
-- track-query state lives in ``num_track_queries`` fixed slots with a mask.
+- track-query state lives in ``num_track_queries`` fixed slots with a mask;
+- ``KineBatch`` carries the KineT family's input: external detections and
+  their metadata in fixed slots, True = padding.
 """
 from __future__ import annotations
 
@@ -86,6 +88,20 @@ class Targets:
             for f in dataclasses.fields(self)
             if getattr(self, f.name) is not None
         })
+
+
+@dataclass
+class KineBatch:
+    """KineT input: per-frame external detections and their metadata,
+    padded to a fixed number of detection slots."""
+
+    detections: torch.Tensor  # [B, N, 4] cxcywh normalized
+    metadata: torch.Tensor  # [B, N, M] confidence (+ class)
+    pad_mask: torch.Tensor  # [B, N] bool, True = padding
+
+    def to(self, device) -> "KineBatch":
+        return KineBatch(self.detections.to(device),
+                         self.metadata.to(device), self.pad_mask.to(device))
 
 
 def pick_bucket(h: int, w: int, buckets) -> tuple[int, int]:

@@ -16,9 +16,15 @@ Mapping:
 
 Port modules carry the flax names (``layer0``, ``self_attn``,
 ``_ValueProjAfterPool`` as ``value_proj`` ...), except the auto-named flax
-layers of the transformer: ``norm{i}`` <- ``LayerNorm_{i-1}``,
+layers of the transformers: ``norm{i}`` <- ``LayerNorm_{i-1}``,
 ``linear{i}`` <- ``Dense_{i-1}``, and the attention projections
-``q_proj/k_proj/v_proj/out_proj`` <- ``query/key/value/out``.
+``q_proj/k_proj/v_proj/out_proj`` <- ``query/key/value/out``. A module
+whose flax children are named otherwise says so in a ``flax_names`` dict
+{port child: flax path}; e.g. the vanilla and kinematic stacks
+(``models/transformer.py``) map ``self_attn`` to
+``_SelfAttnBlock_0/MultiHeadDotProductAttention_0`` and the pre-norm
+encoder's final ``norm`` to ``LayerNorm_0``, and ``LayerBackboneFC`` keeps
+its explicitly named ``linear1..3``.
 
 The load is strict: it raises if any flax leaf is left unused or any port
 parameter or buffer is left unfilled, or if a shape disagrees.
@@ -74,10 +80,13 @@ def _source(module: nn.Module, leaf: str):
 
 def _resolve(model: nn.Module, name: str):
     *mod_path, leaf = name.split(".")
-    flax_leaf, to_port, to_flax = _source(
-        model.get_submodule(".".join(mod_path)), leaf
-    )
-    return tuple(_flax_segment(s) for s in mod_path) + (flax_leaf,), to_port, to_flax
+    segs, module = [], model
+    for seg in mod_path:
+        mapped = getattr(module, "flax_names", {}).get(seg)
+        segs.extend(mapped.split("/") if mapped else [_flax_segment(seg)])
+        module = getattr(module, seg)
+    flax_leaf, to_port, to_flax = _source(module, leaf)
+    return tuple(segs) + (flax_leaf,), to_port, to_flax
 
 
 def flax_path(model: nn.Module, name: str) -> tuple:

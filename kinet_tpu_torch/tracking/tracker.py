@@ -8,13 +8,20 @@ Split of responsibilities, as in the JAX package:
 - everything over O(#tracks) state (keep/terminate hysteresis, reid, NMS,
   public-detection filtering, result writing) is host-side numpy/scipy.
 
-Not ported yet (ROADMAP): segmentation masks (MOTS), decoder attention
-maps and the spatially partitioned forward.
+The forward drives ``DeformableDETR`` (its encoder cache included) and
+vanilla ``DETR``. With ``generate_attention_maps`` (vanilla DETR) each
+query's map [Hf, Wf] is the head mean of the last decoder layer's
+cross-attention weights; a track keeps its row's map and the results carry
+it (``attention_map``).
+
+Not ported yet (ROADMAP): segmentation masks (MOTS) and the spatially
+partitioned forward.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,6 +57,7 @@ class Track:
     obj_ind: int
     count_inactive: int = 0
     count_termination: int = 0
+    attention_map: Optional[np.ndarray] = None
     last_pos: list = field(default_factory=list)
 
     def has_positive_area(self) -> bool:
@@ -65,19 +73,30 @@ class Track:
         self.last_pos = [self.pos.copy()]
 
 
-def make_forward_fn(model, postprocess):
+def make_forward_fn(model, postprocess, attention_maps=False):
     """Per-frame forward with padded track-query slots:
-    fn(batch, targets, orig_size, prev_features, prev_memory, pos_cache)."""
+    fn(batch, targets, orig_size, prev_features, prev_memory, pos_cache).
+    With ``attention_maps`` (vanilla DETR) it also returns the per-query
+    maps [B, Q, Hf, Wf]: the head mean of the last decoder layer's
+    cross-attention weights."""
     caches_memory = bool(getattr(model, "cache_prev_encoder", False))
 
     @torch.inference_mode()
     def fwd(batch, targets, orig_size, prev_features, prev_memory, pos_cache):
         kwargs = {"prev_features": prev_features}
+        if attention_maps:
+            kwargs["attention_maps"] = True
         if caches_memory:
             kwargs.update(prev_memory=prev_memory, pos_cache=pos_cache)
         out = model(batch, targets, **kwargs)
         res = postprocess(out, orig_size)
+        maps = None
+        if attention_maps:
+            attn = out["attention_weights"]  # [B, H, Q, Hf * Wf]
+            hf, wf = out["memory"].shape[1:3]
+            maps = attn.mean(1).reshape(attn.shape[0], attn.shape[2], hf, wf)
         return {
+            "attention_maps": maps,
             "scores": res["scores"],
             "labels": res["labels"],
             "boxes": res["boxes"],
@@ -104,10 +123,12 @@ class Tracker:
         num_track_slots: int,
         hidden_dim: int,
         overflow_boxes: bool = False,
+        generate_attention_maps: bool = False,
     ):
         self.model = model
         self.device = next(model.parameters()).device
-        self._fwd = make_forward_fn(model, postprocess)
+        self._fwd = make_forward_fn(model, postprocess,
+                                    attention_maps=generate_attention_maps)
         self.num_object_queries = num_object_queries
         self.num_track_slots = num_track_slots
         self.hidden_dim = hidden_dim
@@ -331,21 +352,26 @@ class Tracker:
             self._prev_features[0], self._prev_memory[0], self._pos_cache,
         )
         # ONE device-to-host copy of everything the state machine reads
-        rows = torch.cat(
-            [
-                res["scores"][0, :, None].float(),
-                res["labels"][0, :, None].float(),
-                res["boxes"][0].float(),
-                res["hs_embed"][0].float(),
-            ],
-            dim=-1,
-        ).cpu().numpy()
+        parts = [
+            res["scores"][0, :, None].float(),
+            res["labels"][0, :, None].float(),
+            res["boxes"][0].float(),
+            res["hs_embed"][0].float(),
+        ]
+        maps = res["attention_maps"]
+        if maps is not None:
+            parts.append(maps[0].flatten(1).float())
+        rows = torch.cat(parts, dim=-1).cpu().numpy()
+        d = res["hs_embed"].shape[-1]
         out = {
             "scores": rows[:, 0],
             "labels": rows[:, 1].astype(np.int64),
             "boxes": rows[:, 2:6],
-            "hs_embed": rows[:, 6:],
+            "hs_embed": rows[:, 6:6 + d],
         }
+        if maps is not None:
+            out["attention_maps"] = rows[:, 6 + d:].reshape(
+                rows.shape[0], *maps.shape[2:])
         self._consume(out, blob)
 
         if res["frame_features"] is not None:
@@ -365,6 +391,7 @@ class Tracker:
         labels = out["labels"]
         boxes_all = out["boxes"]
         hs = out["hs_embed"]
+        attn_maps = out.get("attention_maps")
         if not self.overflow_boxes:
             boxes_all = clip_boxes_np(boxes_all, (h0, w0))
 
@@ -384,6 +411,8 @@ class Tracker:
                     tr.hs_embed = hs[i]
                     tr.pos = tr_boxes[i]
                     tr.count_termination = 0
+                    if attn_maps is not None:
+                        tr.attention_map = attn_maps[i]
                 else:
                     tr.count_termination += 1
                     if tr.count_termination >= self.steps_termination:
@@ -398,6 +427,8 @@ class Tracker:
                     tr.score = float(tr_scores[row])
                     tr.hs_embed = hs[row]
                     tr.pos = tr_boxes[row]
+                    if attn_maps is not None:
+                        tr.attention_map = attn_maps[row]
                     from_inactive.append(tr)
 
             self.num_reids += len(from_inactive)
@@ -438,6 +469,12 @@ class Tracker:
         )
 
         new_ids = self.add_tracks(nd_boxes, nd_scores, nd_hs, nd_inds)
+        if attn_maps is not None:
+            det_maps = attn_maps[t_slots:]
+            for tid, oi in zip(new_ids, nd_inds):
+                for tr in self.tracks:
+                    if tr.id == tid:
+                        tr.attention_map = det_maps[int(oi)]
 
         if self.detection_nms_thresh and self.tracks:
             tb = np.stack([t.pos for t in self.tracks])
@@ -456,6 +493,10 @@ class Tracker:
                 "score": float(t.score),
                 "obj_ind": int(t.obj_ind),
             }
+            if t.attention_map is not None:
+                self.results[t.id][self.frame_index]["attention_map"] = (
+                    t.attention_map
+                )
 
         for t in self.inactive_tracks:
             t.count_inactive += 1

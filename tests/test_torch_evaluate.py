@@ -237,9 +237,12 @@ def test_evaluate_defaults_to_the_card(models, val_root, monkeypatch):
                            build_dataset("val", cfg), cfg)
 
 
-def test_kine_evaluation_raises(models, val_root):
+def test_kine_evaluation_raises(models, val_root, monkeypatch):
+    """KineT evaluation is ported (tests/test_torch_kine.py); over more than
+    one process it raises, as every evaluation does (Scale-out)."""
     _, cfg = _cfgs(val_root)
-    with pytest.raises(NotImplementedError, match="KineT"):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="Scale-out"):
         port_eval.evaluate(models[2], build_criterion(cfg),
                            build_postprocessors(cfg),
                            build_dataset("val", cfg), cfg.replace(kine=True),

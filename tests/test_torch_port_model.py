@@ -184,8 +184,8 @@ def test_build_model_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "over, item",
     [
-        (dict(deformable=False), "Vanilla DETR"),
-        (dict(kine=True), "KineT"),
+        (dict(deformable=False, masks=True), "MOTS"),
+        (dict(kine=True, masks=True), "MOTS"),
         (dict(masks=True), "MOTS"),
         (dict(two_stage=True), "two-stage"),
         (dict(merge_frame_features=True), "two-stage"),

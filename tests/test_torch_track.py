@@ -226,16 +226,25 @@ def test_results_round_trip(data_root, tmp_path):
             np.testing.assert_allclose(back[tid][f]["bbox"], r["bbox"], atol=1e-4)
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(kinet=True), "KineT"),
-    (dict(generate_attention_maps=True), "Vanilla DETR"),
-    (dict(batch_sequences=2), "Scale-out"),
-    (dict(spatial_parallel=2), "Scale-out"),
-    (dict(write_images=True), "Host tools"),
+@pytest.mark.parametrize("over,error,item", [
+    # the kinematic tracker is ported; its batched form is Scale-out
+    (dict(kinet=True, batch_sequences=2), NotImplementedError, "Scale-out"),
+    # attention maps are ported for vanilla DETR; a deformable model has
+    # none, as the JAX package asserts
+    (dict(generate_attention_maps=True), ValueError, "deformable"),
+    (dict(batch_sequences=2), NotImplementedError, "Scale-out"),
+    (dict(spatial_parallel=2), NotImplementedError, "Scale-out"),
+    (dict(write_images=True), NotImplementedError, "Host tools"),
 ])
-def test_configs_outside_the_slice_raise(over, item, data_root):
+def test_configs_outside_the_slice_raise(over, error, item, data_root,
+                                         tmp_path):
+    if "generate_attention_maps" in over:  # the saved run's config decides
+        from kinet_tpu_torch.config import save_config
+        save_config(load_config("train.yaml", named=FLAGSHIP).replace(**TINY),
+                    tmp_path)
+        over = {**over, "obj_detect_checkpoint_dir": str(tmp_path)}
     cfg = _track_cfg(load_config, data_root, "", device="cpu", **over)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         track.main_track(cfg)
 
 

@@ -84,8 +84,10 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
 
 @pytest.mark.parametrize("over, item", [
     ({"mesh.model": 2}, "Scale-out"),
-    ({"kine": True}, "KineT"),
-    ({"dataset": "mot_kine"}, "KineT"),
+    # KineT and vanilla DETR train (tests/test_torch_kine.py,
+    # tests/test_torch_detr.py); masks and two-stage do not yet
+    ({"masks": True}, "MOTS"),
+    ({"two_stage": True}, "two-stage"),
     ({"dataset": "coco_panoptic"}, "MOTS"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):

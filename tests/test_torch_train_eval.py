@@ -8,10 +8,11 @@
   in train mode for its second epoch;
 - the port counterpart of tests/test_overfit.py: a tiny detector overfits
   one image in 40 steps, held to that test's own loss criteria. Its first
-  case is vanilla DETR and its second enables ``enc_msda_topk``, neither of
-  which the port has yet (ROADMAP: Vanilla DETR, MSDA variants off the
-  flagship), so the counterparts are the same recipes on the deformable
-  model without those flags; the input image is JAX's, drawn the same way.
+  case is vanilla DETR (held through the port from the JAX weights in
+  tests/test_torch_detr.py) and its second enables ``enc_msda_topk``,
+  which the port has not yet (ROADMAP: MSDA variants off the flagship), so
+  the counterparts here are the same recipes on the deformable model
+  without those flags; the input image is JAX's, drawn the same way.
 """
 import json
 
