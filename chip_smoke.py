@@ -89,6 +89,31 @@ K. the KineT family at full width (train_kinet, train_kinet2 with
    encoder-only gate on the card at the JAX gate's thresholds.
    Phases D and K check that every MSDA count stays 0: neither path has
    an MSDA kernel.
+M. MOTS, the mask head (models/segmentation.py) at full width:
+   M1, the published MOTS recipe's model (train.yaml + train_tracking +
+   train_mots20: vanilla DETR in SegmWrapper, freeze_detr) on the card vs
+   the CPU in f32 at 256x448 over two chained frames (pred_masks, the
+   tracker's mask probabilities), then one freeze_detr train step (the
+   mask losses, the gradient norm over every parameter, only
+   bbox_attention / mask_head updated); M2, that model in bf16 at 800x1440
+   through Tracker.step (no NMS; 7 public detections a frame and tracks
+   that end 3 frames after their detection hold 20-30 live tracks, see
+   ``mots_served``): ms/frame, the
+   device's busy share, MB copied to the host a frame, peak memory, every
+   frame's resolved masks boolean, disjoint and of the padded input size;
+   M3, train(cfg) on train_mots20 as it stands, one epoch, over a
+   synthetic MOTS tree (six 1080x1920 frames whose COCO json carries RLE
+   masks written by the port's utils/rle.py), with its evaluation and the
+   tracking eval over a synthetic MOTS20-02 (ms a step, peak memory, the
+   detector unchanged); M4, the tracking CLI as a subprocess on MOTS20-02
+   with M3's run, class heads calibrated (every MOTS result line decodes
+   to its stated size, finite MOTA / IDF1, steady-state frames/s); M5,
+   the flagship with masks: card vs CPU in f32 at 128x224 (forward and a
+   train step through the MSDA forward and backward kernels), then 4
+   frames in bf16 at 800x1440 through Tracker.step, 6 + 6 forward MSDA
+   launches a frame (``mots_launches`` in the kernels line: M5's forward
+   launches and its train step's backward ones). Config (a) launches no
+   MSDA kernel (checked).
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -105,7 +130,8 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 ``torch.gather`` are timed by ``device_ms`` too.
 
 Then one JSON line listing every kernel with its launches, error and times
-(``eval_launches``: phase E's detection-eval launches);
+(``eval_launches``: phase E's detection-eval launches; ``mots_launches``:
+phase M5's);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run) and prints no result line.
 
@@ -2400,6 +2426,553 @@ def phase_kine(torch, msda):
 
 
 # ---------------------------------------------------------------------------
+# phase M: MOTS, the mask head on vanilla DETR (the published recipe) and on
+# the flagship Deformable DETR
+
+
+MOTS = ["train_tracking", "train_mots20"]
+M_SEQ, M_FRAMES, M_HW = "MOTS20-02", 10, (1080, 1920)
+M_TRAIN_FRAMES = 6  # three steps of the recipe's batch of 2
+M5_FRAMES, M5_CPU_HW = 4, (128, 224)
+
+
+def mots_cfg(**over):
+    """train.yaml + train_tracking + train_mots20: vanilla DETR (ResNet-50,
+    hidden 256, 8 heads, 6 + 6 layers, 100 queries, 100 track slots) in
+    SegmWrapper, freeze_detr."""
+    from kinet_tpu_torch.config import load_config
+
+    return load_config("train.yaml", named=MOTS).replace(**over)
+
+
+def deformable_masks_cfg(**over):
+    """The flagship (hidden 288, 500 queries, 100 track slots) with
+    masks."""
+    return flagship_cfg().replace(masks=True, **over)
+
+
+def next_frame_kwargs(model, out):
+    """The second frame's extra forward arguments: the first frame's cached
+    encoder memory (Deformable DETR with cache_prev_encoder), or none."""
+    if getattr(model, "cache_prev_encoder", False):
+        return dict(prev_memory=out["frame_memory"], pos_cache=out["pos_cache"])
+    return {}
+
+
+def mots_vs_cpu(torch, cfg, hw, tol):
+    """The masked model of ``cfg`` on the card against the CPU, f32, over
+    two chained frames (frame 2's 20 track queries are frame 1's pre-norm
+    rows): pred_masks of both frames and the tracker's mask probabilities
+    (logits resized to the input, then sigmoid) of frame 2."""
+    import numpy as np
+
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.tracking.tracker import make_forward_fn
+
+    h, w = hw
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    n = min(20, t_slots, int(cfg.num_queries))
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        model, post = build_model(cfg, device=dev, seed=0)
+        check(type(model).__name__ == "SegmWrapper",
+              f"built {type(model).__name__}")
+        rng = np.random.default_rng(5)
+        b1, t1 = model_inputs(torch, rng, h, w, t_slots, hidden, 0, dev)
+        b2, t2 = model_inputs(torch, rng, h, w, t_slots, hidden, n, dev)
+        with torch.inference_mode():
+            o1 = model(b1, t1)
+            rows = slice(t_slots, t_slots + n)
+            emb = t2.track_query_embeds.clone()
+            emb[:, :n] = o1["hs_embed"][:, rows]
+            boxes = t2.track_query_boxes.clone()
+            boxes[:, :n] = o1["pred_boxes"][:, rows]
+            t2 = t2.replace(track_query_embeds=emb, track_query_boxes=boxes)
+            kw = next_frame_kwargs(model, o1)
+            o2 = model(b2, t2, **kw)
+            res = make_forward_fn(model, post["bbox"])(
+                b2, t2, torch.tensor([[float(h), float(w)]], device=dev),
+                o1["frame_features"], kw.get("prev_memory"),
+                kw.get("pos_cache"))
+        outs[dev] = [{k: o[k].float().cpu() for k in
+                      ("pred_logits", "pred_boxes", "pred_masks")}
+                     for o in (o1, o2)]
+        outs[dev][1]["mask_probs"] = res["mask_probs"].cpu()
+        del model, o1, o2, res
+    torch.cuda.empty_cache()
+    for f in range(2):
+        for k, (rtol, atol) in tol.items():
+            if k not in outs["cpu"][f]:
+                continue
+            a, r = outs[DEVICE][f][k], outs["cpu"][f][k]
+            check(bool(torch.isfinite(a).all()), f"frame {f} {k} not finite")
+            log(f"  card vs CPU frame {f} {k:<12} {tuple(a.shape)} max abs "
+                f"err {(a - r).abs().max().item():.3e} (rtol {rtol}, atol {atol})")
+            assert_close(torch, f"masked model frame {f} {k}", a, r, rtol, atol)
+
+
+def with_box_masks(torch, targets, h, w):
+    """``targets`` with a filled-box mask [1, N, h, w] for each target."""
+    b = targets.boxes[0].cpu()
+    x0, x1 = ((b[:, 0] - b[:, 2] / 2) * w).long(), ((b[:, 0] + b[:, 2] / 2) * w).long()
+    y0, y1 = ((b[:, 1] - b[:, 3] / 2) * h).long(), ((b[:, 1] + b[:, 3] / 2) * h).long()
+    ys, xs = torch.arange(h)[None, :, None], torch.arange(w)[None, None, :]
+    masks = ((ys >= y0[:, None, None]) & (ys < y1[:, None, None])
+             & (xs >= x0[:, None, None]) & (xs < x1[:, None, None]))
+    return targets.replace(masks=masks[None].float().to(targets.boxes.device))
+
+
+def mots_train_vs_cpu(torch, msda, cfg, hw):
+    """One f32 train step (dropout 0) of the masked model on the CPU and on
+    the card from the same seeded weights, with the augmented targets the
+    CPU made fed to both, every target with a box mask: the losses, mask
+    losses included, the gradient norm and which parameters moved. Returns
+    the card's {"changed": names of updated parameters, "bwd": MSDA
+    backward launches}."""
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+    from kinet_tpu_torch.tracking import train_augment
+
+    h, w = hw
+    cfg = cfg.replace(compute_dtype="float32", dropout=0.0)
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    made, res = [], {}
+    augment = train_augment.add_track_queries_to_targets
+    for dev in ("cpu", DEVICE):
+        model, _ = build_model(cfg, device=dev, seed=3)
+        model.train()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = Optimizer(model, cfg, 1000)
+        step = make_train_step(model, build_criterion(cfg), opt, cfg)
+
+        def recorded(*a, **kw):
+            if dev == "cpu":
+                made.append(augment(*a, **kw))
+            return made[0].to(dev)
+
+        frames = train_frames(torch, 4, h, w, TRAIN_OBJECTS, t_slots, hidden,
+                              dev)
+        frames[1] = with_box_masks(torch, frames[1], h, w)
+        frames[3] = with_box_masks(torch, frames[3], h, w)
+        reset_all_launches(msda)
+        train_augment.add_track_queries_to_targets = recorded
+        try:
+            losses = step(*frames)
+        finally:
+            train_augment.add_track_queries_to_targets = augment
+        res[dev] = ({k: v.float().cpu() for k, v in losses.items()},
+                    {n for n, p in model.named_parameters()
+                     if not torch.equal(p, before[n])},
+                    read_all_launches(msda))
+        del model, opt, step, before
+    torch.cuda.empty_cache()
+    (l_cpu, _, _), (l_gpu, changed, launches) = res["cpu"], res[DEVICE]
+    for key in ("loss", "loss_ce", "loss_bbox", "loss_giou", "loss_mask",
+                "loss_dice", "grad_norm"):
+        a, r = l_gpu[key], l_cpu[key]
+        check(bool(torch.isfinite(a)), f"train step {key} not finite")
+        log(f"  {key:<10} card {a.item():.6f}  cpu {r.item():.6f}")
+        assert_close(torch, f"masked train step {key}", a, r, 1e-3, 1e-5)
+    scale = min(1.0, float(cfg.clip_max_norm) / l_gpu["grad_norm"].item())
+    log(f"  clip scale {scale:.6f} (clip_max_norm {cfg.clip_max_norm}, every "
+        f"gradient counted); {len(changed)} parameter tensors updated")
+    return {"changed": changed, "bwd": launches}
+
+
+def mots_served(torch, msda, cfg, n_frames, warmup, vanilla=False):
+    """The masked model of ``cfg`` in bf16 at 800x1440 through
+    Tracker.step over n_frames of the moving-boxes sequence (class heads
+    calibrated as in phase 5 so that about 7 detections a frame start
+    tracks, no NMS). ``vanilla`` (DETR at random weights, whose queries
+    score nearly alike and whose boxes coincide: once tracks exist every
+    object row passes phase 5's threshold, and every track row stays
+    above it) adds two bounds so that about 20-30 tracks live: each frame
+    carries 7 public detections, the boxes of the 7 best object rows of
+    the first frame, and new tracks need one (``center_distance``, as on
+    MOT17's public detections); and the track threshold is set just
+    above every track row's score of a 5-frame calibration run, so that a
+    track ends 3 frames after its detection, as the flagship's do in
+    phase 5 (else the track list outgrows the 100 slots, and the tracks
+    beyond them are never updated). Afterwards each frame's
+    resolved masks are checked boolean, disjoint and of the padded input
+    size. Returns {ms, mb_to_host, peak_gib, launches, busy, live}."""
+    import numpy as np
+
+    reset_all_launches(msda)
+    tracker, model, frames = served_tracker(torch, cfg, nms_thresh=0)
+    copied, track_scores = [], []
+    consume = tracker._consume
+
+    def recording(out, blob):
+        copied.append(out["mask_probs"].nbytes
+                      + out["hs_embed"].shape[0] * (6 + out["hs_embed"].shape[1]) * 4)
+        track_scores.append(out["scores"][:tracker._num_prev])
+        consume(out, blob)
+
+    tracker._consume = recording
+    if vanilla:
+        from kinet_tpu_torch.models.postprocess import build_postprocessors
+        from kinet_tpu_torch.structs import ImageBatch
+        from kinet_tpu_torch.tracking.tracker import make_forward_fn
+
+        blob, dev = frames[0], next(model.parameters()).device
+        h, w = MAIN_HW
+        res = make_forward_fn(model, build_postprocessors(cfg)["bbox"])(
+            ImageBatch(torch.from_numpy(blob["images"]).to(dev),
+                       torch.from_numpy(blob["pad_mask"]).to(dev)),
+            None, torch.tensor([[float(h), float(w)]], device=dev),
+            None, None, None)
+        t = tracker.num_track_slots
+        best = res["scores"][0, t:].float().argsort(descending=True)[:7]
+        dets = res["boxes"][0, t:][best].float().cpu().numpy()
+        for f in frames:
+            f["dets"] = dets
+        tracker.public_detections = "center_distance"
+        for blob in frames[:5]:
+            tracker.step(blob)
+        thresh = float(np.concatenate(track_scores).max()) + 1e-4
+        tracker.track_obj_score_thresh = tracker.reid_score_thresh = thresh
+        tracker.reset()
+        copied.clear()
+        log(f"  track threshold {thresh:.5f} (above every track row's score "
+            f"over 5 calibration frames)")
+    reset_all_launches(msda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = []
+    times, active = [], []
+    for blob in frames[:n_frames]:
+        t, a = timed_frames(torch, tracker, [blob])
+        times += t
+        active += a
+        live.append(len(tracker.tracks))
+    launches = read_all_launches(msda)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times[warmup:])
+    mb = statistics.median(copied) / 1e6
+    tracker._consume = consume
+    log(f"  per-frame ms: {' '.join(f'{t:.2f}' for t in times)}")
+    log(f"  active track slots before each frame: {active}; live tracks "
+        f"after it: {live}")
+    log(f"  median {med:.3f} ms/frame after {warmup} warm-up frames; "
+        f"{mb:.1f} MB copied to the host a frame (mask probabilities of "
+        f"every row, f32, and the rows); peak device memory {peak:.2f} GiB")
+    check(max(active[warmup:]) > 0, "no track was ever active")
+    check(max(live) <= tracker.num_track_slots,
+          f"the track list outgrew the {tracker.num_track_slots} slots: {live}")
+    for f in range(n_frames):
+        masks = [r[f]["mask"] for r in tracker.results.values() if f in r]
+        check(bool(masks), f"frame {f}: no track has a mask")
+        stack = np.stack(masks)
+        check(stack.dtype == bool and stack.shape[1:] == MAIN_HW
+              and int(stack.sum(0, dtype=np.int32).max()) <= 1,
+              f"frame {f}: resolved masks {stack.dtype} {stack.shape}, "
+              f"overlap {int(stack.sum(0, dtype=np.int32).max())}")
+    log(f"  every frame's resolved masks: boolean, disjoint, "
+        f"{MAIN_HW[0]}x{MAIN_HW[1]} (the padded input size)")
+    profiled = itertools.cycle(frames[n_frames:n_frames + 2])
+    by_name = device_profile(torch, lambda: tracker.step(next(profiled)), 2)
+    busy = sum(t for t, _ in by_name.values())
+    share = busy / med if busy > 0 else None
+    if share is None:
+        log("  profiler: no device time recorded")
+    else:
+        log(f"  profiler: device busy {busy:.3f} ms/frame = {100 * share:.1f}% "
+            f"of the median frame")
+        for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"    {t:8.3f} ms/frame {c // 2:5d}/frame  {k[:90]}")
+    del tracker, model
+    torch.cuda.empty_cache()
+    return {"ms": med, "mb_to_host": mb, "peak_gib": peak,
+            "launches": launches, "busy": share,
+            "live": statistics.median(live[warmup:])}
+
+
+def write_mots_tree(root: Path, n_train, n_seq, h, w):
+    """The MOTS recipe's data: root/train/*.jpg with
+    root/annotations/{train,val}.json (the MOT-to-COCO layout, each
+    annotation a ``segmentation`` RLE written by the port's utils/rle.py),
+    and root/MOTS20/train/MOTS20-02 (img1/*.jpg, seqinfo.ini and a MOTS
+    gt/gt.txt of RLE lines) for the tracking eval and the CLI; eight
+    filled boxes of box_tracks moving over noise."""
+    import configparser
+
+    import numpy as np
+    from PIL import Image
+
+    from kinet_tpu_torch.utils.rle import mask_to_rle
+
+    (root / "train").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    seq = root / "MOTS20" / "train" / M_SEQ
+    (seq / "img1").mkdir(parents=True)
+    (seq / "gt").mkdir()
+    rng = np.random.default_rng(7)
+    background = rng.integers(40, 120, size=(h, w, 3)).astype(np.uint8)
+    images, anns, gt = [], [], []
+    for f, boxes in enumerate(box_tracks(np, h, w, max(n_train, n_seq))):
+        img = background.copy()
+        for tid, (y0, x0, bh, bw) in enumerate(boxes, start=1):
+            img[y0:y0 + bh, x0:x0 + bw] = 230
+            mask = np.zeros((h, w), bool)
+            mask[y0:y0 + bh, x0:x0 + bw] = True
+            enc = mask_to_rle(mask)
+            if f < n_train:
+                anns.append({"id": len(anns), "image_id": f,
+                             "category_id": 1, "bbox": [x0, y0, bw, bh],
+                             "area": bw * bh, "iscrowd": 0, "track_id": tid,
+                             "segmentation": enc})
+            if f < n_seq:
+                gt.append(f"{f + 1} {2000 + tid} 2 {h} {w} {enc['counts']}")
+        if f < n_train:
+            name = f"{M_SEQ}_{f + 1:06d}.jpg"
+            Image.fromarray(img).save(root / "train" / name, quality=90)
+            images.append({"id": f, "file_name": name, "height": h,
+                           "width": w, "frame_id": f, "first_frame_image_id": 0,
+                           "seq_length": n_train, "seq": M_SEQ})
+        if f < n_seq:
+            Image.fromarray(img).save(seq / "img1" / f"{f + 1:06d}.jpg",
+                                      quality=90)
+    doc = {"images": images, "annotations": anns, "sequences": [M_SEQ],
+           "categories": [{"id": 1, "name": "person"}]}
+    for split in ("train", "val"):
+        (root / "annotations" / f"{split}.json").write_text(json.dumps(doc))
+    (seq / "gt" / "gt.txt").write_text("\n".join(gt) + "\n")
+    info = configparser.ConfigParser()
+    info["Sequence"] = {"name": M_SEQ, "imDir": "img1", "frameRate": "30",
+                        "seqLength": str(n_seq), "imWidth": str(w),
+                        "imHeight": str(h), "imExt": ".jpg"}
+    with open(seq / "seqinfo.ini", "w") as f:
+        info.write(f)
+
+
+def calibrate_run(torch, run: Path, blob):
+    """Biases the saved run's class head to class 0 (person), moves its
+    class-0 bias so that track.yaml's 0.4 thresholds keep about 7 new
+    detections on ``blob``, and saves it back in bf16, the served type.
+    Returns the shift."""
+    import math
+
+    from kinet_tpu_torch.engine.track import restore_model
+    from kinet_tpu_torch.models.postprocess import build_postprocessors
+    from kinet_tpu_torch.structs import ImageBatch
+    from kinet_tpu_torch.tracking.tracker import make_forward_fn
+    from kinet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    model, cfg = restore_model(run, DEVICE)
+    bias_to_person(torch, model, cfg)
+    model.to(torch.bfloat16)
+    h, w = blob["images"].shape[1:3]
+    res = make_forward_fn(model, build_postprocessors(cfg)["bbox"])(
+        ImageBatch(torch.from_numpy(blob["images"]).to(DEVICE),
+                   torch.from_numpy(blob["pad_mask"]).to(DEVICE)),
+        None, torch.tensor([[float(h), float(w)]], device=DEVICE),
+        None, None, None)
+    t = int(cfg.max_track_queries)
+    scores = res["scores"][0, t:].float().sort(descending=True).values
+    s8 = min(max(scores[7].item(), 1e-6), 1 - 1e-6)
+    shift = math.log(0.4 / 0.6) - math.log(s8 / (1 - s8))
+    with torch.no_grad():
+        for head in class_heads(model):
+            head.bias[0] += shift
+    ckpt = CheckpointManager(str(run))
+    payload = ckpt.restore()
+    payload["params"] = model.state_dict()
+    ckpt._save(ckpt.dir / "checkpoint.pth", payload)
+    return shift
+
+
+def mots_recipe_and_cli(torch, msda):
+    """M3: train(cfg) on train_mots20 as it stands (one epoch) over the
+    synthetic MOTS tree, with its evaluation and the tracking eval; M4:
+    the tracking CLI on MOTS20-02 with that run. Returns the numbers to
+    report."""
+    import math
+    import re
+
+    import numpy as np
+
+    from kinet_tpu_torch.data.mots20_sequence import MOTS20Sequence
+    from kinet_tpu_torch.engine import train as train_mod
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.utils.rle import rle_to_mask
+
+    report = {}
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_mots_tree(tmp / "data", M_TRAIN_FRAMES, M_FRAMES, *M_HW)
+        log(f"  MOTS tree: {M_TRAIN_FRAMES} training frames and a {M_SEQ} of "
+            f"{M_FRAMES} frames, {M_HW[0]}x{M_HW[1]}, 8 objects a frame with "
+            f"RLE masks, written in {time.perf_counter() - t0:.1f} s")
+        run = tmp / "run"
+        cfg = mots_cfg(mot_path_train=str(tmp / "data"),
+                       mot_path_val=str(tmp / "data"), output_dir=str(run),
+                       epochs=1, val_interval=1, tracking_eval_dataset=M_SEQ)
+        check(cfg.masks and cfg.freeze_detr, "train_mots20 sets masks and "
+              "freeze_detr")
+        initial = {k: v.cpu() for k, v in build_model(
+            cfg, device=DEVICE, seed=int(cfg.seed))[0].state_dict().items()}
+        make_step = train_mod.make_train_step
+        step_ms = []
+
+        def timed(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run_step(*args):
+                t1 = time.perf_counter()
+                out = step(*args)
+                float(out["loss"])
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                for k in ("loss_mask", "loss_dice"):
+                    check(math.isfinite(float(out[k])), f"{k} {out[k]}")
+                return out
+            return run_step
+
+        train_mod.make_train_step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            model, _, steps = train_mod.train(cfg, device=DEVICE)
+        finally:
+            train_mod.make_train_step = make_step
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        changed = {k for k, v in model.state_dict().items()
+                   if not torch.equal(v.cpu(), initial[k])}
+        check(bool(changed) and all(k.startswith(("bbox_attention.", "mask_head."))
+                                    for k in changed),
+              f"freeze_detr: updated {sorted(changed)[:5]}")
+        line = json.loads((run / "metrics.jsonl").read_text())
+        check(steps == M_TRAIN_FRAMES // int(cfg.batch_size) and all(
+            isinstance(line.get(k), float) and math.isfinite(line[k])
+            for k in ("AP", "AP50", "mota", "idf1")),
+            f"train_mots20: {steps} steps, metrics {line}")
+        ms = statistics.median(step_ms[1:])
+        report.update(train_ms_per_step=ms, train_peak_gib=peak)
+        log(f"  train(cfg) {' '.join(MOTS)}: {steps} steps of batch "
+            f"{cfg.batch_size} in {wall:.1f} s with its evaluation and "
+            f"tracking eval over {M_SEQ}; steps (ms, host clock, each ending "
+            f"in its loss' copy): {' '.join(f'{t:.1f}' for t in step_ms)}; "
+            f"median after the first {ms:.2f} ms; peak device memory "
+            f"{peak:.2f} GiB; {len(changed)} mask-head tensors updated, the "
+            f"detector unchanged; metrics {json.dumps(line)}")
+        del model, initial
+        torch.cuda.empty_cache()
+
+        # M4: the tracking CLI on the run, its class heads calibrated
+        seq = MOTS20Sequence(str(tmp / "data"), M_SEQ,
+                             img_transform=cfg.img_transform)
+        first = seq[0]
+        hw = first["images"].shape[1:3]
+        shift = calibrate_run(torch, run, first)
+        out = tmp / "out"
+        cmd = [sys.executable, "-c", CLI_RUNNER,
+               f"obj_detect_checkpoint_dir={run}",
+               f"data_root_dir={tmp / 'data'}", f"dataset_name={M_SEQ}",
+               f"output_dir={out}", "tracker_cfg.steps_termination=3",
+               "tracker_cfg.inactive_patience=0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        text = proc.stdout
+        check(proc.returncode == 0, f"the MOTS tracking CLI exited "
+              f"{proc.returncode}:\n{text[-3000:]}\n{proc.stderr[-3000:]}")
+        for ln in text.strip().splitlines()[:-1]:
+            log(f"  | {ln}")
+        child = json.loads(text.strip().splitlines()[-1])
+        check(not any(child["launches"].values()),
+              f"the MOTS CLI launched MSDA kernels: {child['launches']}")
+        step_ms = child["step_ms"]
+        hz = re.search(r"for (\d+) frames \(([\d.]+) Hz\)", text)
+        check(hz is not None and int(hz.group(1)) == M_FRAMES,
+              "no RUNTIME line for every frame")
+        row = [ln for ln in text.splitlines() if ln.startswith(M_SEQ)]
+        check(len(row) == 1, "no summary row")
+        vals = [float(v) for v in row[0].split()[1:]]
+        check(len(vals) == 7 and all(math.isfinite(v) for v in vals[:2]),
+              f"summary row {row[0]!r}")
+        lines = (out / M_SEQ / f"{M_SEQ}.txt").read_text().splitlines()
+        check(bool(lines), "an empty MOTS result file")
+        ids, pixels = set(), 0
+        for ln in lines:
+            frame, tid, cls, h, w, counts = ln.split(" ")
+            mask = rle_to_mask(counts, (int(h), int(w)))
+            check(cls == "2" and mask.shape == (int(h), int(w)) == tuple(hw),
+                  f"result line {ln[:60]!r}: {mask.shape}, input {tuple(hw)}")
+            ids.add(tid)
+            pixels += int(mask.sum())
+        check(pixels > 0, "every MOTS result mask is empty")
+        loop_s = int(hz.group(1)) / float(hz.group(2))
+        steady = (M_FRAMES - 1) / (loop_s - step_ms[0] / 1e3)
+        report.update(cli_fps=steady, cli_step_ms=statistics.median(step_ms[1:]))
+        log(f"  CLI (class-0 bias {shift:+.3f}, process {wall:.1f} s): "
+            f"{len(lines)} MOTS result lines, {len(ids)} tracks, every mask "
+            f"decoding to its stated {hw[0]}x{hw[1]} ({pixels} pixels in all; "
+            f"the padded input size; "
+            f"the sequence is {M_HW[0]}x{M_HW[1]}); MOTA {vals[0]:.3f} IDF1 "
+            f"{vals[1]:.3f}; Tracker.step first frame {step_ms[0]:.1f} ms, "
+            f"then median {report['cli_step_ms']:.3f} ms; {steady:.2f} "
+            f"frames/s steady state, {hz.group(2)} on the RUNTIME line")
+    return report
+
+
+def phase_mots(torch, msda):
+    """M1-M5 (see the module docstring). Returns (report, config (b)'s MSDA
+    launches: forward over its served frames, backward in its step)."""
+    rep = {}
+    log("  M1. train_mots20 model: card vs CPU, f32, 256x448, two frames; "
+        "one freeze_detr train step")
+    mots_vs_cpu(torch, mots_cfg(dropout=0.0), (256, 448), {
+        "pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
+        "pred_masks": (1e-3, 5e-3), "mask_probs": (0.0, 1e-3)})
+    step = mots_train_vs_cpu(torch, msda, mots_cfg(), (256, 448))
+    check(bool(step["changed"]) and all(
+        n.startswith(("bbox_attention.", "mask_head.")) for n in step["changed"]),
+        f"freeze_detr updated {sorted(step['changed'])[:5]}")
+    check(not any(step["bwd"].values()),
+          f"the train_mots20 step launched MSDA kernels: {step['bwd']}")
+    log(f"== M2. serving train_mots20: Tracker.step, bf16, "
+        f"{MAIN_HW[0]}x{MAIN_HW[1]}, {N_FRAMES} frames")
+    served = mots_served(torch, msda, mots_cfg(dropout=0.0), N_FRAMES, WARMUP,
+                         vanilla=True)
+    check(not any(served["launches"].values()),
+          f"config (a) launched MSDA kernels: {served['launches']}")
+    log(f"  MSDA launches on config (a): {served['launches']}")
+    rep["a"] = {k: served[k] for k in ("ms", "mb_to_host", "peak_gib", "busy",
+                                       "live")}
+    log("== M3/M4. train(cfg) on train_mots20, then the tracking CLI on "
+        f"{M_SEQ}")
+    rep.update(mots_recipe_and_cli(torch, msda))
+    log(f"== M5. the flagship with masks: card vs CPU, f32, "
+        f"{M5_CPU_HW[0]}x{M5_CPU_HW[1]}; one train step; Tracker.step bf16 "
+        f"{MAIN_HW[0]}x{MAIN_HW[1]}, {M5_FRAMES} frames")
+    mots_vs_cpu(torch, deformable_masks_cfg(), M5_CPU_HW, {
+        "pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
+        "pred_masks": (1e-3, 5e-3), "mask_probs": (0.0, 1e-3)})
+    step = mots_train_vs_cpu(torch, msda, deformable_masks_cfg(), M5_CPU_HW)
+    check(step["bwd"]["msda_bwd"] > 0 and step["bwd"]["msda_raw_pool_bwd"] > 0,
+          f"config (b)'s train step ran no MSDA backward kernel: {step['bwd']}")
+    served = mots_served(torch, msda, deformable_masks_cfg(), M5_FRAMES, 1)
+    fwd = served["launches"]
+    for k, n in fwd.items():
+        want = 6 * M5_FRAMES if k in ("msda_fwd", "msda_raw_pool_fwd") else 0
+        check(n == want, f"config (b): {k} launched {n} times over "
+              f"{M5_FRAMES} frames, expected {want}")
+    log(f"  MSDA launches on config (b): {fwd} over {M5_FRAMES} frames (6 + 6 "
+        f"a frame); its train step: {step['bwd']}")
+    rep["b"] = {k: served[k] for k in ("ms", "mb_to_host", "peak_gib", "busy",
+                                       "live")}
+    launches = {k: v for k, v in fwd.items() if "bwd" not in k}
+    launches.update({k: v for k, v in step["bwd"].items() if "bwd" in k})
+    return rep, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -2418,7 +2991,7 @@ KERNEL_META = {
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
 }
-PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K")
+PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M")
 
 
 def main(argv=None) -> int:
@@ -2543,6 +3116,15 @@ def main(argv=None) -> int:
             "the encoder-only gate")
         rep = phase_kine(torch, msda)
         log(f"  {json.dumps(rep)}; on {smi}")
+    if "M" in phases:
+        log("== M. MOTS: the mask head on vanilla DETR (train_mots20) and on "
+            "the flagship")
+        t0 = time.perf_counter()
+        rep, mots_launches = phase_mots(torch, msda)
+        for k, n in mots_launches.items():
+            summary.setdefault(k, {})["mots_launches"] = n
+        log(f"  {json.dumps(rep)}; phase M in {time.perf_counter() - t0:.1f} "
+            f"s; on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -2558,7 +3140,7 @@ def main(argv=None) -> int:
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
             for key in ("replay_ms", "replay_bf16_ms", "cold_ms",
-                        "library_cold_ms", "eval_launches")
+                        "library_cold_ms", "eval_launches", "mots_launches")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

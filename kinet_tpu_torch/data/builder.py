@@ -1,13 +1,12 @@
 """Dataset dispatch (port of ``kinet_tpu/data/builder.py``; reference:
 src/trackformer/datasets/__init__.py:29-52): coco, coco_person, mot,
-mot_kine, crowdhuman, mot_crowdhuman, mot_coco_person. ``coco_panoptic``
-raises NotImplementedError naming its ROADMAP item."""
+mot_kine, crowdhuman, mot_crowdhuman, mot_coco_person, coco_panoptic."""
 from __future__ import annotations
 
 import os.path as osp
 
-from ..models.build import not_ported
 from .coco import CocoDetection
+from .coco_panoptic import CocoPanoptic
 from .crowdhuman import build_crowdhuman
 from .kinematic import build_mot_kine
 from .mot import MOT, WeightedConcatDataset
@@ -84,5 +83,14 @@ def build_dataset(split: str, cfg):
             return WeightedConcatDataset([_build_mot(split, cfg), coco])
         return _build_mot(split, cfg)
     if name == "coco_panoptic":
-        not_ported("the coco_panoptic dataset", "MOTS")
+        split_name = "train2017" if split == "train" else "val2017"
+        root = cfg.coco_panoptic_path
+        return CocoPanoptic(
+            img_folder=osp.join(cfg.coco_path, split_name),
+            ann_folder=osp.join(root, f"panoptic_{split_name}"),
+            ann_file=osp.join(root, f"annotations/panoptic_{split_name}.json"),
+            split=split,
+            img_transform=cfg.img_transform,
+            return_masks=cfg.masks,
+        )
     raise ValueError(f"unknown dataset {name}")

@@ -1,12 +1,15 @@
 """COCO-style detection dataset with the tracking previous-frame
-simulation (the port's own copy of ``kinet_tpu/data/coco.py`` without the
-MOTS masks; reference: src/trackformer/datasets/coco.py).
+simulation (the port's own copy of ``kinet_tpu/data/coco.py``; reference:
+src/trackformer/datasets/coco.py).
 
 Self-contained COCO json handling (pycocotools is not available in this
 environment); annotations are converted to numpy target dicts
 (≙ ConvertCocoPolysToMask, reference coco.py:191-267) with:
 - crowd/ignore annotations split into `*_ignore` fields (reference :71-76),
 - track_ids (or per-annotation synthetic ids for static images),
+- instance masks (``masks`` [N, H, W] uint8) decoded from the
+  annotations' ``segmentation`` RLEs (MOTS), padded or cropped to the
+  image size,
 - dual-frame sampling: the (simulated) previous frame re-applies the same
   augmentation via a shared RNG seed plus an independent jitter crop
   (reference :48-103 `_getitem_from_id` / `_add_random_jitter`).
@@ -19,6 +22,7 @@ import os.path as osp
 import numpy as np
 from PIL import Image
 
+from ..utils.rle import rle_to_mask
 from . import transforms as T
 
 
@@ -66,11 +70,22 @@ def convert_anns_to_target(anns, img_hw, image_id):
     boxes[:, 0::2] = boxes[:, 0::2].clip(0, w)
     boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
     keep = (boxes[:, 3] > boxes[:, 1]) & (boxes[:, 2] > boxes[:, 0])
+    masks = None
     if any("segmentation" in a for a in anns):
-        raise NotImplementedError(
-            "segmentation masks (MOTS) are not ported to kinet_tpu_torch yet "
-            "(ROADMAP.md, 'Modules to port': MOTS)"
-        )
+        decoded = []
+        for a in anns:
+            seg = a.get("segmentation")
+            if seg is None:
+                decoded.append(np.zeros((h, w), np.uint8))
+                continue
+            sh, sw = seg["size"]
+            m = rle_to_mask(seg["counts"], (sh, sw)).astype(np.uint8)
+            if (sh, sw) != (h, w):
+                mm = np.zeros((h, w), np.uint8)
+                mm[: min(h, sh), : min(w, sw)] = m[:h, :w]
+                m = mm
+            decoded.append(m)
+        masks = np.stack(decoded)
     target = {
         "image_id": image_id,
         "boxes": boxes[keep],
@@ -82,11 +97,15 @@ def convert_anns_to_target(anns, img_hw, image_id):
         "orig_size": np.asarray([h, w]),
         "size": np.asarray([h, w]),
     }
+    if masks is not None:
+        target["masks"] = masks[keep]
     # split ignore-region annotations (reference coco.py:71-76)
     ig = target["ignore"].astype(bool)
     for k in ("boxes", "labels", "area", "iscrowd", "track_ids"):
         target[f"{k}_ignore"] = target[k][ig]
         target[k] = target[k][~ig]
+    if masks is not None:
+        target["masks"] = target["masks"][~ig]
     del target["ignore"]
     return target
 

@@ -25,12 +25,19 @@ from ..structs import ImageBatch, Targets, pick_bucket
 
 
 def pad_targets(targets: list[dict], max_objects: int,
-                num_track_queries: int, hidden_dim: int) -> Targets:
+                num_track_queries: int, hidden_dim: int,
+                mask_hw: tuple[int, int] | None = None) -> Targets:
+    """Targets padded to ``max_objects``; with ``mask_hw`` and instance
+    masks in a target, ``masks`` f32 [b, max_objects, *mask_hw] (each mask
+    at the top left, zeros elsewhere)."""
     b = len(targets)
     boxes = np.zeros((b, max_objects, 4), np.float32)
     labels = np.zeros((b, max_objects), np.int64)
     valid = np.zeros((b, max_objects), bool)
     track_ids = np.full((b, max_objects), -1, np.int64)
+    has_masks = mask_hw is not None and any("masks" in t for t in targets)
+    masks = (np.zeros((b, max_objects, *mask_hw), np.float32)
+             if has_masks else None)
     for i, t in enumerate(targets):
         n = min(len(t["boxes"]), max_objects)
         if n:
@@ -39,11 +46,16 @@ def pad_targets(targets: list[dict], max_objects: int,
             valid[i, :n] = True
             if "track_ids" in t and len(t["track_ids"]) >= n:
                 track_ids[i, :n] = t["track_ids"][:n]
-    return Targets.create(
+            if has_masks and "masks" in t and len(t["masks"]) >= n:
+                m = t["masks"][:n]
+                mh, mw = min(m.shape[1], mask_hw[0]), min(m.shape[2], mask_hw[1])
+                masks[i, :n, :mh, :mw] = m[:, :mh, :mw]
+    out = Targets.create(
         torch.from_numpy(boxes), torch.from_numpy(labels),
         torch.from_numpy(valid), torch.from_numpy(track_ids),
         num_track_queries=num_track_queries, hidden_dim=hidden_dim,
     )
+    return out if masks is None else out.replace(masks=torch.from_numpy(masks))
 
 
 def pad_images(images: list[np.ndarray], buckets) -> ImageBatch:
@@ -76,7 +88,8 @@ def collate_tracking(samples: list[dict], buckets, max_objects: int,
             continue
         out[key] = pad_images([s[key] for s in samples], buckets)
         out[tkey] = pad_targets([s[tkey] for s in samples], max_objects,
-                                num_track_queries, hidden_dim)
+                                num_track_queries, hidden_dim,
+                                mask_hw=tuple(out[key].images.shape[1:3]))
     out["image_ids"] = np.asarray(
         [s["target"].get("image_id", -1) for s in samples], np.int64)
     out["orig_sizes"] = np.asarray(

@@ -11,8 +11,8 @@ MOTChallenge line format (1-based frames/ids/pixels), as the reference
 writer has it: frame+1, id+1, x1+1, y1+1, w(x2-x1+1), h(y2-y1+1), -1, -1,
 -1, -1.
 
-MOTS20 sequences (masks) raise NotImplementedError: ROADMAP item "MOTS and
-panoptic".
+MOTS20 sequences (``MOTS20-02`` ..., ``MOTS20-TRAIN``) are
+``data/mots20_sequence.py``'s.
 """
 from __future__ import annotations
 
@@ -347,11 +347,25 @@ class TrackDatasetFactory:
                     )
                 )
         elif parts[0] == "MOTS20":
-            raise NotImplementedError(
-                f"{dataset_name}: MOTS20 sequences are not ported to "
-                "kinet_tpu_torch yet (ROADMAP.md, 'Modules to port': MOTS and "
-                "panoptic)"
+            from .mots20_sequence import MOTS20Sequence
+
+            split = parts[1] if len(parts) > 1 else "ALL"
+            seqs = (
+                [f"MOTS20-{int(split):02d}"]
+                if split not in ("ALL", "TRAIN", "TEST")
+                else {
+                    "ALL": ["MOTS20-02", "MOTS20-05", "MOTS20-09", "MOTS20-11"],
+                    "TRAIN": ["MOTS20-02", "MOTS20-05", "MOTS20-09", "MOTS20-11"],
+                    "TEST": ["MOTS20-01", "MOTS20-06", "MOTS20-07", "MOTS20-12"],
+                }[split]
             )
+            for seq in seqs:
+                self._datasets.append(
+                    MOTS20Sequence(
+                        root_dir=root_dir, seq_name=seq,
+                        vis_threshold=vis_threshold, img_transform=img_transform,
+                    )
+                )
         else:
             raise NotImplementedError(f"Dataset name: {dataset_name}")
 

@@ -10,7 +10,8 @@ Each transform is callable (image, target, rng) -> (image, target) where
 rng is a numpy Generator: the *caller* controls the random state, which is
 how a previous frame gets the same augmentation draw as the current one
 (reference coco.py:48-86 re-seeds python random with a shared seed).
-Targets carry no masks: MOTS is not ported yet.
+Instance masks (``masks`` [N, H, W]) follow the crop, the flip and the
+resize (nearest neighbour), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -45,6 +46,9 @@ def _crop_target(target, region, overflow_boxes=False):
         for k in ("boxes", "labels", "area", "iscrowd", "track_ids"):
             if k in target and len(target[k]) == len(keep):
                 target[k] = target[k][keep]
+        if "masks" in target and len(target["masks"]):
+            target["masks"] = target["masks"][:, i : i + h, j : j + w]
+            target["masks"] = target["masks"][keep[: len(target["masks"])]]
     return target
 
 
@@ -71,6 +75,8 @@ class RandomHorizontalFlip:
                 b = target["boxes"].copy()
                 b[:, [0, 2]] = w - b[:, [2, 0]]
                 target["boxes"] = b
+            if "masks" in target and len(target["masks"]):
+                target["masks"] = target["masks"][:, :, ::-1].copy()
         return image, target
 
 
@@ -114,6 +120,11 @@ def resize(image, target, size, max_size=None):
     if "area" in target and len(target["area"]):
         target["area"] = target["area"] * (rw * rh)
     target["size"] = np.array([oh, ow])
+    if "masks" in target and len(target["masks"]):
+        m = target["masks"].astype(np.uint8)
+        target["masks"] = np.stack([
+            cv2.resize(mi, (ow, oh), interpolation=cv2.INTER_NEAREST) for mi in m
+        ]).astype(bool)
     return out, target
 
 

@@ -4,12 +4,14 @@ src/trackformer/engine.py:179-364).
 
 - detection: the model's forward and the criterion over the val set in
   eval mode without gradients, every image included (the loader keeps a
-  last, partial batch), the losses logged, the postprocessed boxes in each
-  image's original size scored by the self-contained ``CocoEvaluator``;
+  last, partial batch), the losses logged (the mask losses too, for a
+  model with a mask head), the postprocessed boxes in each image's
+  original size scored by the self-contained ``CocoEvaluator`` (masks are
+  not scored, as in the JAX package);
 - tracking (``tracking_eval`` with a tracking model): ``main_track`` with
   the live model on ``track.yaml`` over ``mot_path_val``
-  (``tracking_eval_dataset`` names the sequences), on the evaluation's
-  device.
+  (``tracking_eval_dataset`` names the sequences; MOTS20 sequences
+  for a model with a mask head), on the evaluation's device.
 
 KineT configs batch with ``collate_kine`` and run the model on the
 detections with empty track slots (the reference zero-fills them at

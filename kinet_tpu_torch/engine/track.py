@@ -17,7 +17,10 @@ JAX package:
   package);
 - ``generate_attention_maps`` (vanilla DETR only): per-query decoder
   attention maps in the results;
-- write MOTChallenge result files, optional linear gap interpolation;
+- write MOTChallenge result files, optional linear gap interpolation; a
+  run with a mask head (``masks``) over MOTS20 sequences
+  (``dataset_name=MOTS20-02`` ...) writes MOTS result lines with each
+  track's RLE mask (``data/mots20_sequence.py``);
 - CLEAR-MOT, IDF1 and HOTA over all sequences with ground truth.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:

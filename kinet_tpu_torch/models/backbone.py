@@ -120,19 +120,20 @@ class ResNet(nn.Module):
         return feats
 
 
+def nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """Source index of each of ``n_out`` samples from ``n_in`` by nearest
+    sampling at half-pixel centres, floor((i + 0.5) * n_in / n_out) in
+    float32: the rule of ``jax.image.resize(method="nearest")``."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+    return torch.floor(pos * n_in / n_out).long()
+
+
 def downsample_pad_mask(pad_mask: torch.Tensor, hw) -> torch.Tensor:
-    """Resize a [B, H, W] bool pad mask to feature resolution by nearest
-    sampling at half-pixel centres, index floor((i + 0.5) * H / h), the
-    rule of ``jax.image.resize(method="nearest")``."""
+    """Resize a [B, H, W] bool pad mask to feature resolution by
+    ``nearest_index``."""
     _, h_in, w_in = pad_mask.shape
-    h, w = hw
-    dev = pad_mask.device
-    rows = torch.floor(
-        (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * h_in / h
-    ).long()
-    cols = torch.floor(
-        (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * w_in / w
-    ).long()
+    rows = nearest_index(h_in, hw[0], pad_mask.device)
+    cols = nearest_index(w_in, hw[1], pad_mask.device)
     return pad_mask[:, rows][:, :, cols]
 
 
@@ -166,6 +167,16 @@ class Backbone(nn.Module):
     @property
     def num_channels(self):
         return [512, 1024, 2048] if self.return_interm_layers else [2048]
+
+
+class BackboneWithMasksAll(Backbone):
+    """All four levels C2..C5 (strides 4 to 32), for the mask head's FPN;
+    ``num_channels`` stays that of C3..C5."""
+
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
+        feats = self.trunk(images.permute(0, 3, 1, 2))
+        return feats, [downsample_pad_mask(pad_mask, f.shape[-2:])
+                       for f in feats]
 
 
 class LayerBackboneFC(nn.Module):

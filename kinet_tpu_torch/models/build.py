@@ -5,8 +5,10 @@
 with ``kine`` the dual-stream ``KinematicDetectorTransformer`` (every kine
 config without ``use_encoder_only``, as in the JAX package) or the
 ``KinematicDetectorEncoder`` (whose track slots default to
-``max_number_detection``). It is built on ``device``, which defaults to
-CUDA and raises without a card (pass ``device="cpu"`` for the CPU). Its
+``max_number_detection``). With ``masks`` (and no ``kine``) the detector
+is wrapped in ``SegmWrapper`` with the mask head. It is built on
+``device``, which defaults to CUDA and raises without a card (pass
+``device="cpu"`` for the CPU). Its
 weights are random, drawn from ``seed`` with an explicit generator;
 ``tools/from_jax.py`` loads trained ones. Its dropout generator
 (``model.dropout_rng``) is seeded from ``seed`` too.
@@ -14,7 +16,8 @@ weights are random, drawn from ``seed`` with an explicit generator;
 ``build_criterion(cfg)`` -> the training criterion, with the loss weights
 of ``build_weight_dict(cfg)`` and the matcher of the JAX package's
 dispatch: the ordered matchers for kine configs with
-``used_ordered_queries``, else Hungarian.
+``used_ordered_queries``, else Hungarian; with ``masks`` it adds the mask
+losses.
 
 Configurations outside the ported slice raise NotImplementedError naming
 the ROADMAP item that ports them; nothing else is silently run instead.
@@ -33,6 +36,7 @@ from .deformable_detr import DeformableDETR
 from .deformable_transformer import MSDeformAttn, offset_grid_init
 from .detr import DETR, KinematicDetectorEncoder, KinematicDetectorTransformer
 from .postprocess import build_postprocessors
+from .segmentation import SegmWrapper
 
 
 def num_classes_for(dataset: str) -> int:
@@ -76,8 +80,6 @@ def kine_dims(cfg) -> tuple[int, int, int]:
 
 def build_model(cfg, device=None, seed: int = 0):
     device = resolve_device(device)
-    if cfg.masks:
-        not_ported("segmentation masks (MOTS)", "MOTS")
     if cfg.activation != "relu":  # the only activation the configs use
         raise ValueError(f"activation {cfg.activation!r}: only relu is supported")
     tracking = bool(cfg.get("tracking", False))
@@ -101,7 +103,10 @@ def build_model(cfg, device=None, seed: int = 0):
                 backbone_name=cfg.backbone, dilation=cfg.dilation,
                 num_track_slots=num_track_slots,
                 track_attention=bool(cfg.track_attention),
+                masks=bool(cfg.masks),
             )
+        if cfg.masks and not cfg.get("kine", False):
+            model = SegmWrapper(model, cfg.hidden_dim, cfg.nheads)
     model.to_empty(device=device)
     init_weights(model, torch.Generator().manual_seed(seed))
     model.dropout_rng.generator = torch.Generator(device=device).manual_seed(
@@ -184,6 +189,7 @@ def _build_deformable(cfg, num_track_slots):
         dropout=float(cfg.dropout),
         aux_loss=bool(cfg.aux_loss),
         remat=bool(cfg.get("remat", False)),
+        masks=bool(cfg.masks),
     )
 
 
@@ -198,7 +204,8 @@ def build_weight_dict(cfg) -> dict:
         "loss_giou": cfg.giou_loss_coef,
     }
     if cfg.masks:
-        not_ported("segmentation masks (MOTS)", "MOTS")
+        wd["loss_mask"] = cfg.mask_loss_coef
+        wd["loss_dice"] = cfg.dice_loss_coef
     if cfg.aux_loss:
         aux = {}
         for i in range(cfg.dec_layers - 1):
@@ -209,8 +216,8 @@ def build_weight_dict(cfg) -> dict:
 
 
 def build_criterion(cfg) -> SetCriterion:
-    """The set criterion (labels, boxes, cardinality) with the JAX
-    package's matcher dispatch."""
+    """The set criterion (labels, boxes, cardinality, and masks with
+    ``masks``) with the JAX package's matcher dispatch."""
     kine = bool(cfg.get("kine", False))
     tracking = bool(cfg.get("tracking", False))
     matcher_kind, n_assign = "hungarian", 1
@@ -225,7 +232,8 @@ def build_criterion(cfg) -> SetCriterion:
         num_classes=num_classes_for(cfg.get("dataset", "coco")),
         weight_dict=build_weight_dict(cfg),
         eos_coef=cfg.eos_coef,
-        losses=("labels", "boxes", "cardinality"),
+        losses=("labels", "boxes", "cardinality")
+        + (("masks",) if cfg.masks else ()),
         focal_loss=cfg.focal_loss,
         focal_alpha=cfg.focal_alpha,
         focal_gamma=cfg.focal_gamma,
@@ -273,6 +281,7 @@ def init_weights(model: nn.Module, generator: torch.Generator):
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+    model = getattr(model, "detector", model)  # a SegmWrapper's detector
     deformable = isinstance(model, DeformableDETR)
     if deformable:
         for mod in model.modules():

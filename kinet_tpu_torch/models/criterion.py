@@ -1,6 +1,6 @@
-"""Set-prediction losses (port of ``kinet_tpu/models/criterion.py``, the
+"""Set-prediction losses (port of ``kinet_tpu/models/criterion.py``: the
 labels / boxes / cardinality losses of the DETR, Deformable DETR and KineT
-models).
+models, and the mask losses of ``SegmWrapper``).
 
 - the match is query4target [B, N] from ``matcher.hungarian_match``, or for
   the KineT models with ordered queries from the ordered matchers
@@ -13,9 +13,11 @@ models).
 
 Losses: softmax CE with eos down-weighting and the false-positive
 track-query reweighting, sigmoid focal, cardinality (log only), boxes L1 +
-GIoU; each auxiliary decoder layer adds the same keys with the suffix
-``_{i}``. The losses are computed in float32 whatever the type of the
-model's outputs.
+GIoU, masks (sigmoid focal + dice on the matched queries' mask logits,
+resized bilinearly to the ground-truth masks' size; the last decoder
+layer only); each auxiliary decoder layer adds the same keys, but the
+masks', with the suffix ``_{i}``. The losses are computed in float32
+whatever the type of the model's outputs.
 """
 from __future__ import annotations
 
@@ -46,6 +48,17 @@ def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0)
     if alpha >= 0:
         loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
     return loss
+
+
+def dice_loss(logits, targets, num_boxes, valid):
+    """Mask dice loss over [N, H, W] logits and targets, summed over the
+    ``valid`` rows and divided by ``num_boxes``."""
+    prob = torch.sigmoid(logits).flatten(1)
+    targets = targets.flatten(1)
+    numerator = 2 * (prob * targets).sum(1)
+    denominator = prob.sum(1) + targets.sum(1)
+    loss = 1 - (numerator + 1) / (denominator + 1)
+    return (loss * valid).sum() / num_boxes
 
 
 class SetCriterion:
@@ -185,11 +198,32 @@ class SetCriterion:
         return {"loss_bbox": l1.sum() / num_boxes,
                 "loss_giou": loss_giou.sum() / num_boxes}
 
+    def loss_masks(self, outputs, targets, q4t, num_boxes):
+        """Focal + dice on the matched queries' masks; targets without
+        ``masks`` give no loss."""
+        if targets.masks is None:
+            return {}
+        pred = outputs["pred_masks"].float()  # [B, Q, Hm, Wm]
+        tgt = targets.masks.float()  # [B, N, H, W]
+        valid = targets.valid & (q4t >= 0)
+        idx = q4t.clamp(min=0).long()
+        src = torch.gather(pred, 1, idx[..., None, None].expand(
+            -1, -1, *pred.shape[-2:]))
+        if src.shape[-2:] != tgt.shape[-2:]:
+            src = F.interpolate(src, size=tgt.shape[-2:], mode="bilinear",
+                                align_corners=False)
+        src, tgt = src.flatten(0, 1), tgt.flatten(0, 1)
+        v = valid.reshape(-1).float()
+        focal = sigmoid_focal_loss(src, tgt).flatten(1).mean(1)
+        return {"loss_mask": (focal * v).sum() / num_boxes,
+                "loss_dice": dice_loss(src, tgt, num_boxes, v)}
+
     def get_loss(self, name, outputs, targets, q4t, num_boxes):
         fns = {
             "labels": self.loss_labels_focal if self.focal_loss else self.loss_labels,
             "cardinality": self.loss_cardinality,
             "boxes": self.loss_boxes,
+            "masks": self.loss_masks,
         }
         return fns[name](outputs, targets, q4t, num_boxes)
 
@@ -204,6 +238,8 @@ class SetCriterion:
             aux.setdefault("query_valid", outputs.get("query_valid"))
             q4t_i = self.match(aux, targets)
             for name in self.losses:
+                if name == "masks":
+                    continue
                 for k, v in self.get_loss(name, aux, targets, q4t_i,
                                           num_boxes).items():
                     if k != "class_error":

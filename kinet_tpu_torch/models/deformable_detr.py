@@ -23,6 +23,11 @@
   Evaluation asks for them in eval mode too (``aux_outputs=True``), as
   the JAX model always gives them.
   Dropout draws from ``self.dropout_rng``.
+- ``masks``: the backbone gives all four levels C2..C5, the pyramid still
+  uses C3..C5, and the output carries the four levels
+  (``backbone_features``) and the flattened ``memory`` [B, S, D] (the
+  current frame's levels first) for the mask head
+  (``models/segmentation.py``).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 from torch import nn
 
 from ..structs import ImageBatch, Targets
-from .backbone import Backbone, downsample_pad_mask
+from .backbone import Backbone, BackboneWithMasksAll, downsample_pad_mask
 from .deformable_transformer import (
     DeformableTransformer,
     DropoutRNG,
@@ -84,6 +89,7 @@ class DeformableDETR(nn.Module):
         dropout: float = 0.0,
         aux_loss: bool = True,
         remat: bool = False,
+        masks: bool = False,
     ):
         super().__init__()
         if cache_prev_encoder and not multi_frame_attention:
@@ -98,9 +104,11 @@ class DeformableDETR(nn.Module):
         self.cache_prev_encoder = cache_prev_encoder
         self.num_track_slots = num_track_slots
         self.aux_loss = aux_loss
+        self.masks = masks
         self.dropout_rng = DropoutRNG()
 
-        self.backbone = Backbone(backbone_name, True, dilation)
+        self.backbone = (BackboneWithMasksAll if masks else Backbone)(
+            backbone_name, True, dilation)
         chans = self.backbone.num_channels  # [512, 1024, 2048]
         n_backbone_levels = min(num_feature_levels, len(chans))
         gn_groups = math.gcd(32, hidden_dim)
@@ -202,7 +210,8 @@ class DeformableDETR(nn.Module):
         aux_outputs: Optional[bool] = None,  # default: in train() mode
     ) -> dict:
         images = batch.images.to(self.query_embed.dtype)
-        feats, _ = self.backbone(images, batch.pad_mask)  # C3..C5
+        feats_all, _ = self.backbone(images, batch.pad_mask)
+        feats = feats_all[-3:]  # the pyramid's C3..C5
         b = images.shape[0]
 
         srcs, masks = self._project_levels(feats, batch.pad_mask)
@@ -287,4 +296,7 @@ class DeformableDETR(nn.Module):
             )
             out["frame_memory"] = (memory[:, :split], batch.pad_mask)
             out["pos_cache"] = tuple(pos[: self.num_feature_levels])
+        if self.masks:
+            out["backbone_features"] = feats_all
+            out["memory"] = memory
         return out

@@ -8,7 +8,12 @@ reference: src/trackformer/models/detr.py).
   ``attention_maps=True`` its output also carries the last decoder layer's
   cross-attention weights (``attention_weights`` [B, H, T+Q, h*w]) and
   the memory [B, h, w, D], from which the tracker makes per-query maps
-  (the JAX model's ``generate_attention_maps``).
+  (the JAX model's ``generate_attention_maps``). With ``masks`` the
+  backbone gives all four levels C2..C5 (``frame_features``) and the
+  output carries what the mask head reads (``models/segmentation.py``):
+  the last decoder layer's normed output ``hs_last``, the projected C5
+  feature ``src_proj`` [B, D, h, w], the ``memory`` [B, h, w, D] and its
+  pad mask ``memory_pad_mask`` [B, h, w].
 - ``KineT``: detections -> MLP backbone -> ``KinematicTransformer``
   (kept for parity; no config builds it, as in the JAX package).
 - ``KinematicDetectorTransformer``: dual backbone + ``DualKinematicTransformer``;
@@ -33,7 +38,7 @@ import torch
 from torch import nn
 
 from ..structs import ImageBatch, KineBatch, Targets
-from .backbone import Backbone, KinetBackbone
+from .backbone import Backbone, BackboneWithMasksAll, KinetBackbone
 from .deformable_transformer import DropoutRNG
 from .position_encoding import sine_detection_encoding, sine_position_encoding
 from .transformer import DualKinematicEncoder, DualKinematicTransformer, Transformer
@@ -112,14 +117,17 @@ class DETR(nn.Module):
         num_track_slots: int = 0,
         track_attention: bool = False,
         focal_loss: bool = False,
+        masks: bool = False,
     ):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_queries = num_queries
         self.num_track_slots = num_track_slots
         self.aux_loss = aux_loss
+        self.masks = masks
         self.dropout_rng = DropoutRNG()
-        self.backbone = Backbone(backbone_name, False, dilation)
+        self.backbone = (BackboneWithMasksAll(backbone_name, True, dilation)
+                         if masks else Backbone(backbone_name, False, dilation))
         self.input_proj = nn.Conv2d(self.backbone.num_channels[-1], hidden_dim, 1)
         self.query_embed = nn.Parameter(torch.empty(num_queries, hidden_dim))
         self.transformer = Transformer(
@@ -161,7 +169,10 @@ class DETR(nn.Module):
         out["frame_features"] = (feats, batch.pad_mask)
         if weights is not None:
             out["attention_weights"] = weights
+        if weights is not None or self.masks:
             out["memory"] = memory.reshape(b, h, w, d)
+        if self.masks:
+            out.update(hs_last=hs[-1], src_proj=src, memory_pad_mask=pad)
         return out
 
 

@@ -4,7 +4,8 @@
 Split of responsibilities, as in the JAX package:
 - the device work per frame is one forward with the track-query slots
   padded to a fixed count; its four row outputs come back to the host in
-  ONE device-to-host copy,
+  one device-to-host copy (with masks, the mask probabilities in a second
+  copy into page-locked memory, and one synchronization for both),
 - everything over O(#tracks) state (keep/terminate hysteresis, reid, NMS,
   public-detection filtering, result writing) is host-side numpy/scipy.
 
@@ -14,8 +15,14 @@ query's map [Hf, Wf] is the head mean of the last decoder layer's
 cross-attention weights; a track keeps its row's map and the results carry
 it (``attention_map``).
 
-Not ported yet (ROADMAP): segmentation masks (MOTS) and the spatially
-partitioned forward.
+With a ``SegmWrapper`` model (MOTS) each query's mask logits are resized
+bilinearly to the padded input size, THEN sigmoided (``mask_probs``
+[Q, H, W], every row fetched); a track keeps its row's probabilities, and
+before the results are written each pixel goes to the track of highest
+probability if that is above 0.5 (the per-pixel overlap resolution), so
+the results' boolean ``mask``s [H, W] are disjoint.
+
+Not ported yet (ROADMAP): the spatially partitioned forward.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from ..ops.nms import nms_numpy
@@ -57,6 +65,7 @@ class Track:
     obj_ind: int
     count_inactive: int = 0
     count_termination: int = 0
+    mask: Optional[np.ndarray] = None
     attention_map: Optional[np.ndarray] = None
     last_pos: list = field(default_factory=list)
 
@@ -78,7 +87,10 @@ def make_forward_fn(model, postprocess, attention_maps=False):
     fn(batch, targets, orig_size, prev_features, prev_memory, pos_cache).
     With ``attention_maps`` (vanilla DETR) it also returns the per-query
     maps [B, Q, Hf, Wf]: the head mean of the last decoder layer's
-    cross-attention weights."""
+    cross-attention weights. A model with a mask head also gives
+    ``mask_probs`` [B, Q, H, W] (float32) at the padded input size: the
+    logits resized bilinearly, then sigmoided (reference
+    detr_segmentation.py:219-253; the other order is not the same)."""
     caches_memory = bool(getattr(model, "cache_prev_encoder", False))
 
     @torch.inference_mode()
@@ -95,8 +107,14 @@ def make_forward_fn(model, postprocess, attention_maps=False):
             attn = out["attention_weights"]  # [B, H, Q, Hf * Wf]
             hf, wf = out["memory"].shape[1:3]
             maps = attn.mean(1).reshape(attn.shape[0], attn.shape[2], hf, wf)
+        mask_probs = None
+        if "pred_masks" in out:
+            mask_probs = F.interpolate(
+                out["pred_masks"].float(), size=batch.images.shape[1:3],
+                mode="bilinear", align_corners=False).sigmoid_()
         return {
             "attention_maps": maps,
+            "mask_probs": mask_probs,
             "scores": res["scores"],
             "labels": res["labels"],
             "boxes": res["boxes"],
@@ -170,7 +188,7 @@ class Tracker:
             t.repeat_last_pos()
         self.inactive_tracks += to_inactive
 
-    def add_tracks(self, boxes, scores, hs_embeds, obj_inds):
+    def add_tracks(self, boxes, scores, hs_embeds, obj_inds, masks=None):
         new_ids = []
         for i in range(len(boxes)):
             self.tracks.append(
@@ -180,6 +198,7 @@ class Tracker:
                     score=float(scores[i]),
                     hs_embed=np.asarray(hs_embeds[i]),
                     obj_ind=int(obj_inds[i]),
+                    mask=None if masks is None else masks[i],
                 )
             )
             new_ids.append(self.track_num + i)
@@ -226,7 +245,7 @@ class Tracker:
             raise NotImplementedError(self.public_detections)
         return mask
 
-    def reid(self, new_boxes, new_scores, new_hs):
+    def reid(self, new_boxes, new_scores, new_hs, new_masks=None):
         """ReID new detections against inactive tracks."""
         self.inactive_tracks = [
             t
@@ -273,6 +292,8 @@ class Tracker:
                 t.score = float(new_scores[cidx])
                 t.hs_embed = np.asarray(new_hs[cidx])
                 t.reset_last_pos()
+                if new_masks is not None:
+                    t.mask = new_masks[cidx]
                 keep_mask[cidx] = False
                 removed.append(t)
                 self.tracks.append(t)
@@ -351,7 +372,16 @@ class Tracker:
             batch, targets, orig_size,
             self._prev_features[0], self._prev_memory[0], self._pos_cache,
         )
-        # ONE device-to-host copy of everything the state machine reads
+        # ONE device-to-host copy of the rows the state machine reads; the
+        # mask probabilities (hundreds of MB a frame) go first, on the same
+        # stream, into page-locked memory, so the rows' blocking copy is the
+        # one synchronization for both
+        probs = res["mask_probs"]
+        host_probs = None
+        if probs is not None:
+            host_probs = torch.empty(probs.shape[1:], dtype=probs.dtype,
+                                     pin_memory=probs.is_cuda)
+            host_probs.copy_(probs[0], non_blocking=probs.is_cuda)
         parts = [
             res["scores"][0, :, None].float(),
             res["labels"][0, :, None].float(),
@@ -372,6 +402,8 @@ class Tracker:
         if maps is not None:
             out["attention_maps"] = rows[:, 6 + d:].reshape(
                 rows.shape[0], *maps.shape[2:])
+        if host_probs is not None:
+            out["mask_probs"] = host_probs.numpy()
         self._consume(out, blob)
 
         if res["frame_features"] is not None:
@@ -392,6 +424,7 @@ class Tracker:
         boxes_all = out["boxes"]
         hs = out["hs_embed"]
         attn_maps = out.get("attention_maps")
+        mask_probs = out.get("mask_probs")
         if not self.overflow_boxes:
             boxes_all = clip_boxes_np(boxes_all, (h0, w0))
 
@@ -413,6 +446,8 @@ class Tracker:
                     tr.count_termination = 0
                     if attn_maps is not None:
                         tr.attention_map = attn_maps[i]
+                    if mask_probs is not None:
+                        tr.mask = mask_probs[i]
                 else:
                     tr.count_termination += 1
                     if tr.count_termination >= self.steps_termination:
@@ -429,6 +464,8 @@ class Tracker:
                     tr.pos = tr_boxes[row]
                     if attn_maps is not None:
                         tr.attention_map = attn_maps[row]
+                    if mask_probs is not None:
+                        tr.mask = mask_probs[row]
                     from_inactive.append(tr)
 
             self.num_reids += len(from_inactive)
@@ -469,6 +506,12 @@ class Tracker:
         )
 
         new_ids = self.add_tracks(nd_boxes, nd_scores, nd_hs, nd_inds)
+        if mask_probs is not None:
+            det_masks = mask_probs[t_slots:]
+            for tid, oi in zip(new_ids, nd_inds):
+                for tr in self.tracks:
+                    if tr.id == tid:
+                        tr.mask = det_masks[int(oi)]
         if attn_maps is not None:
             det_maps = attn_maps[t_slots:]
             for tid, oi in zip(new_ids, nd_inds):
@@ -485,6 +528,9 @@ class Tracker:
             self.tracks = [t for i, t in enumerate(self.tracks) if i in keep_idx]
 
         # ----- results -----
+        if mask_probs is not None and any(
+                t.mask is not None for t in self.tracks):
+            self._resolve_masks(mask_probs.shape[-2:])
         for t in self.tracks:
             self.results.setdefault(t.id, {})
             bbox = t.pos if self.overflow_boxes else clip_boxes_np(t.pos, (h0, w0))
@@ -493,6 +539,8 @@ class Tracker:
                 "score": float(t.score),
                 "obj_ind": int(t.obj_ind),
             }
+            if t.mask is not None:
+                self.results[t.id][self.frame_index]["mask"] = t.mask
             if t.attention_map is not None:
                 self.results[t.id][self.frame_index]["attention_map"] = (
                     t.attention_map
@@ -504,6 +552,20 @@ class Tracker:
 
         if self.reid_sim_only:
             self.move_tracks_to_inactive(list(self.tracks))
+
+    def _resolve_masks(self, hw):
+        """Per-pixel mask overlap resolution (reference tracker.py:515-527):
+        each pixel goes to the track of highest probability if that is above
+        0.5, else to none; every track's mask becomes boolean."""
+        probs = np.stack([
+            t.mask if t.mask is not None else np.zeros(hw, np.float32)
+            for t in self.tracks
+        ])
+        winner = probs.argmax(axis=0)
+        idx_map = np.arange(probs.shape[0])[:, None, None]
+        final = (probs > 0.5) & (idx_map == winner)
+        for i, t in enumerate(self.tracks):
+            t.mask = final[i]
 
     def get_results(self):
         return self.results

@@ -13,6 +13,11 @@ reference does: the class head keeps its first rows (optionally the
 checkpoint's last, eos, row: ``resume_shift_neuron``), query embeddings are
 tiled or cut, anything else copies the overlapping region. Shapes are in
 the port's layout (a linear weight is [out, in]).
+
+``load_mask_head_from_model`` (with ``masks``) then overwrites the mask
+head (``bbox_attention`` / ``mask_head``) with a second checkpoint's,
+where the shapes match (reference train.py:245-254; as in the JAX package
+it also applies without ``resume``, to a freshly built detector).
 """
 from __future__ import annotations
 
@@ -98,20 +103,48 @@ def load_checkpoint(path) -> dict:
     return torch.load(Path(path), map_location="cpu", weights_only=True)
 
 
+def splice_mask_head(state: dict, mask_state: dict) -> dict:
+    """``state`` with every tensor under a ``bbox_attention`` or
+    ``mask_head`` module taken from ``mask_state`` where it has the same
+    name and shape."""
+    out = dict(state)
+    for name, t in state.items():
+        segs = name.split(".")
+        ck = mask_state.get(name)
+        if (("bbox_attention" in segs or "mask_head" in segs)
+                and ck is not None and ck.shape == t.shape):
+            out[name] = ck
+    return out
+
+
+@torch.no_grad()
+def load_mask_head_from_model(model: torch.nn.Module, path) -> None:
+    """Splices the mask head of the checkpoint at ``path`` (a checkpoint
+    file, or a run directory holding ``checkpoint.pth``) into ``model``."""
+    path = Path(path)
+    if path.is_dir():
+        path = path / "checkpoint.pth"
+    own = model.state_dict()
+    spliced = splice_mask_head(own, load_checkpoint(path)["params"])
+    for name, t in own.items():
+        if spliced[name] is not t:
+            t.copy_(spliced[name])
+
+
 def load_for_resume(cfg, model, optimizer) -> tuple[int, int]:
     """Resume or transfer from ``cfg.resume`` (reference train.py:167-282):
     the weights always, the optimizer state, step and epoch with
-    ``resume_optim``. Returns (start_epoch, step)."""
+    ``resume_optim``; then, with ``masks``, the mask head of
+    ``load_mask_head_from_model``. Returns (start_epoch, step)."""
     start_epoch, step = int(cfg.start_epoch), 0
+    restored = None
+    if cfg.resume:
+        restored = load_checkpoint(cfg.resume)
+        adapt_params(model, restored["params"], bool(cfg.resume_shift_neuron))
     if cfg.get("masks") and cfg.get("load_mask_head_from_model"):
-        raise NotImplementedError(
-            "load_mask_head_from_model (MOTS) is not ported to "
-            "kinet_tpu_torch yet (ROADMAP.md, 'Modules to port': MOTS)"
-        )
-    if not cfg.resume:
+        load_mask_head_from_model(model, cfg.load_mask_head_from_model)
+    if restored is None:
         return start_epoch, step
-    restored = load_checkpoint(cfg.resume)
-    adapt_params(model, restored["params"], bool(cfg.resume_shift_neuron))
     if cfg.resume_optim and "opt_state" in restored:
         optimizer.load_state_dict(restored["opt_state"])
         start_epoch = int(restored.get("epoch", 0)) + 1

@@ -5,8 +5,8 @@ augmentation base seed from it), both give the same image arrays and the
 same targets, bit for bit, for every index over two epochs, the previous
 and the one-before-previous frames included (COCO's and CrowdHuman's
 are the same image, re-augmented and cropped by a seeded jitter; MOT's are
-real frames). The samplers draw the same sequences, and the datasets that
-are not ported raise, naming their ROADMAP item."""
+real frames). The samplers draw the same sequences, and a dataset name
+that ``build_dataset`` does not know raises."""
 import json
 
 import numpy as np
@@ -187,12 +187,15 @@ def test_samplers_equal_jax(case, roots):
 
 
 @pytest.mark.parametrize("name, error, item", [
-    ("coco_panoptic", NotImplementedError, "MOTS"),
+    # coco_panoptic is ported (tests/test_torch_panoptic.py): a root
+    # without its annotations raises as the JAX package's does
+    ("coco_panoptic", FileNotFoundError, "panoptic_train2017.json"),
     # mot_kine is ported (tests/test_torch_kine.py); a name no builder
     # knows raises as in the JAX package
     ("no_such_dataset", ValueError, "unknown dataset"),
 ])
 def test_unported_datasets_raise(name, error, item, roots):
-    cfg = load_config("train.yaml").replace(dataset=name, **roots)
+    cfg = load_config("train.yaml").replace(
+        dataset=name, coco_panoptic_path=roots["coco_path"], **roots)
     with pytest.raises(error, match=item):
         build_dataset("train", cfg)

@@ -84,11 +84,12 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
 
 @pytest.mark.parametrize("over, item", [
     ({"mesh.model": 2}, "Scale-out"),
-    # KineT and vanilla DETR train (tests/test_torch_kine.py,
-    # tests/test_torch_detr.py); masks and two-stage do not yet
-    ({"masks": True}, "MOTS"),
+    # KineT, vanilla DETR and masks train (tests/test_torch_kine.py,
+    # tests/test_torch_detr.py, tests/test_torch_mots.py); two-stage and
+    # data-parallel meshes do not yet
+    ({"masks": True, "two_stage": True}, "two-stage"),
     ({"two_stage": True}, "two-stage"),
-    ({"dataset": "coco_panoptic"}, "MOTS"),
+    ({"mesh.data": 2, "batch_size": 2}, "Scale-out"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=item):
