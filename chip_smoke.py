@@ -8,8 +8,9 @@ toolkit's nvcc; imports nothing of JAX or of the JAX package. Phases, each
 failing the run on any mismatch:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the five kernel sources of kinet_tpu_torch/ops/csrc
-   (six kernels: msda_raw_pool_fwd.cu also holds the int8 instance);
+2. build: nvcc builds the seven kernel sources of kinet_tpu_torch/ops/csrc
+   (nine kernel entry points: msda_raw_pool_fwd.cu and msda_fwd.cu also
+   hold int8 instances);
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
    updates, decoder raw-pool with a bottom/right pad; a random reference
@@ -114,6 +115,25 @@ M. MOTS, the mask head (models/segmentation.py) at full width:
    launches a frame (``mots_launches`` in the kernels line: M5's forward
    launches and its train step's backward ones). Config (a) launches no
    MSDA kernel (checked).
+V. the encoder's MSDA variants, two-stage and merge_frame_features:
+   V1, the variant kernels (msda_fwd_i8, msda_topk_fwd with k = 3 at
+   (L, P) = (2, 2) and k = 8 at (4, 4), msda_shared_fwd) against their
+   plain versions at the flagship's encoder shapes and a generic (4, 4),
+   f32 and bf16, with device times and bounds, then the top-k and
+   shared-locations gradients (their backward is msda_bwd) against the
+   plain versions' autograd; V2, the served flagship with enc_msda_int8,
+   enc_msda_topk 3 and enc_msda_shared_locs in turn, 8 frames of
+   Tracker.step each at 800x1440 in bf16 with their launch counts a frame
+   asserted, then one bf16 remat train step at 672x1184 with top-k and
+   with shared locations (msda_bwd launches, finite gradients); V3,
+   two-stage (train.yaml + train_deformable, two_stage, box refine: hidden
+   256, 300 proposals): card vs CPU in f32 at 256x448 (the card given the
+   CPU's proposal choice, whose scores can tie within the two devices'
+   rounding), train(cfg) over a synthetic MOT tree with the encoder
+   proposals' _enc losses, evaluate() on 3 frames of 1080x1920, and the
+   host match over the ~24k encoder proposals timed; V4,
+   merge_frame_features on the flagship (cache_prev_encoder off): card vs
+   CPU, then 8 frames of Tracker.step (12 + 6 launches a frame).
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -351,7 +371,8 @@ def corner_rows(torch, loc, shapes, ext):
     return rows
 
 
-def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16):
+def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16,
+               keep=None):
     """What one call's corners read. ``corners``: in-bounds corners;
     ``distinct``: distinct rows (head slices for msda), the bound's count;
     ``l2_bytes``: the 32-byte sectors of every corner read, what a kernel
@@ -359,8 +380,11 @@ def read_stats(torch, kind, loc, shapes, ext, width, esize, run=16):
     summed over blocks of ``run`` consecutive queries (a block's reads of a
     slice it read before can come from L1). Raw pool: ``query_distinct``,
     distinct rows per query summed over queries (what a kernel that fetched
-    each row once per query would read)."""
+    each row once per query would read). ``keep`` [B, Lq, M, L, P] bool:
+    count only those samples' corners (top-k)."""
     rows = corner_rows(torch, loc, shapes, ext)
+    if keep is not None:
+        rows = torch.where(keep[..., None, None], rows, -1)
     b, lq, m = loc.shape[:3]
     s = sum(h * w for h, w in shapes)
     dev = loc.device
@@ -1018,6 +1042,9 @@ def reset_launches(msda):
     msda.ms_deform_attn.launches = 0
     msda.ms_deform_attn_raw_pool.launches = 0
     msda.ms_deform_attn_raw_pool.i8_launches = 0
+    msda.ms_deform_attn_i8.launches = 0
+    msda.ms_deform_attn_topk.launches = 0
+    msda.ms_deform_attn_shared.launches = 0
 
 
 def read_launches(msda):
@@ -1025,6 +1052,9 @@ def read_launches(msda):
         "msda_fwd": msda.ms_deform_attn.launches,
         "msda_raw_pool_fwd": msda.ms_deform_attn_raw_pool.launches,
         "msda_raw_pool_fwd_i8": msda.ms_deform_attn_raw_pool.i8_launches,
+        "msda_fwd_i8": msda.ms_deform_attn_i8.launches,
+        "msda_topk_fwd": msda.ms_deform_attn_topk.launches,
+        "msda_shared_fwd": msda.ms_deform_attn_shared.launches,
     }
 
 
@@ -1149,6 +1179,7 @@ def forward_launch_ms(by_name, calls):
     for k, (t, n) in by_name.items():
         # the int8 table's instance: msda_raw_pool_fwd_kernel<signed char, ..>
         kernel = ("msda_raw_pool_fwd_i8" if "pool_fwd_kernel<signed" in k else
+                  "msda_fwd_i8" if "msda_fwd_kernel<signed" in k else
                   "msda_raw_pool_fwd" if "raw_pool_fwd" in k else
                   "msda_fwd" if "msda_fwd" in k else None)
         if kernel:
@@ -2973,6 +3004,434 @@ def phase_mots(torch, msda):
 
 
 # ---------------------------------------------------------------------------
+# phase V: the encoder's MSDA variants, two-stage and merge_frame_features
+
+V_FRAMES = 8
+# the served flagship with one encoder variant at a time: (overrides, the
+# forward launches a frame; the decoder's raw pool 6 in each). top-k 3
+# prunes the five high-level Lite layers (L * P = 4); the low-level one
+# (L * P = 2 <= 3) stays exact
+V_VARIANTS = {
+    "enc_msda_int8": (dict(enc_msda_int8=True, allow_lossy=True),
+                      {"msda_fwd_i8": 6}),
+    "enc_msda_topk": (dict(enc_msda_topk=3, allow_lossy=True),
+                      {"msda_topk_fwd": 5, "msda_fwd": 1}),
+    "enc_msda_shared_locs": (dict(enc_msda_shared_locs=True),
+                             {"msda_shared_fwd": 6}),
+}
+# a train step's launches (phase 7's count): previous frame, current frame
+# and the remat recomputation forward, the current frame backward
+V_TRAIN_LAUNCHES = {
+    "enc_msda_topk": {"msda_topk_fwd": 15, "msda_fwd": 3, "msda_bwd": 6},
+    "enc_msda_shared_locs": {"msda_shared_fwd": 18, "msda_bwd": 6},
+}
+V_TRAIN_STEPS = 3
+V_CPU_HW = (256, 448)
+V_EVAL_FRAMES = 3
+
+
+def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
+    """One variant kernel at one shape and dtype against its plain version:
+    errors, device times of both, and the bound of this run's inputs (only
+    the kept samples' corners for top-k; whole rows for shared locations)."""
+    b, m, d = 1, 8, 36
+    s = sum(h * w for h, w in shapes)
+    l = len(shapes)
+    dev = gen.device
+    loc, aw = make_samples(torch, gen, b, lq, m, shapes, p)
+    n_samples = b * lq * m * l * p
+    esize = 1 if kind == "i8" else torch.finfo(dtype).bits // 8
+    out_bytes = b * lq * m * d * 4
+    if kind == "i8":
+        q8 = torch.randint(-127, 128, (b, s, m, d), generator=gen, device=dev,
+                           dtype=torch.int8)
+        # the model rounds the scale to the value's type (bf16 here)
+        scale = (torch.rand(b, m, generator=gen, device=dev) * 0.05).to(dtype)
+        args = (q8, scale, shapes, loc, aw)
+        run_k = lambda: msda.ms_deform_attn_i8(*args)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_i8_plain(*args)  # noqa: E731
+        st = read_stats(torch, "msda", loc, shapes, None, d, esize)
+        moved = st["distinct"] * d + n_samples * 12 + b * m * 4 + out_bytes
+        flops = st["corners"] * d * 2 + n_samples * 20
+    elif kind == "topk":
+        value = torch.randn(b, s, m, d, generator=gen, device=dev).to(dtype)
+        args = (value, shapes, loc, aw, k)
+        run_k = lambda: msda.ms_deform_attn_topk(*args)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_topk_plain(*args)  # noqa: E731
+        keep = msda.topk_sample_mask(aw, k)
+        st = read_stats(torch, "msda", loc, shapes, None, d, esize, keep=keep)
+        kept = int(keep.sum())
+        # every weight read, the kept samples' locations read
+        moved = st["distinct"] * d * esize + n_samples * 4 + kept * 8 + \
+            out_bytes
+        flops = st["corners"] * d * 2 + kept * 20 + b * lq * m * (l * p) ** 2
+    else:
+        value = torch.randn(b, s, m, d, generator=gen, device=dev).to(dtype)
+        loc = loc[:, :, 0].contiguous()
+        args = (value, shapes, loc, aw)
+        run_k = lambda: msda.ms_deform_attn_shared(*args)  # noqa: E731
+        run_p = lambda: msda.ms_deform_attn_shared_plain(*args)  # noqa: E731
+        # a corner is a whole row of M * D channels, read once for all heads
+        st = read_stats(torch, "raw", loc[:, :, None], shapes, None, m * d,
+                        esize)
+        moved = st["distinct"] * m * d * esize + b * lq * l * p * 8 + \
+            n_samples * 4 + out_bytes
+        flops = st["corners"] * m * d * 2 + n_samples * 20
+    with torch.no_grad():
+        out = run_k()
+        torch.cuda.synchronize()
+        ref = run_p()
+        # both sum f32 products of the same values in another order
+        assert_close(torch, f"{name} {dtype}", out, ref, 1e-4, 1e-5)
+        err = errors(torch, out, ref)
+        t_b, by = bound_ms(moved, flops)
+        timed = time_kernel(torch, run_k, run_p)
+    log(f"  {name:<28} {str(dtype):<15} max abs err {err[0]:.3e} | "
+        f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
+        f"{flops / 1e6:.1f} Mflop)")
+    log(f"      {stats_text(st, timed['ms'])}")
+    return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
+
+
+def variant_grad_case(torch, msda, gen, kind, shapes, lq, p):
+    """The top-k or shared-locations wrapper's gradients (its backward
+    launches msda_bwd) against autograd through the plain version, f32."""
+    b, m, d = 1, 8, 36
+    s = sum(h * w for h, w in shapes)
+    dev = gen.device
+    loc, aw = make_samples(torch, gen, b, lq, m, shapes, p)
+    if kind == "shared":
+        loc = loc[:, :, 0].contiguous()
+        fns = (lambda v, lc, a: msda.ms_deform_attn_shared(v, shapes, lc, a),
+               lambda v, lc, a: msda.ms_deform_attn_shared_plain(v, shapes,
+                                                                 lc, a))
+    else:
+        fns = (lambda v, lc, a: msda.ms_deform_attn_topk(v, shapes, lc, a, 3),
+               lambda v, lc, a: msda.ms_deform_attn_topk_plain(v, shapes, lc,
+                                                               a, 3))
+    value = torch.randn(b, s, m, d, generator=gen, device=dev)
+    cot = torch.randn(b, lq, m * d, generator=gen, device=dev)
+    grads = []
+    before = msda.ms_deform_attn.bwd_launches
+    for fn in fns:
+        ins = [t.detach().clone().requires_grad_(True) for t in (value, loc, aw)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, cot))
+    check(msda.ms_deform_attn.bwd_launches == before + 1,
+          f"{kind}: the backward launched msda_bwd "
+          f"{msda.ms_deform_attn.bwd_launches - before} times, expected 1")
+    # as phase 3b: dloc and daw sum dot products in another order
+    pairs = []
+    for label, g, r in zip(("dvalue", "dloc", "daw"), *grads):
+        atol = max(1e-5, 1e-5 * r.abs().max().item())
+        pairs.append((label, g, r, 1e-3 if label == "dloc" else 1e-4, atol))
+    err = grad_errors(torch, f"{kind} backward", pairs)
+    log(f"  {kind} backward (msda_bwd) vs plain autograd: max abs err "
+        f"{err:.3e}")
+    return err
+
+
+def phase_variant_kernels(torch, msda):
+    """V1: the three variant kernels against their plain versions at the
+    flagship's encoder shapes and a generic (4, 4); then the gradients."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    high = (LEVELS[:2], sum(h * w for h, w in LEVELS[1:]), 2)
+    low = (LEVELS[:1], LEVELS[0][0] * LEVELS[0][1], 2)
+    generic = (LEVELS, 4000, 4)
+    cases = [
+        # (kernel, name, kind, (shapes, Lq, P), k, launches a served frame)
+        ("msda_fwd_i8", "msda_fwd_i8 high-lite", "i8", high, None, 5),
+        ("msda_fwd_i8", "msda_fwd_i8 low-lite", "i8", low, None, 1),
+        ("msda_fwd_i8", "msda_fwd_i8 (4, 4)", "i8", generic, None, 0),
+        ("msda_topk_fwd", "msda_topk_fwd high-lite k=3", "topk", high, 3, 5),
+        ("msda_topk_fwd", "msda_topk_fwd (4, 4) k=8", "topk", generic, 8, 0),
+        ("msda_shared_fwd", "msda_shared_fwd high-lite", "shared", high, None,
+         5),
+        ("msda_shared_fwd", "msda_shared_fwd low-lite", "shared", low, None, 1),
+        ("msda_shared_fwd", "msda_shared_fwd (4, 4)", "shared", generic, None,
+         0),
+    ]
+    results = {}
+    for kernel, name, kind, (shapes, lq, p), k, per_frame in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = variant_case(torch, msda, gen, name, kind, shapes, lq, p,
+                             dtype, k)
+            results.setdefault(kernel, []).append((dtype, per_frame, r))
+    # times: the bf16 cases' mean a launch over a served frame's mix (the
+    # (4, 4) cases weigh 0); errors: every case's worst
+    summary = kernel_summary(torch, results)
+    for kind, kernel in (("topk", "msda_topk_fwd"), ("shared", "msda_shared_fwd")):
+        err = variant_grad_case(torch, msda, gen, kind, *high)
+        summary[kernel]["grad_max_abs_err"] = err
+    return summary
+
+
+def phase_variants_served(torch, msda):
+    """V2: each encoder variant on the served flagship through Tracker.step
+    (V_FRAMES frames, 800x1440, bf16). Returns {kernel: launches over its
+    variant's served frames}."""
+    served = {}
+    for name, (over, per_frame) in V_VARIANTS.items():
+        tracker, model, frames = served_tracker(torch, flagship_cfg().replace(
+            **over))
+        reset_all_launches(msda)
+        times, active = timed_frames(torch, tracker, frames[:V_FRAMES])
+        launches = read_all_launches(msda)
+        want = {"msda_raw_pool_fwd": 6, **per_frame}
+        for k, n in launches.items():
+            check(n == want.get(k, 0) * V_FRAMES,
+                  f"{name}: {k} launched {n} times over {V_FRAMES} frames, "
+                  f"expected {want.get(k, 0)} a frame")
+        n_boxes = sum(len(f) for f in tracker.get_results().values())
+        check(max(active[WARMUP:]) > 0 and n_boxes > 0,
+              f"{name}: no track was active")
+        med = statistics.median(times[WARMUP:])
+        log(f"  {name}: {med:.3f} ms/frame (median after {WARMUP} warm-up "
+            f"frames; {' '.join(f'{t:.1f}' for t in times)}); launches a "
+            f"frame { {k: n / V_FRAMES for k, n in launches.items() if n} }; "
+            f"{n_boxes} result boxes")
+        for k in per_frame:
+            if k != "msda_fwd":
+                served[k] = launches[k]
+        del tracker, model, frames
+        torch.cuda.empty_cache()
+    return served
+
+
+def phase_variants_train(torch, msda):
+    """V2 (training): one bf16 remat train step at phase 7's size with
+    top-k and with shared locations; their backward runs msda_bwd."""
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+
+    for name, want in V_TRAIN_LAUNCHES.items():
+        cfg = flagship_cfg().replace(compute_dtype="bfloat16", remat=True,
+                                     dropout=0.1, **V_VARIANTS[name][0])
+        t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+        model, _ = build_model(cfg, device=DEVICE, seed=5)
+        model.train()
+        step = make_train_step(model, build_criterion(cfg),
+                               Optimizer(model, cfg), cfg)
+        frames = train_frames(torch, 6, *TRAIN_HW, TRAIN_OBJECTS, t_slots,
+                              hidden, DEVICE)
+        step(*frames)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(V_TRAIN_STEPS):
+            reset_all_launches(msda)
+            t0 = time.perf_counter()
+            out = step(*frames)
+            loss, norm = float(out["loss"]), float(out["grad_norm"])
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        launches = read_all_launches(msda)
+        check(loss == loss and abs(loss) < 1e6 and norm == norm
+              and abs(norm) < 1e9, f"{name} train step: loss {loss}, "
+              f"gradient norm {norm}")
+        check(all(torch.isfinite(p.grad).all() for p in model.parameters()
+                  if p.grad is not None), f"{name}: a gradient is not finite")
+        want = {"msda_raw_pool_fwd": 12, "msda_raw_pool_bwd": 6, **want}
+        for k, n in launches.items():
+            check(n == want.get(k, 0), f"{name} train step: {k} launched {n} "
+                  f"times, expected {want.get(k, 0)}")
+        log(f"  {name} train step (bf16, remat, {TRAIN_HW[0]}x{TRAIN_HW[1]}): "
+            f"{ms:.1f} ms (median of {V_TRAIN_STEPS} after a warm-up: "
+            f"{' '.join(f'{t:.1f}' for t in times)}), last loss {loss:.4f}, "
+            f"gradient norm {norm:.4f}, launches a step {launches}")
+        del model, step, frames
+        torch.cuda.empty_cache()
+
+
+def two_stage_cfg():
+    """train.yaml + train_deformable + two_stage with box refinement:
+    upstream Deformable DETR's two-stage recipe (hidden 256, 8 heads, 6 + 6
+    layers, 300 proposals, 4 levels of 4 points)."""
+    from kinet_tpu_torch.config import load_config
+
+    return load_config("train.yaml", named=["train_deformable"]).replace(
+        dataset="mot", two_stage=True, with_box_refine=True, dropout=0.0)
+
+
+def card_vs_cpu(torch, cfg, hw, two_stage):
+    """cfg's model on the card against the same weights on the CPU, f32, over
+    two chained frames (the second given the first's features). Two-stage:
+    the card keeps the CPU's proposal choice (recorded on the CPU), whose
+    scores can tie within the f32 rounding of the two devices."""
+    import numpy as np
+
+    from kinet_tpu_torch.models import deformable_transformer as dt
+    from kinet_tpu_torch.models.build import build_model
+
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    picked, overlap = [], []
+    topk = dt.descending_topk
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        model, _ = build_model(cfg, device=dev, seed=0)
+        rng = np.random.default_rng(5)
+        frames = [model_inputs(torch, rng, *hw, t_slots, hidden, 20, dev)
+                  for _ in range(2)]
+
+        def choose(score, k):
+            own = topk(score, k)
+            if dev == "cpu":
+                picked.append(own)
+                return own
+            ref = picked[len(overlap)].to(score.device)
+            overlap.append(len(set(own.flatten().tolist())
+                               & set(ref.flatten().tolist())) / own.numel())
+            return ref
+
+        dt.descending_topk = choose
+        try:
+            with torch.inference_mode():
+                o1 = model(*frames[0])
+                o2 = model(*frames[1], prev_features=o1["frame_features"])
+        finally:
+            dt.descending_topk = topk
+        keys = ("pred_logits", "pred_boxes", "hs_embed")
+        outs[dev] = []
+        for o in (o1, o2):
+            row = {k: o[k].float().cpu() for k in keys}
+            if two_stage:
+                row.update({f"enc_{k}": o["enc_outputs"][k].float().cpu()
+                            for k in ("pred_logits", "pred_boxes")})
+            outs[dev].append(row)
+        del model, o1, o2
+    torch.cuda.empty_cache()
+    # f32, TF32 off, as phase 4: sums in another order through the backbone
+    # and the transformer
+    tol = {"pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
+           "hs_embed": (1e-3, 2e-3), "enc_pred_logits": (1e-3, 2e-3),
+           "enc_pred_boxes": (1e-3, 5e-4)}
+    for f in range(2):
+        for k in outs["cpu"][f]:
+            a, r = outs[DEVICE][f][k], outs["cpu"][f][k]
+            check(bool(torch.isfinite(a).all()), f"frame {f} {k} not finite")
+            log(f"  frame {f} {k:<16} {tuple(a.shape)} max abs err "
+                f"{(a - r).abs().max().item():.3e} (rtol {tol[k][0]}, atol "
+                f"{tol[k][1]})")
+            assert_close(torch, f"frame {f} {k}", a, r, *tol[k])
+    if overlap:
+        log(f"  the card's own proposal choice shares "
+            f"{', '.join(f'{100 * x:.2f}%' for x in overlap)} of the CPU's")
+
+
+def phase_two_stage(torch, msda):
+    """V3: two-stage card vs CPU, train(cfg) a few steps on a synthetic MOT
+    tree, evaluate() on 1080x1920 frames; the host LSAP over the encoder's
+    proposals timed."""
+    from kinet_tpu_torch.data.builder import build_dataset
+    from kinet_tpu_torch.engine import evaluate as eval_mod
+    from kinet_tpu_torch.engine import train as train_mod
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+    from kinet_tpu_torch.models.postprocess import build_postprocessors
+
+    cfg = two_stage_cfg()
+    card_vs_cpu(torch, cfg, V_CPU_HW, True)
+    seen = []
+    make_step = train_mod.make_train_step
+
+    def recording(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args, **kws):
+            losses = step(*args, **kws)
+            seen.append({k: float(v) for k, v in losses.items()})
+            return losses
+        return run
+
+    train_mod.make_train_step = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_mot_dataset(root / "mot")
+            t0 = time.perf_counter()
+            train_mod.train(cfg.replace(
+                mot_path_train=str(root / "mot"), mot_path_val=str(root / "mot"),
+                output_dir=str(root / "out"), epochs=1, val_interval=0,
+                compute_dtype="bfloat16"), device=DEVICE)
+            train_s = time.perf_counter() - t0
+    finally:
+        train_mod.make_train_step = make_step
+    enc = sorted(k for k in seen[-1] if k.endswith("_enc"))
+    check(len(seen) >= 2 and {"loss_ce_enc", "loss_bbox_enc",
+                              "loss_giou_enc"} <= set(enc),
+          f"train(cfg) steps {len(seen)}, encoder losses {enc}")
+    check(all(v == v and abs(v) < 1e6 for s in seen for v in s.values()),
+          "a non-finite training loss")
+    log(f"  train(cfg) two-stage (bf16, 360x640 frames): {len(seen)} steps in "
+        f"{train_s:.1f} s with the model build; last step's encoder losses "
+        + ", ".join(f"{k} {seen[-1][k]:.4f}" for k in enc))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "mot"
+        write_mot_val_tree(root, V_EVAL_FRAMES, *T_HW)
+        ecfg = cfg.replace(mot_path_val=str(root), size_buckets=[[800, 1440]],
+                           **T_TRANSFORM)
+        model, _ = build_model(ecfg, device=DEVICE, seed=2)
+        model.to(torch.bfloat16)
+        criterion, post = build_criterion(ecfg), build_postprocessors(ecfg)
+        match = criterion.match
+        spans = []
+
+        def timed_match(outputs, targets):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            q4t = match(outputs, targets)
+            spans.append((outputs["pred_logits"].shape[1],
+                          time.perf_counter() - t1))
+            return q4t
+
+        criterion.match = timed_match
+        dataset = build_dataset("val", ecfg)
+        t0 = time.perf_counter()
+        stats = eval_mod.evaluate(model, criterion, post, dataset, ecfg,
+                                  device=DEVICE)
+        eval_s = time.perf_counter() - t0
+    coco = stats["coco_eval_bbox"]
+    check(len(coco) == 12 and all(v == v for v in coco), f"stats {coco}")
+    enc_spans = [t for q, t in spans if q > int(cfg.num_queries)]
+    tokens = max(q for q, _ in spans)
+    check(bool(enc_spans), "the criterion matched no encoder proposals")
+    log(f"  evaluate() two-stage: {V_EVAL_FRAMES} frames {T_HW[0]}x{T_HW[1]} "
+        f"(800x1422 after the val transform) in {eval_s:.2f} s, "
+        f"{1e3 * eval_s / V_EVAL_FRAMES:.1f} ms a frame; AP {coco[0]:.4f}")
+    log(f"  the criterion's match over the {tokens} encoder proposals (cost "
+        f"on the card, LSAP on the host): "
+        f"{1e3 * statistics.median(enc_spans):.2f} ms a batch (median of "
+        f"{len(enc_spans)}), the decoder layers' "
+        f"{1e3 * statistics.median([t for q, t in spans if q <= int(cfg.num_queries)]):.2f}"
+        f" ms a layer")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_merge(torch, msda):
+    """V4: merge_frame_features on the flagship (without cache_prev_encoder,
+    which it excludes): card vs CPU, then Tracker.step."""
+    cfg = flagship_cfg().replace(merge_frame_features=True,
+                                 cache_prev_encoder=False)
+    card_vs_cpu(torch, cfg, V_CPU_HW, False)
+    tracker, model, frames = served_tracker(torch, cfg)
+    reset_all_launches(msda)
+    times, active = timed_frames(torch, tracker, frames[:V_FRAMES])
+    launches = read_all_launches(msda)
+    # both frames' halves are encoded every frame: 2 x 6 encoder launches
+    want = {"msda_fwd": 12, "msda_raw_pool_fwd": 6}
+    for k, n in launches.items():
+        check(n == want.get(k, 0) * V_FRAMES,
+              f"merge: {k} launched {n} times over {V_FRAMES} frames")
+    check(max(active[WARMUP:]) > 0, "merge: no track was active")
+    med = statistics.median(times[WARMUP:])
+    log(f"  merge_frame_features: {med:.3f} ms/frame (median after {WARMUP} "
+        f"warm-up frames; {' '.join(f'{t:.1f}' for t in times)}); launches "
+        f"a frame { {k: n / V_FRAMES for k, n in launches.items() if n} }")
+    del tracker, model, frames
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -2990,8 +3449,17 @@ KERNEL_META = {
                           "kinet_tpu/ops/msda.py:426"),
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
+    # the encoder's variants (phase V): int8 values (the int8 instance of
+    # msda_fwd.cu), top-k pruning, head-shared locations
+    "msda_fwd_i8": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
+                    "kinet_tpu/ops/msda.py:498"),
+    "msda_topk_fwd": ("kinet_tpu_torch/ops/csrc/msda_topk_fwd.cu",
+                      "kinet_tpu/ops/msda.py:844"),
+    "msda_shared_fwd": ("kinet_tpu_torch/ops/csrc/msda_shared_fwd.cu",
+                        "kinet_tpu/ops/msda.py:1149"),
 }
-PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M")
+PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
+          "V")
 
 
 def main(argv=None) -> int:
@@ -3125,6 +3593,23 @@ def main(argv=None) -> int:
             summary.setdefault(k, {})["mots_launches"] = n
         log(f"  {json.dumps(rep)}; phase M in {time.perf_counter() - t0:.1f} "
             f"s; on {smi}")
+    if "V" in phases:
+        t0 = time.perf_counter()
+        log("== V1. the encoder's MSDA variant kernels vs plain (800x1440 "
+            "encoder shapes and a generic (4, 4), B=1)")
+        summary.update(phase_variant_kernels(torch, msda))
+        log(f"== V2. the variants on the served flagship: Tracker.step bf16 "
+            f"{MAIN_HW[0]}x{MAIN_HW[1]}, {V_FRAMES} frames each; a train step "
+            f"each of top-k and shared locations")
+        launches.update(phase_variants_served(torch, msda))
+        phase_variants_train(torch, msda)
+        log("== V3. two-stage (train.yaml + train_deformable, two_stage, box "
+            "refine): card vs CPU, train(cfg), evaluate()")
+        phase_two_stage(torch, msda)
+        log("== V4. merge_frame_features on the flagship: card vs CPU, "
+            "Tracker.step")
+        phase_merge(torch, msda)
+        log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -3140,7 +3625,8 @@ def main(argv=None) -> int:
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
             for key in ("replay_ms", "replay_bf16_ms", "cold_ms",
-                        "library_cold_ms", "eval_launches", "mots_launches")
+                        "library_cold_ms", "eval_launches", "mots_launches",
+                        "grad_max_abs_err")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

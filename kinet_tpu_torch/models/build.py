@@ -25,6 +25,7 @@ the ROADMAP item that ports them; nothing else is silently run instead.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 from torch import nn
@@ -138,12 +139,8 @@ def _build_kine(cfg, common, num_track_slots):
 
 
 def _build_deformable(cfg, num_track_slots):
-    if cfg.two_stage:
-        not_ported("two-stage Deformable DETR", "Deformable two-stage")
-    if cfg.merge_frame_features:
-        not_ported("merge_frame_features", "Deformable two-stage")
     # accuracy-UNSAFE perf knobs of the JAX package: refused unless the
-    # config opts in explicitly, as there
+    # config opts in explicitly, and then warned about, as there
     lossy = [
         k for k in ("enc_msda_topk", "enc_msda_int8", "dec_msda_int8")
         if cfg.get(k, 0)
@@ -153,13 +150,12 @@ def _build_deformable(cfg, num_track_slots):
             f"{lossy} change model predictions (measured accuracy loss in the "
             "JAX package); set allow_lossy=true to enable them anyway"
         )
-    for key, item in (
-        ("enc_msda_int8", "MSDA variants off the flagship"),
-        ("enc_msda_topk", "MSDA variants off the flagship"),
-        ("enc_msda_shared_locs", "MSDA variants off the flagship"),
-    ):
-        if cfg.get(key, 0):
-            not_ported(key, item)
+    if lossy:
+        warnings.warn(
+            f"accuracy-unsafe MSDA variants enabled: {lossy} "
+            "(allow_lossy=true); predictions will differ from the exact model",
+            stacklevel=3,
+        )
     return DeformableDETR(
         num_classes=num_classes_for(cfg.get("dataset", "coco")),
         hidden_dim=cfg.hidden_dim,
@@ -177,6 +173,11 @@ def _build_deformable(cfg, num_track_slots):
         multi_frame_attention=cfg.multi_frame_attention,
         multi_frame_encoding=cfg.multi_frame_encoding,
         cache_prev_encoder=bool(cfg.get("cache_prev_encoder", False)),
+        two_stage=bool(cfg.two_stage),
+        merge_frame_features=bool(cfg.merge_frame_features),
+        enc_msda_shared_locs=bool(cfg.get("enc_msda_shared_locs", False)),
+        enc_msda_topk=int(cfg.get("enc_msda_topk", 0)),
+        enc_msda_int8=bool(cfg.get("enc_msda_int8", False)),
         enc_lite=bool(cfg.get("enc_lite", False)),
         enc_lite_klevels=int(cfg.get("enc_lite_klevels", 0)),
         enc_lite_high_klevels=int(cfg.get("enc_lite_high_klevels", 0)),
@@ -196,8 +197,8 @@ def _build_deformable(cfg, num_track_slots):
 def build_weight_dict(cfg) -> dict:
     """Loss weights; with ``aux_loss`` every key is repeated with the
     suffixes ``_0`` .. ``_{dec_layers - 2}`` of the auxiliary decoder layers
-    and ``_enc`` (unused until two-stage is ported), as the JAX package
-    does, so ``total_loss`` is an exact-key weighted sum."""
+    and ``_enc`` (the two-stage encoder proposals' losses), as the JAX
+    package does, so ``total_loss`` is an exact-key weighted sum."""
     wd = {
         "loss_ce": cfg.cls_loss_coef,
         "loss_bbox": cfg.bbox_loss_coef,
@@ -288,7 +289,7 @@ def init_weights(model: nn.Module, generator: torch.Generator):
             if isinstance(mod, MSDeformAttn):
                 normal(mod.sampling_offsets.weight, 0.02)
                 fill(mod.sampling_offsets.bias, offset_grid_init(
-                    mod.n_heads, mod.n_levels, mod.n_points
+                    mod.n_loc_heads, mod.n_levels, mod.n_points
                 ))
                 normal(mod.attention_weights.weight, 0.02)
     for name, p in model.named_parameters(recurse=False):
@@ -296,5 +297,5 @@ def init_weights(model: nn.Module, generator: torch.Generator):
             normal(p, 1.0)
     if deformable:
         normal(model.transformer.level_embed, 1.0)
-        for i in range(model.dec_layers):
+        for i in range(model.num_heads):
             model.class_head(i).bias.fill_(model.class_bias_init)

@@ -16,8 +16,10 @@ track-query reweighting, sigmoid focal, cardinality (log only), boxes L1 +
 GIoU, masks (sigmoid focal + dice on the matched queries' mask logits,
 resized bilinearly to the ground-truth masks' size; the last decoder
 layer only); each auxiliary decoder layer adds the same keys, but the
-masks', with the suffix ``_{i}``. The losses are computed in float32
-whatever the type of the model's outputs.
+masks', with the suffix ``_{i}``, and a two-stage model's encoder
+proposals (``enc_outputs``) add them with the suffix ``_enc``, against the
+targets relabelled to class 0 and matched over all S proposals. The losses
+are computed in float32 whatever the type of the model's outputs.
 """
 from __future__ import annotations
 
@@ -244,6 +246,19 @@ class SetCriterion:
                                           num_boxes).items():
                     if k != "class_error":
                         losses[f"{k}_{i}"] = v
+        if "enc_outputs" in outputs:
+            # two-stage: binary (class-0) targets for the proposals
+            bin_targets = targets.replace(
+                labels=torch.zeros_like(targets.labels))
+            enc = dict(outputs["enc_outputs"])
+            q4t_e = self.match(enc, bin_targets)
+            for name in self.losses:
+                if name == "masks":
+                    continue
+                for k, v in self.get_loss(name, enc, bin_targets, q4t_e,
+                                          num_boxes).items():
+                    if k != "class_error":
+                        losses[f"{k}_enc"] = v
         return losses
 
     def total_loss(self, losses: dict) -> torch.Tensor:

@@ -13,6 +13,18 @@
   ``DeformableTransformer``).
 - Iterative box refinement with per-layer heads; the class-head bias uses
   the focal prior (0.01).
+- ``two_stage``: the decoder's queries are the best-scored encoder
+  proposals (see ``DeformableTransformer``); there is no ``query_embed``,
+  the heads number ``dec_layers + 1`` (per layer, box refinement or not),
+  the last scores and refines the proposals, and the output carries
+  ``enc_outputs`` (their logits and boxes) for the criterion.
+- ``merge_frame_features``: each level of either frame is merged with the
+  previous frame's projection of that level by a 1x1 convolution
+  (``merge{i}``) over the two, concatenated; the previous frame is the
+  current one on a first frame, and its own projection is merged with
+  itself. Not with ``cache_prev_encoder``.
+- ``enc_msda_shared_locs`` / ``enc_msda_topk`` / ``enc_msda_int8``: the
+  encoder's MSDA variants (see ``MSDeformAttn``).
 - Track queries occupy fixed leading decoder slots; their boxes give the
   reference points.
 - ``hs_embed`` is the decoder's last output (no final norm), the track-query
@@ -77,6 +89,11 @@ class DeformableDETR(nn.Module):
         multi_frame_attention: bool = False,
         multi_frame_encoding: bool = True,
         cache_prev_encoder: bool = False,
+        two_stage: bool = False,
+        merge_frame_features: bool = False,
+        enc_msda_shared_locs: bool = False,
+        enc_msda_topk: int = 0,
+        enc_msda_int8: bool = False,
         enc_lite: bool = False,
         enc_lite_klevels: int = 0,
         enc_lite_high_klevels: int = 0,
@@ -94,6 +111,9 @@ class DeformableDETR(nn.Module):
         super().__init__()
         if cache_prev_encoder and not multi_frame_attention:
             raise ValueError("cache_prev_encoder requires multi_frame_attention")
+        if cache_prev_encoder and merge_frame_features:
+            raise ValueError(
+                "cache_prev_encoder is incompatible with merge_frame_features")
         self.hidden_dim = hidden_dim
         self.num_queries = num_queries
         self.dec_layers = dec_layers
@@ -102,6 +122,8 @@ class DeformableDETR(nn.Module):
         self.multi_frame_attention = multi_frame_attention
         self.multi_frame_encoding = multi_frame_encoding
         self.cache_prev_encoder = cache_prev_encoder
+        self.two_stage = two_stage
+        self.merge_frame_features = merge_frame_features
         self.num_track_slots = num_track_slots
         self.aux_loss = aux_loss
         self.masks = masks
@@ -122,6 +144,10 @@ class DeformableDETR(nn.Module):
             self.add_module(
                 f"input_proj_gn{i}", GroupNorm(gn_groups, hidden_dim, eps=1e-5)
             )
+        if merge_frame_features:
+            for i in range(num_feature_levels):
+                self.add_module(f"merge{i}",
+                                nn.Conv2d(2 * hidden_dim, hidden_dim, 1))
 
         total_levels = num_feature_levels * (2 if multi_frame_attention else 1)
         self.transformer = DeformableTransformer(
@@ -138,15 +164,23 @@ class DeformableDETR(nn.Module):
             dec_msda_int8=dec_msda_int8,
             msda_ref_normalizer=msda_ref_normalizer,
             dropout=dropout, rng=self.dropout_rng, remat=remat,
+            two_stage=two_stage, two_stage_num_proposals=num_queries,
+            enc_shared_locs=enc_msda_shared_locs, enc_topk=enc_msda_topk,
+            enc_int8=enc_msda_int8,
         )
-        self.query_embed = nn.Parameter(torch.empty(num_queries, hidden_dim * 2))
+        if not two_stage:
+            self.query_embed = nn.Parameter(
+                torch.empty(num_queries, hidden_dim * 2))
         out_classes = num_classes + (0 if focal_loss else 1)
         self.class_bias_init = (
             -math.log((1 - 0.01) / 0.01) if focal_loss else 0.0
         )
-        # box refinement: one head pair per decoder layer, else one shared
-        if with_box_refine:
-            for i in range(dec_layers):
+        # box refinement or two-stage: one head pair per decoder layer (and
+        # with two-stage one more, the encoder's), else one shared pair
+        self.per_layer_heads = with_box_refine or two_stage
+        self.num_heads = dec_layers + (1 if two_stage else 0)
+        if self.per_layer_heads:
+            for i in range(self.num_heads):
                 self.add_module(f"class_embed{i}", nn.Linear(hidden_dim, out_classes))
                 self.add_module(f"bbox_embed{i}", MLP(hidden_dim, hidden_dim, 4, 3))
         else:
@@ -154,13 +188,16 @@ class DeformableDETR(nn.Module):
             self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
 
     def class_head(self, i):
-        return getattr(self, f"class_embed{i}") if self.with_box_refine else self.class_embed
+        return getattr(self, f"class_embed{i}") if self.per_layer_heads else self.class_embed
 
     def bbox_head(self, i):
-        return getattr(self, f"bbox_embed{i}") if self.with_box_refine else self.bbox_embed
+        return getattr(self, f"bbox_embed{i}") if self.per_layer_heads else self.bbox_embed
 
-    def _project_levels(self, feats, pad_mask):
-        """Input projections + extra stride-64 level; masks per level."""
+    def _project_levels(self, feats, pad_mask, merge_with=None):
+        """Input projections + extra stride-64 level; masks per level. With
+        ``merge_with`` (merge_frame_features) each level is merged with that
+        level of it, and the next extra level is projected from the merged
+        one, as in the JAX package."""
         srcs, masks = [], []
         for i in range(self.num_feature_levels):
             conv = getattr(self, f"input_proj{i}")
@@ -172,6 +209,9 @@ class DeformableDETR(nn.Module):
             else:
                 x = srcs[-1]
             src = gn(conv(x))
+            if merge_with is not None:
+                src = getattr(self, f"merge{i}")(
+                    torch.cat([src, merge_with[i]], dim=1))
             srcs.append(src)
             masks.append(downsample_pad_mask(pad_mask, src.shape[-2:]))
         return srcs, masks
@@ -209,12 +249,19 @@ class DeformableDETR(nn.Module):
         pos_cache=None,  # out["pos_cache"] of an earlier frame, same pad mask
         aux_outputs: Optional[bool] = None,  # default: in train() mode
     ) -> dict:
-        images = batch.images.to(self.query_embed.dtype)
+        images = batch.images.to(self.transformer.level_embed.dtype)
         feats_all, _ = self.backbone(images, batch.pad_mask)
         feats = feats_all[-3:]  # the pyramid's C3..C5
         b = images.shape[0]
 
-        srcs, masks = self._project_levels(feats, batch.pad_mask)
+        prev_projected = None
+        if self.merge_frame_features:
+            # the previous frame's levels, projected with no merge (the
+            # current frame's on a first frame)
+            prev_projected = self._project_levels(
+                *(prev_features or (feats, batch.pad_mask)))[0]
+        srcs, masks = self._project_levels(feats, batch.pad_mask,
+                                           prev_projected)
         pos = list(pos_cache) if pos_cache is not None else self._pos_embeds(masks, 0)
 
         tf_kwargs = {}
@@ -232,7 +279,8 @@ class DeformableDETR(nn.Module):
                     prev_feats, prev_pad = feats, batch.pad_mask
                 else:
                     prev_feats, prev_pad = prev_features
-                p_srcs, p_masks = self._project_levels(prev_feats, prev_pad)
+                p_srcs, p_masks = self._project_levels(prev_feats, prev_pad,
+                                                       prev_projected)
                 p_pos = self._pos_embeds(
                     p_masks, frame_idx=0 if self.cache_prev_encoder else 1
                 )
@@ -257,8 +305,12 @@ class DeformableDETR(nn.Module):
                 track_query_active=active,
             )
 
-        hs, memory, init_ref, inter_refs, q_pad = self.transformer(
-            srcs, masks, pos, self.query_embed,
+        if self.two_stage:
+            tf_kwargs.update(class_embed_fn=self.class_head(self.dec_layers),
+                             bbox_embed_fn=self.bbox_head(self.dec_layers))
+        (hs, memory, init_ref, inter_refs, q_pad, enc_class,
+         enc_coord) = self.transformer(
+            srcs, masks, pos, None if self.two_stage else self.query_embed,
             bbox_embeds=(
                 [self.bbox_head(i) for i in range(self.dec_layers)]
                 if self.with_box_refine else None
@@ -288,6 +340,9 @@ class DeformableDETR(nn.Module):
                 {"pred_logits": heads[i][0], "pred_boxes": heads[i][1]}
                 for i in range(last)
             ]
+        if self.two_stage:
+            out["enc_outputs"] = {"pred_logits": enc_class,
+                                  "pred_boxes": torch.sigmoid(enc_coord)}
         # features of this frame, reusable as next frame's prev_features
         out["frame_features"] = (feats, batch.pad_mask)
         if self.multi_frame_attention and self.cache_prev_encoder:

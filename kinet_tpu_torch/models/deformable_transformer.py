@@ -34,7 +34,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.msda import (
     device_constant,
     ms_deform_attn,
+    ms_deform_attn_i8,
     ms_deform_attn_raw_pool,
+    ms_deform_attn_shared,
+    ms_deform_attn_topk,
     quantize_rows,
 )
 
@@ -139,17 +142,35 @@ class MSDeformAttn(nn.Module):
     its bias is restored through the pooled weight sum). ``src_table``
     (gather_raw, inference only): (int8 [B, S, C], scales [B, L]), the
     masked src quantized by the caller; it is sampled in place of src, and
-    pooled comes back in src's dtype."""
+    pooled comes back in src's dtype.
+
+    The encoder's variants, dispatched in the JAX package's order:
+    ``shared_locs``, one set of sampling locations for all heads (weights
+    stay per head; ``sampling_offsets`` then has 1 * L * P * 2 outputs);
+    ``top_k``, per (query, head) only the ``top_k`` samples of largest
+    weight, when ``top_k < L * P``; ``int8_values``, in eval mode only, the
+    values quantized to int8 with one absmax scale per (batch, head)."""
 
     def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4,
-                 gather_raw=False, ref_normalizer=False):
+                 gather_raw=False, ref_normalizer=False, shared_locs=False,
+                 top_k=0, int8_values=False):
         super().__init__()
+        if shared_locs and top_k:
+            raise ValueError("shared_locs and top_k are separate variants; "
+                             "enable one")
+        if gather_raw and (shared_locs or top_k or int8_values):
+            raise ValueError("the encoder's MSDA variants do not apply to "
+                             "gather_raw")
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.gather_raw = gather_raw
         self.ref_normalizer = ref_normalizer
+        self.shared_locs, self.top_k = shared_locs, int(top_k)
+        self.int8_values = int8_values
+        self.n_loc_heads = 1 if shared_locs else n_heads
         self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.sampling_offsets = nn.Linear(
+            d_model, self.n_loc_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.output_proj = nn.Linear(d_model, d_model)
 
@@ -165,7 +186,8 @@ class MSDeformAttn(nn.Module):
     ) -> torch.Tensor:
         b, lq, _ = query.shape
         m, l, p = self.n_heads, self.n_levels, self.n_points
-        offsets = self.sampling_offsets(query).view(b, lq, m, l, p, 2)
+        offsets = self.sampling_offsets(query).view(
+            b, lq, self.n_loc_heads, l, p, 2)
         attn = self.attention_weights(query).view(b, lq, m, l * p)
         attn = attn.softmax(-1).view(b, lq, m, l, p)
         if query_mask is not None:
@@ -209,8 +231,29 @@ class MSDeformAttn(nn.Module):
             if src_padding_mask is not None:
                 value = value.masked_fill(src_padding_mask[..., None], 0.0)
             value = value.view(b, -1, m, self.d_model // m)
-            out = ms_deform_attn(value, spatial_shapes, loc, attn)
+            out = self._sample(value, spatial_shapes, loc, attn)
         return self.output_proj(out.to(query.dtype))
+
+    def _sample(self, value, spatial_shapes, loc, attn):
+        """The encoder's sampling core, by variant (JAX
+        ``deformable_transformer.py`` 212-249)."""
+        l, p = self.n_levels, self.n_points
+        if self.shared_locs:
+            return ms_deform_attn_shared(value, spatial_shapes, loc[:, :, 0],
+                                         attn)
+        if self.top_k and self.top_k < l * p:
+            return ms_deform_attn_topk(value, spatial_shapes, loc, attn,
+                                       self.top_k)
+        if self.int8_values and not self.training:
+            # absmax over (S, D) per (batch, head) in f32; the scale goes to
+            # the kernel in the value's type, as the JAX package casts it
+            vf = value.float()
+            absmax = vf.abs().amax(dim=(1, 3), keepdim=True)  # [B, 1, M, 1]
+            scale = torch.clamp(absmax / 127.0, min=1e-8)
+            q8 = torch.clamp(torch.round(vf / scale), -127, 127).to(torch.int8)
+            return ms_deform_attn_i8(q8, scale[:, 0, :, 0].to(value.dtype),
+                                     spatial_shapes, loc, attn)
+        return ms_deform_attn(value, spatial_shapes, loc, attn)
 
     def _project_pooled(self, pooled, wsum):
         """pooled [B, Lq, M, C] raw rows, wsum [B, Lq, M] -> [B, Lq, C]:
@@ -226,10 +269,12 @@ class MSDeformAttn(nn.Module):
 
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
-                 ref_normalizer=False, dropout=0.0, rng=None):
+                 ref_normalizer=False, dropout=0.0, rng=None,
+                 shared_locs=False, top_k=0, int8_values=False):
         super().__init__()
         self.self_attn = MSDeformAttn(
-            d_model, n_levels, n_heads, n_points, ref_normalizer=ref_normalizer
+            d_model, n_levels, n_heads, n_points, ref_normalizer=ref_normalizer,
+            shared_locs=shared_locs, top_k=top_k, int8_values=int8_values,
         )
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
@@ -276,12 +321,15 @@ class DeformableEncoder(nn.Module):
     all layers but the last update only the high-level tokens (levels
     1..L-1) as queries, sampling the ``lite_high_klevels`` finest levels
     (0 = all); the last layer updates the level-0 tokens, sampling the
-    ``lite_low_klevels`` finest levels (0 = all)."""
+    ``lite_low_klevels`` finest levels (0 = all). ``shared_locs``, ``top_k``
+    and ``int8_values`` go to every layer's ``MSDeformAttn``; a layer's own
+    L * P decides whether ``top_k`` prunes."""
 
     def __init__(self, num_layers, d_model, d_ffn, n_levels, n_heads,
                  n_points, lite=False, lite_low_klevels=0,
                  lite_high_klevels=0, ref_normalizer=False, dropout=0.0,
-                 rng=None, remat=False):
+                 rng=None, remat=False, shared_locs=False, top_k=0,
+                 int8_values=False):
         super().__init__()
         self.n_levels = n_levels
         self.remat = remat
@@ -300,6 +348,7 @@ class DeformableEncoder(nn.Module):
             self.add_module(f"layer{i}", DeformableEncoderLayer(
                 d_model, d_ffn, k, n_heads, n_points,
                 ref_normalizer=ref_normalizer, dropout=dropout, rng=self.rng,
+                shared_locs=shared_locs, top_k=top_k, int8_values=int8_values,
             ))
 
     def _layer(self, i, *args):
@@ -468,6 +517,25 @@ def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([valid_w / w, valid_h / h], dim=-1)
 
 
+def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128):
+    """Sine embedding of unactivated proposal boxes [B, Q, 4] ->
+    [B, Q, 4 * num_pos_feats]: per coordinate, sin of the even and cos of
+    the odd frequencies, interleaved (sin f0, cos f1, sin f2, ...)."""
+    t = torch.arange(num_pos_feats, dtype=torch.float32,
+                     device=proposals.device)
+    dim_t = 10000.0 ** (2 * torch.floor(t / 2) / num_pos_feats)
+    pos = torch.sigmoid(proposals.float())[..., None] * (2 * math.pi) / dim_t
+    pos = torch.stack([pos[..., 0::2].sin(), pos[..., 1::2].cos()], dim=-1)
+    return pos.reshape(*proposals.shape[:-1], -1)
+
+
+def descending_topk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last dim, ties to the
+    lower index, as ``jax.lax.top_k`` breaks them (a stable descending
+    sort; ``torch.topk`` promises no order among ties)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def _flatten(x: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] -> [B, H*W, C]."""
     return x.flatten(2).transpose(1, 2)
@@ -488,9 +556,18 @@ class DeformableTransformer(nn.Module):
     layers, with one scale per frame's half in the cached-memory path and
     one for the whole table otherwise (see ``_dec_table``).
 
-    Returns (hs, memory, init_reference, inter_references, query_pad_mask);
-    query_pad_mask [B, Q] is True at inactive track slots (None without
-    track queries)."""
+    ``two_stage``: the decoder's queries come from the encoder. Every memory
+    token is a proposal box (``gen_encoder_output_proposals``), scored by
+    ``class_embed_fn`` and refined by ``bbox_embed_fn`` (the model's extra
+    heads); the ``two_stage_num_proposals`` best give the reference points
+    and, through ``pos_trans``, the query embeddings. As in the JAX package
+    this branch takes no track queries: they are ignored and
+    query_pad_mask stays None.
+
+    Returns (hs, memory, init_reference, inter_references, query_pad_mask,
+    enc_outputs_class, enc_outputs_coord_unact); query_pad_mask [B, Q] is
+    True at inactive track slots (None without track queries); the last two
+    are None without two_stage."""
 
     def __init__(self, d_model=256, nheads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024,
@@ -500,10 +577,13 @@ class DeformableTransformer(nn.Module):
                  enc_lite_klevels=0, enc_lite_high_klevels=0,
                  dec_gather_raw=False, dec_klevels=0, dec_msda_int8=False,
                  msda_ref_normalizer=False, dropout=0.0, rng=None,
-                 remat=False):
+                 remat=False, two_stage=False, two_stage_num_proposals=300,
+                 enc_shared_locs=False, enc_topk=0, enc_int8=False):
         super().__init__()
         rng = rng or DropoutRNG()
         self.d_model = d_model
+        self.two_stage = two_stage
+        self.two_stage_num_proposals = two_stage_num_proposals
         self.num_feature_levels = num_feature_levels
         self.separate_encoder = multi_frame_attention_separate_encoder
         self.frame_agnostic_levels = frame_agnostic_levels
@@ -516,7 +596,8 @@ class DeformableTransformer(nn.Module):
             lite_low_klevels=enc_lite_klevels,
             lite_high_klevels=enc_lite_high_klevels,
             ref_normalizer=msda_ref_normalizer, dropout=dropout, rng=rng,
-            remat=remat,
+            remat=remat, shared_locs=enc_shared_locs, top_k=enc_topk,
+            int8_values=enc_int8,
         )
         frames, _, k = self._dec_frames_half()
         self.decoder = DeformableDecoder(
@@ -525,7 +606,68 @@ class DeformableTransformer(nn.Module):
             ref_normalizer=msda_ref_normalizer, dropout=dropout, rng=rng,
         )
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
-        self.reference_points_head = nn.Linear(d_model, 2)
+        if two_stage:
+            self.enc_output = nn.Linear(d_model, d_model)
+            self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+            self.pos_trans = nn.Linear(2 * d_model, 2 * d_model)
+            self.pos_trans_norm = nn.LayerNorm(2 * d_model, eps=1e-5)
+        else:
+            self.reference_points_head = nn.Linear(d_model, 2)
+
+    def gen_encoder_output_proposals(self, memory, memory_pad_mask,
+                                     spatial_shapes):
+        """Two-stage proposals: one box a memory token, centred on its cell
+        (normalized by the level's valid extent) with side 0.05 * 2^level,
+        in inverse-sigmoid form, +inf at pad tokens and at boxes not inside
+        (0.01, 0.99); and the memory, zeroed at those tokens, through
+        ``enc_output`` and its norm. Returns (output memory [B, S, C],
+        proposals [B, S, 4] float32)."""
+        b = memory.shape[0]
+        dev = memory.device
+        proposals, cur = [], 0
+        for lvl, (h, w) in enumerate(spatial_shapes):
+            mask_l = memory_pad_mask[:, cur:cur + h * w].view(b, h, w)
+            valid_h = (~mask_l[:, :, 0]).sum(1).float()
+            valid_w = (~mask_l[:, 0, :]).sum(1).float()
+            gy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+            gx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+            grid = torch.stack([gx, gy], -1).reshape(1, h * w, 2)
+            scale = torch.stack([valid_w, valid_h], -1)[:, None, :]
+            grid = (grid + 0.5) / scale
+            wh = torch.ones_like(grid) * (0.05 * (2.0 ** lvl))
+            proposals.append(torch.cat([grid, wh], -1))
+            cur += h * w
+        props = torch.cat(proposals, dim=1)  # [B, S, 4]
+        valid = ((props > 0.01) & (props < 0.99)).all(-1, keepdim=True)
+        props = torch.log(props / (1 - props.clamp(1e-6, 1 - 1e-6)))
+        bad = memory_pad_mask[..., None] | ~valid
+        props = props.masked_fill(bad, float("inf"))
+        out_mem = memory.masked_fill(bad, 0.0)
+        return self.enc_output_norm(self.enc_output(out_mem)), props
+
+    def _two_stage_queries(self, memory, mask_flat, spatial_shapes,
+                           class_embed_fn, bbox_embed_fn):
+        """(query_pos, tgt, reference_points, enc_outputs_class,
+        enc_outputs_coord_unact) of the two-stage branch (JAX
+        ``deformable_transformer.py`` 794-816)."""
+        out_mem, props = self.gen_encoder_output_proposals(
+            memory, mask_flat, spatial_shapes)
+        enc_class = class_embed_fn(out_mem)
+        delta = bbox_embed_fn(out_mem)
+        # invalid proposals keep their +inf (sigmoid 1 in the criterion)
+        inf = torch.isinf(props)
+        enc_coord = torch.where(
+            inf, props, delta + torch.nan_to_num(props, posinf=0.0))
+        score = enc_class[..., 0].masked_fill(inf[..., 0], float("-inf"))
+        topk_idx = descending_topk(score, self.two_stage_num_proposals)
+        topk_coords = torch.gather(
+            enc_coord, 1, topk_idx[..., None].expand(-1, -1, 4)).detach()
+        reference_points = torch.sigmoid(topk_coords)
+        embed = proposal_pos_embed(topk_coords, self.d_model // 2)
+        pos_trans = self.pos_trans_norm(
+            self.pos_trans(embed.to(self.pos_trans.weight.dtype)))
+        query_pos, tgt = torch.split(pos_trans, self.d_model, dim=-1)
+        return query_pos, tgt, reference_points, enc_class, enc_coord
 
     def _dec_frames_half(self):
         frames = 2 if self.separate_encoder else 1
@@ -581,7 +723,7 @@ class DeformableTransformer(nn.Module):
         srcs,  # list of [B, C, H, W]
         masks,  # list of [B, H, W] bool
         pos_embeds,  # list of [B, H, W, C]
-        query_embed,  # [Q, 2C]
+        query_embed,  # [Q, 2C], None with two_stage
         track_query_embeds=None,  # [B, T, C]
         track_query_boxes=None,  # [B, T, 4]
         track_query_active=None,  # [B, T] bool
@@ -589,6 +731,8 @@ class DeformableTransformer(nn.Module):
         prev_encoded=None,  # [B, S_half, C] cached prev-frame memory
         prev_masks=None,  # per-level prev pad masks (with prev_encoded)
         prev_is_current=False,  # first frame: reuse mem_cur as mem_prev
+        class_embed_fn=None,  # two_stage: the encoder's class head
+        bbox_embed_fn=None,  # two_stage: the encoder's box head
     ):
         b = srcs[0].shape[0]
         half_l = self.num_feature_levels // 2
@@ -647,14 +791,19 @@ class DeformableTransformer(nn.Module):
                                       pos_flat, mask_flat)
 
         dtype = src_flat.dtype
-        query_pos, tgt = torch.split(query_embed, self.d_model, dim=-1)
-        query_pos = query_pos[None].expand(b, -1, -1)
-        tgt = tgt[None].expand(b, -1, -1).to(dtype)
-        reference_points = torch.sigmoid(
-            self.reference_points_head(query_pos)
-        ).float()
-        query_pad_mask = None
-        if track_query_embeds is not None:
+        query_pad_mask = enc_class = enc_coord = None
+        if self.two_stage:
+            query_pos, tgt, reference_points, enc_class, enc_coord = \
+                self._two_stage_queries(memory, mask_flat, spatial_shapes,
+                                        class_embed_fn, bbox_embed_fn)
+        else:
+            query_pos, tgt = torch.split(query_embed, self.d_model, dim=-1)
+            query_pos = query_pos[None].expand(b, -1, -1)
+            tgt = tgt[None].expand(b, -1, -1).to(dtype)
+            reference_points = torch.sigmoid(
+                self.reference_points_head(query_pos)
+            ).float()
+        if track_query_embeds is not None and not self.two_stage:
             t = track_query_embeds.shape[1]
             active = track_query_active
             tq = torch.where(active[..., None], track_query_embeds, 0.0)
@@ -710,4 +859,5 @@ class DeformableTransformer(nn.Module):
             tgt, reference_points, dec_memory, dec_shapes, dec_vr,
             query_pos, dec_mask, query_pad_mask, bbox_embeds, table,
         )
-        return hs, memory, init_reference, inter_refs, query_pad_mask
+        return (hs, memory, init_reference, inter_refs, query_pad_mask,
+                enc_class, enc_coord)

@@ -135,6 +135,27 @@ struct VecIO<__nv_bfloat16, 8> {
   }
 };
 
+// int8 values (the encoder's int8 table): V consecutive channels as one
+// 1-, 2- or 4-byte load, sign-extended to f32. Load only: no kernel writes
+// int8.
+template <int V>
+struct VecIO<int8_t, V> {
+  static_assert(V == 1 || V == 2 || V == 4, "int8 lanes of 1, 2 or 4");
+  __device__ __forceinline__ static void load(const int8_t* p, float* o) {
+    if constexpr (V == 4) {
+      const int u = __ldg(reinterpret_cast<const int*>(p));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] = (float)((signed char)(u >> (8 * i)));
+    } else if constexpr (V == 2) {
+      const short u = __ldg(reinterpret_cast<const short*>(p));
+      o[0] = (float)((signed char)(u & 0xff));
+      o[1] = (float)((signed char)(u >> 8));
+    } else {
+      o[0] = (float)__ldg(reinterpret_cast<const signed char*>(p));
+    }
+  }
+};
+
 // N consecutive floats from p (p aligned to the widest of 16, 8 and 4
 // bytes that divides N * 4): a (q, m)'s sample locations or weights.
 template <int N>
@@ -184,6 +205,20 @@ __device__ __forceinline__ bool corner_at(int corner, int h, int w, float x,
   wx = dx ? x - x0 : 1.0f - (x - x0);
   cell = (long long)yi * w + (long long)xi;
   return yi >= 0.0f && yi <= ymax && xi >= 0.0f && xi <= xmax;
+}
+
+// Corner `corner` of the sample at pixel (x, y) of one level: its cell,
+// clamped to 0 where corner_at says it is not read, and its weight, 0 there.
+__device__ __forceinline__ long long corner_branch_free(int corner, int h,
+                                                        int w, float x,
+                                                        float y, float aw,
+                                                        float& wt) {
+  long long cell;
+  float wy, wx;
+  const bool in =
+      corner_at(corner, h, w, x, y, (float)h, (float)w, cell, wy, wx);
+  wt = in ? wy * wx * aw : 0.0f;
+  return in ? cell : 0;
 }
 
 // Backward of one bilinear sample for one lane's V channels: the partial

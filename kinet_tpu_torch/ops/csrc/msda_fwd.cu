@@ -32,12 +32,19 @@
 //     as one 16-byte and one 8-byte load (msda_fwd_wide_kernel); otherwise
 //     one thread per V channels (msda_fwd_kernel, 9 x 16 bytes at D = 36 in
 //     f32), and a generic instance for other (L, P);
+//   - the int8 instance (C entry msda_fwd_i8, enc_msda_int8): value int8
+//     [B, S, M, D] with scales [B, M] f32; a head slice is D bytes (36 at
+//     the flagship, not a multiple of 8), so a thread takes 4 channels as
+//     one 4-byte load where D % 4 == 0, sign-extended to f32; the head's
+//     scale multiplies its attention weights once, so every corner weight;
+//     sums in f32 (the JAX package sums in the scale's type);
 //   - a block walks a run of consecutive queries, as many as spread the
 //     launch evenly over the blocks that fit on the card at once: the
 //     encoder's queries are raster-ordered tokens whose samples overlap, so
 //     the slices a run shares come from the SM's L1 (loads through the
 //     read-only path allocate there) rather than L2.
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 #include "msda_common.cuh"
@@ -48,6 +55,11 @@ namespace kinet {
 // an SM as well, it spent more registers (the fixed instances 64-96 instead
 // of 48-80) and ran slower.
 constexpr int kMaxThreads = 288;
+
+// The int8 instance: each (batch, head)'s dequantization scale multiplies
+// the (q, m)'s attention weights, so every corner weight, once.
+template <typename T>
+constexpr bool kInt8 = std::is_same<T, int8_t>::value;
 
 // Threads of a block: whole queries (per_query threads each) when a
 // multiple of 32 of them fits in kMaxThreads, so that a block's passes over
@@ -92,20 +104,6 @@ static void grid_for(const void* kernel, int threads, long long queries,
   blocks = (unsigned)((queries + run - 1) / run);
 }
 
-// Corner `corner` of the sample at pixel (x, y) of one level: its cell,
-// clamped to 0 where corner_at says it is not read, and its weight, 0 there.
-__device__ __forceinline__ long long corner_branch_free(int corner, int h,
-                                                        int w, float x,
-                                                        float y, float aw,
-                                                        float& wt) {
-  long long cell;
-  float wy, wx;
-  const bool in =
-      corner_at(corner, h, w, x, y, (float)h, (float)w, cell, wy, wx);
-  wt = in ? wy * wx * aw : 0.0f;
-  return in ? cell : 0;
-}
-
 // One (b, q, m, channel group) with L and P fixed at compile time: the
 // (q, m)'s samples read as vectors, then all 4*L*P corner loads issued
 // before the first FMA.
@@ -114,11 +112,15 @@ __device__ __forceinline__ void sample_fixed(
     const T* __restrict__ value, const int* __restrict__ spatial_shapes,
     const int* __restrict__ level_start, const float* __restrict__ loc,
     const float* __restrict__ aw, long long bqm, int b, int m, int g, int S,
-    int M, int D, float (&acc)[V]) {
+    int M, int D, float scale, float (&acc)[V]) {
   constexpr int kLP = kL * kP;
   float xy[2 * kLP], a[kLP];
   load_floats<2 * kLP>(loc + bqm * 2 * kLP, xy);
   load_floats<kLP>(aw + bqm * kLP, a);
+  if constexpr (kInt8<T>) {
+#pragma unroll
+    for (int k = 0; k < kLP; ++k) a[k] *= scale;
+  }
   const long long row_stride = (long long)M * D;
   float v[4 * kLP][V];
   float wt[4 * kLP];
@@ -155,7 +157,7 @@ __device__ __forceinline__ void sample_generic(
     const T* __restrict__ value, const int* __restrict__ spatial_shapes,
     const int* __restrict__ level_start, const float* __restrict__ loc,
     const float* __restrict__ aw, long long bqm, int b, int m, int g, int S,
-    int M, int D, int L, int P, float (&acc)[V]) {
+    int M, int D, int L, int P, float scale, float (&acc)[V]) {
   const long long row_stride = (long long)M * D;
   for (int l = 0; l < L; ++l) {
     const int h = __ldg(spatial_shapes + 2 * l);
@@ -167,7 +169,7 @@ __device__ __forceinline__ void sample_generic(
       const long long k = bqm * L * P + l * P + p;
       const float x = __ldg(loc + 2 * k) * w - 0.5f;
       const float y = __ldg(loc + 2 * k + 1) * h - 0.5f;
-      const float a = __ldg(aw + k);
+      const float a = kInt8<T> ? __ldg(aw + k) * scale : __ldg(aw + k);
       float v[4][V], wt[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -188,7 +190,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                     const int* __restrict__ spatial_shapes,
                     const int* __restrict__ level_start,
                     const float* __restrict__ loc,
-                    const float* __restrict__ aw, float* __restrict__ out,
+                    const float* __restrict__ aw,
+                    const float* __restrict__ scales, float* __restrict__ out,
                     int B, int S, int M, int D, int Lq, int L, int P,
                     int run) {
   const int groups = D / V;
@@ -203,15 +206,17 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int g = r - m * groups;
     const int b = (int)(bq / Lq);
     const long long bqm = bq * M + m;
+    float scale = 1.0f;
+    if constexpr (kInt8<T>) scale = __ldg(scales + (long long)b * M + m);
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     if constexpr (kL > 0)
       sample_fixed<T, V, kL, kP>(value, spatial_shapes, level_start, loc, aw,
-                                 bqm, b, m, g, S, M, D, acc);
+                                 bqm, b, m, g, S, M, D, scale, acc);
     else
       sample_generic<T, V>(value, spatial_shapes, level_start, loc, aw, bqm,
-                           b, m, g, S, M, D, L, P, acc);
+                           b, m, g, S, M, D, L, P, scale, acc);
     VecIO<float, V>::store(out + bqm * D + (long long)g * V, acc);
   }
 }
@@ -309,17 +314,18 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 template <typename T, int V>
-static cudaError_t launch_v(const T* value, const int* sh, const int* st,
-                            const float* lc, const float* a, float* o, int B,
-                            int S, int M, int D, int Lq, int L, int P,
-                            bool fixed, cudaStream_t stream) {
+static cudaError_t launch_v(const T* value, const float* scales,
+                            const int* sh, const int* st, const float* lc,
+                            const float* a, float* o, int B, int S, int M,
+                            int D, int Lq, int L, int P, bool fixed,
+                            cudaStream_t stream) {
   const int threads = block_threads(M * (D / V));
   int run;
   unsigned blocks;
   auto launch_k = [&](auto kernel) {
     grid_for((const void*)kernel, threads, (long long)B * Lq, run, blocks);
-    kernel<<<blocks, threads, 0, stream>>>(value, sh, st, lc, a, o, B, S, M,
-                                           D, Lq, L, P, run);
+    kernel<<<blocks, threads, 0, stream>>>(value, sh, st, lc, a, scales, o,
+                                           B, S, M, D, Lq, L, P, run);
   };
   if (fixed && L == 2)
     launch_k(msda_fwd_kernel<T, V, 2, 2>);
@@ -331,10 +337,11 @@ static cudaError_t launch_v(const T* value, const int* sh, const int* st,
 }
 
 template <typename T>
-static cudaError_t launch(const void* value, const void* shapes,
-                          const void* starts, const void* loc, const void* aw,
-                          void* out, int B, int S, int M, int D, int Lq,
-                          int L, int P, cudaStream_t stream) {
+static cudaError_t launch(const void* value, const float* scales,
+                          const void* shapes, const void* starts,
+                          const void* loc, const void* aw, void* out, int B,
+                          int S, int M, int D, int Lq, int L, int P,
+                          cudaStream_t stream) {
   const T* val = static_cast<const T*>(value);
   const int* sh = static_cast<const int*>(shapes);
   const int* st = static_cast<const int*>(starts);
@@ -366,13 +373,13 @@ static cudaError_t launch(const void* value, const void* shapes,
   }
   const int v = pick_vec(D, value, sizeof(T), out, sizeof(float));
   if (v == 4)
-    return launch_v<T, 4>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
-                          stream);
+    return launch_v<T, 4>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
+                          fixed, stream);
   if (v == 2)
-    return launch_v<T, 2>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
-                          stream);
-  return launch_v<T, 1>(val, sh, st, lc, a, o, B, S, M, D, Lq, L, P, fixed,
-                        stream);
+    return launch_v<T, 2>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
+                          fixed, stream);
+  return launch_v<T, 1>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
+                        fixed, stream);
 }
 
 }  // namespace kinet
@@ -384,10 +391,23 @@ extern "C" int msda_fwd(const void* value, int dtype, const void* shapes,
                         int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kinet::kBF16)
-    return (int)kinet::launch<__nv_bfloat16>(value, shapes, starts, loc, aw,
-                                             out, B, S, M, D, Lq, L, P, s);
+    return (int)kinet::launch<__nv_bfloat16>(value, nullptr, shapes, starts,
+                                             loc, aw, out, B, S, M, D, Lq, L,
+                                             P, s);
   if (dtype == kinet::kF32)
-    return (int)kinet::launch<float>(value, shapes, starts, loc, aw, out, B,
-                                     S, M, D, Lq, L, P, s);
+    return (int)kinet::launch<float>(value, nullptr, shapes, starts, loc, aw,
+                                     out, B, S, M, D, Lq, L, P, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The int8 instance (enc_msda_int8): value [B, S, M, D] int8, scales [B, M]
+// f32, each head's scale folded into its corner weights.
+extern "C" int msda_fwd_i8(const void* value, const void* scales,
+                           const void* shapes, const void* starts,
+                           const void* loc, const void* aw, void* out, int B,
+                           int S, int M, int D, int Lq, int L, int P,
+                           void* stream) {
+  return (int)kinet::launch<int8_t>(
+      value, static_cast<const float*>(scales), shapes, starts, loc, aw, out,
+      B, S, M, D, Lq, L, P, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention (MSDA) sampling: two CUDA kernels, each
+"""Multi-scale deformable attention (MSDA) sampling: the CUDA kernels, each
 with its plain PyTorch version beside it.
 
 Semantic spec (shared with ``kinet_tpu/ops/msda.py``): per level, bilinear
@@ -17,6 +17,15 @@ weights and summed over levels and points.
   ``build_raw_quad`` table; over an int8 table from ``quantize_rows`` with
   per-level ``quad_scales`` (``dec_msda_int8``, forward only), its int8
   instance (C entry ``msda_raw_pool_fwd_i8``).
+- The encoder's variants (off the flagship): ``ms_deform_attn_i8``, int8
+  values with one scale per (batch, head) (``enc_msda_int8``, forward
+  only; the int8 instance of ``csrc/msda_fwd.cu``, C entry
+  ``msda_fwd_i8``); ``ms_deform_attn_topk``, per (query, head) only the
+  top-k samples by weight (``enc_msda_topk``; ``csrc/msda_topk_fwd.cu``);
+  ``ms_deform_attn_shared``, one set of sampling locations for all heads
+  (``enc_msda_shared_locs``; ``csrc/msda_shared_fwd.cu``). The last two
+  differentiate through ``msda_bwd``: on the weights outside the top k
+  zeroed, and on the locations broadcast to every head.
 
 What bounds both on an H100: the corner reads from L2 and their latency,
 not HBM. Every sample reads four corner rows at data-dependent cells (a
@@ -304,6 +313,335 @@ def ms_deform_attn(
 
 ms_deform_attn.launches = 0
 ms_deform_attn.bwd_launches = 0
+
+
+def _check_value(value, spatial_shapes, dtypes, what):
+    if value.dim() != 4:
+        raise ValueError(f"{what} must be [B, S, M, D]")
+    if value.dtype not in dtypes:
+        raise TypeError(f"{what} must be one of {dtypes}, got {value.dtype}")
+    if value.shape[1] != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(
+            f"{what} has {value.shape[1]} tokens, spatial_shapes "
+            f"{spatial_shapes}")
+
+
+def _no_grad_asked(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward only: call it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
+# ---------------------------------------------------------------------------
+# encoder MSDA over int8 values (enc_msda_int8, inference only)
+
+
+def ms_deform_attn_i8_plain(
+    q8: torch.Tensor,
+    value_scale: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of ``ms_deform_attn_i8``: the int8 values in float32,
+    each head's scale folded into its attention weights (so into every
+    corner weight). Returns [B, Lq, M * D] float32."""
+    b, _, m, _ = q8.shape
+    scale = value_scale.float().view(b, 1, m, 1, 1)
+    return ms_deform_attn_plain(q8.float(), spatial_shapes, sampling_locations,
+                                attention_weights * scale)
+
+
+def _msda_fwd_i8(q8, scale, spatial_shapes, loc, aw):
+    b, s, m, d = q8.shape
+    _, lq, _, l, p, _ = loc.shape
+    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=q8.device)
+    if out.numel() == 0:
+        return out.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, q8.device)
+    _launch(
+        "msda_fwd_i8", [_P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        q8.device, q8.data_ptr(), scale.data_ptr(), shapes_t.data_ptr(),
+        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
+        b, s, m, d, lq, l, p, lib="msda_fwd",
+    )
+    ms_deform_attn_i8.launches += 1
+    return out
+
+
+def ms_deform_attn_i8(
+    q8: torch.Tensor,
+    value_scale: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """The encoder's MSDA over int8 values [B, S, M, D] with one
+    dequantization scale per (batch, head), value_scale [B, M] (any float
+    type: the caller rounds it to the value's type, as the JAX package
+    does; it is read in float32). Returns [B, Lq, M * D] float32,
+    accumulated in float32. The port's form of
+    ``kinet_tpu/ops/msda.py::ms_deform_attn_quad_unroll`` with
+    ``value_scale``. Forward only, as in the JAX package, which quantizes
+    only in its deterministic forward: with autograd on inputs that require
+    grad it raises.
+
+    CPU tensors take ``ms_deform_attn_i8_plain``; CUDA tensors launch the
+    int8 instance of ``csrc/msda_fwd.cu`` (C entry ``msda_fwd_i8``; count
+    ``launches``)."""
+    _no_grad_asked("ms_deform_attn_i8", sampling_locations, attention_weights)
+    _check_value(q8, spatial_shapes, (torch.int8,), "q8")
+    b, _, m, _ = q8.shape
+    if tuple(value_scale.shape) != (b, m) or not value_scale.is_floating_point():
+        raise ValueError(f"value_scale must be a float [{b}, {m}] tensor")
+    if q8.device.type == "cpu":
+        return ms_deform_attn_i8_plain(q8, value_scale, spatial_shapes,
+                                       sampling_locations, attention_weights)
+    if q8.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_i8 runs on cpu or cuda, not {q8.device}")
+    _, mh, _, _ = _check_samples(sampling_locations, attention_weights, b,
+                                 len(spatial_shapes), q8.device)
+    if mh != m or value_scale.device != q8.device:
+        raise ValueError("sampling_locations / value_scale do not match q8")
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _msda_fwd_i8(q8.contiguous(), value_scale.float().contiguous(),
+                        shapes, sampling_locations.contiguous(),
+                        attention_weights.contiguous())
+
+
+ms_deform_attn_i8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# encoder MSDA with top-k sample pruning (enc_msda_topk)
+
+
+def topk_sample_mask(attention_weights: torch.Tensor, top_k: int) -> torch.Tensor:
+    """[B, Lq, M, L, P] -> bool of the same shape: per (query, head) the
+    ``top_k`` samples of largest weight, ties to the lower (level, point)
+    index, as ``jax.lax.top_k`` breaks them (a stable descending sort)."""
+    b, lq, m, l, p = attention_weights.shape
+    flat = attention_weights.reshape(b, lq, m, l * p)
+    order = torch.sort(flat, dim=-1, descending=True, stable=True).indices
+    keep = torch.zeros_like(flat, dtype=torch.bool)
+    keep.scatter_(-1, order[..., :min(top_k, l * p)], True)
+    return keep.view(b, lq, m, l, p)
+
+
+def ms_deform_attn_topk_plain(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    top_k: int,
+) -> torch.Tensor:
+    """Plain version of ``ms_deform_attn_topk``: the full op on the weights
+    with every sample outside its (query, head)'s top k zeroed (the JAX
+    package's oracle, tests/test_msda.py). Differentiable; the gradient is
+    that of the pruned sum."""
+    keep = topk_sample_mask(attention_weights.detach(), top_k)
+    return ms_deform_attn_plain(
+        value, spatial_shapes, sampling_locations,
+        torch.where(keep, attention_weights, 0.0),
+    )
+
+
+def _msda_topk_fwd(value, spatial_shapes, loc, aw, top_k):
+    b, s, m, d = value.shape
+    _, lq, _, l, p, _ = loc.shape
+    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
+    if out.numel() == 0:
+        return out.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
+    _launch(
+        "msda_topk_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+        value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p, top_k,
+    )
+    ms_deform_attn_topk.launches += 1
+    return out
+
+
+class MSDeformAttnTopkFunction(torch.autograd.Function):
+    """``ms_deform_attn_topk`` on CUDA: forward kernel ``msda_topk_fwd``.
+    Backward: ``msda_bwd`` on the weights with every sample outside the top
+    k zeroed, whose value and location gradients those samples then do not
+    reach, and the weight gradient masked to the top k: the exact gradient
+    of the pruned sum, with no kernel of its own."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, aw, top_k):
+        ctx.spatial_shapes, ctx.top_k = spatial_shapes, top_k
+        ctx.save_for_backward(value, loc, aw)
+        return _msda_topk_fwd(value, spatial_shapes, loc, aw, top_k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        keep = topk_sample_mask(aw, ctx.top_k)
+        dvalue, dloc, daw = _msda_bwd(
+            value, ctx.spatial_shapes, loc,
+            torch.where(keep, aw, 0.0).contiguous(),
+            grad_out.float().contiguous(),
+        )
+        return dvalue, None, dloc, torch.where(keep, daw, 0.0), None
+
+
+def ms_deform_attn_topk(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    top_k: int,
+) -> torch.Tensor:
+    """MSDA that, per (query, head), samples only the ``top_k`` of its L * P
+    samples of largest weight (ties to the lower (level, point) index), the
+    DEFA-style pruning of ``kinet_tpu/ops/msda.py::ms_deform_attn_topk_quad``.
+    Returns [B, Lq, M * D] float32; differentiable in value,
+    sampling_locations and attention_weights.
+
+    CPU tensors take ``ms_deform_attn_topk_plain``; CUDA tensors go through
+    ``MSDeformAttnTopkFunction`` (kernel ``msda_topk_fwd``, count
+    ``launches``; backward ``msda_bwd``, counted in
+    ``ms_deform_attn.bwd_launches``)."""
+    _check_value(value, spatial_shapes, tuple(_DTYPE_CODE) + (torch.float64,),
+                 "value")
+    if top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if value.device.type == "cpu":
+        return ms_deform_attn_topk_plain(value, spatial_shapes,
+                                         sampling_locations,
+                                         attention_weights, top_k)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_topk runs on cpu or cuda, not {value.device}")
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
+    b, _, m, _ = value.shape
+    _, mh, l, p = _check_samples(sampling_locations, attention_weights, b,
+                                 len(spatial_shapes), value.device)
+    if mh != m:
+        raise ValueError(f"sampling_locations have {mh} heads, value {m}")
+    if l * p > 64:
+        raise ValueError(f"msda_topk_fwd takes at most 64 samples a head, "
+                         f"got {l} x {p}")
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnTopkFunction.apply(
+        value.contiguous(), shapes, sampling_locations.contiguous(),
+        attention_weights.contiguous(), min(int(top_k), l * p),
+    )
+
+
+ms_deform_attn_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# encoder MSDA with head-shared sampling locations (enc_msda_shared_locs)
+
+
+def ms_deform_attn_shared_plain(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of ``ms_deform_attn_shared``: the per-head op on the
+    locations [B, Lq, L, P, 2] broadcast over the heads (the JAX package's
+    oracle, tests/test_msda.py). Differentiable."""
+    m = value.shape[2]
+    b, lq, l, p, _ = sampling_locations.shape
+    return ms_deform_attn_plain(
+        value, spatial_shapes,
+        sampling_locations[:, :, None].expand(b, lq, m, l, p, 2),
+        attention_weights,
+    )
+
+
+def _msda_shared_fwd(value, spatial_shapes, loc, aw):
+    b, s, m, d = value.shape
+    _, lq, l, p, _ = loc.shape
+    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
+    if out.numel() == 0:
+        return out.zero_()
+    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
+    _launch(
+        "msda_shared_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
+        shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p,
+    )
+    ms_deform_attn_shared.launches += 1
+    return out
+
+
+class MSDeformAttnSharedFunction(torch.autograd.Function):
+    """``ms_deform_attn_shared`` on CUDA: forward kernel ``msda_shared_fwd``.
+    Backward: ``msda_bwd`` on the locations broadcast to every head, whose
+    location gradient is then summed over the heads (the VJP of the
+    broadcast), with no kernel of its own."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, aw):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, aw)
+        return _msda_shared_fwd(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        b, lq, l, p, _ = loc.shape
+        m = value.shape[2]
+        loc_m = loc[:, :, None].expand(b, lq, m, l, p, 2).contiguous()
+        dvalue, dloc, daw = _msda_bwd(value, ctx.spatial_shapes, loc_m, aw,
+                                      grad_out.float().contiguous())
+        return dvalue, None, dloc.sum(2), daw
+
+
+def ms_deform_attn_shared(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """MSDA whose heads all sample the same locations [B, Lq, L, P, 2], each
+    with its own weights [B, Lq, M, L, P] (the port's form of
+    ``kinet_tpu/ops/msda.py::ms_deform_attn_patch_shared``). Returns
+    [B, Lq, M * D] float32; differentiable in value, sampling_locations and
+    attention_weights.
+
+    CPU tensors take ``ms_deform_attn_shared_plain``; CUDA tensors go
+    through ``MSDeformAttnSharedFunction`` (kernel ``msda_shared_fwd``,
+    count ``launches``; backward ``msda_bwd``, counted in
+    ``ms_deform_attn.bwd_launches``)."""
+    _check_value(value, spatial_shapes, tuple(_DTYPE_CODE) + (torch.float64,),
+                 "value")
+    if value.device.type == "cpu":
+        return ms_deform_attn_shared_plain(value, spatial_shapes,
+                                           sampling_locations,
+                                           attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_shared runs on cpu or cuda, not {value.device}")
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
+    b, _, m, _ = value.shape
+    loc = sampling_locations
+    if loc.dim() != 5 or loc.shape[0] != b or loc.shape[2] != len(spatial_shapes):
+        raise ValueError(f"sampling_locations {tuple(loc.shape)} must be "
+                         f"[{b}, Lq, {len(spatial_shapes)}, P, 2]")
+    _, lq, l, p, _ = loc.shape
+    _check_samples(loc[:, :, None].expand(b, lq, m, l, p, 2),
+                   attention_weights, b, l, value.device)
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnSharedFunction.apply(
+        value.contiguous(), shapes, loc.contiguous(),
+        attention_weights.contiguous(),
+    )
+
+
+ms_deform_attn_shared.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,13 @@ whose flax children are named otherwise says so in a ``flax_names`` dict
 encoder's final ``norm`` to ``LayerNorm_0``, and ``LayerBackboneFC`` keeps
 its explicitly named ``linear1..3``.
 
+The two-stage parameters (``transformer/enc_output``, ``enc_output_norm``,
+``pos_trans``, ``pos_trans_norm`` and the extra ``class_embed{n}`` /
+``bbox_embed{n}`` of the encoder's head), ``merge_frame_features``'
+``merge{i}`` convolutions and the one-head ``sampling_offsets`` of
+``enc_msda_shared_locs`` carry their flax names and map by the rules
+above.
+
 The load is strict: it raises if any flax leaf is left unused or any port
 parameter or buffer is left unfilled, or if a shape disagrees.
 """

@@ -4,6 +4,8 @@ frame that reuses the first one's cached encoder memory and position
 embeddings; plus the weight bridge's strictness and build_model's device
 and config rules. CPU only: the port's MSDA wrappers take their plain
 versions for CPU tensors."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,8 +186,8 @@ def test_build_model_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "over, item",
     [
-        # masks are ported (tests/test_torch_segm.py); a masked config
-        # with a part outside the slice raises for that part
+        # (config, the part an earlier slice refused); masks are ported
+        # (tests/test_torch_segm.py), so with them too
         (dict(masks=True, two_stage=True), "two-stage"),
         (dict(masks=True, merge_frame_features=True), "two-stage"),
         (dict(masks=True, enc_msda_int8=True, allow_lossy=True),
@@ -198,9 +200,32 @@ def test_build_model_defaults_to_cuda(monkeypatch):
     ],
 )
 def test_configs_outside_the_slice_raise(over, item):
+    """The configurations that earlier slices of the port refused (``item``
+    names the part) build on the CPU and run two chained frames with finite
+    outputs (tests/test_torch_two_stage.py and
+    tests/test_torch_msda_variants.py hold them against the JAX package).
+    merge_frame_features still refuses the flagship's cache_prev_encoder,
+    as the JAX package does, and runs without it."""
     cfg = load_config("train.yaml", named=FLAGSHIP).replace(**TINY, **over)
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, device="cpu")
+    if cfg.merge_frame_features:
+        with pytest.raises(ValueError, match="merge_frame_features"):
+            build_model(cfg, device="cpu")
+        cfg = cfg.replace(cache_prev_encoder=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the lossy flags' warning
+        model, _ = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        o1 = model(*torch_inputs(*frame_inputs(0)))
+        nxt = (dict(prev_memory=o1["frame_memory"], pos_cache=o1["pos_cache"])
+               if cfg.cache_prev_encoder
+               else dict(prev_features=o1["frame_features"]))
+        o2 = model(*torch_inputs(*frame_inputs(1)), **nxt)
+    keys = ["pred_logits", "pred_boxes", "hs_embed"]
+    keys += ["pred_masks"] if cfg.masks else []
+    for out in (o1, o2):
+        for key in keys:
+            assert torch.isfinite(out[key]).all(), (item, key)
+        assert ("enc_outputs" in out) == bool(cfg.two_stage)
 
 
 def test_lossy_knobs_need_allow_lossy():

@@ -85,15 +85,27 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
 @pytest.mark.parametrize("over, item", [
     ({"mesh.model": 2}, "Scale-out"),
     # KineT, vanilla DETR and masks train (tests/test_torch_kine.py,
-    # tests/test_torch_detr.py, tests/test_torch_mots.py); two-stage and
-    # data-parallel meshes do not yet
+    # tests/test_torch_detr.py, tests/test_torch_mots.py), and two-stage
+    # (tests/test_torch_two_stage.py) with masks or without; data-parallel
+    # meshes do not yet
     ({"masks": True, "two_stage": True}, "two-stage"),
     ({"two_stage": True}, "two-stage"),
     ({"mesh.data": 2, "batch_size": 2}, "Scale-out"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train(_cfg(mot_root, tmp_path / "out", **over), device="cpu")
+    """Scale-out raises naming its ROADMAP item; two-stage, which an
+    earlier slice refused, trains an epoch with its encoder proposals'
+    ``_enc`` losses and writes its checkpoint."""
+    cfg = _cfg(mot_root, tmp_path / "out", **over)
+    if item == "Scale-out":
+        with pytest.raises(NotImplementedError, match=item):
+            train(cfg, device="cpu")
+        return
+    model, optimizer, steps = train(cfg, device="cpu")
+    assert steps >= 1 and optimizer.num_updates == steps
+    assert model.two_stage and (tmp_path / "out" / "checkpoint.pth").exists()
+    ckpt = load_checkpoint(tmp_path / "out" / "checkpoint.pth")
+    assert any("transformer.enc_output" in k for k in ckpt["params"])
 
 
 def test_train_defaults_to_the_card(mot_root, tmp_path, monkeypatch):

@@ -145,11 +145,11 @@ OVERFIT = dict(
     # tests/test_overfit.py::test_detr_overfits_single_image's recipe and
     # criteria
     (dict(enc_layers=1, dec_layers=1), 0.35),
-    # ::test_deformable_variants_overfit_single_image's, without topk; that
-    # test holds the total loss only
+    # ::test_deformable_variants_overfit_single_image's; that test holds
+    # the total loss only
     (dict(enc_layers=2, dec_layers=1, num_feature_levels=4, dec_n_points=2,
           enc_n_points=4, with_box_refine=False, enc_lite=True,
-          enc_lite_klevels=2), None),
+          enc_lite_klevels=2, enc_msda_topk=4, allow_lossy=True), None),
 ], ids=["detr-recipe", "deformable-variants"])
 def test_overfits_single_image(over, bbox_below):
     cfg = load_config("train.yaml", named=["train_deformable"]).replace(
