@@ -1063,13 +1063,16 @@ def read_launches(msda):
 
 
 def record_forward_calls(torch, fn):
-    """Runs fn() with the model's two MSDA entry points wrapped where
-    models/deformable_transformer.py binds them, and unwrapped after;
-    returns (kernel, arguments) of every call, the tensors cloned."""
+    """Runs fn() with the model's MSDA forward entry points (msda_fwd, the
+    raw pool, and the encoder's int8 and head-shared variants) wrapped
+    where models/deformable_transformer.py binds them, and unwrapped
+    after; returns (kernel, arguments) of every call, the tensors
+    cloned."""
     from kinet_tpu_torch.models import deformable_transformer as dt
 
     calls = []
-    orig = (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool)
+    orig = (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool,
+            dt.ms_deform_attn_i8, dt.ms_deform_attn_shared)
 
     def recording(kernel, f):
         def wrapped(*args):
@@ -1085,10 +1088,13 @@ def record_forward_calls(torch, fn):
 
     dt.ms_deform_attn = recording("msda_fwd", orig[0])
     dt.ms_deform_attn_raw_pool = raw_pool
+    dt.ms_deform_attn_i8 = recording("msda_fwd_i8", orig[2])
+    dt.ms_deform_attn_shared = recording("msda_shared_fwd", orig[3])
     try:
         fn()
     finally:
-        dt.ms_deform_attn, dt.ms_deform_attn_raw_pool = orig
+        (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool, dt.ms_deform_attn_i8,
+         dt.ms_deform_attn_shared) = orig
     return calls
 
 
@@ -1106,14 +1112,49 @@ def replay_call(torch, msda, kernel, args):
     snapped samples, bf16 as recorded and f32; the kernel's device ms on
     the recorded inputs, and what its corners read. {name: device ms}:
     for an int8 call also the bf16 kernel's, on the same samples over the
-    bf16 table of the same values (the int8 rows times their level's
-    scale)."""
-    table, shapes, loc, aw = args[:4]
-    lq, l = loc.shape[1], loc.shape[3]
+    bf16 table of the same values (the int8 rows times their scale).
+    msda_fwd_i8's table is int8 either way: its f32 case takes the
+    recorded scale (bf16 values) moved off the bf16 grid in f32."""
+    if kernel == "msda_fwd_i8":
+        q8, scale, shapes, loc, aw = args
+        table = q8
+    else:
+        table, shapes, loc, aw = args[:4]
+    lq, l = loc.shape[1], loc.shape[-3 if kernel == "msda_shared_fwd" else 3]
     esize = 1 if table.dtype == torch.int8 else torch.finfo(table.dtype).bits // 8
     loc_s = snapped(torch, loc)
     err, times = 0.0, {}
-    if kernel == "msda_fwd":
+    if kernel == "msda_fwd_i8":
+        for sc in (scale, scale.float() * (1.0 + 2.0 ** -12)):
+            out = msda.ms_deform_attn_i8(q8, sc, shapes, loc_s, aw)
+            ref = msda.ms_deform_attn_i8_plain(q8, sc, shapes, loc_s, aw)
+            assert_close(torch, f"replay {kernel} scale {sc.dtype}", out, ref,
+                         1e-4, 1e-5)
+            err = max(err, errors(torch, out, ref)[0])
+        run_k = lambda: msda.ms_deform_attn_i8(q8, scale, shapes, loc, aw)  # noqa: E731
+        st = read_stats(torch, "msda", loc, shapes, None, q8.shape[3], 1)
+        bf16 = (q8.float() * scale.float()[:, None, :, None]).to(scale.dtype)
+        times["msda_fwd (bf16 table)"] = device_ms(
+            torch, lambda: msda.ms_deform_attn(bf16, shapes, loc, aw))
+    elif kernel == "msda_shared_fwd":
+        m, d = table.shape[2:]
+        for v in (table, table.float()):
+            out = msda.ms_deform_attn_shared(v, shapes, loc_s, aw)
+            ref = msda.ms_deform_attn_shared_plain(v, shapes, loc_s, aw)
+            assert_close(torch, f"replay {kernel} {v.dtype}", out, ref,
+                         1e-4, 1e-5)
+            err = max(err, errors(torch, out, ref)[0])
+            if v.dtype == torch.bfloat16 and has_row16():
+                out = shared_row16(torch, msda, v, shapes, loc_s, aw)
+                assert_close(torch, f"replay {kernel} 16-byte lanes", out,
+                             ref, 1e-4, 1e-5)
+                times["msda_shared_fwd (16-byte lanes)"] = device_ms(
+                    torch, lambda: shared_row16(torch, msda, table, shapes,
+                                                loc, aw))
+        run_k = lambda: msda.ms_deform_attn_shared(table, shapes, loc, aw)  # noqa: E731
+        st = read_stats(torch, "raw", loc[:, :, None], shapes, None, m * d,
+                        esize)
+    elif kernel == "msda_fwd":
         for v in (table, table.float()):
             out = msda.ms_deform_attn(v, shapes, loc_s, aw)
             ref = msda.ms_deform_attn_plain(v, shapes, loc_s, aw)
@@ -1158,6 +1199,31 @@ def replay_call(torch, msda, kernel, args):
     return times
 
 
+def has_row16():
+    """Whether the built msda_fwd library has msda_shared_fwd's
+    measurement variant (a tree without it times nothing in its place)."""
+    from kinet_tpu_torch.ops import cuda_build
+
+    return hasattr(cuda_build.load("msda_fwd"), "msda_shared_fwd_row16")
+
+
+def shared_row16(torch, msda, value, shapes, loc, aw):
+    """msda_shared_fwd's measurement variant on the same arguments: its
+    16-byte lanes where they apply (C entry msda_shared_fwd_row16). Not a
+    path of the port: timed beside the kernel, counted nowhere."""
+    b, s, m, d = value.shape
+    _, lq, l, p, _ = loc.shape
+    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
+    shapes_t, starts_t = msda._level_tables(shapes, value.device)
+    msda._launch(
+        "msda_shared_fwd_row16", [msda._P, msda._I] + [msda._P] * 5 +
+        [msda._I] * 7 + [msda._P], value.device, value.data_ptr(),
+        msda._DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
+        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
+        b, s, m, d, lq, l, p, lib="msda_fwd")
+    return out
+
+
 def phase_replay(torch, msda, calls):
     """{kernel: mean device ms a launch} over one served frame's recorded
     forward calls."""
@@ -1177,11 +1243,15 @@ def forward_launch_ms(by_name, calls):
     profile of ``calls`` calls (device_profile's by_name)."""
     found = {}
     for k, (t, n) in by_name.items():
-        # the int8 table's instance: msda_raw_pool_fwd_kernel<signed char, ..>
+        # the int8 instances: msda_raw_pool_fwd_kernel<signed char, ..>, and
+        # msda_fwd_kernel / msda_fwd_wide_kernel <signed char, ..>; the
+        # head-shared ones: msda_shared_fwd_*kernel
         kernel = ("msda_raw_pool_fwd_i8" if "pool_fwd_kernel<signed" in k else
-                  "msda_fwd_i8" if "msda_fwd_kernel<signed" in k else
                   "msda_raw_pool_fwd" if "raw_pool_fwd" in k else
-                  "msda_fwd" if "msda_fwd" in k else None)
+                  "msda_shared_fwd" if "msda_shared_fwd" in k else
+                  "msda_topk_fwd" if "msda_topk_fwd" in k else
+                  "msda_fwd_i8" if "msda_fwd" in k and "<signed char" in k
+                  else "msda_fwd" if "msda_fwd" in k else None)
         if kernel:
             t0, n0 = found.get(kernel, (0.0, 0))
             found[kernel] = (t0 + t * calls, n0 + n)
@@ -3019,6 +3089,9 @@ V_VARIANTS = {
     "enc_msda_shared_locs": (dict(enc_msda_shared_locs=True),
                              {"msda_shared_fwd": 6}),
 }
+# the variants whose encoder calls V2 replays, and their kernel
+V_REPLAYED = {"enc_msda_int8": "msda_fwd_i8",
+              "enc_msda_shared_locs": "msda_shared_fwd"}
 # a train step's launches (phase 7's count): previous frame, current frame
 # and the remat recomputation forward, the current frame backward
 V_TRAIN_LAUNCHES = {
@@ -3086,9 +3159,16 @@ def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
         err = errors(torch, out, ref)
         t_b, by = bound_ms(moved, flops)
         timed = time_kernel(torch, run_k, run_p)
+        row16 = ""
+        if kind == "shared" and dtype == torch.bfloat16 and p == 2 and \
+                has_row16():
+            out = shared_row16(torch, msda, *args)
+            assert_close(torch, f"{name} 16-byte lanes", out, ref, 1e-4, 1e-5)
+            row16 = (f"; 16-byte lanes {device_ms(torch, lambda: shared_row16(torch, msda, *args)):.4f}"
+                     " ms device")
     log(f"  {name:<28} {str(dtype):<15} max abs err {err[0]:.3e} | "
         f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
-        f"{flops / 1e6:.1f} Mflop)")
+        f"{flops / 1e6:.1f} Mflop){row16}")
     log(f"      {stats_text(st, timed['ms'])}")
     return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
 
@@ -3167,9 +3247,12 @@ def phase_variant_kernels(torch, msda):
 
 def phase_variants_served(torch, msda):
     """V2: each encoder variant on the served flagship through Tracker.step
-    (V_FRAMES frames, 800x1440, bf16). Returns {kernel: launches over its
-    variant's served frames}."""
-    served = {}
+    (V_FRAMES frames, 800x1440, bf16); then, for the int8 and head-shared
+    variants, a replay of the next frame's 6 encoder calls (kernel vs plain
+    on the snapped samples, device ms and reads on the frame's own
+    samples). Returns ({kernel: launches over its variant's served
+    frames}, {name: mean replay device ms a launch})."""
+    served, replay = {}, {}
     for name, (over, per_frame) in V_VARIANTS.items():
         tracker, model, frames = served_tracker(torch, flagship_cfg().replace(
             **over))
@@ -3192,9 +3275,24 @@ def phase_variants_served(torch, msda):
         for k in per_frame:
             if k != "msda_fwd":
                 served[k] = launches[k]
+        if name in V_REPLAYED:
+            kernel = V_REPLAYED[name]
+            calls = record_forward_calls(
+                torch, lambda: tracker.step(frames[V_FRAMES]))
+            kinds = [k for k, _ in calls]
+            check(kinds.count(kernel) == 6
+                  and kinds.count("msda_raw_pool_fwd") == 6
+                  and len(kinds) == 12,
+                  f"{name}: a frame made the forward MSDA calls {kinds}, "
+                  f"expected 6 + 6")
+            log(f"  replay of one {name} frame's 6 encoder calls (bf16 "
+                f"memory; compared on locations snapped to a 2^-16 grid):")
+            replay.update(phase_replay(
+                torch, msda, [c for c in calls if c[0] == kernel]))
+            del calls
         del tracker, model, frames
         torch.cuda.empty_cache()
-    return served
+    return served, replay
 
 
 def phase_variants_train(torch, msda):
@@ -3601,7 +3699,15 @@ def main(argv=None) -> int:
         log(f"== V2. the variants on the served flagship: Tracker.step bf16 "
             f"{MAIN_HW[0]}x{MAIN_HW[1]}, {V_FRAMES} frames each; a train step "
             f"each of top-k and shared locations")
-        launches.update(phase_variants_served(torch, msda))
+        served, replay = phase_variants_served(torch, msda)
+        launches.update(served)
+        for k in V_REPLAYED.values():
+            summary[k]["replay_ms"] = replay[k]
+        summary["msda_fwd_i8"]["replay_bf16_ms"] = \
+            replay["msda_fwd (bf16 table)"]
+        for k, t in sorted(replay.items()):
+            log(f"  {k}: {t:.5f} device ms a launch on a served frame's "
+                f"own calls")
         phase_variants_train(torch, msda)
         log("== V3. two-stage (train.yaml + train_deformable, two_stage, box "
             "refine): card vs CPU, train(cfg), evaluate()")

@@ -135,24 +135,34 @@ struct VecIO<__nv_bfloat16, 8> {
   }
 };
 
+// Channel k (0-3) of a word of 4 int8 channels, as f32, without I2F (a
+// quarter-rate instruction on the SM): the word with each byte's sign bit
+// flipped (b + 128, `flipped` = word ^ 0x80808080) gives byte k as the low
+// byte of the float 2^23 + b + 128 (one PRMT), and one FADD takes 2^23 + 128
+// off, exactly, for every byte value. msda_raw_pool_fwd_i8 and msda_fwd_i8
+// convert every channel this way.
+__device__ __forceinline__ float i8_at(unsigned int flipped, int k) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
+         8388736.0f;
+}
+
 // int8 values (the encoder's int8 table): V consecutive channels as one
-// 1-, 2- or 4-byte load, sign-extended to f32. Load only: no kernel writes
+// 1-, 2- or 4-byte load, converted by i8_at. Load only: no kernel writes
 // int8.
 template <int V>
 struct VecIO<int8_t, V> {
   static_assert(V == 1 || V == 2 || V == 4, "int8 lanes of 1, 2 or 4");
   __device__ __forceinline__ static void load(const int8_t* p, float* o) {
-    if constexpr (V == 4) {
-      const int u = __ldg(reinterpret_cast<const int*>(p));
+    unsigned int w;
+    if constexpr (V == 4)
+      w = __ldg(reinterpret_cast<const unsigned int*>(p));
+    else if constexpr (V == 2)
+      w = __ldg(reinterpret_cast<const unsigned short*>(p));
+    else
+      w = (unsigned int)(unsigned char)__ldg(p);
+    const unsigned int f = w ^ 0x80808080u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] = (float)((signed char)(u >> (8 * i)));
-    } else if constexpr (V == 2) {
-      const short u = __ldg(reinterpret_cast<const short*>(p));
-      o[0] = (float)((signed char)(u & 0xff));
-      o[1] = (float)((signed char)(u >> 8));
-    } else {
-      o[0] = (float)__ldg(reinterpret_cast<const signed char*>(p));
-    }
+    for (int i = 0; i < V; ++i) o[i] = i8_at(f, i);
   }
 };
 

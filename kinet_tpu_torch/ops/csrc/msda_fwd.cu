@@ -1,4 +1,5 @@
-// Multi-scale deformable attention forward (the encoder's sampling core).
+// Multi-scale deformable attention forward (the encoder's sampling core),
+// with its int8 and head-shared instances.
 //
 // Replaces the TPU kernel kinet_tpu/ops/pallas_msda.py::level_sample_matmul
 // (one level at a time, as a one-hot matmul) and its XLA counterpart
@@ -9,17 +10,27 @@
 //
 // value [B, S, M, D] f32 or bf16; spatial_shapes [L, 2] and level_start [L]
 // int32 on the device; loc [B, Lq, M, L, P, 2] and aw [B, Lq, M, L, P] f32;
-// out [B, Lq, M*D] f32, accumulated in f32.
+// out [B, Lq, M*D] f32, accumulated in f32. Two more C entries share the
+// kernels:
+//   - msda_fwd_i8 (enc_msda_int8; X1 with value_scale): value int8 with one
+//     dequantization scale per (batch, head), scales [B, M] f32, which
+//     multiplies the (q, m)'s attention weights once, so every corner
+//     weight; sums in f32 (the JAX package sums in the scale's type);
+//   - msda_shared_fwd (enc_msda_shared_locs; replaces
+//     kinet_tpu/ops/msda.py::ms_deform_attn_patch_shared): every head
+//     samples the query's locations loc [B, Lq, L, P, 2], each with its own
+//     weights. A sample's corners are then whole M*D rows (576 bytes in bf16
+//     at hidden 288), read by all of a query's heads at once.
 //
-// What bounds it on an H100: the corner reads from L2 and their latency,
+// What bounds them on an H100: the corner reads from L2 and their latency,
 // not HBM. The flagship's value table (22,500 tokens x 288 channels, 13 MB
-// in bf16) stays in the 50 MB L2; every corner of every sample reads a
-// 72-byte head slice (three 32-byte sectors) from it, 2 flops a channel:
-// ~71 MB of sectors a high-lite launch on the main path's samples, ~108 MB
-// a low-lite one. A thread that loops over levels and points known only at
-// run time, with a branch per corner and three scalar loads per sample, has
-// one sample's corners in flight at a time, and 8-byte lanes make a warp
-// ask for a slice in many small pieces.
+// in bf16, 6.5 MB in int8) stays in the 50 MB L2; every corner of every
+// sample reads a head slice (72 bytes in bf16, 36 in int8) from it, 2 flops a
+// channel: ~71 MB of sectors a bf16 high-lite launch on the main path's
+// samples, ~108 MB a low-lite one. A thread that loops over levels and
+// points known only at run time, with a branch per corner and three scalar
+// loads per sample, has one sample's corners in flight at a time, and narrow
+// lanes make a warp ask for a slice in many small pieces.
 //
 // Design:
 //   - for the (L, P) the flagship launches, (2, 2) and (1, 2), L and P are
@@ -27,17 +38,21 @@
 //     loc/aw as vectors, computes every corner branch-free (a corner that
 //     is not read gets cell 0 and weight 0) and has all 4*L*P corner loads
 //     in flight before its first FMA;
-//   - bf16 with D a multiple of 12 (the main path): one thread per 12
-//     channels of a head, 3 at D = 36, each reading its 24 bytes of a slice
-//     as one 16-byte and one 8-byte load (msda_fwd_wide_kernel); otherwise
-//     one thread per V channels (msda_fwd_kernel, 9 x 16 bytes at D = 36 in
-//     f32), and a generic instance for other (L, P);
-//   - the int8 instance (C entry msda_fwd_i8, enc_msda_int8): value int8
-//     [B, S, M, D] with scales [B, M] f32; a head slice is D bytes (36 at
-//     the flagship, not a multiple of 8), so a thread takes 4 channels as
-//     one 4-byte load where D % 4 == 0, sign-extended to f32; the head's
-//     scale multiplies its attention weights once, so every corner weight;
-//     sums in f32 (the JAX package sums in the scale's type);
+//   - wide lanes where D is a multiple of 12 (the main path; msda_fwd_wide /
+//     msda_shared_fwd_wide): one thread per 12 channels of a head, 3 at
+//     D = 36, reading its part of a corner's slice as one 8-channel and one
+//     4-channel load, the 8-channel one first where its start is aligned to
+//     it, else second: the same two loads on every lane, at other offsets,
+//     no branch. In bf16 they are 16 + 8 bytes. In int8 they are 8 + 4
+//     bytes, and a corner's raw words stay in registers until its FMAs,
+//     where i8_at turns each channel into f32 with a PRMT and an FADD (the
+//     4-byte lanes and I2F of the first int8 kernel put 9 threads on a
+//     36-byte slice and a quarter-rate conversion on every channel). The
+//     head-shared instance runs the same threads on the query's locations:
+//     the 24 threads of a query read a corner's whole row side by side;
+//   - otherwise one thread per V channels (msda_fwd_kernel /
+//     msda_shared_fwd_kernel: 16-byte lanes in f32, 1-8 bytes where D or the
+//     alignment allow no wider), and a generic instance for other (L, P);
 //   - a block walks a run of consecutive queries, as many as spread the
 //     launch evenly over the blocks that fit on the card at once: the
 //     encoder's queries are raster-ordered tokens whose samples overlap, so
@@ -56,10 +71,25 @@ namespace kinet {
 // of 48-80) and ran slower.
 constexpr int kMaxThreads = 288;
 
-// The int8 instance: each (batch, head)'s dequantization scale multiplies
+// The int8 instances: each (batch, head)'s dequantization scale multiplies
 // the (q, m)'s attention weights, so every corner weight, once.
 template <typename T>
 constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+
+// A launch's arguments. loc is [B, Lq, M, L, P, 2], or [B, Lq, L, P, 2] for
+// the head-shared instances; scales [B, M] for int8 values, else null.
+template <typename T>
+struct FwdArgs {
+  const T* value;
+  const float* scales;
+  const int* spatial_shapes;
+  const int* level_start;
+  const float* loc;
+  const float* aw;
+  float* out;
+  int B, S, M, D, Lq, L, P;
+  int run;  // consecutive queries a block walks
+};
 
 // Threads of a block: whole queries (per_query threads each) when a
 // multiple of 32 of them fits in kMaxThreads, so that a block's passes over
@@ -95,42 +125,53 @@ static long long resident_blocks(const void* kernel, int threads) {
   return slots;
 }
 
-// (blocks, run): as many blocks as fit on the card at once, each walking an
-// even share of the queries, `run` consecutive ones.
-static void grid_for(const void* kernel, int threads, long long queries,
-                     int& run, unsigned& blocks) {
-  const long long slots = resident_blocks(kernel, threads);
-  run = (int)((queries + slots - 1) / slots);
-  blocks = (unsigned)((queries + run - 1) / run);
+// Launches `kernel` with `threads` threads a block on as many blocks as fit
+// on the card at once, each walking an even share of the queries, a.run
+// consecutive ones.
+template <typename T>
+static cudaError_t launch_runs(void (*kernel)(FwdArgs<T>), int threads,
+                               FwdArgs<T> a, cudaStream_t stream) {
+  const long long queries = (long long)a.B * a.Lq;
+  const long long slots = resident_blocks((const void*)kernel, threads);
+  a.run = (int)((queries + slots - 1) / slots);
+  const unsigned blocks = (unsigned)((queries + a.run - 1) / a.run);
+  kernel<<<blocks, threads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Where a (q, m)'s samples start in loc (in samples of 2 floats): per
+// (q, m), or per query for the head-shared instances.
+template <bool kShared>
+__device__ __forceinline__ long long loc_index(long long bq, long long bqm) {
+  return kShared ? bq : bqm;
 }
 
 // One (b, q, m, channel group) with L and P fixed at compile time: the
 // (q, m)'s samples read as vectors, then all 4*L*P corner loads issued
 // before the first FMA.
-template <typename T, int V, int kL, int kP>
-__device__ __forceinline__ void sample_fixed(
-    const T* __restrict__ value, const int* __restrict__ spatial_shapes,
-    const int* __restrict__ level_start, const float* __restrict__ loc,
-    const float* __restrict__ aw, long long bqm, int b, int m, int g, int S,
-    int M, int D, float scale, float (&acc)[V]) {
+template <typename T, int V, int kL, int kP, bool kShared>
+__device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
+                                             long long bq, long long bqm,
+                                             int b, int c0, float scale,
+                                             float (&acc)[V]) {
   constexpr int kLP = kL * kP;
-  float xy[2 * kLP], a[kLP];
-  load_floats<2 * kLP>(loc + bqm * 2 * kLP, xy);
-  load_floats<kLP>(aw + bqm * kLP, a);
+  float xy[2 * kLP], sw[kLP];
+  load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+  load_floats<kLP>(a.aw + bqm * kLP, sw);
   if constexpr (kInt8<T>) {
 #pragma unroll
-    for (int k = 0; k < kLP; ++k) a[k] *= scale;
+    for (int k = 0; k < kLP; ++k) sw[k] *= scale;
   }
-  const long long row_stride = (long long)M * D;
+  const long long row_stride = (long long)a.M * a.D;
   float v[4 * kLP][V];
   float wt[4 * kLP];
 #pragma unroll
   for (int l = 0; l < kL; ++l) {
-    const int h = __ldg(spatial_shapes + 2 * l);
-    const int w = __ldg(spatial_shapes + 2 * l + 1);
-    const T* base = value +
-                    ((long long)b * S + __ldg(level_start + l)) * row_stride +
-                    (long long)m * D + (long long)g * V;
+    const int h = __ldg(a.spatial_shapes + 2 * l);
+    const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+    const T* base = a.value +
+                    ((long long)b * a.S + __ldg(a.level_start + l)) *
+                        row_stride + c0;
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       const int k = l * kP + p;
@@ -138,7 +179,7 @@ __device__ __forceinline__ void sample_fixed(
       const float y = xy[2 * k + 1] * h - 0.5f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long cell = corner_branch_free(c, h, w, x, y, a[k],
+        const long long cell = corner_branch_free(c, h, w, x, y, sw[k],
                                                   wt[4 * k + c]);
         VecIO<T, V>::load(base + cell * row_stride, v[4 * k + c]);
       }
@@ -152,28 +193,30 @@ __device__ __forceinline__ void sample_fixed(
 
 // The same with L and P known only at run time: one sample's corners in
 // flight at a time.
-template <typename T, int V>
-__device__ __forceinline__ void sample_generic(
-    const T* __restrict__ value, const int* __restrict__ spatial_shapes,
-    const int* __restrict__ level_start, const float* __restrict__ loc,
-    const float* __restrict__ aw, long long bqm, int b, int m, int g, int S,
-    int M, int D, int L, int P, float scale, float (&acc)[V]) {
-  const long long row_stride = (long long)M * D;
+template <typename T, int V, bool kShared>
+__device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
+                                               long long bq, long long bqm,
+                                               int b, int c0, float scale,
+                                               float (&acc)[V]) {
+  const int L = a.L, P = a.P;
+  const long long row_stride = (long long)a.M * a.D;
+  const long long s0 = loc_index<kShared>(bq, bqm) * L * P;
   for (int l = 0; l < L; ++l) {
-    const int h = __ldg(spatial_shapes + 2 * l);
-    const int w = __ldg(spatial_shapes + 2 * l + 1);
-    const T* base = value +
-                    ((long long)b * S + __ldg(level_start + l)) * row_stride +
-                    (long long)m * D + (long long)g * V;
+    const int h = __ldg(a.spatial_shapes + 2 * l);
+    const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+    const T* base = a.value +
+                    ((long long)b * a.S + __ldg(a.level_start + l)) *
+                        row_stride + c0;
     for (int p = 0; p < P; ++p) {
-      const long long k = bqm * L * P + l * P + p;
-      const float x = __ldg(loc + 2 * k) * w - 0.5f;
-      const float y = __ldg(loc + 2 * k + 1) * h - 0.5f;
-      const float a = kInt8<T> ? __ldg(aw + k) * scale : __ldg(aw + k);
+      const long long s = s0 + l * P + p;
+      const float x = __ldg(a.loc + 2 * s) * w - 0.5f;
+      const float y = __ldg(a.loc + 2 * s + 1) * h - 0.5f;
+      const float wk = __ldg(a.aw + bqm * L * P + l * P + p);
+      const float aw = kInt8<T> ? wk * scale : wk;
       float v[4][V], wt[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long cell = corner_branch_free(c, h, w, x, y, a, wt[c]);
+        const long long cell = corner_branch_free(c, h, w, x, y, aw, wt[c]);
         VecIO<T, V>::load(base + cell * row_stride, v[c]);
       }
 #pragma unroll
@@ -184,87 +227,225 @@ __device__ __forceinline__ void sample_generic(
   }
 }
 
-template <typename T, int V, int kL, int kP>
-__global__ void __launch_bounds__(kMaxThreads)
-    msda_fwd_kernel(const T* __restrict__ value,
-                    const int* __restrict__ spatial_shapes,
-                    const int* __restrict__ level_start,
-                    const float* __restrict__ loc,
-                    const float* __restrict__ aw,
-                    const float* __restrict__ scales, float* __restrict__ out,
-                    int B, int S, int M, int D, int Lq, int L, int P,
-                    int run) {
-  const int groups = D / V;
-  const int per_query = M * groups;
-  const long long q0 = (long long)blockIdx.x * run;
-  const long long q_end = min(q0 + run, (long long)B * Lq);
+// V-channel lanes: one thread per (b, q, m, V channels).
+template <typename T, int V, int kL, int kP, bool kShared>
+__device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
+  const int groups = a.D / V;
+  const int per_query = a.M * groups;
+  const long long q0 = (long long)blockIdx.x * a.run;
+  const long long q_end = min(q0 + a.run, (long long)a.B * a.Lq);
   const long long items = (q_end - q0) * per_query;
   for (long long i = threadIdx.x; i < items; i += blockDim.x) {
     const long long bq = q0 + i / per_query;
     const int r = (int)(i % per_query);
     const int m = r / groups;
-    const int g = r - m * groups;
-    const int b = (int)(bq / Lq);
-    const long long bqm = bq * M + m;
+    const int c0 = m * a.D + (r - m * groups) * V;  // first channel in the row
+    const int b = (int)(bq / a.Lq);
+    const long long bqm = bq * a.M + m;
     float scale = 1.0f;
-    if constexpr (kInt8<T>) scale = __ldg(scales + (long long)b * M + m);
+    if constexpr (kInt8<T>) scale = __ldg(a.scales + (long long)b * a.M + m);
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     if constexpr (kL > 0)
-      sample_fixed<T, V, kL, kP>(value, spatial_shapes, level_start, loc, aw,
-                                 bqm, b, m, g, S, M, D, scale, acc);
+      sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
     else
-      sample_generic<T, V>(value, spatial_shapes, level_start, loc, aw, bqm,
-                           b, m, g, S, M, D, L, P, scale, acc);
-    VecIO<float, V>::store(out + bqm * D + (long long)g * V, acc);
+      sample_generic<T, V, kShared>(a, bq, bqm, b, c0, scale, acc);
+    VecIO<float, V>::store(a.out + bq * a.M * a.D + c0, acc);
   }
 }
 
-// bf16 with D a multiple of 12: one thread per 12 channels of a head
-// (three at D = 36). Its 24 bytes of a corner slice start 8-byte aligned
-// and are read as one 16-byte and one 8-byte load, the 16-byte one first
-// where the start is 16-byte aligned (an even e0 / 4), else second: the
-// same two loads on every lane, at other offsets, no branch.
-template <int kL, int kP>
-__global__ void __launch_bounds__(kMaxThreads)
-    msda_fwd_wide_kernel(const __nv_bfloat16* __restrict__ value,
-                         const int* __restrict__ spatial_shapes,
-                         const int* __restrict__ level_start,
-                         const float* __restrict__ loc,
-                         const float* __restrict__ aw,
-                         float* __restrict__ out, int B, int S, int M, int D,
-                         int Lq, int run) {
+// 12 channels of a corner's head slice as one 8-channel load (Big) and one
+// 4-channel load (Small), kept raw until the FMAs that add them, weighted,
+// to 8 and 4 f32 sums.
+template <typename T>
+struct Wide12;
+
+template <>
+struct Wide12<__nv_bfloat16> {
+  using Big = uint4;    // 16 bytes
+  using Small = uint2;  // 8 bytes
+  __device__ __forceinline__ static void fma(float wt, const uint4& u,
+                                             float (&acc)[8]) {
+    const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = bf2_to_f2(w[t]);
+      acc[2 * t] = fmaf(wt, f.x, acc[2 * t]);
+      acc[2 * t + 1] = fmaf(wt, f.y, acc[2 * t + 1]);
+    }
+  }
+  __device__ __forceinline__ static void fma(float wt, const uint2& u,
+                                             float (&acc)[4]) {
+    const float2 f0 = bf2_to_f2(u.x), f1 = bf2_to_f2(u.y);
+    acc[0] = fmaf(wt, f0.x, acc[0]);
+    acc[1] = fmaf(wt, f0.y, acc[1]);
+    acc[2] = fmaf(wt, f1.x, acc[2]);
+    acc[3] = fmaf(wt, f1.y, acc[3]);
+  }
+};
+
+template <>
+struct Wide12<int8_t> {
+  using Big = uint2;           // 8 bytes
+  using Small = unsigned int;  // 4 bytes
+  __device__ __forceinline__ static void word_fma(float wt, unsigned int word,
+                                                  float* acc) {
+    const unsigned int f = word ^ 0x80808080u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = fmaf(wt, i8_at(f, k), acc[k]);
+  }
+  __device__ __forceinline__ static void fma(float wt, const uint2& u,
+                                             float (&acc)[8]) {
+    word_fma(wt, u.x, acc);
+    word_fma(wt, u.y, acc + 4);
+  }
+  __device__ __forceinline__ static void fma(float wt, unsigned int u,
+                                             float (&acc)[4]) {
+    word_fma(wt, u, acc);
+  }
+};
+
+// 12-channel lanes (D % 12 == 0), L and P fixed: see the top. A lane's
+// first channel e0 is a multiple of 4, so its 12 channels start 8-channel
+// aligned (e0 % 8 == 0: Big at e0, Small at e0 + 8) or 4 past it (Small at
+// e0, Big at e0 + 4).
+template <typename T, int kL, int kP, bool kShared>
+__device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
+  using W = Wide12<T>;
   constexpr int kLP = kL * kP;
-  const int groups = D / 12;
-  const int per_query = M * groups;
-  const long long q0 = (long long)blockIdx.x * run;
-  const long long q_end = min(q0 + run, (long long)B * Lq);
+  const int groups = a.D / 12;
+  const int per_query = a.M * groups;
+  const long long q0 = (long long)blockIdx.x * a.run;
+  const long long q_end = min(q0 + a.run, (long long)a.B * a.Lq);
   const long long items = (q_end - q0) * per_query;
-  const long long row_stride = (long long)M * D;
+  const long long row_stride = (long long)a.M * a.D;
   for (long long i = threadIdx.x; i < items; i += blockDim.x) {
     const long long bq = q0 + i / per_query;
     const int r = (int)(i % per_query);
     const int m = r / groups;
-    const int e0 = m * D + 12 * (r - m * groups);  // first channel in the row
+    const int e0 = m * a.D + 12 * (r - m * groups);  // first channel in the row
     const bool odd = (e0 >> 2) & 1;
-    const int off16 = odd ? 4 : 0;
-    const int off8 = odd ? 0 : 8;
-    const int b = (int)(bq / Lq);
-    const long long bqm = bq * M + m;
-    float xy[2 * kLP], a[kLP];
-    load_floats<2 * kLP>(loc + bqm * 2 * kLP, xy);
-    load_floats<kLP>(aw + bqm * kLP, a);
-    uint4 r16[4 * kLP];
-    uint2 r8[4 * kLP];
+    const int off_big = odd ? 4 : 0;
+    const int off_small = odd ? 0 : 8;
+    const int b = (int)(bq / a.Lq);
+    const long long bqm = bq * a.M + m;
+    float xy[2 * kLP], sw[kLP];
+    load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+    load_floats<kLP>(a.aw + bqm * kLP, sw);
+    if constexpr (kInt8<T>) {
+      const float scale = __ldg(a.scales + (long long)b * a.M + m);
+#pragma unroll
+      for (int k = 0; k < kLP; ++k) sw[k] *= scale;
+    }
+    typename W::Big rb[4 * kLP];
+    typename W::Small rs[4 * kLP];
     float wt[4 * kLP];
 #pragma unroll
     for (int l = 0; l < kL; ++l) {
-      const int h = __ldg(spatial_shapes + 2 * l);
-      const int w = __ldg(spatial_shapes + 2 * l + 1);
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const T* base = a.value +
+                      ((long long)b * a.S + __ldg(a.level_start + l)) *
+                          row_stride + e0;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = l * kP + p;
+        const float x = xy[2 * k] * w - 0.5f;
+        const float y = xy[2 * k + 1] * h - 0.5f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const T* q = base + corner_branch_free(c, h, w, x, y, sw[k],
+                                                 wt[4 * k + c]) *
+                                  row_stride;
+          rb[4 * k + c] =
+              __ldg(reinterpret_cast<const typename W::Big*>(q + off_big));
+          rs[4 * k + c] =
+              __ldg(reinterpret_cast<const typename W::Small*>(q + off_small));
+        }
+      }
+    }
+    float ab[8], as[4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) ab[t] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) as[t] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4 * kLP; ++k) {
+      W::fma(wt[k], rb[k], ab);
+      W::fma(wt[k], rs[k], as);
+    }
+    float o[12];
+#pragma unroll
+    for (int t = 0; t < 12; ++t)
+      o[t] = odd ? (t < 4 ? as[t] : ab[t - 4]) : (t < 8 ? ab[t] : as[t - 8]);
+    float* dst = a.out + bq * row_stride + e0;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
+  }
+}
+
+// The kernels: one name per C entry (in profiles, msda_fwd_* over int8 are
+// msda_fwd_i8's), kL = 0 for the generic (L, P) instances.
+template <typename T, int V, int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_fwd_kernel(FwdArgs<T> a) {
+  fwd_lanes<T, V, kL, kP, false>(a);
+}
+
+template <typename T, int V, int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_shared_fwd_kernel(FwdArgs<T> a) {
+  fwd_lanes<T, V, kL, kP, true>(a);
+}
+
+template <typename T, int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_fwd_wide_kernel(FwdArgs<T> a) {
+  fwd_wide<T, kL, kP, false>(a);
+}
+
+template <int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_shared_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
+  fwd_wide<__nv_bfloat16, kL, kP, true>(a);
+}
+
+// Measurement variant of the head-shared instance (bf16, D >= 8, fixed
+// (L, P)): 16-byte lanes, 8 channels each, M*D/8 a query side by side over
+// a corner's row (36 at the flagship). A lane may straddle two heads
+// (D = 36 is not a multiple of 8): it reads both heads' weights and gives
+// channels [0, split) the first's, the others the second's.
+template <int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_shared_fwd_row16_kernel(FwdArgs<__nv_bfloat16> a) {
+  constexpr int kLP = kL * kP;
+  const int per_query = a.M * a.D / 8;
+  const long long q0 = (long long)blockIdx.x * a.run;
+  const long long q_end = min(q0 + a.run, (long long)a.B * a.Lq);
+  const long long items = (q_end - q0) * per_query;
+  const long long row_stride = (long long)a.M * a.D;
+  for (long long i = threadIdx.x; i < items; i += blockDim.x) {
+    const long long bq = q0 + i / per_query;
+    const int c0 = 8 * (int)(i % per_query);
+    const int m0 = c0 / a.D;
+    const int m1 = (c0 + 7) / a.D;
+    const int split = min(8, (m0 + 1) * a.D - c0);
+    const int b = (int)(bq / a.Lq);
+    float xy[2 * kLP], a0[kLP], a1[kLP];
+    load_floats<2 * kLP>(a.loc + bq * 2 * kLP, xy);
+    load_floats<kLP>(a.aw + (bq * a.M + m0) * kLP, a0);
+    load_floats<kLP>(a.aw + (bq * a.M + m1) * kLP, a1);
+    uint4 r[4 * kLP];
+    float bil[4 * kLP];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int h = __ldg(a.spatial_shapes + 2 * l);
+      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
       const __nv_bfloat16* base =
-          value + ((long long)b * S + __ldg(level_start + l)) * row_stride +
-          e0;
+          a.value + ((long long)b * a.S + __ldg(a.level_start + l)) *
+                        row_stride + c0;
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int k = l * kP + p;
@@ -273,131 +454,141 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const __nv_bfloat16* q =
-              base + corner_branch_free(c, h, w, x, y, a[k], wt[4 * k + c]) *
+              base + corner_branch_free(c, h, w, x, y, 1.0f, bil[4 * k + c]) *
                          row_stride;
-          r16[4 * k + c] = __ldg(reinterpret_cast<const uint4*>(q + off16));
-          r8[4 * k + c] = __ldg(reinterpret_cast<const uint2*>(q + off8));
+          r[4 * k + c] = __ldg(reinterpret_cast<const uint4*>(q));
         }
       }
     }
-    float a16[8], a8[4];
+    float acc[8];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) a16[t] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) a8[t] = 0.0f;
+    for (int t = 0; t < 8; ++t) acc[t] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4 * kLP; ++k) {
-      const unsigned int u[6] = {r16[k].x, r16[k].y, r16[k].z, r16[k].w,
-                                 r8[k].x, r8[k].y};
+      const float w0 = bil[k] * a0[k / 4];
+      const float w1 = bil[k] * a1[k / 4];
+      const unsigned int u[4] = {r[k].x, r[k].y, r[k].z, r[k].w};
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const float2 f = bf2_to_f2(u[t]);
-        a16[2 * t] = fmaf(wt[k], f.x, a16[2 * t]);
-        a16[2 * t + 1] = fmaf(wt[k], f.y, a16[2 * t + 1]);
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float2 f = bf2_to_f2(u[4 + t]);
-        a8[2 * t] = fmaf(wt[k], f.x, a8[2 * t]);
-        a8[2 * t + 1] = fmaf(wt[k], f.y, a8[2 * t + 1]);
+        acc[2 * t] = fmaf(2 * t < split ? w0 : w1, f.x, acc[2 * t]);
+        acc[2 * t + 1] = fmaf(2 * t + 1 < split ? w0 : w1, f.y, acc[2 * t + 1]);
       }
     }
-    float o[12];
-#pragma unroll
-    for (int t = 0; t < 12; ++t)
-      o[t] = odd ? (t < 4 ? a8[t] : a16[t - 4]) : (t < 8 ? a16[t] : a8[t - 8]);
-    float* dst = out + bq * row_stride + e0;
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-      VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
+    float* dst = a.out + bq * row_stride + c0;
+    VecIO<float, 4>::store(dst, acc);
+    VecIO<float, 4>::store(dst + 4, acc + 4);
   }
 }
 
-template <typename T, int V>
-static cudaError_t launch_v(const T* value, const float* scales,
-                            const int* sh, const int* st, const float* lc,
-                            const float* a, float* o, int B, int S, int M,
-                            int D, int Lq, int L, int P, bool fixed,
-                            cudaStream_t stream) {
-  const int threads = block_threads(M * (D / V));
-  int run;
-  unsigned blocks;
-  auto launch_k = [&](auto kernel) {
-    grid_for((const void*)kernel, threads, (long long)B * Lq, run, blocks);
-    kernel<<<blocks, threads, 0, stream>>>(value, sh, st, lc, a, scales, o,
-                                           B, S, M, D, Lq, L, P, run);
-  };
-  if (fixed && L == 2)
-    launch_k(msda_fwd_kernel<T, V, 2, 2>);
-  else if (fixed)
-    launch_k(msda_fwd_kernel<T, V, 1, 2>);
+// The V-channel kernel of one entry and (L, P) instance.
+template <typename T, int V, int kL, int kP, bool kShared>
+static auto lanes_kernel() {
+  if constexpr (kShared)
+    return msda_shared_fwd_kernel<T, V, kL, kP>;
   else
-    launch_k(msda_fwd_kernel<T, V, 0, 0>);
-  return cudaGetLastError();
+    return msda_fwd_kernel<T, V, kL, kP>;
+}
+
+template <typename T, int V, bool kShared>
+static cudaError_t launch_lanes(const FwdArgs<T>& a, bool fixed,
+                                cudaStream_t stream) {
+  const int threads = block_threads(a.M * (a.D / V));
+  if (fixed && a.L == 2)
+    return launch_runs(lanes_kernel<T, V, 2, 2, kShared>(), threads, a,
+                       stream);
+  if (fixed)
+    return launch_runs(lanes_kernel<T, V, 1, 2, kShared>(), threads, a,
+                       stream);
+  return launch_runs(lanes_kernel<T, V, 0, 0, kShared>(), threads, a, stream);
+}
+
+// Picks the instance: wide lanes where D % 12 == 0, (L, P) is fixed and
+// every wide load is aligned (bf16 and int8), else the widest V-channel
+// lanes that D and the pointers allow. shared_design 1 takes the
+// measurement variant's 16-byte lanes where they apply (bf16, head-shared).
+template <typename T, bool kShared>
+static cudaError_t launch(FwdArgs<T> a, int shared_design,
+                          cudaStream_t stream) {
+  // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
+  const bool fixed = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0 &&
+                     a.P == 2 && (a.L == 2 || a.L == 1);
+  const long long row = (long long)a.M * a.D;
+  const bool out_ok = (uintptr_t)a.out % 16 == 0 && row % 8 == 0;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (kShared && shared_design == 1 && fixed && out_ok && a.D >= 8 &&
+        (uintptr_t)a.value % 16 == 0) {
+      if constexpr (kShared && !kInt8<T>) {
+        const int threads = block_threads(a.M * a.D / 8);
+        return a.L == 2
+                   ? launch_runs(msda_shared_fwd_row16_kernel<2, 2>, threads,
+                                 a, stream)
+                   : launch_runs(msda_shared_fwd_row16_kernel<1, 2>, threads,
+                                 a, stream);
+      }
+    }
+    // the 8-channel load's alignment: 16 bytes in bf16, 8 in int8
+    if (fixed && out_ok && a.D % 12 == 0 &&
+        (uintptr_t)a.value % (8 * sizeof(T)) == 0) {
+      const int threads = block_threads(a.M * (a.D / 12));
+      if constexpr (kShared && !kInt8<T>)
+        return a.L == 2 ? launch_runs(msda_shared_fwd_wide_kernel<2, 2>,
+                                      threads, a, stream)
+                        : launch_runs(msda_shared_fwd_wide_kernel<1, 2>,
+                                      threads, a, stream);
+      else
+        return a.L == 2 ? launch_runs(msda_fwd_wide_kernel<T, 2, 2>, threads,
+                                      a, stream)
+                        : launch_runs(msda_fwd_wide_kernel<T, 1, 2>, threads,
+                                      a, stream);
+    }
+  }
+  const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
+  if (v == 4) return launch_lanes<T, 4, kShared>(a, fixed, stream);
+  if (v == 2) return launch_lanes<T, 2, kShared>(a, fixed, stream);
+  return launch_lanes<T, 1, kShared>(a, fixed, stream);
 }
 
 template <typename T>
-static cudaError_t launch(const void* value, const float* scales,
-                          const void* shapes, const void* starts,
-                          const void* loc, const void* aw, void* out, int B,
-                          int S, int M, int D, int Lq, int L, int P,
-                          cudaStream_t stream) {
-  const T* val = static_cast<const T*>(value);
-  const int* sh = static_cast<const int*>(shapes);
-  const int* st = static_cast<const int*>(starts);
-  const float* lc = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(aw);
-  float* o = static_cast<float*>(out);
-  // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
-  const bool fixed = (uintptr_t)loc % 16 == 0 && (uintptr_t)aw % 16 == 0 &&
-                     P == 2 && (L == 2 || L == 1);
-  if constexpr (sizeof(T) == 2) {
-    if (fixed && D % 12 == 0 &&
-        (uintptr_t)value % 16 == 0 && (uintptr_t)out % 16 == 0 &&
-        ((long long)M * D) % 8 == 0) {
-      const int threads = block_threads(M * (D / 12));
-      int run;
-      unsigned blocks;
-      auto launch_k = [&](auto kernel) {
-        grid_for((const void*)kernel, threads, (long long)B * Lq, run,
-                 blocks);
-        kernel<<<blocks, threads, 0, stream>>>(val, sh, st, lc, a, o, B, S,
-                                               M, D, Lq, run);
-      };
-      if (L == 2)
-        launch_k(msda_fwd_wide_kernel<2, 2>);
-      else
-        launch_k(msda_fwd_wide_kernel<1, 2>);
-      return cudaGetLastError();
-    }
-  }
-  const int v = pick_vec(D, value, sizeof(T), out, sizeof(float));
-  if (v == 4)
-    return launch_v<T, 4>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
-                          fixed, stream);
-  if (v == 2)
-    return launch_v<T, 2>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
-                          fixed, stream);
-  return launch_v<T, 1>(val, scales, sh, st, lc, a, o, B, S, M, D, Lq, L, P,
-                        fixed, stream);
+static FwdArgs<T> fwd_args(const void* value, const void* scales,
+                           const void* shapes, const void* starts,
+                           const void* loc, const void* aw, void* out, int B,
+                           int S, int M, int D, int Lq, int L, int P) {
+  return {static_cast<const T*>(value), static_cast<const float*>(scales),
+          static_cast<const int*>(shapes), static_cast<const int*>(starts),
+          static_cast<const float*>(loc), static_cast<const float*>(aw),
+          static_cast<float*>(out), B, S, M, D, Lq, L, P, 0};
+}
+
+template <bool kShared>
+static int launch_float(const void* value, int dtype, const void* shapes,
+                        const void* starts, const void* loc, const void* aw,
+                        void* out, int B, int S, int M, int D, int Lq, int L,
+                        int P, int design, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return (int)launch<__nv_bfloat16, kShared>(
+        fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
+                                B, S, M, D, Lq, L, P),
+        design, s);
+  if (dtype == kF32)
+    return (int)launch<float, kShared>(
+        fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S,
+                        M, D, Lq, L, P),
+        design, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace kinet
 
-// C entry bound with ctypes. Returns the launch's CUDA error (0 if none).
+// C entries bound with ctypes. Each returns the launch's CUDA error (0 if
+// none).
 extern "C" int msda_fwd(const void* value, int dtype, const void* shapes,
                         const void* starts, const void* loc, const void* aw,
                         void* out, int B, int S, int M, int D, int Lq, int L,
                         int P, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kinet::kBF16)
-    return (int)kinet::launch<__nv_bfloat16>(value, nullptr, shapes, starts,
-                                             loc, aw, out, B, S, M, D, Lq, L,
-                                             P, s);
-  if (dtype == kinet::kF32)
-    return (int)kinet::launch<float>(value, nullptr, shapes, starts, loc, aw,
-                                     out, B, S, M, D, Lq, L, P, s);
-  return (int)cudaErrorInvalidValue;
+  return kinet::launch_float<false>(value, dtype, shapes, starts, loc, aw,
+                                    out, B, S, M, D, Lq, L, P, 0, stream);
 }
 
 // The int8 instance (enc_msda_int8): value [B, S, M, D] int8, scales [B, M]
@@ -407,7 +598,29 @@ extern "C" int msda_fwd_i8(const void* value, const void* scales,
                            const void* loc, const void* aw, void* out, int B,
                            int S, int M, int D, int Lq, int L, int P,
                            void* stream) {
-  return (int)kinet::launch<int8_t>(
-      value, static_cast<const float*>(scales), shapes, starts, loc, aw, out,
-      B, S, M, D, Lq, L, P, static_cast<cudaStream_t>(stream));
+  return (int)kinet::launch<int8_t, false>(
+      kinet::fwd_args<int8_t>(value, scales, shapes, starts, loc, aw, out, B,
+                              S, M, D, Lq, L, P),
+      0, static_cast<cudaStream_t>(stream));
+}
+
+// The head-shared instance (enc_msda_shared_locs): value f32 or bf16
+// (dtype), loc [B, Lq, L, P, 2], aw [B, Lq, M, L, P].
+extern "C" int msda_shared_fwd(const void* value, int dtype,
+                               const void* shapes, const void* starts,
+                               const void* loc, const void* aw, void* out,
+                               int B, int S, int M, int D, int Lq, int L,
+                               int P, void* stream) {
+  return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
+                                   B, S, M, D, Lq, L, P, 0, stream);
+}
+
+// The same with the measurement variant's 16-byte lanes where they apply.
+extern "C" int msda_shared_fwd_row16(const void* value, int dtype,
+                                     const void* shapes, const void* starts,
+                                     const void* loc, const void* aw,
+                                     void* out, int B, int S, int M, int D,
+                                     int Lq, int L, int P, void* stream) {
+  return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
+                                   B, S, M, D, Lq, L, P, 1, stream);
 }

@@ -79,13 +79,6 @@ struct RawPoolArgs {
   int B, S, C, Lq, M, L, P;
 };
 
-// Channel k (0-3) of a word of 4 int8 channels, as f32: the byte with its
-// sign bit flipped (b + 128) under the exponent of 2^23, minus 2^23 + 128.
-__device__ __forceinline__ float i8_at(unsigned int flipped, int k) {
-  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
-         8388736.0f;
-}
-
 // V consecutive channels of a table row of TS: Raw holds them between the
 // load and the FMA that adds them, weighted, to V f32 sums. A float table
 // (f32, bf16) converts at the load; an int8 table keeps its raw words

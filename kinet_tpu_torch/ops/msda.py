@@ -570,7 +570,7 @@ def _msda_shared_fwd(value, spatial_shapes, loc, aw):
         "msda_shared_fwd", [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
         value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
-        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p,
+        aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p, lib="msda_fwd",
     )
     ms_deform_attn_shared.launches += 1
     return out

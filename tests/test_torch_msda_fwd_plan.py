@@ -10,6 +10,14 @@ and, for the edge samples, against the JAX package's XLA formulations:
   branch-free entry, its cell clamped to the level's cell 0 and its weight
   0 where ``corner_at`` reads nothing, summed in the kernels' order (level,
   point, corner), whatever the lane width.
+- the wide lanes of ``csrc/msda_fwd.cu`` over int8 values
+  (``msda_fwd_i8``): 12 channels of a head a thread, read as one 8-byte
+  and one 4-byte load in the order the first channel's alignment gives,
+  each channel turned into f32 by ``i8_at`` (PRMT + FADD, modelled bit for
+  bit), the head's scale folded into its weights.
+- the head-shared instances (``msda_shared_fwd``): the lane -> head map of
+  12-channel lanes (each within one head) and of the measured 16-byte
+  lanes (8 channels, straddling two heads where D is not a multiple of 8).
 
 ``chip_smoke.py::read_stats``, which counts the corner rows and distinct
 rows that the replay of the main path reports, is held to the same corner
@@ -288,3 +296,182 @@ def test_corner_rule_at_the_edges():
     assert read(1, 3.5, 0.0, vw=4.0)[0] is False
     assert read(2, 0.0, 1.5, vh=2.0)[0] is False
     assert read(0, 0.0, 1.0, vh=2.0) == (True, w, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# msda_fwd_i8's wide lanes and msda_shared_fwd's lane maps
+
+
+def i8_at_model(flipped, k):
+    """csrc/msda_common.cuh::i8_at on uint32 words whose sign bits are
+    flipped: byte k under the exponent of 2^23 (the PRMT), as f32, minus
+    2^23 + 128 (the FADD), in f32."""
+    bits = np.uint32(0x4B000000) | ((flipped >> np.uint32(8 * k)) & np.uint32(0xFF))
+    return bits.astype(np.uint32).view(np.float32) - np.float32(8388736.0)
+
+
+def test_i8_at_is_exact_for_every_byte():
+    """Every int8 value at every byte of a word, beside random neighbours,
+    gives its float32 bit for bit."""
+    rng = np.random.default_rng(30)
+    vals = np.arange(-128, 128, dtype=np.int32)
+    for k in range(4):
+        words = rng.integers(0, 2 ** 32, size=vals.size, dtype=np.uint64)
+        words &= ~np.uint64(0xFF << (8 * k))
+        words |= (vals.astype(np.uint64) & np.uint64(0xFF)) << np.uint64(8 * k)
+        flipped = words.astype(np.uint32) ^ np.uint32(0x80808080)
+        got = i8_at_model(flipped, k)
+        want = vals.astype(np.int8).astype(np.float32)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _words(byte_rows, offset, n):
+    """n little-endian uint32 words of int8 rows (int64 bytes 0-255) from
+    byte ``offset`` on."""
+    w = []
+    for i in range(n):
+        b = byte_rows[..., offset + 4 * i:offset + 4 * i + 4]
+        w.append(b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24)
+    return w
+
+
+def wide12_lanes(m, d):
+    """The 12-channel lanes of a row of m heads of d channels (d % 12 == 0):
+    (first channel e0, head, 8-channel load's offset, 4-channel load's
+    offset), the first load at e0 where e0 % 8 == 0, else at e0 + 4."""
+    lanes = []
+    for e0 in range(0, m * d, 12):
+        odd = (e0 >> 2) & 1
+        lanes.append((e0, e0 // d, 4 if odd else 0, 0 if odd else 8))
+    return lanes
+
+
+def msda_fwd_i8_wide_model(q8, scale, shapes, loc, aw):
+    """msda_fwd.cu's wide int8 lanes: out [B, Lq, M * D] f32."""
+    b, s, m, d = q8.shape
+    lq, p = loc.shape[1], loc.shape[4]
+    row = m * d
+    assert d % 12 == 0 and row % 8 == 0
+    starts = msda.level_start_index(shapes)
+    flat = q8.reshape(b, s * row).view(torch.uint8).long().view(b, s, row)
+    bi = torch.arange(b).view(b, 1)
+    sw_all = aw * scale.float().view(b, 1, m, 1, 1)  # the scale, once
+    out = torch.zeros(b, lq, row)
+    for e0, head, off_big, off_small in wide12_lanes(m, d):
+        assert (e0 + off_big) % 8 == 0 and (e0 + off_small) % 4 == 0
+        assert e0 + 12 <= (head + 1) * d  # a lane lies in one head
+        ab, as_ = torch.zeros(b, lq, 8), torch.zeros(b, lq, 4)
+        for lid, (h, w) in enumerate(shapes):
+            x, y = pixels(loc[:, :, head], shapes, lid)
+            for pt in range(p):
+                for corner in range(4):
+                    inside, cell, bil = corner_rule(
+                        corner, h, w, x[..., pt], y[..., pt],
+                        torch.tensor(float(h)), torch.tensor(float(w)))
+                    cell = torch.where(inside, cell, 0)
+                    wt = torch.where(inside, bil * sw_all[:, :, head, lid, pt],
+                                     0.0)
+                    rows = flat[bi, starts[lid] + cell]  # [B, Lq, row] bytes
+                    for acc, off, n in ((ab, off_big, 2), (as_, off_small, 1)):
+                        for j, word in enumerate(_words(rows, e0 + off, n)):
+                            f = word.numpy().astype(np.uint32) ^ np.uint32(0x80808080)
+                            for k in range(4):
+                                v = torch.from_numpy(i8_at_model(f, k))
+                                acc[..., 4 * j + k] += wt * v
+        odd = (e0 >> 2) & 1
+        out[..., e0:e0 + 12] = torch.cat([as_, ab] if odd else [ab, as_], -1)
+    return out
+
+
+@pytest.mark.parametrize("m, d", [(4, 36), (2, 12), (4, 24)])
+@pytest.mark.parametrize("shapes", SHAPES[:2])
+def test_msda_fwd_i8_wide_model_matches_plain_and_jax(shapes, m, d):
+    rng = np.random.default_rng(31)
+    s = sum(h * w for h, w in shapes)
+    b, lq, p = 2, 5, 2
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(b, s, m, d))
+                          .astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(0.001, 0.05, size=(b, m))
+                             .astype(np.float32))
+    _, _, loc, aw = _inputs(32, shapes, b=b, lq=lq, m=m, p=p)
+    out = msda_fwd_i8_wide_model(q8, scale, shapes, loc, aw)
+    ref = msda.ms_deform_attn_i8_plain(q8, scale, shapes, loc, aw)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    ref_j = np.asarray(jax_msda.ms_deform_attn_quad_unroll(
+        jnp.asarray(q8.numpy()), shapes, jnp.asarray(loc.numpy()),
+        jnp.asarray(aw.numpy()), value_scale=jnp.asarray(scale.numpy())))
+    np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)
+
+
+def shared_lane_heads(m, d, width):
+    """The head of every channel of every lane of ``width`` channels over a
+    row of m heads of d channels: [lanes, width]. A 16-byte bf16 lane
+    (width 8) takes channels [0, split) from its first head and the rest
+    from the next, split = min(8, (m0 + 1) * d - c0)."""
+    heads = []
+    for c0 in range(0, m * d, width):
+        m0 = c0 // d
+        split = min(width, (m0 + 1) * d - c0)
+        heads.append([m0 if t < split else (c0 + width - 1) // d
+                      for t in range(width)])
+    return torch.tensor(heads)
+
+
+def msda_shared_lanes_model(value, shapes, loc, aw, width):
+    """msda_shared_fwd's lanes of ``width`` channels over a corner's row
+    (12: the wide instance, 8: the 16-byte measurement variant): each
+    channel weighted by its lane's head map, summed over (level, point,
+    corner). out [B, Lq, M * D] f32."""
+    b, s, m, d = value.shape
+    lq, p = loc.shape[1], loc.shape[3]
+    row = m * d
+    starts = msda.level_start_index(shapes)
+    flat = value.float().reshape(b, s, row)
+    bi = torch.arange(b).view(b, 1)
+    head_of = shared_lane_heads(m, d, width).reshape(-1)  # per channel
+    out = torch.zeros(b, lq, row)
+    for lid, (h, w) in enumerate(shapes):
+        x = loc[:, :, lid, :, 0] * w - 0.5
+        y = loc[:, :, lid, :, 1] * h - 0.5
+        for pt in range(p):
+            for corner in range(4):
+                inside, cell, bil = corner_rule(
+                    corner, h, w, x[..., pt], y[..., pt],
+                    torch.tensor(float(h)), torch.tensor(float(w)))
+                cell = torch.where(inside, cell, 0)
+                bil = torch.where(inside, bil, 0.0)
+                rows = flat[bi, starts[lid] + cell]  # [B, Lq, row]
+                wt = bil[..., None] * aw[:, :, head_of, lid, pt]
+                out = out + wt * rows
+    return out
+
+
+def test_shared_lane_heads():
+    """At the flagship's D = 36: 12-channel lanes never straddle; 16-byte
+    lanes straddle where a head ends inside them: at the borders 36, 108,
+    180 and 252, each split 4 / 4 (72, 144 and 216 are lane borders)."""
+    wide = shared_lane_heads(8, 36, 12)
+    assert wide.shape == (24, 12) and (wide == wide[:, :1]).all()
+    assert wide[:, 0].tolist() == [i // 3 for i in range(24)]
+    row16 = shared_lane_heads(8, 36, 8)
+    assert row16.shape == (36, 8)
+    assert row16[4].tolist() == [0] * 4 + [1] * 4
+    straddle = [i for i in range(36) if row16[i, 0] != row16[i, -1]]
+    assert straddle == [4, 13, 22, 31]
+    assert (row16.reshape(-1) == torch.arange(288) // 36).all()
+
+
+@pytest.mark.parametrize("width", [12, 8])
+@pytest.mark.parametrize("shapes", SHAPES[:2])
+def test_msda_shared_lanes_model_matches_plain_and_jax(shapes, width):
+    m, d, b, lq, p = 8, 36, 2, 5, 2
+    value, _, loc, aw = _inputs(33, shapes, b=b, lq=lq, m=m, p=p, d=d)
+    loc = loc[:, :, 0].contiguous()  # one set of locations a query
+    out = msda_shared_lanes_model(value, shapes, loc, aw, width)
+    ref = msda.ms_deform_attn_shared_plain(value, shapes, loc, aw)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    ref_j = np.asarray(jax_msda.ms_deform_attn_patch_shared(
+        jnp.asarray(value.numpy()), shapes, jnp.asarray(loc.numpy()),
+        jnp.asarray(aw.numpy())))
+    np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)

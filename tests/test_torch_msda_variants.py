@@ -358,3 +358,66 @@ def test_variant_kernel_gradients_match_plain_on_gpu(kind):
     for g, r in zip(*grads):
         torch.testing.assert_close(g, r, rtol=1e-3,
                                    atol=1e-5 * r.abs().max().item() + 1e-5)
+
+
+# every instance the forward launchers of csrc/msda_fwd.cu can pick for
+# msda_fwd, msda_fwd_i8 and msda_shared_fwd: (D, shapes, P, the value's
+# offset in bytes from an aligned buffer, loc / aw offset by one float)
+INSTANCES = {
+    "d36_wide": (36, SHAPES[0], 2, 0, False),  # 12-channel lanes, (2, 2)
+    "d36_wide_1level": (36, ((7, 9),), 2, 0, False),  # (1, 2)
+    "d12": (12, SHAPES[1], 2, 0, False),  # one 12-channel lane a head
+    "d32": (32, SHAPES[0], 2, 0, False),  # D % 12 != 0: 4-channel lanes
+    "d6": (6, SHAPES[0], 2, 0, False),  # 2-channel lanes
+    "d5": (5, SHAPES[0], 2, 0, False),  # 1-channel lanes
+    "sliced_1": (36, SHAPES[0], 2, 1, False),  # a view 1 byte off
+    "sliced_4": (36, SHAPES[0], 2, 4, False),  # a view 4 bytes off
+    "sliced_samples": (36, SHAPES[0], 2, 0, True),  # loc / aw not 16-aligned
+    "lp44": (36, SHAPES[2], 4, 0, False),  # generic (L, P) = (4, 4)
+}
+
+
+def _view_at(t, offset_bytes):
+    """t's values in a contiguous view that starts offset_bytes (a multiple
+    of its element size, or one element) past an aligned allocation."""
+    if offset_bytes == 0:
+        return t
+    n = max(1, offset_bytes // t.element_size())
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    view = buf[n:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(INSTANCES))
+def test_forward_instances_match_plain_on_gpu(case, dtype):
+    """msda_fwd, msda_fwd_i8 (dtype is the scale's, which the model rounds
+    to the value's type) and msda_shared_fwd against their plain versions
+    on locations on the 2^-16 grid, where they differ only in the order of
+    their sums."""
+    dev = _cuda()
+    d, shapes, p, off, sliced_samples = INSTANCES[case]
+    value, loc, aw = _inputs(22, shapes, m=8, d=d, lq=211, p=p)
+    loc = np.round(loc * 65536.0) / 65536.0
+    v, lc, a = (t.to(dev) for t in _t(value, loc, aw))
+    sl = lc[:, :, 0].contiguous()
+    if sliced_samples:
+        lc, sl, a = (_view_at(t, 4) for t in (lc, sl, a))
+    v = _view_at(v.to(dtype), off)
+    torch.testing.assert_close(msda.ms_deform_attn(v, shapes, lc, a),
+                               msda.ms_deform_attn_plain(v, shapes, lc, a),
+                               **TOL)
+    torch.testing.assert_close(msda.ms_deform_attn_shared(v, shapes, sl, a),
+                               msda.ms_deform_attn_shared_plain(v, shapes, sl,
+                                                                a), **TOL)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q8 = _view_at(torch.randint(-127, 128, v.shape, generator=gen, device=dev,
+                                dtype=torch.int8), off)
+    scale = (torch.rand(v.shape[0], v.shape[2], generator=gen, device=dev)
+             * 0.05).to(dtype)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            msda.ms_deform_attn_i8(q8, scale, shapes, lc, a),
+            msda.ms_deform_attn_i8_plain(q8, scale, shapes, lc, a), **TOL)
