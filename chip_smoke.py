@@ -1144,13 +1144,6 @@ def replay_call(torch, msda, kernel, args):
             assert_close(torch, f"replay {kernel} {v.dtype}", out, ref,
                          1e-4, 1e-5)
             err = max(err, errors(torch, out, ref)[0])
-            if v.dtype == torch.bfloat16 and has_row16():
-                out = shared_row16(torch, msda, v, shapes, loc_s, aw)
-                assert_close(torch, f"replay {kernel} 16-byte lanes", out,
-                             ref, 1e-4, 1e-5)
-                times["msda_shared_fwd (16-byte lanes)"] = device_ms(
-                    torch, lambda: shared_row16(torch, msda, table, shapes,
-                                                loc, aw))
         run_k = lambda: msda.ms_deform_attn_shared(table, shapes, loc, aw)  # noqa: E731
         st = read_stats(torch, "raw", loc[:, :, None], shapes, None, m * d,
                         esize)
@@ -1197,31 +1190,6 @@ def replay_call(torch, msda, kernel, args):
     log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
         f"err {err:.3e}; {stats_text(st, ms)}")
     return times
-
-
-def has_row16():
-    """Whether the built msda_fwd library has msda_shared_fwd's
-    measurement variant (a tree without it times nothing in its place)."""
-    from kinet_tpu_torch.ops import cuda_build
-
-    return hasattr(cuda_build.load("msda_fwd"), "msda_shared_fwd_row16")
-
-
-def shared_row16(torch, msda, value, shapes, loc, aw):
-    """msda_shared_fwd's measurement variant on the same arguments: its
-    16-byte lanes where they apply (C entry msda_shared_fwd_row16). Not a
-    path of the port: timed beside the kernel, counted nowhere."""
-    b, s, m, d = value.shape
-    _, lq, l, p, _ = loc.shape
-    out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
-    shapes_t, starts_t = msda._level_tables(shapes, value.device)
-    msda._launch(
-        "msda_shared_fwd_row16", [msda._P, msda._I] + [msda._P] * 5 +
-        [msda._I] * 7 + [msda._P], value.device, value.data_ptr(),
-        msda._DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
-        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
-        b, s, m, d, lq, l, p, lib="msda_fwd")
-    return out
 
 
 def phase_replay(torch, msda, calls):
@@ -3159,16 +3127,9 @@ def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
         err = errors(torch, out, ref)
         t_b, by = bound_ms(moved, flops)
         timed = time_kernel(torch, run_k, run_p)
-        row16 = ""
-        if kind == "shared" and dtype == torch.bfloat16 and p == 2 and \
-                has_row16():
-            out = shared_row16(torch, msda, *args)
-            assert_close(torch, f"{name} 16-byte lanes", out, ref, 1e-4, 1e-5)
-            row16 = (f"; 16-byte lanes {device_ms(torch, lambda: shared_row16(torch, msda, *args)):.4f}"
-                     " ms device")
     log(f"  {name:<28} {str(dtype):<15} max abs err {err[0]:.3e} | "
         f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
-        f"{flops / 1e6:.1f} Mflop){row16}")
+        f"{flops / 1e6:.1f} Mflop)")
     log(f"      {stats_text(st, timed['ms'])}")
     return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
 
@@ -3530,6 +3491,63 @@ def phase_merge(torch, msda):
 
 
 # ---------------------------------------------------------------------------
+# phase F (measurement only): the forward kernels' run length and PR 10's
+# wide kernel
+
+
+def phase_fwd_probe(torch, msda):
+    """Device ms of msda_fwd (bf16), PR 10's wide kernel verbatim (C entry
+    msda_fwd_v0), msda_fwd_i8 and msda_shared_fwd (bf16) at V1's high- and
+    low-lite shapes, with each launch's runs spread over the occupancy
+    query's blocks an SM (0) or over 1-4."""
+    import ctypes
+
+    from kinet_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("msda_fwd")
+    lib.msda_fwd_set_blocks_per_sm.argtypes = [ctypes.c_int]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    b, m, d = 1, 8, 36
+    for name, shapes, lq in (
+            ("high-lite", LEVELS[:2], sum(h * w for h, w in LEVELS[1:])),
+            ("low-lite", LEVELS[:1], LEVELS[0][0] * LEVELS[0][1])):
+        s = sum(h * w for h, w in shapes)
+        loc, aw = make_samples(torch, gen, b, lq, m, shapes, 2)
+        value = torch.randn(b, s, m, d, generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        q8 = torch.randint(-127, 128, (b, s, m, d), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        scale = (torch.rand(b, m, generator=gen, device=DEVICE) * 0.05).to(
+            torch.bfloat16)
+        sl = loc[:, :, 0].contiguous()
+        out = torch.empty(b, lq, m * d, device=DEVICE)
+        shapes_t, starts_t = msda._level_tables(shapes, value.device)
+
+        def v0():
+            msda._launch(
+                "msda_fwd_v0", [msda._P] * 6 + [msda._I] * 6 + [msda._P],
+                value.device, value.data_ptr(), shapes_t.data_ptr(),
+                starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
+                out.data_ptr(), b, s, m, d, lq, len(shapes), lib="msda_fwd")
+            return out
+
+        runs = {
+            "msda_fwd": lambda: msda.ms_deform_attn(value, shapes, loc, aw),
+            "msda_fwd PR 10 kernel": v0,
+            "msda_fwd_i8": lambda: msda.ms_deform_attn_i8(q8, scale, shapes,
+                                                          loc, aw),
+            "msda_shared_fwd": lambda: msda.ms_deform_attn_shared(
+                value, shapes, sl, aw),
+        }
+        ref = msda.ms_deform_attn_plain(value, shapes, loc, aw)
+        assert_close(torch, "msda_fwd_v0", v0(), ref, 1e-4, 1e-5)
+        with torch.no_grad():
+            for per_sm in (0, 1, 2, 3, 4):
+                lib.msda_fwd_set_blocks_per_sm(per_sm)
+                times = {k: device_ms(torch, f) for k, f in runs.items()}
+                log(f"  {name} blocks/SM {per_sm or 'occupancy'}: " + ", ".join(
+                    f"{k} {t:.5f}" for k, t in times.items()))
+        lib.msda_fwd_set_blocks_per_sm(0)
 
 
 KERNEL_META = {
@@ -3558,6 +3576,7 @@ KERNEL_META = {
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
           "V")
+PROBES = ("F",)
 
 
 def main(argv=None) -> int:
@@ -3716,6 +3735,9 @@ def main(argv=None) -> int:
             "Tracker.step")
         phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
+    if "F" in phases:
+        log("== F. forward kernels' run length (measurement only)")
+        phase_fwd_probe(torch, msda)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")

@@ -103,12 +103,20 @@ inline int block_threads(int per_query) {
 // Blocks of `kernel` with `threads` threads that fit on the card at once:
 // asked of the runtime once per (kernel, device, block size) and kept, so
 // that a launch adds no device queries to the host's work.
+static int g_blocks_per_sm = 0;  // measurement override, 0: none
+
 static long long resident_blocks(const void* kernel, int threads) {
   struct Entry {
     const void* kernel;
     int dev, threads;
     long long slots;
   };
+  if (g_blocks_per_sm > 0) {
+    int dev = 0, sms = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return (long long)sms * g_blocks_per_sm;
+  }
   static std::mutex mu;
   static std::vector<Entry> known;
   int dev = 0;
@@ -146,18 +154,24 @@ __device__ __forceinline__ long long loc_index(long long bq, long long bqm) {
   return kShared ? bq : bqm;
 }
 
+// The bodies below take the launch's tables as __restrict__ parameters
+// (a struct member cannot carry the qualifier): without it the compiler
+// must order every load after the stores of the query before it, and the
+// wide instance of PR 10's kernel ran 10 % slower through a struct alone.
+
 // One (b, q, m, channel group) with L and P fixed at compile time: the
 // (q, m)'s samples read as vectors, then all 4*L*P corner loads issued
 // before the first FMA.
 template <typename T, int V, int kL, int kP, bool kShared>
-__device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
-                                             long long bq, long long bqm,
-                                             int b, int c0, float scale,
-                                             float (&acc)[V]) {
+__device__ __forceinline__ void sample_fixed(
+    const FwdArgs<T>& a, const T* __restrict__ value,
+    const float* __restrict__ loc, const float* __restrict__ aw,
+    long long bq, long long bqm, int b, int c0, float scale,
+    float (&acc)[V]) {
   constexpr int kLP = kL * kP;
   float xy[2 * kLP], sw[kLP];
-  load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
-  load_floats<kLP>(a.aw + bqm * kLP, sw);
+  load_floats<2 * kLP>(loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+  load_floats<kLP>(aw + bqm * kLP, sw);
   if constexpr (kInt8<T>) {
 #pragma unroll
     for (int k = 0; k < kLP; ++k) sw[k] *= scale;
@@ -169,7 +183,7 @@ __device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
   for (int l = 0; l < kL; ++l) {
     const int h = __ldg(a.spatial_shapes + 2 * l);
     const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-    const T* base = a.value +
+    const T* base = value +
                     ((long long)b * a.S + __ldg(a.level_start + l)) *
                         row_stride + c0;
 #pragma unroll
@@ -194,29 +208,30 @@ __device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
 // The same with L and P known only at run time: one sample's corners in
 // flight at a time.
 template <typename T, int V, bool kShared>
-__device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
-                                               long long bq, long long bqm,
-                                               int b, int c0, float scale,
-                                               float (&acc)[V]) {
+__device__ __forceinline__ void sample_generic(
+    const FwdArgs<T>& a, const T* __restrict__ value,
+    const float* __restrict__ loc, const float* __restrict__ aw,
+    long long bq, long long bqm, int b, int c0, float scale,
+    float (&acc)[V]) {
   const int L = a.L, P = a.P;
   const long long row_stride = (long long)a.M * a.D;
   const long long s0 = loc_index<kShared>(bq, bqm) * L * P;
   for (int l = 0; l < L; ++l) {
     const int h = __ldg(a.spatial_shapes + 2 * l);
     const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-    const T* base = a.value +
+    const T* base = value +
                     ((long long)b * a.S + __ldg(a.level_start + l)) *
                         row_stride + c0;
     for (int p = 0; p < P; ++p) {
       const long long s = s0 + l * P + p;
-      const float x = __ldg(a.loc + 2 * s) * w - 0.5f;
-      const float y = __ldg(a.loc + 2 * s + 1) * h - 0.5f;
-      const float wk = __ldg(a.aw + bqm * L * P + l * P + p);
-      const float aw = kInt8<T> ? wk * scale : wk;
+      const float x = __ldg(loc + 2 * s) * w - 0.5f;
+      const float y = __ldg(loc + 2 * s + 1) * h - 0.5f;
+      const float wk = __ldg(aw + bqm * L * P + l * P + p);
+      const float wq = kInt8<T> ? wk * scale : wk;
       float v[4][V], wt[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long cell = corner_branch_free(c, h, w, x, y, aw, wt[c]);
+        const long long cell = corner_branch_free(c, h, w, x, y, wq, wt[c]);
         VecIO<T, V>::load(base + cell * row_stride, v[c]);
       }
 #pragma unroll
@@ -229,7 +244,11 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
 
 // V-channel lanes: one thread per (b, q, m, V channels).
 template <typename T, int V, int kL, int kP, bool kShared>
-__device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
+__device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a,
+                                          const T* __restrict__ value,
+                                          const float* __restrict__ loc,
+                                          const float* __restrict__ aw,
+                                          float* __restrict__ out) {
   const int groups = a.D / V;
   const int per_query = a.M * groups;
   const long long q0 = (long long)blockIdx.x * a.run;
@@ -248,10 +267,12 @@ __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     if constexpr (kL > 0)
-      sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
+      sample_fixed<T, V, kL, kP, kShared>(a, value, loc, aw, bq, bqm, b, c0,
+                                          scale, acc);
     else
-      sample_generic<T, V, kShared>(a, bq, bqm, b, c0, scale, acc);
-    VecIO<float, V>::store(a.out + bq * a.M * a.D + c0, acc);
+      sample_generic<T, V, kShared>(a, value, loc, aw, bq, bqm, b, c0, scale,
+                                    acc);
+    VecIO<float, V>::store(out + bq * a.M * a.D + c0, acc);
   }
 }
 
@@ -311,7 +332,11 @@ struct Wide12<int8_t> {
 // aligned (e0 % 8 == 0: Big at e0, Small at e0 + 8) or 4 past it (Small at
 // e0, Big at e0 + 4).
 template <typename T, int kL, int kP, bool kShared>
-__device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
+__device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
+                                         const T* __restrict__ value,
+                                         const float* __restrict__ loc,
+                                         const float* __restrict__ aw,
+                                         float* __restrict__ out) {
   using W = Wide12<T>;
   constexpr int kLP = kL * kP;
   const int groups = a.D / 12;
@@ -331,8 +356,8 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
     const int b = (int)(bq / a.Lq);
     const long long bqm = bq * a.M + m;
     float xy[2 * kLP], sw[kLP];
-    load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
-    load_floats<kLP>(a.aw + bqm * kLP, sw);
+    load_floats<2 * kLP>(loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+    load_floats<kLP>(aw + bqm * kLP, sw);
     if constexpr (kInt8<T>) {
       const float scale = __ldg(a.scales + (long long)b * a.M + m);
 #pragma unroll
@@ -345,7 +370,7 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
     for (int l = 0; l < kL; ++l) {
       const int h = __ldg(a.spatial_shapes + 2 * l);
       const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-      const T* base = a.value +
+      const T* base = value +
                       ((long long)b * a.S + __ldg(a.level_start + l)) *
                           row_stride + e0;
 #pragma unroll
@@ -379,7 +404,7 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
 #pragma unroll
     for (int t = 0; t < 12; ++t)
       o[t] = odd ? (t < 4 ? as[t] : ab[t - 4]) : (t < 8 ? ab[t] : as[t - 8]);
-    float* dst = a.out + bq * row_stride + e0;
+    float* dst = out + bq * row_stride + e0;
 #pragma unroll
     for (int t = 0; t < 3; ++t)
       VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
@@ -391,61 +416,68 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
 template <typename T, int V, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, false>(a);
+  fwd_lanes<T, V, kL, kP, false>(a, a.value, a.loc, a.aw, a.out);
 }
 
 template <typename T, int V, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_shared_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, true>(a);
+  fwd_lanes<T, V, kL, kP, true>(a, a.value, a.loc, a.aw, a.out);
 }
 
 template <typename T, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_fwd_wide_kernel(FwdArgs<T> a) {
-  fwd_wide<T, kL, kP, false>(a);
+  fwd_wide<T, kL, kP, false>(a, a.value, a.loc, a.aw, a.out);
 }
 
 template <int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_shared_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
-  fwd_wide<__nv_bfloat16, kL, kP, true>(a);
+  fwd_wide<__nv_bfloat16, kL, kP, true>(a, a.value, a.loc, a.aw, a.out);
 }
 
-// Measurement variant of the head-shared instance (bf16, D >= 8, fixed
-// (L, P)): 16-byte lanes, 8 channels each, M*D/8 a query side by side over
-// a corner's row (36 at the flagship). A lane may straddle two heads
-// (D = 36 is not a multiple of 8): it reads both heads' weights and gives
-// channels [0, split) the first's, the others the second's.
+// Measurement only: msda_fwd's bf16 wide kernel as PR 10 left it (its
+// own scalar __restrict__ parameters), C entry msda_fwd_v0.
 template <int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
-    msda_shared_fwd_row16_kernel(FwdArgs<__nv_bfloat16> a) {
+    msda_fwd_v0_kernel(const __nv_bfloat16* __restrict__ value,
+                         const int* __restrict__ spatial_shapes,
+                         const int* __restrict__ level_start,
+                         const float* __restrict__ loc,
+                         const float* __restrict__ aw,
+                         float* __restrict__ out, int B, int S, int M, int D,
+                         int Lq, int run) {
   constexpr int kLP = kL * kP;
-  const int per_query = a.M * a.D / 8;
-  const long long q0 = (long long)blockIdx.x * a.run;
-  const long long q_end = min(q0 + a.run, (long long)a.B * a.Lq);
+  const int groups = D / 12;
+  const int per_query = M * groups;
+  const long long q0 = (long long)blockIdx.x * run;
+  const long long q_end = min(q0 + run, (long long)B * Lq);
   const long long items = (q_end - q0) * per_query;
-  const long long row_stride = (long long)a.M * a.D;
+  const long long row_stride = (long long)M * D;
   for (long long i = threadIdx.x; i < items; i += blockDim.x) {
     const long long bq = q0 + i / per_query;
-    const int c0 = 8 * (int)(i % per_query);
-    const int m0 = c0 / a.D;
-    const int m1 = (c0 + 7) / a.D;
-    const int split = min(8, (m0 + 1) * a.D - c0);
-    const int b = (int)(bq / a.Lq);
-    float xy[2 * kLP], a0[kLP], a1[kLP];
-    load_floats<2 * kLP>(a.loc + bq * 2 * kLP, xy);
-    load_floats<kLP>(a.aw + (bq * a.M + m0) * kLP, a0);
-    load_floats<kLP>(a.aw + (bq * a.M + m1) * kLP, a1);
-    uint4 r[4 * kLP];
-    float bil[4 * kLP];
+    const int r = (int)(i % per_query);
+    const int m = r / groups;
+    const int e0 = m * D + 12 * (r - m * groups);  // first channel in the row
+    const bool odd = (e0 >> 2) & 1;
+    const int off16 = odd ? 4 : 0;
+    const int off8 = odd ? 0 : 8;
+    const int b = (int)(bq / Lq);
+    const long long bqm = bq * M + m;
+    float xy[2 * kLP], a[kLP];
+    load_floats<2 * kLP>(loc + bqm * 2 * kLP, xy);
+    load_floats<kLP>(aw + bqm * kLP, a);
+    uint4 r16[4 * kLP];
+    uint2 r8[4 * kLP];
+    float wt[4 * kLP];
 #pragma unroll
     for (int l = 0; l < kL; ++l) {
-      const int h = __ldg(a.spatial_shapes + 2 * l);
-      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+      const int h = __ldg(spatial_shapes + 2 * l);
+      const int w = __ldg(spatial_shapes + 2 * l + 1);
       const __nv_bfloat16* base =
-          a.value + ((long long)b * a.S + __ldg(a.level_start + l)) *
-                        row_stride + c0;
+          value + ((long long)b * S + __ldg(level_start + l)) * row_stride +
+          e0;
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int k = l * kP + p;
@@ -454,30 +486,43 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const __nv_bfloat16* q =
-              base + corner_branch_free(c, h, w, x, y, 1.0f, bil[4 * k + c]) *
+              base + corner_branch_free(c, h, w, x, y, a[k], wt[4 * k + c]) *
                          row_stride;
-          r[4 * k + c] = __ldg(reinterpret_cast<const uint4*>(q));
+          r16[4 * k + c] = __ldg(reinterpret_cast<const uint4*>(q + off16));
+          r8[4 * k + c] = __ldg(reinterpret_cast<const uint2*>(q + off8));
         }
       }
     }
-    float acc[8];
+    float a16[8], a8[4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) acc[t] = 0.0f;
+    for (int t = 0; t < 8; ++t) a16[t] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) a8[t] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4 * kLP; ++k) {
-      const float w0 = bil[k] * a0[k / 4];
-      const float w1 = bil[k] * a1[k / 4];
-      const unsigned int u[4] = {r[k].x, r[k].y, r[k].z, r[k].w};
+      const unsigned int u[6] = {r16[k].x, r16[k].y, r16[k].z, r16[k].w,
+                                 r8[k].x, r8[k].y};
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const float2 f = bf2_to_f2(u[t]);
-        acc[2 * t] = fmaf(2 * t < split ? w0 : w1, f.x, acc[2 * t]);
-        acc[2 * t + 1] = fmaf(2 * t + 1 < split ? w0 : w1, f.y, acc[2 * t + 1]);
+        a16[2 * t] = fmaf(wt[k], f.x, a16[2 * t]);
+        a16[2 * t + 1] = fmaf(wt[k], f.y, a16[2 * t + 1]);
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float2 f = bf2_to_f2(u[4 + t]);
+        a8[2 * t] = fmaf(wt[k], f.x, a8[2 * t]);
+        a8[2 * t + 1] = fmaf(wt[k], f.y, a8[2 * t + 1]);
       }
     }
-    float* dst = a.out + bq * row_stride + c0;
-    VecIO<float, 4>::store(dst, acc);
-    VecIO<float, 4>::store(dst + 4, acc + 4);
+    float o[12];
+#pragma unroll
+    for (int t = 0; t < 12; ++t)
+      o[t] = odd ? (t < 4 ? a8[t] : a16[t - 4]) : (t < 8 ? a16[t] : a8[t - 8]);
+    float* dst = out + bq * row_stride + e0;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
   }
 }
 
@@ -505,28 +550,15 @@ static cudaError_t launch_lanes(const FwdArgs<T>& a, bool fixed,
 
 // Picks the instance: wide lanes where D % 12 == 0, (L, P) is fixed and
 // every wide load is aligned (bf16 and int8), else the widest V-channel
-// lanes that D and the pointers allow. shared_design 1 takes the
-// measurement variant's 16-byte lanes where they apply (bf16, head-shared).
+// lanes that D and the pointers allow.
 template <typename T, bool kShared>
-static cudaError_t launch(FwdArgs<T> a, int shared_design,
-                          cudaStream_t stream) {
+static cudaError_t launch(FwdArgs<T> a, cudaStream_t stream) {
   // the fixed instances read a (q, m)'s loc/aw as vectors: 16-byte aligned
   const bool fixed = (uintptr_t)a.loc % 16 == 0 && (uintptr_t)a.aw % 16 == 0 &&
                      a.P == 2 && (a.L == 2 || a.L == 1);
   const long long row = (long long)a.M * a.D;
   const bool out_ok = (uintptr_t)a.out % 16 == 0 && row % 8 == 0;
   if constexpr (!std::is_same<T, float>::value) {
-    if (kShared && shared_design == 1 && fixed && out_ok && a.D >= 8 &&
-        (uintptr_t)a.value % 16 == 0) {
-      if constexpr (kShared && !kInt8<T>) {
-        const int threads = block_threads(a.M * a.D / 8);
-        return a.L == 2
-                   ? launch_runs(msda_shared_fwd_row16_kernel<2, 2>, threads,
-                                 a, stream)
-                   : launch_runs(msda_shared_fwd_row16_kernel<1, 2>, threads,
-                                 a, stream);
-      }
-    }
     // the 8-channel load's alignment: 16 bytes in bf16, 8 in int8
     if (fixed && out_ok && a.D % 12 == 0 &&
         (uintptr_t)a.value % (8 * sizeof(T)) == 0) {
@@ -564,18 +596,18 @@ template <bool kShared>
 static int launch_float(const void* value, int dtype, const void* shapes,
                         const void* starts, const void* loc, const void* aw,
                         void* out, int B, int S, int M, int D, int Lq, int L,
-                        int P, int design, void* stream) {
+                        int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return (int)launch<__nv_bfloat16, kShared>(
         fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
                                 B, S, M, D, Lq, L, P),
-        design, s);
+        s);
   if (dtype == kF32)
     return (int)launch<float, kShared>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S,
                         M, D, Lq, L, P),
-        design, s);
+        s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -588,7 +620,7 @@ extern "C" int msda_fwd(const void* value, int dtype, const void* shapes,
                         void* out, int B, int S, int M, int D, int Lq, int L,
                         int P, void* stream) {
   return kinet::launch_float<false>(value, dtype, shapes, starts, loc, aw,
-                                    out, B, S, M, D, Lq, L, P, 0, stream);
+                                    out, B, S, M, D, Lq, L, P, stream);
 }
 
 // The int8 instance (enc_msda_int8): value [B, S, M, D] int8, scales [B, M]
@@ -601,7 +633,7 @@ extern "C" int msda_fwd_i8(const void* value, const void* scales,
   return (int)kinet::launch<int8_t, false>(
       kinet::fwd_args<int8_t>(value, scales, shapes, starts, loc, aw, out, B,
                               S, M, D, Lq, L, P),
-      0, static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream));
 }
 
 // The head-shared instance (enc_msda_shared_locs): value f32 or bf16
@@ -612,15 +644,31 @@ extern "C" int msda_shared_fwd(const void* value, int dtype,
                                int B, int S, int M, int D, int Lq, int L,
                                int P, void* stream) {
   return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
-                                   B, S, M, D, Lq, L, P, 0, stream);
+                                   B, S, M, D, Lq, L, P, stream);
 }
 
-// The same with the measurement variant's 16-byte lanes where they apply.
-extern "C" int msda_shared_fwd_row16(const void* value, int dtype,
-                                     const void* shapes, const void* starts,
-                                     const void* loc, const void* aw,
-                                     void* out, int B, int S, int M, int D,
-                                     int Lq, int L, int P, void* stream) {
-  return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
-                                   B, S, M, D, Lq, L, P, 1, stream);
+// Measurement only: PR 10's bf16 wide kernel (D % 12 == 0, fixed (L, P),
+// aligned), and the blocks an SM that the launches' runs assume (0: the
+// occupancy query's).
+extern "C" int msda_fwd_v0(const void* value, const void* shapes,
+                           const void* starts, const void* loc, const void* aw,
+                           void* out, int B, int S, int M, int D, int Lq,
+                           int L, void* stream) {
+  const int threads = kinet::block_threads(M * (D / 12));
+  auto k = L == 2 ? kinet::msda_fwd_v0_kernel<2, 2>
+                  : kinet::msda_fwd_v0_kernel<1, 2>;
+  const long long queries = (long long)B * Lq;
+  const long long slots = kinet::resident_blocks((const void*)k, threads);
+  const int run = (int)((queries + slots - 1) / slots);
+  k<<<(unsigned)((queries + run - 1) / run), threads, 0,
+      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(value),
+      static_cast<const int*>(shapes), static_cast<const int*>(starts),
+      static_cast<const float*>(loc), static_cast<const float*>(aw),
+      static_cast<float*>(out), B, S, M, D, Lq, run);
+  return (int)cudaGetLastError();
+}
+
+extern "C" void msda_fwd_set_blocks_per_sm(int n) {
+  kinet::g_blocks_per_sm = n;
 }

@@ -15,9 +15,9 @@ and, for the edge samples, against the JAX package's XLA formulations:
   and one 4-byte load in the order the first channel's alignment gives,
   each channel turned into f32 by ``i8_at`` (PRMT + FADD, modelled bit for
   bit), the head's scale folded into its weights.
-- the head-shared instances (``msda_shared_fwd``): the lane -> head map of
-  12-channel lanes (each within one head) and of the measured 16-byte
-  lanes (8 channels, straddling two heads where D is not a multiple of 8).
+- the head-shared wide instance (``msda_shared_fwd``): a query's
+  12-channel lanes side by side over a corner's whole row, each lane within
+  one head, whose weights it applies.
 
 ``chip_smoke.py::read_stats``, which counts the corner rows and distinct
 rows that the replay of the main path reports, is held to the same corner
@@ -404,32 +404,26 @@ def test_msda_fwd_i8_wide_model_matches_plain_and_jax(shapes, m, d):
     np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)
 
 
-def shared_lane_heads(m, d, width):
-    """The head of every channel of every lane of ``width`` channels over a
-    row of m heads of d channels: [lanes, width]. A 16-byte bf16 lane
-    (width 8) takes channels [0, split) from its first head and the rest
-    from the next, split = min(8, (m0 + 1) * d - c0)."""
-    heads = []
-    for c0 in range(0, m * d, width):
-        m0 = c0 // d
-        split = min(width, (m0 + 1) * d - c0)
-        heads.append([m0 if t < split else (c0 + width - 1) // d
-                      for t in range(width)])
-    return torch.tensor(heads)
+def shared_lane_heads(m, d):
+    """The head of every channel of every 12-channel lane over a row of m
+    heads of d channels (d % 12 == 0): [lanes, 12]."""
+    return torch.tensor([[(c0 + t) // d for t in range(12)]
+                         for c0 in range(0, m * d, 12)])
 
 
-def msda_shared_lanes_model(value, shapes, loc, aw, width):
-    """msda_shared_fwd's lanes of ``width`` channels over a corner's row
-    (12: the wide instance, 8: the 16-byte measurement variant): each
-    channel weighted by its lane's head map, summed over (level, point,
-    corner). out [B, Lq, M * D] f32."""
+def msda_shared_lanes_model(value, shapes, loc, aw):
+    """msda_shared_fwd's wide instance: a query's 12-channel lanes over a
+    corner's row, each channel weighted by its lane's head, summed over
+    (level, point, corner). out [B, Lq, M * D] f32."""
     b, s, m, d = value.shape
     lq, p = loc.shape[1], loc.shape[3]
     row = m * d
     starts = msda.level_start_index(shapes)
     flat = value.float().reshape(b, s, row)
     bi = torch.arange(b).view(b, 1)
-    head_of = shared_lane_heads(m, d, width).reshape(-1)  # per channel
+    heads = shared_lane_heads(m, d)
+    assert (heads == heads[:, :1]).all()  # a lane lies in one head
+    head_of = heads.reshape(-1)  # per channel
     out = torch.zeros(b, lq, row)
     for lid, (h, w) in enumerate(shapes):
         x = loc[:, :, lid, :, 0] * w - 0.5
@@ -448,27 +442,21 @@ def msda_shared_lanes_model(value, shapes, loc, aw, width):
 
 
 def test_shared_lane_heads():
-    """At the flagship's D = 36: 12-channel lanes never straddle; 16-byte
-    lanes straddle where a head ends inside them: at the borders 36, 108,
-    180 and 252, each split 4 / 4 (72, 144 and 216 are lane borders)."""
-    wide = shared_lane_heads(8, 36, 12)
-    assert wide.shape == (24, 12) and (wide == wide[:, :1]).all()
-    assert wide[:, 0].tolist() == [i // 3 for i in range(24)]
-    row16 = shared_lane_heads(8, 36, 8)
-    assert row16.shape == (36, 8)
-    assert row16[4].tolist() == [0] * 4 + [1] * 4
-    straddle = [i for i in range(36) if row16[i, 0] != row16[i, -1]]
-    assert straddle == [4, 13, 22, 31]
-    assert (row16.reshape(-1) == torch.arange(288) // 36).all()
+    """At the flagship's D = 36: 24 lanes a 288-channel row, three a head,
+    none across a head's border."""
+    heads = shared_lane_heads(8, 36)
+    assert heads.shape == (24, 12) and (heads == heads[:, :1]).all()
+    assert heads[:, 0].tolist() == [i // 3 for i in range(24)]
+    assert (heads.reshape(-1) == torch.arange(288) // 36).all()
 
 
-@pytest.mark.parametrize("width", [12, 8])
-@pytest.mark.parametrize("shapes", SHAPES[:2])
-def test_msda_shared_lanes_model_matches_plain_and_jax(shapes, width):
-    m, d, b, lq, p = 8, 36, 2, 5, 2
+@pytest.mark.parametrize("m, d", [(8, 36), (4, 12)])
+@pytest.mark.parametrize("shapes", SHAPES)
+def test_msda_shared_lanes_model_matches_plain_and_jax(shapes, m, d):
+    b, lq, p = 2, 5, 2
     value, _, loc, aw = _inputs(33, shapes, b=b, lq=lq, m=m, p=p, d=d)
     loc = loc[:, :, 0].contiguous()  # one set of locations a query
-    out = msda_shared_lanes_model(value, shapes, loc, aw, width)
+    out = msda_shared_lanes_model(value, shapes, loc, aw)
     ref = msda.ms_deform_attn_shared_plain(value, shapes, loc, aw)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
     ref_j = np.asarray(jax_msda.ms_deform_attn_patch_shared(
