@@ -3491,12 +3491,12 @@ def phase_merge(torch, msda):
 
 
 # ---------------------------------------------------------------------------
-# phase F (measurement only): the forward kernels' run length and PR 10's
+# phase F (measurement only): the forward kernels' run length and the earlier
 # wide kernel
 
 
 def phase_fwd_probe(torch, msda):
-    """Device ms of msda_fwd (bf16), PR 10's wide kernel verbatim (C entry
+    """Device ms of msda_fwd (bf16), the earlier wide kernel verbatim (C entry
     msda_fwd_v0), msda_fwd_i8 and msda_shared_fwd (bf16) at V1's high- and
     low-lite shapes, with each launch's runs spread over the occupancy
     query's blocks an SM (0) or over 1-4."""
@@ -3533,7 +3533,7 @@ def phase_fwd_probe(torch, msda):
 
         runs = {
             "msda_fwd": lambda: msda.ms_deform_attn(value, shapes, loc, aw),
-            "msda_fwd PR 10 kernel": v0,
+            "msda_fwd earlier kernel": v0,
             "msda_fwd_i8": lambda: msda.ms_deform_attn_i8(q8, scale, shapes,
                                                           loc, aw),
             "msda_shared_fwd": lambda: msda.ms_deform_attn_shared(
@@ -3576,7 +3576,6 @@ KERNEL_META = {
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
           "V")
-PROBES = ("F",)
 
 
 def main(argv=None) -> int:

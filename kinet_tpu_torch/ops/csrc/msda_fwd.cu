@@ -100,47 +100,59 @@ inline int block_threads(int per_query) {
   return q > 0 && (q * per_query) % 32 == 0 ? q * per_query : 256;
 }
 
-// Blocks of `kernel` with `threads` threads that fit on the card at once:
-// asked of the runtime once per (kernel, device, block size) and kept, so
-// that a launch adds no device queries to the host's work.
+// The per-head wide instances (msda_fwd_wide_kernel: msda_fwd in bf16 and
+// msda_fwd_i8) spread their runs over at most this many blocks an SM. As
+// many as fit (3 blocks of 288 threads at (L, P) = (2, 2), 4 at (1, 2)) ran
+// 9-14 % slower on an H100 at the flagship's encoder shapes (PERF.md): more
+// warps' scattered head-slice reads share each SM's L1, and at (2, 2) a
+// block's run shrinks to 15 queries, whose second pass over 12 queries of
+// threads is a quarter full. The head-shared instances, whose 24 threads of
+// a query read one row together, ran fastest with as many as fit.
+constexpr int kPerHeadBlocksPerSM = 2;
+
 static int g_blocks_per_sm = 0;  // measurement override, 0: none
 
-static long long resident_blocks(const void* kernel, int threads) {
+// Blocks of `kernel` with `threads` threads that fit on the card at once,
+// at most max_per_sm an SM where that is > 0: the occupancy is asked of
+// the runtime once per (kernel, device, block size) and kept, so that a
+// launch adds no device queries to the host's work.
+static long long resident_blocks(const void* kernel, int threads,
+                                 int max_per_sm = 0) {
   struct Entry {
     const void* kernel;
-    int dev, threads;
-    long long slots;
+    int dev, threads, sms, per_sm;
   };
-  if (g_blocks_per_sm > 0) {
-    int dev = 0, sms = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return (long long)sms * g_blocks_per_sm;
-  }
   static std::mutex mu;
   static std::vector<Entry> known;
   int dev = 0;
   cudaGetDevice(&dev);
   std::lock_guard<std::mutex> hold(mu);
+  const Entry* hit = nullptr;
   for (const Entry& e : known)
-    if (e.kernel == kernel && e.dev == dev && e.threads == threads)
-      return e.slots;
-  int sms = 1, per_sm = 1;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  known.push_back({kernel, dev, threads, slots});
-  return slots;
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads) hit = &e;
+  if (hit == nullptr) {
+    int sms = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    known.push_back({kernel, dev, threads, sms, per_sm > 0 ? per_sm : 1});
+    hit = &known.back();
+  }
+  int per_sm = hit->per_sm;
+  if (max_per_sm > 0 && max_per_sm < per_sm) per_sm = max_per_sm;
+  if (g_blocks_per_sm > 0) per_sm = g_blocks_per_sm;
+  return (long long)hit->sms * per_sm;
 }
 
 // Launches `kernel` with `threads` threads a block on as many blocks as fit
-// on the card at once, each walking an even share of the queries, a.run
-// consecutive ones.
+// on the card at once (at most max_per_sm an SM, where > 0), each walking
+// an even share of the queries, a.run consecutive ones.
 template <typename T>
 static cudaError_t launch_runs(void (*kernel)(FwdArgs<T>), int threads,
-                               FwdArgs<T> a, cudaStream_t stream) {
+                               FwdArgs<T> a, cudaStream_t stream,
+                               int max_per_sm = 0) {
   const long long queries = (long long)a.B * a.Lq;
-  const long long slots = resident_blocks((const void*)kernel, threads);
+  const long long slots =
+      resident_blocks((const void*)kernel, threads, max_per_sm);
   a.run = (int)((queries + slots - 1) / slots);
   const unsigned blocks = (unsigned)((queries + a.run - 1) / a.run);
   kernel<<<blocks, threads, 0, stream>>>(a);
@@ -154,24 +166,18 @@ __device__ __forceinline__ long long loc_index(long long bq, long long bqm) {
   return kShared ? bq : bqm;
 }
 
-// The bodies below take the launch's tables as __restrict__ parameters
-// (a struct member cannot carry the qualifier): without it the compiler
-// must order every load after the stores of the query before it, and the
-// wide instance of PR 10's kernel ran 10 % slower through a struct alone.
-
 // One (b, q, m, channel group) with L and P fixed at compile time: the
 // (q, m)'s samples read as vectors, then all 4*L*P corner loads issued
 // before the first FMA.
 template <typename T, int V, int kL, int kP, bool kShared>
-__device__ __forceinline__ void sample_fixed(
-    const FwdArgs<T>& a, const T* __restrict__ value,
-    const float* __restrict__ loc, const float* __restrict__ aw,
-    long long bq, long long bqm, int b, int c0, float scale,
-    float (&acc)[V]) {
+__device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
+                                             long long bq, long long bqm,
+                                             int b, int c0, float scale,
+                                             float (&acc)[V]) {
   constexpr int kLP = kL * kP;
   float xy[2 * kLP], sw[kLP];
-  load_floats<2 * kLP>(loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
-  load_floats<kLP>(aw + bqm * kLP, sw);
+  load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+  load_floats<kLP>(a.aw + bqm * kLP, sw);
   if constexpr (kInt8<T>) {
 #pragma unroll
     for (int k = 0; k < kLP; ++k) sw[k] *= scale;
@@ -183,7 +189,7 @@ __device__ __forceinline__ void sample_fixed(
   for (int l = 0; l < kL; ++l) {
     const int h = __ldg(a.spatial_shapes + 2 * l);
     const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-    const T* base = value +
+    const T* base = a.value +
                     ((long long)b * a.S + __ldg(a.level_start + l)) *
                         row_stride + c0;
 #pragma unroll
@@ -208,30 +214,29 @@ __device__ __forceinline__ void sample_fixed(
 // The same with L and P known only at run time: one sample's corners in
 // flight at a time.
 template <typename T, int V, bool kShared>
-__device__ __forceinline__ void sample_generic(
-    const FwdArgs<T>& a, const T* __restrict__ value,
-    const float* __restrict__ loc, const float* __restrict__ aw,
-    long long bq, long long bqm, int b, int c0, float scale,
-    float (&acc)[V]) {
+__device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
+                                               long long bq, long long bqm,
+                                               int b, int c0, float scale,
+                                               float (&acc)[V]) {
   const int L = a.L, P = a.P;
   const long long row_stride = (long long)a.M * a.D;
   const long long s0 = loc_index<kShared>(bq, bqm) * L * P;
   for (int l = 0; l < L; ++l) {
     const int h = __ldg(a.spatial_shapes + 2 * l);
     const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-    const T* base = value +
+    const T* base = a.value +
                     ((long long)b * a.S + __ldg(a.level_start + l)) *
                         row_stride + c0;
     for (int p = 0; p < P; ++p) {
       const long long s = s0 + l * P + p;
-      const float x = __ldg(loc + 2 * s) * w - 0.5f;
-      const float y = __ldg(loc + 2 * s + 1) * h - 0.5f;
-      const float wk = __ldg(aw + bqm * L * P + l * P + p);
-      const float wq = kInt8<T> ? wk * scale : wk;
+      const float x = __ldg(a.loc + 2 * s) * w - 0.5f;
+      const float y = __ldg(a.loc + 2 * s + 1) * h - 0.5f;
+      const float wk = __ldg(a.aw + bqm * L * P + l * P + p);
+      const float aw = kInt8<T> ? wk * scale : wk;
       float v[4][V], wt[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long cell = corner_branch_free(c, h, w, x, y, wq, wt[c]);
+        const long long cell = corner_branch_free(c, h, w, x, y, aw, wt[c]);
         VecIO<T, V>::load(base + cell * row_stride, v[c]);
       }
 #pragma unroll
@@ -244,11 +249,7 @@ __device__ __forceinline__ void sample_generic(
 
 // V-channel lanes: one thread per (b, q, m, V channels).
 template <typename T, int V, int kL, int kP, bool kShared>
-__device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a,
-                                          const T* __restrict__ value,
-                                          const float* __restrict__ loc,
-                                          const float* __restrict__ aw,
-                                          float* __restrict__ out) {
+__device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
   const int groups = a.D / V;
   const int per_query = a.M * groups;
   const long long q0 = (long long)blockIdx.x * a.run;
@@ -267,12 +268,10 @@ __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a,
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     if constexpr (kL > 0)
-      sample_fixed<T, V, kL, kP, kShared>(a, value, loc, aw, bq, bqm, b, c0,
-                                          scale, acc);
+      sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
     else
-      sample_generic<T, V, kShared>(a, value, loc, aw, bq, bqm, b, c0, scale,
-                                    acc);
-    VecIO<float, V>::store(out + bq * a.M * a.D + c0, acc);
+      sample_generic<T, V, kShared>(a, bq, bqm, b, c0, scale, acc);
+    VecIO<float, V>::store(a.out + bq * a.M * a.D + c0, acc);
   }
 }
 
@@ -332,11 +331,7 @@ struct Wide12<int8_t> {
 // aligned (e0 % 8 == 0: Big at e0, Small at e0 + 8) or 4 past it (Small at
 // e0, Big at e0 + 4).
 template <typename T, int kL, int kP, bool kShared>
-__device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
-                                         const T* __restrict__ value,
-                                         const float* __restrict__ loc,
-                                         const float* __restrict__ aw,
-                                         float* __restrict__ out) {
+__device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
   using W = Wide12<T>;
   constexpr int kLP = kL * kP;
   const int groups = a.D / 12;
@@ -356,8 +351,8 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
     const int b = (int)(bq / a.Lq);
     const long long bqm = bq * a.M + m;
     float xy[2 * kLP], sw[kLP];
-    load_floats<2 * kLP>(loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
-    load_floats<kLP>(aw + bqm * kLP, sw);
+    load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+    load_floats<kLP>(a.aw + bqm * kLP, sw);
     if constexpr (kInt8<T>) {
       const float scale = __ldg(a.scales + (long long)b * a.M + m);
 #pragma unroll
@@ -370,7 +365,7 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
     for (int l = 0; l < kL; ++l) {
       const int h = __ldg(a.spatial_shapes + 2 * l);
       const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-      const T* base = value +
+      const T* base = a.value +
                       ((long long)b * a.S + __ldg(a.level_start + l)) *
                           row_stride + e0;
 #pragma unroll
@@ -404,7 +399,7 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
 #pragma unroll
     for (int t = 0; t < 12; ++t)
       o[t] = odd ? (t < 4 ? as[t] : ab[t - 4]) : (t < 8 ? ab[t] : as[t - 8]);
-    float* dst = out + bq * row_stride + e0;
+    float* dst = a.out + bq * row_stride + e0;
 #pragma unroll
     for (int t = 0; t < 3; ++t)
       VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
@@ -416,28 +411,28 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a,
 template <typename T, int V, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, false>(a, a.value, a.loc, a.aw, a.out);
+  fwd_lanes<T, V, kL, kP, false>(a);
 }
 
 template <typename T, int V, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_shared_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, true>(a, a.value, a.loc, a.aw, a.out);
+  fwd_lanes<T, V, kL, kP, true>(a);
 }
 
 template <typename T, int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_fwd_wide_kernel(FwdArgs<T> a) {
-  fwd_wide<T, kL, kP, false>(a, a.value, a.loc, a.aw, a.out);
+  fwd_wide<T, kL, kP, false>(a);
 }
 
 template <int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_shared_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
-  fwd_wide<__nv_bfloat16, kL, kP, true>(a, a.value, a.loc, a.aw, a.out);
+  fwd_wide<__nv_bfloat16, kL, kP, true>(a);
 }
 
-// Measurement only: msda_fwd's bf16 wide kernel as PR 10 left it (its
+// Measurement only: msda_fwd's earlier bf16 wide kernel, as it was (its
 // own scalar __restrict__ parameters), C entry msda_fwd_v0.
 template <int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -570,9 +565,9 @@ static cudaError_t launch(FwdArgs<T> a, cudaStream_t stream) {
                                       threads, a, stream);
       else
         return a.L == 2 ? launch_runs(msda_fwd_wide_kernel<T, 2, 2>, threads,
-                                      a, stream)
+                                      a, stream, kPerHeadBlocksPerSM)
                         : launch_runs(msda_fwd_wide_kernel<T, 1, 2>, threads,
-                                      a, stream);
+                                      a, stream, kPerHeadBlocksPerSM);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
@@ -647,7 +642,7 @@ extern "C" int msda_shared_fwd(const void* value, int dtype,
                                    B, S, M, D, Lq, L, P, stream);
 }
 
-// Measurement only: PR 10's bf16 wide kernel (D % 12 == 0, fixed (L, P),
+// Measurement only: the earlier bf16 wide kernel (D % 12 == 0, fixed (L, P),
 // aligned), and the blocks an SM that the launches' runs assume (0: the
 // occupancy query's).
 extern "C" int msda_fwd_v0(const void* value, const void* shapes,
