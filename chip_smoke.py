@@ -8,9 +8,9 @@ toolkit's nvcc; imports nothing of JAX or of the JAX package. Phases, each
 failing the run on any mismatch:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the seven kernel sources of kinet_tpu_torch/ops/csrc
-   (nine kernel entry points: msda_raw_pool_fwd.cu and msda_fwd.cu also
-   hold int8 instances);
+2. build: nvcc builds the six kernel sources of kinet_tpu_torch/ops/csrc
+   (nine kernel entry points: msda_fwd.cu also holds the int8 and the
+   head-shared instances, msda_raw_pool_fwd.cu an int8 one);
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
    updates, decoder raw-pool with a bottom/right pad; a random reference
@@ -124,8 +124,13 @@ V. the encoder's MSDA variants, two-stage and merge_frame_features:
    plain versions' autograd; V2, the served flagship with enc_msda_int8,
    enc_msda_topk 3 and enc_msda_shared_locs in turn, 8 frames of
    Tracker.step each at 800x1440 in bf16 with their launch counts a frame
-   asserted, then one bf16 remat train step at 672x1184 with top-k and
-   with shared locations (msda_bwd launches, finite gradients); V3,
+   asserted, and for the int8 and head-shared variants a replay of the
+   next frame's 6 encoder calls, as phase 5's (kernel vs plain on the
+   snapped samples, device ms and reads on the frame's own samples,
+   ``replay_ms``; the int8 calls also time msda_fwd over the same values
+   in bf16, ``replay_bf16_ms``), then one bf16 remat train step at
+   672x1184 with top-k and with shared locations (msda_bwd launches,
+   finite gradients); V3,
    two-stage (train.yaml + train_deformable, two_stage, box refine: hidden
    256, 300 proposals): card vs CPU in f32 at 256x448 (the card given the
    CPU's proposal choice, whose scores can tie within the two devices'
@@ -196,6 +201,7 @@ TRAIN_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 6, "msda_raw_pool_fwd": 12,
 # backward kernels scattered the table gradient with f32 atomics
 ATOMIC_BWD_MSDA_MS_PER_STEP = 3.253
 DEVICE = "cuda"  # the card (a rehearsal on the CPU sets "cpu")
+PROBE_RUNS = False  # phase F: the replays also time each run length
 
 
 class SmokeFailure(RuntimeError):
@@ -1186,6 +1192,21 @@ def replay_call(torch, msda, kernel, args):
                 torch, lambda: msda.ms_deform_attn_raw_pool(
                     bf16, shapes, loc, aw, ext))
     ms = times[kernel] = device_ms(torch, run_k)
+    if PROBE_RUNS and kernel in ("msda_fwd", "msda_fwd_i8", "msda_shared_fwd"):
+        import ctypes
+
+        from kinet_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("msda_fwd")
+        lib.msda_fwd_set_blocks_per_sm.argtypes = [ctypes.c_int]
+        probe = {}
+        for n in (-1, 2, 3, 4):
+            lib.msda_fwd_set_blocks_per_sm(n)
+            probe[n] = device_ms(torch, run_k)
+        lib.msda_fwd_set_blocks_per_sm(0)
+        log(f"  probe {kernel} Lq {lq} L {l} blocks/SM: " + ", ".join(
+            f"{'occupancy' if n < 0 else n} {t:.5f}" for n, t in probe.items())
+            + f"; default {ms:.5f}")
     other = "".join(f"; {k} {t:.5f} ms" for k, t in times.items() if k != kernel)
     log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
         f"err {err:.3e}; {stats_text(st, ms)}")
@@ -3584,6 +3605,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    global PROBE_RUNS
+    PROBE_RUNS = "F" in phases
     root = Path(__file__).resolve().parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: the kinet_tpu_torch package is not beside this "

@@ -110,7 +110,9 @@ inline int block_threads(int per_query) {
 // a query read one row together, ran fastest with as many as fit.
 constexpr int kPerHeadBlocksPerSM = 2;
 
-static int g_blocks_per_sm = 0;  // measurement override, 0: none
+// measurement override: > 0 forces that many blocks an SM, < 0 takes the
+// occupancy without max_per_sm, 0: none
+static int g_blocks_per_sm = 0;
 
 // Blocks of `kernel` with `threads` threads that fit on the card at once,
 // at most max_per_sm an SM where that is > 0: the occupancy is asked of
@@ -138,8 +140,10 @@ static long long resident_blocks(const void* kernel, int threads,
     hit = &known.back();
   }
   int per_sm = hit->per_sm;
-  if (max_per_sm > 0 && max_per_sm < per_sm) per_sm = max_per_sm;
-  if (g_blocks_per_sm > 0) per_sm = g_blocks_per_sm;
+  if (g_blocks_per_sm > 0)
+    per_sm = g_blocks_per_sm;
+  else if (g_blocks_per_sm == 0 && max_per_sm > 0 && max_per_sm < per_sm)
+    per_sm = max_per_sm;
   return (long long)hit->sms * per_sm;
 }
 

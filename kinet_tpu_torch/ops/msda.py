@@ -23,7 +23,8 @@ weights and summed over levels and points.
   ``msda_fwd_i8``); ``ms_deform_attn_topk``, per (query, head) only the
   top-k samples by weight (``enc_msda_topk``; ``csrc/msda_topk_fwd.cu``);
   ``ms_deform_attn_shared``, one set of sampling locations for all heads
-  (``enc_msda_shared_locs``; ``csrc/msda_shared_fwd.cu``). The last two
+  (``enc_msda_shared_locs``; the head-shared instances of
+  ``csrc/msda_fwd.cu``, C entry ``msda_shared_fwd``). The last two
   differentiate through ``msda_bwd``: on the weights outside the top k
   zeroed, and on the locations broadcast to every head.
 
@@ -39,8 +40,9 @@ time, read a (query, head)'s samples as vectors, take every corner
 branch-free (a corner that is not read loads cell 0 with weight 0) and
 have all of a thread's corner loads in flight before its first sum; both
 use wide loads: ``msda_fwd`` gives a thread 12 channels of a head in bf16
-(one 16-byte and one 8-byte load a corner) and walks runs of consecutive,
-raster-ordered queries, whose shared slices come from L1;
+(one 16-byte and one 8-byte load a corner; 8 + 4 bytes over int8 values,
+converted without I2F) and walks runs of consecutive, raster-ordered
+queries, whose shared slices come from L1;
 ``msda_raw_pool_fwd`` gives a thread 16 bytes of a raw row. Both derive
 their corners from ``corner_at`` (``csrc/msda_common.cuh``), the corner
 rule of the backward kernels. Merging the corners that a query's heads
@@ -613,7 +615,8 @@ def ms_deform_attn_shared(
     attention_weights.
 
     CPU tensors take ``ms_deform_attn_shared_plain``; CUDA tensors go
-    through ``MSDeformAttnSharedFunction`` (kernel ``msda_shared_fwd``,
+    through ``MSDeformAttnSharedFunction`` (the head-shared instances of
+    ``csrc/msda_fwd.cu``, C entry ``msda_shared_fwd``,
     count ``launches``; backward ``msda_bwd``, counted in
     ``ms_deform_attn.bwd_launches``)."""
     _check_value(value, spatial_shapes, tuple(_DTYPE_CODE) + (torch.float64,),
