@@ -54,10 +54,11 @@
 //     msda_shared_fwd_kernel: 16-byte lanes in f32, 1-8 bytes where D or the
 //     alignment allow no wider), and a generic instance for other (L, P);
 //   - a block walks a run of consecutive queries, as many as spread the
-//     launch evenly over the blocks that fit on the card at once: the
-//     encoder's queries are raster-ordered tokens whose samples overlap, so
-//     the slices a run shares come from the SM's L1 (loads through the
-//     read-only path allocate there) rather than L2.
+//     launch evenly over the blocks that fit on the card at once, rounded
+//     up to whole passes of the block: the encoder's queries are
+//     raster-ordered tokens whose samples overlap, so the slices a run
+//     shares come from the SM's L1 (loads through the read-only path
+//     allocate there) rather than L2.
 #include <mutex>
 #include <type_traits>
 #include <vector>
@@ -100,64 +101,55 @@ inline int block_threads(int per_query) {
   return q > 0 && (q * per_query) % 32 == 0 ? q * per_query : 256;
 }
 
-// The per-head wide instances (msda_fwd_wide_kernel: msda_fwd in bf16 and
-// msda_fwd_i8) spread their runs over at most this many blocks an SM. As
-// many as fit (3 blocks of 288 threads at (L, P) = (2, 2), 4 at (1, 2)) ran
-// 9-14 % slower on an H100 at the flagship's encoder shapes (PERF.md): more
-// warps' scattered head-slice reads share each SM's L1, and at (2, 2) a
-// block's run shrinks to 15 queries, whose second pass over 12 queries of
-// threads is a quarter full. The head-shared instances, whose 24 threads of
-// a query read one row together, ran fastest with as many as fit.
-constexpr int kPerHeadBlocksPerSM = 2;
-
-// measurement override: > 0 forces that many blocks an SM, < 0 takes the
-// occupancy without max_per_sm, 0: none
+// measurement override: > 0 takes that many blocks an SM as the slots
 static int g_blocks_per_sm = 0;
 
-// Blocks of `kernel` with `threads` threads that fit on the card at once,
-// at most max_per_sm an SM where that is > 0: the occupancy is asked of
-// the runtime once per (kernel, device, block size) and kept, so that a
-// launch adds no device queries to the host's work.
-static long long resident_blocks(const void* kernel, int threads,
-                                 int max_per_sm = 0) {
+// Blocks of `kernel` with `threads` threads that fit on the card at once:
+// asked of the runtime once per (kernel, device, block size) and kept, so
+// that a launch adds no device queries to the host's work.
+static long long resident_blocks(const void* kernel, int threads) {
   struct Entry {
     const void* kernel;
-    int dev, threads, sms, per_sm;
+    int dev, threads;
+    long long slots;
   };
   static std::mutex mu;
   static std::vector<Entry> known;
   int dev = 0;
   cudaGetDevice(&dev);
-  std::lock_guard<std::mutex> hold(mu);
-  const Entry* hit = nullptr;
-  for (const Entry& e : known)
-    if (e.kernel == kernel && e.dev == dev && e.threads == threads) hit = &e;
-  if (hit == nullptr) {
-    int sms = 1, per_sm = 1;
+  if (g_blocks_per_sm > 0) {
+    int sms = 1;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    known.push_back({kernel, dev, threads, sms, per_sm > 0 ? per_sm : 1});
-    hit = &known.back();
+    return (long long)sms * g_blocks_per_sm;
   }
-  int per_sm = hit->per_sm;
-  if (g_blocks_per_sm > 0)
-    per_sm = g_blocks_per_sm;
-  else if (g_blocks_per_sm == 0 && max_per_sm > 0 && max_per_sm < per_sm)
-    per_sm = max_per_sm;
-  return (long long)hit->sms * per_sm;
+  std::lock_guard<std::mutex> hold(mu);
+  for (const Entry& e : known)
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads)
+      return e.slots;
+  int sms = 1, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  known.push_back({kernel, dev, threads, slots});
+  return slots;
 }
 
-// Launches `kernel` with `threads` threads a block on as many blocks as fit
-// on the card at once (at most max_per_sm an SM, where > 0), each walking
-// an even share of the queries, a.run consecutive ones.
+// Launches `kernel` with `threads` threads a block (per_query of them a
+// query) on at most as many blocks as fit on the card at once, each walking
+// a.run consecutive queries: an even share, rounded up to whole passes of
+// the block over its queries where a block holds whole queries. A share
+// that ends inside a pass leaves that pass's other threads idle: 3 blocks
+// an SM give the (2, 2) wide instances runs of 15 queries, 12 a pass, which
+// ran 2-12 % slower on an H100 than runs of 24 (PERF.md).
 template <typename T>
 static cudaError_t launch_runs(void (*kernel)(FwdArgs<T>), int threads,
-                               FwdArgs<T> a, cudaStream_t stream,
-                               int max_per_sm = 0) {
+                               int per_query, FwdArgs<T> a,
+                               cudaStream_t stream) {
   const long long queries = (long long)a.B * a.Lq;
-  const long long slots =
-      resident_blocks((const void*)kernel, threads, max_per_sm);
-  a.run = (int)((queries + slots - 1) / slots);
+  const long long slots = resident_blocks((const void*)kernel, threads);
+  const long long pass = threads % per_query == 0 ? threads / per_query : 1;
+  const long long passes = (queries + slots * pass - 1) / (slots * pass);
+  a.run = (int)(passes * pass);
   const unsigned blocks = (unsigned)((queries + a.run - 1) / a.run);
   kernel<<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -537,14 +529,16 @@ static auto lanes_kernel() {
 template <typename T, int V, bool kShared>
 static cudaError_t launch_lanes(const FwdArgs<T>& a, bool fixed,
                                 cudaStream_t stream) {
-  const int threads = block_threads(a.M * (a.D / V));
+  const int per_query = a.M * (a.D / V);
+  const int threads = block_threads(per_query);
   if (fixed && a.L == 2)
-    return launch_runs(lanes_kernel<T, V, 2, 2, kShared>(), threads, a,
-                       stream);
+    return launch_runs(lanes_kernel<T, V, 2, 2, kShared>(), threads,
+                       per_query, a, stream);
   if (fixed)
-    return launch_runs(lanes_kernel<T, V, 1, 2, kShared>(), threads, a,
-                       stream);
-  return launch_runs(lanes_kernel<T, V, 0, 0, kShared>(), threads, a, stream);
+    return launch_runs(lanes_kernel<T, V, 1, 2, kShared>(), threads,
+                       per_query, a, stream);
+  return launch_runs(lanes_kernel<T, V, 0, 0, kShared>(), threads, per_query,
+                     a, stream);
 }
 
 // Picks the instance: wide lanes where D % 12 == 0, (L, P) is fixed and
@@ -561,17 +555,16 @@ static cudaError_t launch(FwdArgs<T> a, cudaStream_t stream) {
     // the 8-channel load's alignment: 16 bytes in bf16, 8 in int8
     if (fixed && out_ok && a.D % 12 == 0 &&
         (uintptr_t)a.value % (8 * sizeof(T)) == 0) {
-      const int threads = block_threads(a.M * (a.D / 12));
+      const int per_query = a.M * (a.D / 12);
+      const int threads = block_threads(per_query);
       if constexpr (kShared && !kInt8<T>)
-        return a.L == 2 ? launch_runs(msda_shared_fwd_wide_kernel<2, 2>,
-                                      threads, a, stream)
-                        : launch_runs(msda_shared_fwd_wide_kernel<1, 2>,
-                                      threads, a, stream);
+        return launch_runs(a.L == 2 ? msda_shared_fwd_wide_kernel<2, 2>
+                                    : msda_shared_fwd_wide_kernel<1, 2>,
+                           threads, per_query, a, stream);
       else
-        return a.L == 2 ? launch_runs(msda_fwd_wide_kernel<T, 2, 2>, threads,
-                                      a, stream, kPerHeadBlocksPerSM)
-                        : launch_runs(msda_fwd_wide_kernel<T, 1, 2>, threads,
-                                      a, stream, kPerHeadBlocksPerSM);
+        return launch_runs(a.L == 2 ? msda_fwd_wide_kernel<T, 2, 2>
+                                    : msda_fwd_wide_kernel<T, 1, 2>,
+                           threads, per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
