@@ -201,7 +201,6 @@ TRAIN_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 6, "msda_raw_pool_fwd": 12,
 # backward kernels scattered the table gradient with f32 atomics
 ATOMIC_BWD_MSDA_MS_PER_STEP = 3.253
 DEVICE = "cuda"  # the card (a rehearsal on the CPU sets "cpu")
-PROBE_RUNS = False  # phase F: the replays also time each run length
 
 
 class SmokeFailure(RuntimeError):
@@ -1192,21 +1191,6 @@ def replay_call(torch, msda, kernel, args):
                 torch, lambda: msda.ms_deform_attn_raw_pool(
                     bf16, shapes, loc, aw, ext))
     ms = times[kernel] = device_ms(torch, run_k)
-    if PROBE_RUNS and kernel in ("msda_fwd", "msda_fwd_i8", "msda_shared_fwd"):
-        import ctypes
-
-        from kinet_tpu_torch.ops import cuda_build
-
-        lib = cuda_build.load("msda_fwd")
-        lib.msda_fwd_set_blocks_per_sm.argtypes = [ctypes.c_int]
-        probe = {}
-        for n in (-1, 2, 3, 4):
-            lib.msda_fwd_set_blocks_per_sm(n)
-            probe[n] = device_ms(torch, run_k)
-        lib.msda_fwd_set_blocks_per_sm(0)
-        log(f"  probe {kernel} Lq {lq} L {l} blocks/SM: " + ", ".join(
-            f"{'occupancy' if n < 0 else n} {t:.5f}" for n, t in probe.items())
-            + f"; default {ms:.5f}")
     other = "".join(f"; {k} {t:.5f} ms" for k, t in times.items() if k != kernel)
     log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
         f"err {err:.3e}; {stats_text(st, ms)}")
@@ -3512,63 +3496,6 @@ def phase_merge(torch, msda):
 
 
 # ---------------------------------------------------------------------------
-# phase F (measurement only): the forward kernels' run length and the earlier
-# wide kernel
-
-
-def phase_fwd_probe(torch, msda):
-    """Device ms of msda_fwd (bf16), the earlier wide kernel verbatim (C entry
-    msda_fwd_v0), msda_fwd_i8 and msda_shared_fwd (bf16) at V1's high- and
-    low-lite shapes, with each launch's runs spread over the occupancy
-    query's blocks an SM (0) or over 1-4."""
-    import ctypes
-
-    from kinet_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("msda_fwd")
-    lib.msda_fwd_set_blocks_per_sm.argtypes = [ctypes.c_int]
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    b, m, d = 1, 8, 36
-    for name, shapes, lq in (
-            ("high-lite", LEVELS[:2], sum(h * w for h, w in LEVELS[1:])),
-            ("low-lite", LEVELS[:1], LEVELS[0][0] * LEVELS[0][1])):
-        s = sum(h * w for h, w in shapes)
-        loc, aw = make_samples(torch, gen, b, lq, m, shapes, 2)
-        value = torch.randn(b, s, m, d, generator=gen, device=DEVICE).to(
-            torch.bfloat16)
-        q8 = torch.randint(-127, 128, (b, s, m, d), generator=gen,
-                           device=DEVICE, dtype=torch.int8)
-        scale = (torch.rand(b, m, generator=gen, device=DEVICE) * 0.05).to(
-            torch.bfloat16)
-        sl = loc[:, :, 0].contiguous()
-        out = torch.empty(b, lq, m * d, device=DEVICE)
-        shapes_t, starts_t = msda._level_tables(shapes, value.device)
-
-        def v0():
-            msda._launch(
-                "msda_fwd_v0", [msda._P] * 6 + [msda._I] * 6 + [msda._P],
-                value.device, value.data_ptr(), shapes_t.data_ptr(),
-                starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-                out.data_ptr(), b, s, m, d, lq, len(shapes), lib="msda_fwd")
-            return out
-
-        runs = {
-            "msda_fwd": lambda: msda.ms_deform_attn(value, shapes, loc, aw),
-            "msda_fwd earlier kernel": v0,
-            "msda_fwd_i8": lambda: msda.ms_deform_attn_i8(q8, scale, shapes,
-                                                          loc, aw),
-            "msda_shared_fwd": lambda: msda.ms_deform_attn_shared(
-                value, shapes, sl, aw),
-        }
-        ref = msda.ms_deform_attn_plain(value, shapes, loc, aw)
-        assert_close(torch, "msda_fwd_v0", v0(), ref, 1e-4, 1e-5)
-        with torch.no_grad():
-            for per_sm in (0, 1, 2, 3, 4):
-                lib.msda_fwd_set_blocks_per_sm(per_sm)
-                times = {k: device_ms(torch, f) for k, f in runs.items()}
-                log(f"  {name} blocks/SM {per_sm or 'occupancy'}: " + ", ".join(
-                    f"{k} {t:.5f}" for k, t in times.items()))
-        lib.msda_fwd_set_blocks_per_sm(0)
 
 
 KERNEL_META = {
@@ -3586,13 +3513,13 @@ KERNEL_META = {
                           "kinet_tpu/ops/msda.py:426"),
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
-    # the encoder's variants (phase V): int8 values (the int8 instance of
-    # msda_fwd.cu), top-k pruning, head-shared locations
+    # the encoder's variants (phase V): int8 values and head-shared
+    # locations (instances of msda_fwd.cu), top-k pruning
     "msda_fwd_i8": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
                     "kinet_tpu/ops/msda.py:498"),
     "msda_topk_fwd": ("kinet_tpu_torch/ops/csrc/msda_topk_fwd.cu",
                       "kinet_tpu/ops/msda.py:844"),
-    "msda_shared_fwd": ("kinet_tpu_torch/ops/csrc/msda_shared_fwd.cu",
+    "msda_shared_fwd": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
                         "kinet_tpu/ops/msda.py:1149"),
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
@@ -3605,8 +3532,6 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    global PROBE_RUNS
-    PROBE_RUNS = "F" in phases
     root = Path(__file__).resolve().parent
     if not (root / "kinet_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: the kinet_tpu_torch package is not beside this "
@@ -3757,9 +3682,6 @@ def main(argv=None) -> int:
             "Tracker.step")
         phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
-    if "F" in phases:
-        log("== F. forward kernels' run length (measurement only)")
-        phase_fwd_probe(torch, msda)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")

@@ -101,9 +101,6 @@ inline int block_threads(int per_query) {
   return q > 0 && (q * per_query) % 32 == 0 ? q * per_query : 256;
 }
 
-// measurement override: > 0 takes that many blocks an SM as the slots
-static int g_blocks_per_sm = 0;
-
 // Blocks of `kernel` with `threads` threads that fit on the card at once:
 // asked of the runtime once per (kernel, device, block size) and kept, so
 // that a launch adds no device queries to the host's work.
@@ -117,11 +114,6 @@ static long long resident_blocks(const void* kernel, int threads) {
   static std::vector<Entry> known;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (g_blocks_per_sm > 0) {
-    int sms = 1;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return (long long)sms * g_blocks_per_sm;
-  }
   std::lock_guard<std::mutex> hold(mu);
   for (const Entry& e : known)
     if (e.kernel == kernel && e.dev == dev && e.threads == threads)
@@ -428,95 +420,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   fwd_wide<__nv_bfloat16, kL, kP, true>(a);
 }
 
-// Measurement only: msda_fwd's earlier bf16 wide kernel, as it was (its
-// own scalar __restrict__ parameters), C entry msda_fwd_v0.
-template <int kL, int kP>
-__global__ void __launch_bounds__(kMaxThreads)
-    msda_fwd_v0_kernel(const __nv_bfloat16* __restrict__ value,
-                         const int* __restrict__ spatial_shapes,
-                         const int* __restrict__ level_start,
-                         const float* __restrict__ loc,
-                         const float* __restrict__ aw,
-                         float* __restrict__ out, int B, int S, int M, int D,
-                         int Lq, int run) {
-  constexpr int kLP = kL * kP;
-  const int groups = D / 12;
-  const int per_query = M * groups;
-  const long long q0 = (long long)blockIdx.x * run;
-  const long long q_end = min(q0 + run, (long long)B * Lq);
-  const long long items = (q_end - q0) * per_query;
-  const long long row_stride = (long long)M * D;
-  for (long long i = threadIdx.x; i < items; i += blockDim.x) {
-    const long long bq = q0 + i / per_query;
-    const int r = (int)(i % per_query);
-    const int m = r / groups;
-    const int e0 = m * D + 12 * (r - m * groups);  // first channel in the row
-    const bool odd = (e0 >> 2) & 1;
-    const int off16 = odd ? 4 : 0;
-    const int off8 = odd ? 0 : 8;
-    const int b = (int)(bq / Lq);
-    const long long bqm = bq * M + m;
-    float xy[2 * kLP], a[kLP];
-    load_floats<2 * kLP>(loc + bqm * 2 * kLP, xy);
-    load_floats<kLP>(aw + bqm * kLP, a);
-    uint4 r16[4 * kLP];
-    uint2 r8[4 * kLP];
-    float wt[4 * kLP];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      const int h = __ldg(spatial_shapes + 2 * l);
-      const int w = __ldg(spatial_shapes + 2 * l + 1);
-      const __nv_bfloat16* base =
-          value + ((long long)b * S + __ldg(level_start + l)) * row_stride +
-          e0;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const int k = l * kP + p;
-        const float x = xy[2 * k] * w - 0.5f;
-        const float y = xy[2 * k + 1] * h - 0.5f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const __nv_bfloat16* q =
-              base + corner_branch_free(c, h, w, x, y, a[k], wt[4 * k + c]) *
-                         row_stride;
-          r16[4 * k + c] = __ldg(reinterpret_cast<const uint4*>(q + off16));
-          r8[4 * k + c] = __ldg(reinterpret_cast<const uint2*>(q + off8));
-        }
-      }
-    }
-    float a16[8], a8[4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) a16[t] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) a8[t] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4 * kLP; ++k) {
-      const unsigned int u[6] = {r16[k].x, r16[k].y, r16[k].z, r16[k].w,
-                                 r8[k].x, r8[k].y};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float2 f = bf2_to_f2(u[t]);
-        a16[2 * t] = fmaf(wt[k], f.x, a16[2 * t]);
-        a16[2 * t + 1] = fmaf(wt[k], f.y, a16[2 * t + 1]);
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float2 f = bf2_to_f2(u[4 + t]);
-        a8[2 * t] = fmaf(wt[k], f.x, a8[2 * t]);
-        a8[2 * t + 1] = fmaf(wt[k], f.y, a8[2 * t + 1]);
-      }
-    }
-    float o[12];
-#pragma unroll
-    for (int t = 0; t < 12; ++t)
-      o[t] = odd ? (t < 4 ? a8[t] : a16[t - 4]) : (t < 8 ? a16[t] : a8[t - 8]);
-    float* dst = out + bq * row_stride + e0;
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-      VecIO<float, 4>::store(dst + 4 * t, o + 4 * t);
-  }
-}
-
 // The V-channel kernel of one entry and (L, P) instance.
 template <typename T, int V, int kL, int kP, bool kShared>
 static auto lanes_kernel() {
@@ -637,30 +540,4 @@ extern "C" int msda_shared_fwd(const void* value, int dtype,
                                int P, void* stream) {
   return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
                                    B, S, M, D, Lq, L, P, stream);
-}
-
-// Measurement only: the earlier bf16 wide kernel (D % 12 == 0, fixed (L, P),
-// aligned), and the blocks an SM that the launches' runs assume (0: the
-// occupancy query's).
-extern "C" int msda_fwd_v0(const void* value, const void* shapes,
-                           const void* starts, const void* loc, const void* aw,
-                           void* out, int B, int S, int M, int D, int Lq,
-                           int L, void* stream) {
-  const int threads = kinet::block_threads(M * (D / 12));
-  auto k = L == 2 ? kinet::msda_fwd_v0_kernel<2, 2>
-                  : kinet::msda_fwd_v0_kernel<1, 2>;
-  const long long queries = (long long)B * Lq;
-  const long long slots = kinet::resident_blocks((const void*)k, threads);
-  const int run = (int)((queries + slots - 1) / slots);
-  k<<<(unsigned)((queries + run - 1) / run), threads, 0,
-      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(value),
-      static_cast<const int*>(shapes), static_cast<const int*>(starts),
-      static_cast<const float*>(loc), static_cast<const float*>(aw),
-      static_cast<float*>(out), B, S, M, D, Lq, run);
-  return (int)cudaGetLastError();
-}
-
-extern "C" void msda_fwd_set_blocks_per_sm(int n) {
-  kinet::g_blocks_per_sm = n;
 }
