@@ -45,11 +45,11 @@
 //     it, else second: the same two loads on every lane, at other offsets,
 //     no branch. In bf16 they are 16 + 8 bytes. In int8 they are 8 + 4
 //     bytes, and a corner's raw words stay in registers until its FMAs,
-//     where i8_at turns each channel into f32 with a PRMT and an FADD (the
-//     4-byte lanes and I2F of the first int8 kernel put 9 threads on a
-//     36-byte slice and a quarter-rate conversion on every channel). The
-//     head-shared instance runs the same threads on the query's locations:
-//     the 24 threads of a query read a corner's whole row side by side;
+//     where i8_at turns each channel into f32 with a PRMT and an FADD
+//     (4-byte lanes would put 9 threads on a 36-byte slice, and I2F is a
+//     quarter-rate instruction). The head-shared instance runs the same
+//     threads on the query's locations: the 24 threads of a query read a
+//     corner's whole row side by side;
 //   - otherwise one thread per V channels (msda_fwd_kernel /
 //     msda_shared_fwd_kernel: 16-byte lanes in f32, 1-8 bytes where D or the
 //     alignment allow no wider), and a generic instance for other (L, P);
