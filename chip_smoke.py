@@ -8,9 +8,9 @@ toolkit's nvcc; imports nothing of JAX or of the JAX package. Phases, each
 failing the run on any mismatch:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the six kernel sources of kinet_tpu_torch/ops/csrc
-   (nine kernel entry points: msda_fwd.cu also holds the int8 and the
-   head-shared instances, msda_raw_pool_fwd.cu an int8 one);
+2. build: nvcc builds the five kernel sources of kinet_tpu_torch/ops/csrc
+   (nine kernel entry points: msda_fwd.cu also holds the int8, the
+   head-shared and the top-k instances, msda_raw_pool_fwd.cu an int8 one);
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
    updates, decoder raw-pool with a bottom/right pad; a random reference
@@ -119,16 +119,18 @@ V. the encoder's MSDA variants, two-stage and merge_frame_features:
    V1, the variant kernels (msda_fwd_i8, msda_topk_fwd with k = 3 at
    (L, P) = (2, 2) and k = 8 at (4, 4), msda_shared_fwd) against their
    plain versions at the flagship's encoder shapes and a generic (4, 4),
-   f32 and bf16, with device times and bounds, then the top-k and
+   f32 and bf16, with device times and bounds (top-k beside msda_fwd's
+   time on the same inputs, unpruned, ``fwd_ms``), then the top-k and
    shared-locations gradients (their backward is msda_bwd) against the
    plain versions' autograd; V2, the served flagship with enc_msda_int8,
    enc_msda_topk 3 and enc_msda_shared_locs in turn, 8 frames of
    Tracker.step each at 800x1440 in bf16 with their launch counts a frame
-   asserted, and for the int8 and head-shared variants a replay of the
-   next frame's 6 encoder calls, as phase 5's (kernel vs plain on the
-   snapped samples, device ms and reads on the frame's own samples,
-   ``replay_ms``; the int8 calls also time msda_fwd over the same values
-   in bf16, ``replay_bf16_ms``), then one bf16 remat train step at
+   asserted, and for each a replay of the next frame's encoder calls of
+   its kernel (6 int8, 5 top-k, 6 head-shared), as phase 5's (kernel vs
+   plain on the snapped samples, device ms and reads on the frame's own
+   samples, ``replay_ms``; the int8 calls also time msda_fwd over the same
+   values in bf16, ``replay_bf16_ms``, the top-k calls msda_fwd on the
+   same weights unpruned, ``replay_fwd_ms``), then one bf16 remat train step at
    672x1184 with top-k and with shared locations (msda_bwd launches,
    finite gradients); V3,
    two-stage (train.yaml + train_deformable, two_stage, box refine: hidden
@@ -158,7 +160,8 @@ Then one JSON line listing every kernel with its launches, error and times
 (``eval_launches``: phase E's detection-eval launches; ``mots_launches``:
 phase M5's);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
-subset (phases 1 and 2 always run) and prints no result line.
+subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
+phase V, V2 without its train steps) and prints no result line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 kinet_tpu_torch package beside this file.
@@ -570,7 +573,7 @@ def kernel_summary(torch, results):
             "bound_by": bf[0][1]["bound_by"],
         }
         for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
-                    "pr2_bound_ms"):
+                    "pr2_bound_ms", "fwd_ms"):
             if key in bf[0][1]:
                 summary[kernel][key] = sum(n * r[key] for n, r in bf) / total
     return summary
@@ -1069,15 +1072,16 @@ def read_launches(msda):
 
 def record_forward_calls(torch, fn):
     """Runs fn() with the model's MSDA forward entry points (msda_fwd, the
-    raw pool, and the encoder's int8 and head-shared variants) wrapped
-    where models/deformable_transformer.py binds them, and unwrapped
-    after; returns (kernel, arguments) of every call, the tensors
+    raw pool, and the encoder's int8, head-shared and top-k variants)
+    wrapped where models/deformable_transformer.py binds them, and
+    unwrapped after; returns (kernel, arguments) of every call, the tensors
     cloned."""
     from kinet_tpu_torch.models import deformable_transformer as dt
 
     calls = []
     orig = (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool,
-            dt.ms_deform_attn_i8, dt.ms_deform_attn_shared)
+            dt.ms_deform_attn_i8, dt.ms_deform_attn_shared,
+            dt.ms_deform_attn_topk)
 
     def recording(kernel, f):
         def wrapped(*args):
@@ -1095,11 +1099,12 @@ def record_forward_calls(torch, fn):
     dt.ms_deform_attn_raw_pool = raw_pool
     dt.ms_deform_attn_i8 = recording("msda_fwd_i8", orig[2])
     dt.ms_deform_attn_shared = recording("msda_shared_fwd", orig[3])
+    dt.ms_deform_attn_topk = recording("msda_topk_fwd", orig[4])
     try:
         fn()
     finally:
         (dt.ms_deform_attn, dt.ms_deform_attn_raw_pool, dt.ms_deform_attn_i8,
-         dt.ms_deform_attn_shared) = orig
+         dt.ms_deform_attn_shared, dt.ms_deform_attn_topk) = orig
     return calls
 
 
@@ -1117,8 +1122,9 @@ def replay_call(torch, msda, kernel, args):
     snapped samples, bf16 as recorded and f32; the kernel's device ms on
     the recorded inputs, and what its corners read. {name: device ms}:
     for an int8 call also the bf16 kernel's, on the same samples over the
-    bf16 table of the same values (the int8 rows times their scale).
-    msda_fwd_i8's table is int8 either way: its f32 case takes the
+    bf16 table of the same values (the int8 rows times their scale), and
+    for a top-k call msda_fwd's on the same samples with every weight
+    kept. msda_fwd_i8's table is int8 either way: its f32 case takes the
     recorded scale (bf16 values) moved off the bf16 grid in f32."""
     if kernel == "msda_fwd_i8":
         q8, scale, shapes, loc, aw = args
@@ -1152,6 +1158,19 @@ def replay_call(torch, msda, kernel, args):
         run_k = lambda: msda.ms_deform_attn_shared(table, shapes, loc, aw)  # noqa: E731
         st = read_stats(torch, "raw", loc[:, :, None], shapes, None, m * d,
                         esize)
+    elif kernel == "msda_topk_fwd":
+        k = args[4]
+        for v in (table, table.float()):
+            out = msda.ms_deform_attn_topk(v, shapes, loc_s, aw, k)
+            ref = msda.ms_deform_attn_topk_plain(v, shapes, loc_s, aw, k)
+            assert_close(torch, f"replay {kernel} {v.dtype}", out, ref,
+                         1e-4, 1e-5)
+            err = max(err, errors(torch, out, ref)[0])
+        run_k = lambda: msda.ms_deform_attn_topk(table, shapes, loc, aw, k)  # noqa: E731
+        st = read_stats(torch, "msda", loc, shapes, None, table.shape[3],
+                        esize, keep=msda.topk_sample_mask(aw, k))
+        times["msda_fwd (unpruned)"] = device_ms(
+            torch, lambda: msda.ms_deform_attn(table, shapes, loc, aw))
     elif kernel == "msda_fwd":
         for v in (table, table.float()):
             out = msda.ms_deform_attn(v, shapes, loc_s, aw)
@@ -3064,6 +3083,7 @@ V_VARIANTS = {
 }
 # the variants whose encoder calls V2 replays, and their kernel
 V_REPLAYED = {"enc_msda_int8": "msda_fwd_i8",
+              "enc_msda_topk": "msda_topk_fwd",
               "enc_msda_shared_locs": "msda_shared_fwd"}
 # a train step's launches (phase 7's count): previous frame, current frame
 # and the remat recomputation forward, the current frame backward
@@ -3106,6 +3126,7 @@ def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
         run_p = lambda: msda.ms_deform_attn_topk_plain(*args)  # noqa: E731
         keep = msda.topk_sample_mask(aw, k)
         st = read_stats(torch, "msda", loc, shapes, None, d, esize, keep=keep)
+        run_fwd = lambda: msda.ms_deform_attn(value, shapes, loc, aw)  # noqa: E731
         kept = int(keep.sum())
         # every weight read, the kept samples' locations read
         moved = st["distinct"] * d * esize + n_samples * 4 + kept * 8 + \
@@ -3132,9 +3153,14 @@ def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
         err = errors(torch, out, ref)
         t_b, by = bound_ms(moved, flops)
         timed = time_kernel(torch, run_k, run_p)
+        if kind == "topk":
+            timed["fwd_ms"] = device_ms(torch, run_fwd)
     log(f"  {name:<28} {str(dtype):<15} max abs err {err[0]:.3e} | "
         f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
         f"{flops / 1e6:.1f} Mflop)")
+    if kind == "topk":
+        log(f"      msda_fwd on the same inputs, every sample kept: "
+            f"{timed['fwd_ms']:.4f} ms device ({timed['ms'] / timed['fwd_ms']:.3f}x)")
     log(f"      {stats_text(st, timed['ms'])}")
     return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
 
@@ -3213,11 +3239,11 @@ def phase_variant_kernels(torch, msda):
 
 def phase_variants_served(torch, msda):
     """V2: each encoder variant on the served flagship through Tracker.step
-    (V_FRAMES frames, 800x1440, bf16); then, for the int8 and head-shared
-    variants, a replay of the next frame's 6 encoder calls (kernel vs plain
-    on the snapped samples, device ms and reads on the frame's own
-    samples). Returns ({kernel: launches over its variant's served
-    frames}, {name: mean replay device ms a launch})."""
+    (V_FRAMES frames, 800x1440, bf16); then a replay of the next frame's
+    encoder calls of the variant's kernel (kernel vs plain on the snapped
+    samples, device ms and reads on the frame's own samples). Returns
+    ({kernel: launches over its variant's served frames}, {name: mean
+    replay device ms a launch})."""
     served, replay = {}, {}
     for name, (over, per_frame) in V_VARIANTS.items():
         tracker, model, frames = served_tracker(torch, flagship_cfg().replace(
@@ -3246,13 +3272,12 @@ def phase_variants_served(torch, msda):
             calls = record_forward_calls(
                 torch, lambda: tracker.step(frames[V_FRAMES]))
             kinds = [k for k, _ in calls]
-            check(kinds.count(kernel) == 6
-                  and kinds.count("msda_raw_pool_fwd") == 6
-                  and len(kinds) == 12,
+            check({k: kinds.count(k) for k in kinds} == want,
                   f"{name}: a frame made the forward MSDA calls {kinds}, "
-                  f"expected 6 + 6")
-            log(f"  replay of one {name} frame's 6 encoder calls (bf16 "
-                f"memory; compared on locations snapped to a 2^-16 grid):")
+                  f"expected {want}")
+            log(f"  replay of one {name} frame's {want[kernel]} {kernel} "
+                f"calls (bf16 memory; compared on locations snapped to a "
+                f"2^-16 grid):")
             replay.update(phase_replay(
                 torch, msda, [c for c in calls if c[0] == kernel]))
             del calls
@@ -3304,6 +3329,95 @@ def phase_variants_train(torch, msda):
             f"gradient norm {norm:.4f}, launches a step {launches}")
         del model, step, frames
         torch.cuda.empty_cache()
+
+
+# phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
+# msda_topk_fwd_variant) against each other
+TOPK_VARIANTS = ("index groups of 4", "index groups of 2", "slots of 4",
+                 "slots of 2", "slots of 8")
+
+
+def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):
+    """A call of design ``variant`` of the top-k kernel on these inputs."""
+    b, s, m, d = value.shape
+    lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    shapes_t, starts_t = msda._level_tables(shapes, value.device)
+    _P, _I = msda._P, msda._I
+
+    def run():
+        out = torch.empty(b, lq, m * d, dtype=torch.float32,
+                          device=value.device)
+        msda._launch(
+            "msda_topk_fwd_variant", [_I, _P, _I] + [_P] * 5 + [_I] * 8 + [_P],
+            value.device, variant, value.data_ptr(),
+            msda._DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
+            starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
+            out.data_ptr(), b, s, m, d, lq, l, p, k, lib="msda_fwd")
+        return out
+    return run
+
+
+def phase_topk_designs(torch, msda):
+    """F: each top-k design against the plain version on snapped samples,
+    then device ms in turns (designs 0..n, n..0) on V1's (2, 2) k = 3 and
+    (4, 4) k = 8 inputs (f32 and bf16) and on one served enc_msda_topk
+    frame's 5 top-k calls, beside msda_fwd on the same inputs unpruned and
+    the msda_topk_fwd wrapper."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    cases = []
+    for shapes, lq, p, k in ((LEVELS[:2], sum(h * w for h, w in LEVELS[1:]),
+                              2, 3), (LEVELS, 4000, 4, 8)):
+        s = sum(h * w for h, w in shapes)
+        loc, aw = make_samples(torch, gen, 1, lq, 8, shapes, p)
+        for dtype in (torch.float32, torch.bfloat16):
+            value = torch.randn(1, s, 8, 36, generator=gen,
+                                device=DEVICE).to(dtype)
+            cases.append((f"V1 ({len(shapes)}, {p}) k={k} {dtype}", value,
+                          shapes, loc, aw, k, False))
+    tracker, model, frames = served_tracker(torch, flagship_cfg().replace(
+        **V_VARIANTS["enc_msda_topk"][0]))
+    timed_frames(torch, tracker, frames[:V_FRAMES])
+    calls = record_forward_calls(torch, lambda: tracker.step(frames[V_FRAMES]))
+    topk_calls = [a for kern, a in calls if kern == "msda_topk_fwd"]
+    check(len(topk_calls) == 5, f"F: {len(topk_calls)} top-k calls a frame")
+    for i, (value, shapes, loc, aw, k) in enumerate(topk_calls):
+        cases.append((f"replay call {i} Lq {loc.shape[1]} k={k}", value,
+                      shapes, loc, aw, k, True))
+    del tracker, model, frames, calls
+    torch.cuda.empty_cache()
+    n = len(TOPK_VARIANTS)
+    order = list(range(n)) + list(range(n))[::-1]
+    replay = {v: [] for v in range(n)}
+    replay["msda_fwd"], replay["msda_topk_fwd"] = [], []
+    with torch.inference_mode():
+        for name, value, shapes, loc, aw, k, served in cases:
+            loc_s = snapped(torch, loc)
+            ref = msda.ms_deform_attn_topk_plain(value, shapes, loc_s, aw, k)
+            for v in range(n):
+                out = topk_variant_fn(torch, msda, v, value, shapes, loc_s,
+                                      aw, k)()
+                assert_close(torch, f"F {name} design {v}", out, ref, 1e-4,
+                             1e-5)
+            ms = {v: [] for v in range(n)}
+            for v in order:
+                ms[v].append(device_ms(torch, topk_variant_fn(
+                    torch, msda, v, value, shapes, loc, aw, k)))
+            fwd = device_ms(torch, lambda: msda.ms_deform_attn(
+                value, shapes, loc, aw))
+            wrap = device_ms(torch, lambda: msda.ms_deform_attn_topk(
+                value, shapes, loc, aw, k))
+            log(f"  {name}: " + "; ".join(
+                f"{v} ({TOPK_VARIANTS[v]}) {ms[v][0]:.5f} / {ms[v][1]:.5f}"
+                for v in range(n)) +
+                f"; msda_fwd {fwd:.5f}; msda_topk_fwd {wrap:.5f} ms device")
+            if served:
+                for v in range(n):
+                    replay[v].append(statistics.mean(ms[v]))
+                replay["msda_fwd"].append(fwd)
+                replay["msda_topk_fwd"].append(wrap)
+    log("  served frame's 5 top-k calls, mean device ms a launch: " +
+        "; ".join(f"{TOPK_VARIANTS[v] if isinstance(v, int) else v} "
+                  f"{statistics.mean(t):.5f}" for v, t in replay.items()))
 
 
 def two_stage_cfg():
@@ -3513,11 +3627,11 @@ KERNEL_META = {
                           "kinet_tpu/ops/msda.py:426"),
     "gather_rows": ("kinet_tpu_torch/ops/csrc/gather_rows.cu",
                     "scripts/pallas_gather_probe.py:14"),
-    # the encoder's variants (phase V): int8 values and head-shared
-    # locations (instances of msda_fwd.cu), top-k pruning
+    # the encoder's variants (phase V), instances of msda_fwd.cu: int8
+    # values, top-k pruning, head-shared locations
     "msda_fwd_i8": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
                     "kinet_tpu/ops/msda.py:498"),
-    "msda_topk_fwd": ("kinet_tpu_torch/ops/csrc/msda_topk_fwd.cu",
+    "msda_topk_fwd": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
                       "kinet_tpu/ops/msda.py:844"),
     "msda_shared_fwd": ("kinet_tpu_torch/ops/csrc/msda_fwd.cu",
                         "kinet_tpu/ops/msda.py:1149"),
@@ -3564,6 +3678,9 @@ def main(argv=None) -> int:
             log(f"  {kernel}: {entry[:72]}: {regs}; {spills}")
 
     summary, launches = {}, {}
+    if "F" in phases:
+        log("== F. the top-k designs of msda_fwd.cu against each other")
+        phase_topk_designs(torch, msda)
     if "3" in phases:
         log("== 3. forward kernels vs plain (800x1440 shapes, B=1)")
         summary.update(kernel_summary(torch, phase_kernels(torch, msda)))
@@ -3657,23 +3774,28 @@ def main(argv=None) -> int:
             summary.setdefault(k, {})["mots_launches"] = n
         log(f"  {json.dumps(rep)}; phase M in {time.perf_counter() - t0:.1f} "
             f"s; on {smi}")
-    if "V" in phases:
+    if phases & {"V", "V1", "V2"}:
         t0 = time.perf_counter()
+    if phases & {"V", "V1"}:
         log("== V1. the encoder's MSDA variant kernels vs plain (800x1440 "
             "encoder shapes and a generic (4, 4), B=1)")
         summary.update(phase_variant_kernels(torch, msda))
+    if phases & {"V", "V2"}:
         log(f"== V2. the variants on the served flagship: Tracker.step bf16 "
             f"{MAIN_HW[0]}x{MAIN_HW[1]}, {V_FRAMES} frames each; a train step "
             f"each of top-k and shared locations")
         served, replay = phase_variants_served(torch, msda)
         launches.update(served)
         for k in V_REPLAYED.values():
-            summary[k]["replay_ms"] = replay[k]
+            summary.setdefault(k, {})["replay_ms"] = replay[k]
         summary["msda_fwd_i8"]["replay_bf16_ms"] = \
             replay["msda_fwd (bf16 table)"]
+        summary["msda_topk_fwd"]["replay_fwd_ms"] = \
+            replay["msda_fwd (unpruned)"]
         for k, t in sorted(replay.items()):
             log(f"  {k}: {t:.5f} device ms a launch on a served frame's "
                 f"own calls")
+    if "V" in phases:
         phase_variants_train(torch, msda)
         log("== V3. two-stage (train.yaml + train_deformable, two_stage, box "
             "refine): card vs CPU, train(cfg), evaluate()")
@@ -3681,6 +3803,7 @@ def main(argv=None) -> int:
         log("== V4. merge_frame_features on the flagship: card vs CPU, "
             "Tracker.step")
         phase_merge(torch, msda)
+    if phases & {"V", "V1", "V2"}:
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
@@ -3696,9 +3819,9 @@ def main(argv=None) -> int:
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
-            for key in ("replay_ms", "replay_bf16_ms", "cold_ms",
-                        "library_cold_ms", "eval_launches", "mots_launches",
-                        "grad_max_abs_err")
+            for key in ("replay_ms", "replay_bf16_ms", "replay_fwd_ms",
+                        "fwd_ms", "cold_ms", "library_cold_ms",
+                        "eval_launches", "mots_launches", "grad_max_abs_err")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

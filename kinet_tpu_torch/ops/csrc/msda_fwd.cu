@@ -1,5 +1,5 @@
 // Multi-scale deformable attention forward (the encoder's sampling core),
-// with its int8 and head-shared instances.
+// with its int8, head-shared and top-k instances.
 //
 // Replaces the TPU kernel kinet_tpu/ops/pallas_msda.py::level_sample_matmul
 // (one level at a time, as a one-hot matmul) and its XLA counterpart
@@ -10,7 +10,7 @@
 //
 // value [B, S, M, D] f32 or bf16; spatial_shapes [L, 2] and level_start [L]
 // int32 on the device; loc [B, Lq, M, L, P, 2] and aw [B, Lq, M, L, P] f32;
-// out [B, Lq, M*D] f32, accumulated in f32. Two more C entries share the
+// out [B, Lq, M*D] f32, accumulated in f32. Three more C entries share the
 // kernels:
 //   - msda_fwd_i8 (enc_msda_int8; X1 with value_scale): value int8 with one
 //     dequantization scale per (batch, head), scales [B, M] f32, which
@@ -20,7 +20,17 @@
 //     kinet_tpu/ops/msda.py::ms_deform_attn_patch_shared): every head
 //     samples the query's locations loc [B, Lq, L, P, 2], each with its own
 //     weights. A sample's corners are then whole M*D rows (576 bytes in bf16
-//     at hidden 288), read by all of a query's heads at once.
+//     at hidden 288), read by all of a query's heads at once;
+//   - msda_topk_fwd (enc_msda_topk; replaces
+//     kinet_tpu/ops/msda.py::ms_deform_attn_topk_quad): per (q, m) only the
+//     K samples of largest weight, ties to the lower (level, point) index
+//     (jax.lax.top_k's order, a stable descending sort: a fresh model's
+//     softmax ties every sample). A thread ranks its (q, m)'s weights in
+//     registers (a sample's rank is the count of samples with a larger
+//     weight, or an equal one at a lower index; it is kept iff rank < K)
+//     and reads nothing of a dropped sample: no corner, not cell 0 with
+//     weight 0, as saving those bytes is the point of pruning. The kept
+//     samples are summed in (level, point, corner) order.
 //
 // What bounds them on an H100: the corner reads from L2 and their latency,
 // not HBM. The flagship's value table (22,500 tokens x 288 channels, 13 MB
@@ -89,6 +99,7 @@ struct FwdArgs {
   const float* aw;
   float* out;
   int B, S, M, D, Lq, L, P;
+  int K;    // top-k instances: samples kept a (q, m), 1 <= K <= L*P
   int run;  // consecutive queries a block walks
 };
 
@@ -199,9 +210,41 @@ __device__ __forceinline__ void sample_fixed(const FwdArgs<T>& a,
     for (int i = 0; i < V; ++i) acc[i] = fmaf(wt[k], v[k][i], acc[i]);
 }
 
+// Top-k: the kept-sample mask of a (q, m) from its kLP weights in
+// registers, bit k for sample k.
+template <int kLP>
+__device__ __forceinline__ unsigned rank_keep(const float (&sw)[kLP], int K) {
+  unsigned keep = 0;
+#pragma unroll
+  for (int j = 0; j < kLP; ++j) {
+    int rank = 0;
+#pragma unroll
+    for (int i = 0; i < kLP; ++i)
+      rank += (sw[i] > sw[j]) || (sw[i] == sw[j] && i < j);
+    keep |= (unsigned)(rank < K) << j;
+  }
+  return keep;
+}
+
+// The same for L*P <= 64 known only at run time, the weights read from L1.
+__device__ __forceinline__ unsigned long long rank_keep_generic(
+    const float* __restrict__ sw, int LP, int K) {
+  unsigned long long keep = 0;
+  for (int j = 0; j < LP; ++j) {
+    const float aj = __ldg(sw + j);
+    int rank = 0;
+    for (int i = 0; i < LP; ++i) {
+      const float ai = __ldg(sw + i);
+      rank += (ai > aj) || (ai == aj && i < j);
+    }
+    keep |= (unsigned long long)(rank < K) << j;
+  }
+  return keep;
+}
+
 // The same with L and P known only at run time: one sample's corners in
-// flight at a time.
-template <typename T, int V, bool kShared>
+// flight at a time; with kTopk, only the kept samples'.
+template <typename T, int V, bool kShared, bool kTopk = false>
 __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
                                                long long bq, long long bqm,
                                                int b, int c0, float scale,
@@ -209,6 +252,8 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
   const int L = a.L, P = a.P;
   const long long row_stride = (long long)a.M * a.D;
   const long long s0 = loc_index<kShared>(bq, bqm) * L * P;
+  unsigned long long keep = ~0ull;
+  if constexpr (kTopk) keep = rank_keep_generic(a.aw + bqm * L * P, L * P, a.K);
   for (int l = 0; l < L; ++l) {
     const int h = __ldg(a.spatial_shapes + 2 * l);
     const int w = __ldg(a.spatial_shapes + 2 * l + 1);
@@ -216,6 +261,7 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
                     ((long long)b * a.S + __ldg(a.level_start + l)) *
                         row_stride + c0;
     for (int p = 0; p < P; ++p) {
+      if (kTopk && !((keep >> (l * P + p)) & 1ull)) continue;
       const long long s = s0 + l * P + p;
       const float x = __ldg(a.loc + 2 * s) * w - 0.5f;
       const float y = __ldg(a.loc + 2 * s + 1) * h - 0.5f;
@@ -235,8 +281,125 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
   }
 }
 
-// V-channel lanes: one thread per (b, q, m, V channels).
-template <typename T, int V, int kL, int kP, bool kShared>
+// What a top-k thread reads of one corner and adds to its sums: V channels
+// converted to f32 at the load (VecLane), or the 12-channel wide lane's
+// raw words (WideLane, after Wide12).
+template <typename T, int V>
+struct VecLane {
+  struct Raw {
+    float v[V];
+  };
+  float (&acc)[V];
+  __device__ __forceinline__ void load(const T* q, Raw& r) const {
+    VecIO<T, V>::load(q, r.v);
+  }
+  __device__ __forceinline__ void add(float wt, const Raw& r) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, r.v[i], acc[i]);
+  }
+};
+
+// One (b, q, m, lane) of the top-k instances, L and P fixed at compile
+// time: the (q, m)'s weights read as vectors and ranked in registers, then
+// the kept samples walked kG at a time (all kLP at once where kLP <= 4),
+// every corner of a group's kept samples in flight before its first FMA.
+// kCompact = false: a group is kG consecutive samples, their locations
+// read as vectors, each dropped sample's loads and FMAs skipped.
+// kCompact = true: a group is the next kG kept samples (slots; the slot
+// count K is the same on every thread), each one's location and weight
+// read by its index (the weights from L1), its level's shape by selects.
+template <typename T, typename Lane, int kL, int kP, int kG, bool kCompact>
+__device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
+                                          int b, int c0, Lane& lane) {
+  constexpr int kLP = kL * kP;
+  constexpr int kGe = kLP <= 4 ? kLP : kG;
+  static_assert(kLP % kGe == 0, "groups tile the samples");
+  const long long row_stride = (long long)a.M * a.D;
+  const float* loc = a.loc + bqm * 2 * kLP;
+  float sw[kLP];
+  load_floats<kLP>(a.aw + bqm * kLP, sw);
+  const unsigned keep = rank_keep<kLP>(sw, a.K);
+  if constexpr (!kCompact) {
+#pragma unroll
+    for (int g = 0; g < kLP; g += kGe) {
+      if (!((keep >> g) & ((1u << kGe) - 1u))) continue;
+      float xy[2 * kGe];
+      load_floats<2 * kGe>(loc + 2 * g, xy);
+      typename Lane::Raw r[4 * kGe];
+      float wt[4 * kGe];
+#pragma unroll
+      for (int j = 0; j < kGe; ++j) {
+        const int k = g + j, l = k / kP;
+        const int h = __ldg(a.spatial_shapes + 2 * l);
+        const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+        const T* base = a.value +
+                        ((long long)b * a.S + __ldg(a.level_start + l)) *
+                            row_stride + c0;
+        const float x = xy[2 * j] * w - 0.5f;
+        const float y = xy[2 * j + 1] * h - 0.5f;
+        const bool kept = (keep >> k) & 1u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long cell =
+              corner_branch_free(c, h, w, x, y, sw[k], wt[4 * j + c]);
+          if (kept) lane.load(base + cell * row_stride, r[4 * j + c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGe; ++j)
+        if ((keep >> (g + j)) & 1u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) lane.add(wt[4 * j + c], r[4 * j + c]);
+    }
+  } else {
+    int hs[kL], ws[kL], starts[kL];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      hs[l] = __ldg(a.spatial_shapes + 2 * l);
+      ws[l] = __ldg(a.spatial_shapes + 2 * l + 1);
+      starts[l] = __ldg(a.level_start + l);
+    }
+    const T* head = a.value + (long long)b * a.S * row_stride + c0;
+    unsigned rem = keep;
+#pragma unroll
+    for (int g = 0; g < kLP; g += kGe) {
+      if (g >= a.K) break;
+      typename Lane::Raw r[4 * kGe];
+      float wt[4 * kGe];
+#pragma unroll
+      for (int j = 0; j < kGe; ++j) {
+        if (g + j >= a.K) break;
+        const int k = __ffs((int)rem) - 1;  // the slot's sample
+        rem &= rem - 1;
+        const int lv = k / kP;
+        int h = hs[0], w = ws[0], start = starts[0];
+#pragma unroll
+        for (int l = 1; l < kL; ++l)
+          if (lv == l) h = hs[l], w = ws[l], start = starts[l];
+        const float2 p = __ldg(reinterpret_cast<const float2*>(loc) + k);
+        const float s = __ldg(a.aw + bqm * kLP + k);
+        const float x = p.x * w - 0.5f;
+        const float y = p.y * h - 0.5f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long cell =
+              corner_branch_free(c, h, w, x, y, s, wt[4 * j + c]);
+          lane.load(head + (start + cell) * row_stride, r[4 * j + c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGe; ++j)
+        if (g + j < a.K)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) lane.add(wt[4 * j + c], r[4 * j + c]);
+    }
+  }
+}
+
+// V-channel lanes: one thread per (b, q, m, V channels). kG > 0: the top-k
+// instances (topk_walk's groups; kL = 0 the generic one).
+template <typename T, int V, int kL, int kP, bool kShared, int kG = 0,
+          bool kCompact = false>
 __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
   const int groups = a.D / V;
   const int per_query = a.M * groups;
@@ -255,10 +418,14 @@ __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-    if constexpr (kL > 0)
+    if constexpr (kG > 0 && kL > 0) {
+      VecLane<T, V> lane{acc};
+      topk_walk<T, VecLane<T, V>, kL, kP, kG, kCompact>(a, bqm, b, c0, lane);
+    } else if constexpr (kL > 0) {
       sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
-    else
-      sample_generic<T, V, kShared>(a, bq, bqm, b, c0, scale, acc);
+    } else {
+      sample_generic<T, V, kShared, (kG > 0)>(a, bq, bqm, b, c0, scale, acc);
+    }
     VecIO<float, V>::store(a.out + bq * a.M * a.D + c0, acc);
   }
 }
@@ -314,11 +481,33 @@ struct Wide12<int8_t> {
   }
 };
 
+// The top-k instances' 12-channel bf16 lane: a corner's two raw loads,
+// added weighted to the 8 and 4 f32 sums of fwd_wide.
+struct WideLane {
+  struct Raw {
+    uint4 big;
+    uint2 small;
+  };
+  int off_big, off_small;
+  float (&ab)[8];
+  float (&as)[4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* q, Raw& r) const {
+    r.big = __ldg(reinterpret_cast<const uint4*>(q + off_big));
+    r.small = __ldg(reinterpret_cast<const uint2*>(q + off_small));
+  }
+  __device__ __forceinline__ void add(float wt, const Raw& r) {
+    Wide12<__nv_bfloat16>::fma(wt, r.big, ab);
+    Wide12<__nv_bfloat16>::fma(wt, r.small, as);
+  }
+};
+
 // 12-channel lanes (D % 12 == 0), L and P fixed: see the top. A lane's
 // first channel e0 is a multiple of 4, so its 12 channels start 8-channel
 // aligned (e0 % 8 == 0: Big at e0, Small at e0 + 8) or 4 past it (Small at
-// e0, Big at e0 + 4).
-template <typename T, int kL, int kP, bool kShared>
+// e0, Big at e0 + 4). kG > 0: the top-k instances (bf16), topk_walk's
+// groups.
+template <typename T, int kL, int kP, bool kShared, int kG = 0,
+          bool kCompact = false>
 __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
   using W = Wide12<T>;
   constexpr int kLP = kL * kP;
@@ -338,50 +527,59 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
     const int off_small = odd ? 0 : 8;
     const int b = (int)(bq / a.Lq);
     const long long bqm = bq * a.M + m;
-    float xy[2 * kLP], sw[kLP];
-    load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
-    load_floats<kLP>(a.aw + bqm * kLP, sw);
-    if constexpr (kInt8<T>) {
-      const float scale = __ldg(a.scales + (long long)b * a.M + m);
+    float ab[8], as[4];
+    if constexpr (kG > 0) {
 #pragma unroll
-      for (int k = 0; k < kLP; ++k) sw[k] *= scale;
-    }
-    typename W::Big rb[4 * kLP];
-    typename W::Small rs[4 * kLP];
-    float wt[4 * kLP];
+      for (int t = 0; t < 8; ++t) ab[t] = 0.0f;
 #pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      const int h = __ldg(a.spatial_shapes + 2 * l);
-      const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-      const T* base = a.value +
-                      ((long long)b * a.S + __ldg(a.level_start + l)) *
-                          row_stride + e0;
+      for (int t = 0; t < 4; ++t) as[t] = 0.0f;
+      WideLane lane{off_big, off_small, ab, as};
+      topk_walk<T, WideLane, kL, kP, kG, kCompact>(a, bqm, b, e0, lane);
+    } else {
+      float xy[2 * kLP], sw[kLP];
+      load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
+      load_floats<kLP>(a.aw + bqm * kLP, sw);
+      if constexpr (kInt8<T>) {
+        const float scale = __ldg(a.scales + (long long)b * a.M + m);
 #pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const int k = l * kP + p;
-        const float x = xy[2 * k] * w - 0.5f;
-        const float y = xy[2 * k + 1] * h - 0.5f;
+        for (int k = 0; k < kLP; ++k) sw[k] *= scale;
+      }
+      typename W::Big rb[4 * kLP];
+      typename W::Small rs[4 * kLP];
+      float wt[4 * kLP];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const T* q = base + corner_branch_free(c, h, w, x, y, sw[k],
-                                                 wt[4 * k + c]) *
-                                  row_stride;
-          rb[4 * k + c] =
-              __ldg(reinterpret_cast<const typename W::Big*>(q + off_big));
-          rs[4 * k + c] =
-              __ldg(reinterpret_cast<const typename W::Small*>(q + off_small));
+      for (int l = 0; l < kL; ++l) {
+        const int h = __ldg(a.spatial_shapes + 2 * l);
+        const int w = __ldg(a.spatial_shapes + 2 * l + 1);
+        const T* base = a.value +
+                        ((long long)b * a.S + __ldg(a.level_start + l)) *
+                            row_stride + e0;
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const int k = l * kP + p;
+          const float x = xy[2 * k] * w - 0.5f;
+          const float y = xy[2 * k + 1] * h - 0.5f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const T* q = base + corner_branch_free(c, h, w, x, y, sw[k],
+                                                   wt[4 * k + c]) *
+                                    row_stride;
+            rb[4 * k + c] =
+                __ldg(reinterpret_cast<const typename W::Big*>(q + off_big));
+            rs[4 * k + c] = __ldg(
+                reinterpret_cast<const typename W::Small*>(q + off_small));
+          }
         }
       }
-    }
-    float ab[8], as[4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) ab[t] = 0.0f;
+      for (int t = 0; t < 8; ++t) ab[t] = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) as[t] = 0.0f;
+      for (int t = 0; t < 4; ++t) as[t] = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 4 * kLP; ++k) {
-      W::fma(wt[k], rb[k], ab);
-      W::fma(wt[k], rs[k], as);
+      for (int k = 0; k < 4 * kLP; ++k) {
+        W::fma(wt[k], rb[k], ab);
+        W::fma(wt[k], rs[k], as);
+      }
     }
     float o[12];
 #pragma unroll
@@ -418,6 +616,19 @@ template <int kL, int kP>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_shared_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
   fwd_wide<__nv_bfloat16, kL, kP, true>(a);
+}
+
+// The top-k kernels (msda_topk_fwd's): kL = 0 for the generic instance.
+template <typename T, int V, int kL, int kP, int kG, bool kCompact>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_topk_fwd_kernel(FwdArgs<T> a) {
+  fwd_lanes<T, V, kL, kP, false, kG, kCompact>(a);
+}
+
+template <int kL, int kP, int kG, bool kCompact>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_topk_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
+  fwd_wide<__nv_bfloat16, kL, kP, false, kG, kCompact>(a);
 }
 
 // The V-channel kernel of one entry and (L, P) instance.
@@ -476,15 +687,76 @@ static cudaError_t launch(FwdArgs<T> a, cudaStream_t stream) {
   return launch_lanes<T, 1, kShared>(a, fixed, stream);
 }
 
+// The top-k instances' fixed (L, P): 22 for (2, 2), 12 for (1, 2), 44 for
+// (4, 4), where loc / aw are 16-byte aligned (read as vectors), else 0.
+template <typename T>
+static int topk_fixed(const FwdArgs<T>& a) {
+  if ((uintptr_t)a.loc % 16 != 0 || (uintptr_t)a.aw % 16 != 0) return 0;
+  if (a.L == 2 && a.P == 2) return 22;
+  if (a.L == 1 && a.P == 2) return 12;
+  if (a.L == 4 && a.P == 4) return 44;
+  return 0;
+}
+
+template <typename T, int V, int kG, bool kCompact, bool kProbe>
+static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
+                                     cudaStream_t stream) {
+  const int per_query = a.M * (a.D / V);
+  const int threads = block_threads(per_query);
+  auto go = [&](auto kernel) {
+    return launch_runs(kernel, threads, per_query, a, stream);
+  };
+  if (fixed == 22) return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kCompact>);
+  if (fixed == 12) return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kCompact>);
+  if (fixed == 44) return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kCompact>);
+  if constexpr (kProbe) return cudaErrorInvalidValue;
+  else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kCompact>);
+}
+
+// Picks the top-k instance: wide lanes for bf16 at a fixed (L, P) where
+// D % 12 == 0 and every wide access is aligned, else the widest V-channel
+// lanes that D and the pointers allow; any other L*P <= 64 takes the
+// generic instance. kProbe: the measured designs' entry, which takes only
+// the fixed (L, P) on wide or 4-channel lanes.
+template <int kG, bool kCompact, bool kProbe = false, typename T>
+static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
+  if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
+    return cudaErrorInvalidValue;
+  const int fixed = topk_fixed(a);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const long long row = (long long)a.M * a.D;
+    if (fixed && (uintptr_t)a.out % 16 == 0 && row % 8 == 0 &&
+        a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
+      const int per_query = a.M * (a.D / 12);
+      return launch_runs(
+          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kCompact>
+          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kCompact>
+                        : msda_topk_fwd_wide_kernel<4, 4, kG, kCompact>,
+          block_threads(per_query), per_query, a, stream);
+    }
+  }
+  const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
+  if (v == 4)
+    return launch_topk_lanes<T, 4, kG, kCompact, kProbe>(a, fixed, stream);
+  if constexpr (kProbe) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (v == 2)
+      return launch_topk_lanes<T, 2, kG, kCompact, false>(a, fixed, stream);
+    return launch_topk_lanes<T, 1, kG, kCompact, false>(a, fixed, stream);
+  }
+}
+
 template <typename T>
 static FwdArgs<T> fwd_args(const void* value, const void* scales,
                            const void* shapes, const void* starts,
                            const void* loc, const void* aw, void* out, int B,
-                           int S, int M, int D, int Lq, int L, int P) {
+                           int S, int M, int D, int Lq, int L, int P,
+                           int K = 0) {
   return {static_cast<const T*>(value), static_cast<const float*>(scales),
           static_cast<const int*>(shapes), static_cast<const int*>(starts),
           static_cast<const float*>(loc), static_cast<const float*>(aw),
-          static_cast<float*>(out), B, S, M, D, Lq, L, P, 0};
+          static_cast<float*>(out), B, S, M, D, Lq, L, P, K, 0};
 }
 
 template <bool kShared>
@@ -502,6 +774,27 @@ static int launch_float(const void* value, int dtype, const void* shapes,
     return (int)launch<float, kShared>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S,
                         M, D, Lq, L, P),
+        s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The top-k C entries' launch: kG kept samples in flight at (4, 4).
+template <int kG, bool kCompact, bool kProbe = false>
+static int launch_topk_float(const void* value, int dtype, const void* shapes,
+                             const void* starts, const void* loc,
+                             const void* aw, void* out, int B, int S, int M,
+                             int D, int Lq, int L, int P, int K,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return (int)launch_topk<kG, kCompact, kProbe>(
+        fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
+                                B, S, M, D, Lq, L, P, K),
+        s);
+  if (dtype == kF32)
+    return (int)launch_topk<kG, kCompact, kProbe>(
+        fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
+                        D, Lq, L, P, K),
         s);
   return (int)cudaErrorInvalidValue;
 }
@@ -540,4 +833,39 @@ extern "C" int msda_shared_fwd(const void* value, int dtype,
                                int P, void* stream) {
   return kinet::launch_float<true>(value, dtype, shapes, starts, loc, aw, out,
                                    B, S, M, D, Lq, L, P, stream);
+}
+
+// The top-k instance (enc_msda_topk): per (q, m) only the K samples of
+// largest weight, 1 <= K <= L*P <= 64.
+extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
+                             const void* starts, const void* loc,
+                             const void* aw, void* out, int B, int S, int M,
+                             int D, int Lq, int L, int P, int K,
+                             void* stream) {
+  return kinet::launch_topk_float<4, false>(value, dtype, shapes, starts, loc,
+                                            aw, out, B, S, M, D, Lq, L, P, K,
+                                            stream);
+}
+
+// The top-k designs measured against each other (chip_smoke.py phase F):
+// variant 0 msda_topk_fwd's (index groups of 4 samples), 1 index groups of
+// 2, 2 compacted slots of 4 kept samples, 3 slots of 2, 4 slots of 8.
+extern "C" int msda_topk_fwd_variant(int variant, const void* value,
+                                     int dtype, const void* shapes,
+                                     const void* starts, const void* loc,
+                                     const void* aw, void* out, int B, int S,
+                                     int M, int D, int Lq, int L, int P,
+                                     int K, void* stream) {
+  auto go = [&](auto f) {
+    return f(value, dtype, shapes, starts, loc, aw, out, B, S, M, D, Lq, L,
+             P, K, stream);
+  };
+  switch (variant) {
+    case 0: return go(kinet::launch_topk_float<4, false, true>);
+    case 1: return go(kinet::launch_topk_float<2, false, true>);
+    case 2: return go(kinet::launch_topk_float<4, true, true>);
+    case 3: return go(kinet::launch_topk_float<2, true, true>);
+    case 4: return go(kinet::launch_topk_float<8, true, true>);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kinet_tpu_torch"
 KERNELS = (
     "msda_fwd", "msda_raw_pool_fwd", "msda_bwd", "msda_raw_pool_bwd",
-    "gather_rows", "msda_topk_fwd",
+    "gather_rows",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

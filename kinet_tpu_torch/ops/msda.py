@@ -21,7 +21,8 @@ weights and summed over levels and points.
   values with one scale per (batch, head) (``enc_msda_int8``, forward
   only; the int8 instance of ``csrc/msda_fwd.cu``, C entry
   ``msda_fwd_i8``); ``ms_deform_attn_topk``, per (query, head) only the
-  top-k samples by weight (``enc_msda_topk``; ``csrc/msda_topk_fwd.cu``);
+  top-k samples by weight (``enc_msda_topk``; the top-k instances of
+  ``csrc/msda_fwd.cu``, C entry ``msda_topk_fwd``);
   ``ms_deform_attn_shared``, one set of sampling locations for all heads
   (``enc_msda_shared_locs``; the head-shared instances of
   ``csrc/msda_fwd.cu``, C entry ``msda_shared_fwd``). The last two
@@ -461,6 +462,7 @@ def _msda_topk_fwd(value, spatial_shapes, loc, aw, top_k):
         value.device, value.data_ptr(), _DTYPE_CODE[value.dtype],
         shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
         aw.data_ptr(), out.data_ptr(), b, s, m, d, lq, l, p, top_k,
+        lib="msda_fwd",
     )
     ms_deform_attn_topk.launches += 1
     return out
@@ -506,9 +508,9 @@ def ms_deform_attn_topk(
     sampling_locations and attention_weights.
 
     CPU tensors take ``ms_deform_attn_topk_plain``; CUDA tensors go through
-    ``MSDeformAttnTopkFunction`` (kernel ``msda_topk_fwd``, count
-    ``launches``; backward ``msda_bwd``, counted in
-    ``ms_deform_attn.bwd_launches``)."""
+    ``MSDeformAttnTopkFunction`` (the top-k instances of
+    ``csrc/msda_fwd.cu``, C entry ``msda_topk_fwd``, count ``launches``;
+    backward ``msda_bwd``, counted in ``ms_deform_attn.bwd_launches``)."""
     _check_value(value, spatial_shapes, tuple(_DTYPE_CODE) + (torch.float64,),
                  "value")
     if top_k < 1:

@@ -18,6 +18,11 @@ and, for the edge samples, against the JAX package's XLA formulations:
 - the head-shared wide instance (``msda_shared_fwd``): a query's
   12-channel lanes side by side over a corner's whole row, each lane within
   one head, whose weights it applies.
+- the top-k wide instance (``msda_topk_fwd``): each lane ranks its
+  (query, head)'s weights as ``rank_keep`` does in registers (ties to the
+  lower index), loads the four corners of every kept sample and nothing of
+  a dropped one, and sums the kept samples in (level, point, corner) order
+  into its 8- and 4-channel sums.
 
 ``chip_smoke.py::read_stats``, which counts the corner rows and distinct
 rows that the replay of the main path reports, is held to the same corner
@@ -462,4 +467,102 @@ def test_msda_shared_lanes_model_matches_plain_and_jax(shapes, m, d):
     ref_j = np.asarray(jax_msda.ms_deform_attn_patch_shared(
         jnp.asarray(value.numpy()), shapes, jnp.asarray(loc.numpy()),
         jnp.asarray(aw.numpy())))
+    np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# msda_topk_fwd's wide instance
+
+
+def rank_keep_model(aw, k):
+    """csrc/msda_fwd.cu::rank_keep over the last axis of aw [..., LP]: a
+    sample's rank is the count of samples with a larger weight, or an equal
+    one at a lower index; it is kept iff its rank < k."""
+    lp = aw.shape[-1]
+    ai, aj = aw[..., :, None], aw[..., None, :]  # [..., i, j]
+    lower = torch.arange(lp).view(lp, 1) < torch.arange(lp).view(1, lp)
+    rank = ((ai > aj) | ((ai == aj) & lower)).sum(-2)
+    return rank < k
+
+
+def msda_topk_wide_model(value, shapes, loc, aw, k):
+    """msda_fwd.cu's top-k wide lanes: (out [B, Lq, M * D] f32, corner
+    loads [B, Lq, M] of one lane of each (query, head))."""
+    b, s, m, d = value.shape
+    lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    row = m * d
+    assert d % 12 == 0 and row % 8 == 0
+    starts = msda.level_start_index(shapes)
+    flat = value.float().reshape(b, s, row)
+    bi = torch.arange(b).view(b, 1)
+    keep = rank_keep_model(aw.reshape(b, lq, m, l * p), k)
+    out = torch.zeros(b, lq, row)
+    loads = torch.zeros(b, lq, m, dtype=torch.long)
+    for e0, head, off_big, off_small in wide12_lanes(m, d):
+        ab, as_ = torch.zeros(b, lq, 8), torch.zeros(b, lq, 4)
+        n_loads = torch.zeros(b, lq, dtype=torch.long)
+        for lid, (h, w) in enumerate(shapes):
+            x, y = pixels(loc[:, :, head], shapes, lid)
+            for pt in range(p):
+                kept = keep[:, :, head, lid * p + pt]
+                for corner in range(4):
+                    inside, cell, bil = corner_rule(
+                        corner, h, w, x[..., pt], y[..., pt],
+                        torch.tensor(float(h)), torch.tensor(float(w)))
+                    cell = torch.where(inside, cell, 0)
+                    wt = torch.where(inside, bil * aw[:, :, head, lid, pt],
+                                     0.0)
+                    rows = flat[bi, starts[lid] + cell]  # [B, Lq, row]
+                    big = rows[..., e0 + off_big:e0 + off_big + 8]
+                    small = rows[..., e0 + off_small:e0 + off_small + 4]
+                    # a dropped sample: no load, nothing added
+                    ab = torch.where(kept[..., None], ab + wt[..., None] * big,
+                                     ab)
+                    as_ = torch.where(kept[..., None],
+                                      as_ + wt[..., None] * small, as_)
+                    n_loads += kept.long()
+        odd = (e0 >> 2) & 1
+        out[..., e0:e0 + 12] = torch.cat([as_, ab] if odd else [ab, as_], -1)
+        loads[:, :, head] = n_loads
+    return out, loads
+
+
+def test_rank_keep_model_matches_topk_sample_mask():
+    """The register rank keeps what a stable descending sort keeps, on
+    ties (every weight equal, pairs of equal weights) and random weights,
+    for every k."""
+    rng = np.random.default_rng(40)
+    rows = [np.full(16, 1.0 / 16), np.repeat(rng.uniform(size=8), 2),
+            rng.uniform(size=16), np.tile([0.2, 0.3], 8)]
+    aw = torch.from_numpy(np.stack(rows).astype(np.float32)).view(4, 1, 1, 4, 4)
+    for k in range(1, 17):
+        keep = rank_keep_model(aw.reshape(4, 1, 1, 16), k).view(aw.shape)
+        assert torch.equal(keep, msda.topk_sample_mask(aw, k)), k
+        assert (keep.sum((-1, -2)) == k).all()
+    tied = rank_keep_model(aw[:1].reshape(1, 16), 5)
+    assert tied.flatten().tolist() == [True] * 5 + [False] * 11
+
+
+TOPK_CASES = {
+    "lp22_k3": (((6, 8), (3, 4)), 2, 3),
+    "lp12_k1": (((7, 9),), 2, 1),
+    "lp44_k8": (((8, 12), (4, 6), (2, 3), (1, 2)), 4, 8),
+}
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("case", list(TOPK_CASES))
+def test_msda_topk_wide_model_matches_plain_and_jax(case, uniform):
+    shapes, p, k = TOPK_CASES[case]
+    b, lq, m, d = 2, 5, 4, 36
+    value, _, loc, aw = _inputs(41, shapes, b=b, lq=lq, m=m, p=p, d=d)
+    if uniform:
+        aw = torch.full_like(aw, 1.0 / (len(shapes) * p))
+    out, loads = msda_topk_wide_model(value, shapes, loc, aw, k)
+    assert (loads == 4 * k).all()  # every kept corner, nothing dropped
+    ref = msda.ms_deform_attn_topk_plain(value, shapes, loc, aw, k)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    ref_j = np.asarray(jax_msda.ms_deform_attn_topk_quad(
+        jnp.asarray(value.numpy()), shapes, jnp.asarray(loc.numpy()),
+        jnp.asarray(aw.numpy()), top_k=k))
     np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)

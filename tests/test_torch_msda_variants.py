@@ -361,8 +361,9 @@ def test_variant_kernel_gradients_match_plain_on_gpu(kind):
 
 
 # every instance the forward launchers of csrc/msda_fwd.cu can pick for
-# msda_fwd, msda_fwd_i8 and msda_shared_fwd: (D, shapes, P, the value's
-# offset in bytes from an aligned buffer, loc / aw offset by one float)
+# msda_fwd, msda_fwd_i8, msda_shared_fwd and msda_topk_fwd: (D, shapes, P,
+# the value's offset in bytes from an aligned buffer, loc / aw offset by one
+# float)
 INSTANCES = {
     "d36_wide": (36, SHAPES[0], 2, 0, False),  # 12-channel lanes, (2, 2)
     "d36_wide_1level": (36, ((7, 9),), 2, 0, False),  # (1, 2)
@@ -394,9 +395,10 @@ def _view_at(t, offset_bytes):
 @pytest.mark.parametrize("case", list(INSTANCES))
 def test_forward_instances_match_plain_on_gpu(case, dtype):
     """msda_fwd, msda_fwd_i8 (dtype is the scale's, which the model rounds
-    to the value's type) and msda_shared_fwd against their plain versions
-    on locations on the 2^-16 grid, where they differ only in the order of
-    their sums."""
+    to the value's type), msda_shared_fwd and msda_topk_fwd (k = 1,
+    L * P / 2, L * P - 1 and L * P, random and tied weights) against their plain
+    versions on locations on the 2^-16 grid, where they differ only in the
+    order of their sums."""
     dev = _cuda()
     d, shapes, p, off, sliced_samples = INSTANCES[case]
     value, loc, aw = _inputs(22, shapes, m=8, d=d, lq=211, p=p)
@@ -412,6 +414,13 @@ def test_forward_instances_match_plain_on_gpu(case, dtype):
     torch.testing.assert_close(msda.ms_deform_attn_shared(v, shapes, sl, a),
                                msda.ms_deform_attn_shared_plain(v, shapes, sl,
                                                                 a), **TOL)
+    lp = len(shapes) * p
+    tied = _view_at(torch.full_like(a, 1.0 / lp), 4 if sliced_samples else 0)
+    for w in (a, tied):
+        for k in sorted({1, lp // 2, lp - 1, lp}):
+            torch.testing.assert_close(
+                msda.ms_deform_attn_topk(v, shapes, lc, w, k),
+                msda.ms_deform_attn_topk_plain(v, shapes, lc, w, k), **TOL)
     gen = torch.Generator(device=dev).manual_seed(23)
     q8 = _view_at(torch.randint(-127, 128, v.shape, generator=gen, device=dev,
                                 dtype=torch.int8), off)
