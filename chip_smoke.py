@@ -3333,8 +3333,9 @@ def phase_variants_train(torch, msda):
 
 # phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
 # msda_topk_fwd_variant) against each other
-TOPK_VARIANTS = ("index groups of 4", "index groups of 2", "slots of 4",
-                 "slots of 2", "slots of 8")
+TOPK_VARIANTS = ("slots of 4, FMAs below K", "index groups of 4, zeros",
+                 "index groups of 8, zeros", "slots of 4, zeros",
+                 "slots of 2, zeros", "slots of 8, zeros")
 
 
 def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):
@@ -3675,7 +3676,7 @@ def main(argv=None) -> int:
     log(f"  built {sorted(messages)} in {time.perf_counter() - t0:.1f} s")
     for kernel, text in messages.items():
         for entry, regs, spills in ptxas_entries(text):
-            log(f"  {kernel}: {entry[:72]}: {regs}; {spills}")
+            log(f"  {kernel}: {entry[:110]}: {regs}; {spills}")
 
     summary, launches = {}, {}
     if "F" in phases:

@@ -301,16 +301,20 @@ struct VecLane {
 
 // One (b, q, m, lane) of the top-k instances, L and P fixed at compile
 // time: the (q, m)'s weights read as vectors and ranked in registers, then
-// the kept samples walked kG at a time (all kLP at once where kLP <= 4),
-// every corner of a group's kept samples in flight before its first FMA.
-// kCompact = false: a group is kG consecutive samples, their locations
-// read as vectors, each dropped sample's loads and FMAs skipped.
-// kCompact = true: a group is the next kG kept samples (slots; the slot
-// count K is the same on every thread), each one's location and weight
-// read by its index (the weights from L1), its level's shape by selects.
-template <typename T, typename Lane, int kL, int kP, int kG, bool kCompact>
+// the samples walked kG at a time (all kLP at once where kLP <= 4), every
+// load of a group in flight before its first FMA. kRoute:
+//   0: a group is kG consecutive samples, their locations read as vectors;
+//      a dropped sample's corners are not loaded, their registers hold 0
+//      and their weights are 0, so every FMA runs;
+//   1: a group is the next kG kept samples (slots; the slot count K is the
+//      same on every thread), each one's location and weight read by its
+//      index (the weights from L1), its level's shape by selects; FMAs
+//      only for the slots below K;
+//   2: slots as 1, with every FMA run (a slot at or past K adds zeros).
+template <typename T, typename Lane, int kL, int kP, int kG, int kRoute>
 __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
                                           int b, int c0, Lane& lane) {
+  using Raw = typename Lane::Raw;
   constexpr int kLP = kL * kP;
   constexpr int kGe = kLP <= 4 ? kLP : kG;
   static_assert(kLP % kGe == 0, "groups tile the samples");
@@ -319,13 +323,13 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
   float sw[kLP];
   load_floats<kLP>(a.aw + bqm * kLP, sw);
   const unsigned keep = rank_keep<kLP>(sw, a.K);
-  if constexpr (!kCompact) {
+  if constexpr (kRoute == 0) {
 #pragma unroll
     for (int g = 0; g < kLP; g += kGe) {
       if (!((keep >> g) & ((1u << kGe) - 1u))) continue;
       float xy[2 * kGe];
       load_floats<2 * kGe>(loc + 2 * g, xy);
-      typename Lane::Raw r[4 * kGe];
+      Raw r[4 * kGe];
       float wt[4 * kGe];
 #pragma unroll
       for (int j = 0; j < kGe; ++j) {
@@ -340,16 +344,14 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
         const bool kept = (keep >> k) & 1u;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const long long cell =
-              corner_branch_free(c, h, w, x, y, sw[k], wt[4 * j + c]);
+          const long long cell = corner_branch_free(
+              c, h, w, x, y, kept ? sw[k] : 0.0f, wt[4 * j + c]);
+          r[4 * j + c] = Raw{};
           if (kept) lane.load(base + cell * row_stride, r[4 * j + c]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < kGe; ++j)
-        if ((keep >> (g + j)) & 1u)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) lane.add(wt[4 * j + c], r[4 * j + c]);
+      for (int t = 0; t < 4 * kGe; ++t) lane.add(wt[t], r[t]);
     }
   } else {
     int hs[kL], ws[kL], starts[kL];
@@ -364,32 +366,39 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
 #pragma unroll
     for (int g = 0; g < kLP; g += kGe) {
       if (g >= a.K) break;
-      typename Lane::Raw r[4 * kGe];
+      Raw r[4 * kGe];
       float wt[4 * kGe];
 #pragma unroll
       for (int j = 0; j < kGe; ++j) {
-        if (g + j >= a.K) break;
-        const int k = __ffs((int)rem) - 1;  // the slot's sample
+        const bool valid = g + j < a.K;
+        if (kRoute == 1 && !valid) break;
+        const int k = max(__ffs((int)rem) - 1, 0);  // the slot's sample
         rem &= rem - 1;
         const int lv = k / kP;
         int h = hs[0], w = ws[0], start = starts[0];
 #pragma unroll
         for (int l = 1; l < kL; ++l)
           if (lv == l) h = hs[l], w = ws[l], start = starts[l];
-        const float2 p = __ldg(reinterpret_cast<const float2*>(loc) + k);
-        const float s = __ldg(a.aw + bqm * kLP + k);
+        float2 p = make_float2(0.0f, 0.0f);
+        float s = 0.0f;
+        if (valid) {
+          p = __ldg(reinterpret_cast<const float2*>(loc) + k);
+          s = __ldg(a.aw + bqm * kLP + k);
+        }
         const float x = p.x * w - 0.5f;
         const float y = p.y * h - 0.5f;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const long long cell =
               corner_branch_free(c, h, w, x, y, s, wt[4 * j + c]);
-          lane.load(head + (start + cell) * row_stride, r[4 * j + c]);
+          r[4 * j + c] = Raw{};
+          if (valid) lane.load(head + (start + cell) * row_stride,
+                               r[4 * j + c]);
         }
       }
 #pragma unroll
       for (int j = 0; j < kGe; ++j)
-        if (g + j < a.K)
+        if (kRoute == 2 || g + j < a.K)
 #pragma unroll
           for (int c = 0; c < 4; ++c) lane.add(wt[4 * j + c], r[4 * j + c]);
     }
@@ -399,7 +408,7 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
 // V-channel lanes: one thread per (b, q, m, V channels). kG > 0: the top-k
 // instances (topk_walk's groups; kL = 0 the generic one).
 template <typename T, int V, int kL, int kP, bool kShared, int kG = 0,
-          bool kCompact = false>
+          int kRoute = 0>
 __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
   const int groups = a.D / V;
   const int per_query = a.M * groups;
@@ -420,7 +429,7 @@ __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     if constexpr (kG > 0 && kL > 0) {
       VecLane<T, V> lane{acc};
-      topk_walk<T, VecLane<T, V>, kL, kP, kG, kCompact>(a, bqm, b, c0, lane);
+      topk_walk<T, VecLane<T, V>, kL, kP, kG, kRoute>(a, bqm, b, c0, lane);
     } else if constexpr (kL > 0) {
       sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
     } else {
@@ -507,7 +516,7 @@ struct WideLane {
 // e0, Big at e0 + 4). kG > 0: the top-k instances (bf16), topk_walk's
 // groups.
 template <typename T, int kL, int kP, bool kShared, int kG = 0,
-          bool kCompact = false>
+          int kRoute = 0>
 __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
   using W = Wide12<T>;
   constexpr int kLP = kL * kP;
@@ -534,7 +543,7 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
 #pragma unroll
       for (int t = 0; t < 4; ++t) as[t] = 0.0f;
       WideLane lane{off_big, off_small, ab, as};
-      topk_walk<T, WideLane, kL, kP, kG, kCompact>(a, bqm, b, e0, lane);
+      topk_walk<T, WideLane, kL, kP, kG, kRoute>(a, bqm, b, e0, lane);
     } else {
       float xy[2 * kLP], sw[kLP];
       load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
@@ -619,16 +628,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // The top-k kernels (msda_topk_fwd's): kL = 0 for the generic instance.
-template <typename T, int V, int kL, int kP, int kG, bool kCompact>
+template <typename T, int V, int kL, int kP, int kG, int kRoute>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_topk_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, false, kG, kCompact>(a);
+  fwd_lanes<T, V, kL, kP, false, kG, kRoute>(a);
 }
 
-template <int kL, int kP, int kG, bool kCompact>
+template <int kL, int kP, int kG, int kRoute>
 __global__ void __launch_bounds__(kMaxThreads)
     msda_topk_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
-  fwd_wide<__nv_bfloat16, kL, kP, false, kG, kCompact>(a);
+  fwd_wide<__nv_bfloat16, kL, kP, false, kG, kRoute>(a);
 }
 
 // The V-channel kernel of one entry and (L, P) instance.
@@ -698,7 +707,7 @@ static int topk_fixed(const FwdArgs<T>& a) {
   return 0;
 }
 
-template <typename T, int V, int kG, bool kCompact, bool kProbe>
+template <typename T, int V, int kG, int kRoute, bool kProbe>
 static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
                                      cudaStream_t stream) {
   const int per_query = a.M * (a.D / V);
@@ -706,11 +715,11 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
   auto go = [&](auto kernel) {
     return launch_runs(kernel, threads, per_query, a, stream);
   };
-  if (fixed == 22) return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kCompact>);
-  if (fixed == 12) return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kCompact>);
-  if (fixed == 44) return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kCompact>);
+  if (fixed == 22) return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute>);
+  if (fixed == 12) return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute>);
+  if (fixed == 44) return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute>);
   if constexpr (kProbe) return cudaErrorInvalidValue;
-  else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kCompact>);
+  else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kRoute>);
 }
 
 // Picks the top-k instance: wide lanes for bf16 at a fixed (L, P) where
@@ -718,7 +727,7 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
 // lanes that D and the pointers allow; any other L*P <= 64 takes the
 // generic instance. kProbe: the measured designs' entry, which takes only
 // the fixed (L, P) on wide or 4-channel lanes.
-template <int kG, bool kCompact, bool kProbe = false, typename T>
+template <int kG, int kRoute, bool kProbe = false, typename T>
 static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
   if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
     return cudaErrorInvalidValue;
@@ -729,21 +738,21 @@ static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
         a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
       const int per_query = a.M * (a.D / 12);
       return launch_runs(
-          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kCompact>
-          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kCompact>
-                        : msda_topk_fwd_wide_kernel<4, 4, kG, kCompact>,
+          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute>
+          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute>
+                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute>,
           block_threads(per_query), per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
   if (v == 4)
-    return launch_topk_lanes<T, 4, kG, kCompact, kProbe>(a, fixed, stream);
+    return launch_topk_lanes<T, 4, kG, kRoute, kProbe>(a, fixed, stream);
   if constexpr (kProbe) {
     return cudaErrorInvalidValue;
   } else {
     if (v == 2)
-      return launch_topk_lanes<T, 2, kG, kCompact, false>(a, fixed, stream);
-    return launch_topk_lanes<T, 1, kG, kCompact, false>(a, fixed, stream);
+      return launch_topk_lanes<T, 2, kG, kRoute, false>(a, fixed, stream);
+    return launch_topk_lanes<T, 1, kG, kRoute, false>(a, fixed, stream);
   }
 }
 
@@ -779,7 +788,7 @@ static int launch_float(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k C entries' launch: kG kept samples in flight at (4, 4).
-template <int kG, bool kCompact, bool kProbe = false>
+template <int kG, int kRoute, bool kProbe = false>
 static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              const void* starts, const void* loc,
                              const void* aw, void* out, int B, int S, int M,
@@ -787,12 +796,12 @@ static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return (int)launch_topk<kG, kCompact, kProbe>(
+    return (int)launch_topk<kG, kRoute, kProbe>(
         fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
                                 B, S, M, D, Lq, L, P, K),
         s);
   if (dtype == kF32)
-    return (int)launch_topk<kG, kCompact, kProbe>(
+    return (int)launch_topk<kG, kRoute, kProbe>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
                         D, Lq, L, P, K),
         s);
@@ -842,14 +851,14 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
                              const void* aw, void* out, int B, int S, int M,
                              int D, int Lq, int L, int P, int K,
                              void* stream) {
-  return kinet::launch_topk_float<4, false>(value, dtype, shapes, starts, loc,
+  return kinet::launch_topk_float<4, 1>(value, dtype, shapes, starts, loc,
                                             aw, out, B, S, M, D, Lq, L, P, K,
                                             stream);
 }
 
-// The top-k designs measured against each other (chip_smoke.py phase F):
-// variant 0 msda_topk_fwd's (index groups of 4 samples), 1 index groups of
-// 2, 2 compacted slots of 4 kept samples, 3 slots of 2, 4 slots of 8.
+// The top-k designs measured against each other (chip_smoke.py phase F),
+// (route, group) of topk_walk: 0 msda_topk_fwd's (1, 4), 1 (0, 4),
+// 2 (0, 8), 3 (2, 4), 4 (2, 2), 5 (2, 8).
 extern "C" int msda_topk_fwd_variant(int variant, const void* value,
                                      int dtype, const void* shapes,
                                      const void* starts, const void* loc,
@@ -861,11 +870,12 @@ extern "C" int msda_topk_fwd_variant(int variant, const void* value,
              P, K, stream);
   };
   switch (variant) {
-    case 0: return go(kinet::launch_topk_float<4, false, true>);
-    case 1: return go(kinet::launch_topk_float<2, false, true>);
-    case 2: return go(kinet::launch_topk_float<4, true, true>);
-    case 3: return go(kinet::launch_topk_float<2, true, true>);
-    case 4: return go(kinet::launch_topk_float<8, true, true>);
+    case 0: return go(kinet::launch_topk_float<4, 1, true>);
+    case 1: return go(kinet::launch_topk_float<4, 0, true>);
+    case 2: return go(kinet::launch_topk_float<8, 0, true>);
+    case 3: return go(kinet::launch_topk_float<4, 2, true>);
+    case 4: return go(kinet::launch_topk_float<2, 2, true>);
+    case 5: return go(kinet::launch_topk_float<8, 2, true>);
   }
   return (int)cudaErrorInvalidValue;
 }
