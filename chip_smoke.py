@@ -3333,11 +3333,9 @@ def phase_variants_train(torch, msda):
 
 # phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
 # msda_topk_fwd_variant) against each other
-TOPK_VARIANTS = ("slots of 4, FMAs below K", "the same, 2 blocks an SM",
-                 "the same, 3 blocks an SM", "slots of 4, zeros",
-                 "slots of 4, zeros, 2 blocks an SM",
-                 "slots of 4, zeros, 3 blocks an SM",
-                 "slots of 2, zeros, 2 blocks an SM")
+TOPK_VARIANTS = ("slots of 4, branches", "index groups of 4, predicated",
+                 "slots of 4, predicated", "slots of 2, predicated",
+                 "slots of 8, predicated")
 
 
 def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):

@@ -281,21 +281,85 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
   }
 }
 
+// Read-only loads that read nothing where p is false, the destination
+// then keeping its value (the callers zero it). As predicated instructions,
+// not branches, they leave ptxas free to interleave a thread's loads with
+// its FMAs, as it does for msda_fwd's unconditional ones.
+__device__ __forceinline__ void ldg_if(bool p, const void* q, uint4& r) {
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
+      " @p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}"
+      : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w)
+      : "l"(q), "r"((int)p));
+}
+__device__ __forceinline__ void ldg_if(bool p, const void* q, uint2& r) {
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+      " @p ld.global.nc.v2.u32 {%0, %1}, [%2];\n}"
+      : "+r"(r.x), "+r"(r.y)
+      : "l"(q), "r"((int)p));
+}
+__device__ __forceinline__ void ldg_if(bool p, const void* q, unsigned& r) {
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p ld.global.nc.u32 %0, [%1];\n}"
+      : "+r"(r)
+      : "l"(q), "r"((int)p));
+}
+__device__ __forceinline__ void ldg_if(bool p, const void* q,
+                                       unsigned short& r) {
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p ld.global.nc.u16 %0, [%1];\n}"
+      : "+h"(r)
+      : "l"(q), "r"((int)p));
+}
+
+// The raw bits of V channels of T, and their f32 values.
+template <int kBytes>
+struct RawBits;
+template <>
+struct RawBits<2> { using type = unsigned short; };
+template <>
+struct RawBits<4> { using type = unsigned; };
+template <>
+struct RawBits<8> { using type = uint2; };
+template <>
+struct RawBits<16> { using type = uint4; };
+
+template <typename T, int V>
+__device__ __forceinline__ void raw_floats(
+    const typename RawBits<V * sizeof(T)>::type& r, float (&o)[V]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(&r);
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = __uint_as_float(w[i]);
+  } else if constexpr (V == 1) {
+    o[0] = __uint_as_float((unsigned)r << 16);
+  } else {
+    const unsigned* w = reinterpret_cast<const unsigned*>(&r);
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = bf2_to_f2(w[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+}
+
 // What a top-k thread reads of one corner and adds to its sums: V channels
-// converted to f32 at the load (VecLane), or the 12-channel wide lane's
-// raw words (WideLane, after Wide12).
+// (VecLane), or the 12-channel wide lane's two loads (WideLane, after
+// Wide12). Raw{} is zero, which a load that does not happen leaves.
 template <typename T, int V>
 struct VecLane {
   struct Raw {
-    float v[V];
+    typename RawBits<V * sizeof(T)>::type bits;
   };
   float (&acc)[V];
-  __device__ __forceinline__ void load(const T* q, Raw& r) const {
-    VecIO<T, V>::load(q, r.v);
+  __device__ __forceinline__ void load_if(bool p, const T* q, Raw& r) const {
+    ldg_if(p, q, r.bits);
   }
   __device__ __forceinline__ void add(float wt, const Raw& r) {
+    float v[V];
+    raw_floats<T, V>(r.bits, v);
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, r.v[i], acc[i]);
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
   }
 };
 
@@ -347,7 +411,7 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
           const long long cell = corner_branch_free(
               c, h, w, x, y, kept ? sw[k] : 0.0f, wt[4 * j + c]);
           r[4 * j + c] = Raw{};
-          if (kept) lane.load(base + cell * row_stride, r[4 * j + c]);
+          lane.load_if(kept, base + cell * row_stride, r[4 * j + c]);
         }
       }
 #pragma unroll
@@ -379,12 +443,9 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
 #pragma unroll
         for (int l = 1; l < kL; ++l)
           if (lv == l) h = hs[l], w = ws[l], start = starts[l];
-        float2 p = make_float2(0.0f, 0.0f);
-        float s = 0.0f;
-        if (valid) {
-          p = __ldg(reinterpret_cast<const float2*>(loc) + k);
-          s = __ldg(a.aw + bqm * kLP + k);
-        }
+        const float2 p = __ldg(reinterpret_cast<const float2*>(loc) + k);
+        const float sk = __ldg(a.aw + bqm * kLP + k);
+        const float s = valid ? sk : 0.0f;
         const float x = p.x * w - 0.5f;
         const float y = p.y * h - 0.5f;
 #pragma unroll
@@ -392,8 +453,8 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
           const long long cell =
               corner_branch_free(c, h, w, x, y, s, wt[4 * j + c]);
           r[4 * j + c] = Raw{};
-          if (valid) lane.load(head + (start + cell) * row_stride,
-                               r[4 * j + c]);
+          lane.load_if(valid, head + (start + cell) * row_stride,
+                       r[4 * j + c]);
         }
       }
 #pragma unroll
@@ -500,9 +561,10 @@ struct WideLane {
   int off_big, off_small;
   float (&ab)[8];
   float (&as)[4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* q, Raw& r) const {
-    r.big = __ldg(reinterpret_cast<const uint4*>(q + off_big));
-    r.small = __ldg(reinterpret_cast<const uint2*>(q + off_small));
+  __device__ __forceinline__ void load_if(bool p, const __nv_bfloat16* q,
+                                          Raw& r) const {
+    ldg_if(p, q + off_big, r.big);
+    ldg_if(p, q + off_small, r.small);
   }
   __device__ __forceinline__ void add(float wt, const Raw& r) {
     Wide12<__nv_bfloat16>::fma(wt, r.big, ab);
@@ -628,15 +690,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // The top-k kernels (msda_topk_fwd's): kL = 0 for the generic instance.
-template <typename T, int V, int kL, int kP, int kG, int kRoute,
-          int kMinBlocks = 1>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <typename T, int V, int kL, int kP, int kG, int kRoute>
+__global__ void __launch_bounds__(kMaxThreads)
     msda_topk_fwd_kernel(FwdArgs<T> a) {
   fwd_lanes<T, V, kL, kP, false, kG, kRoute>(a);
 }
 
-template <int kL, int kP, int kG, int kRoute, int kMinBlocks = 1>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <int kL, int kP, int kG, int kRoute>
+__global__ void __launch_bounds__(kMaxThreads)
     msda_topk_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
   fwd_wide<__nv_bfloat16, kL, kP, false, kG, kRoute>(a);
 }
@@ -708,7 +769,7 @@ static int topk_fixed(const FwdArgs<T>& a) {
   return 0;
 }
 
-template <typename T, int V, int kG, int kRoute, bool kProbe, int kMin = 1>
+template <typename T, int V, int kG, int kRoute, bool kProbe>
 static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
                                      cudaStream_t stream) {
   const int per_query = a.M * (a.D / V);
@@ -717,11 +778,11 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
     return launch_runs(kernel, threads, per_query, a, stream);
   };
   if (fixed == 22)
-    return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute, kMin>);
+    return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute>);
   if (fixed == 12)
-    return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute, kMin>);
+    return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute>);
   if (fixed == 44)
-    return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute, kMin>);
+    return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute>);
   if constexpr (kProbe) return cudaErrorInvalidValue;
   else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kRoute>);
 }
@@ -731,7 +792,7 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
 // lanes that D and the pointers allow; any other L*P <= 64 takes the
 // generic instance. kProbe: the measured designs' entry, which takes only
 // the fixed (L, P) on wide or 4-channel lanes.
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1, typename T>
+template <int kG, int kRoute, bool kProbe = false, typename T>
 static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
   if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
     return cudaErrorInvalidValue;
@@ -742,16 +803,15 @@ static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
         a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
       const int per_query = a.M * (a.D / 12);
       return launch_runs(
-          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute, kMin>
-          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute, kMin>
-                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute, kMin>,
+          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute>
+          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute>
+                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute>,
           block_threads(per_query), per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
   if (v == 4)
-    return launch_topk_lanes<T, 4, kG, kRoute, kProbe, kMin>(a, fixed,
-                                                             stream);
+    return launch_topk_lanes<T, 4, kG, kRoute, kProbe>(a, fixed, stream);
   if constexpr (kProbe) {
     return cudaErrorInvalidValue;
   } else {
@@ -793,7 +853,7 @@ static int launch_float(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k C entries' launch: kG kept samples in flight at (4, 4).
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1>
+template <int kG, int kRoute, bool kProbe = false>
 static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              const void* starts, const void* loc,
                              const void* aw, void* out, int B, int S, int M,
@@ -801,12 +861,12 @@ static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
+    return (int)launch_topk<kG, kRoute, kProbe>(
         fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
                                 B, S, M, D, Lq, L, P, K),
         s);
   if (dtype == kF32)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
+    return (int)launch_topk<kG, kRoute, kProbe>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
                         D, Lq, L, P, K),
         s);
@@ -862,9 +922,8 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k designs measured against each other (chip_smoke.py phase F),
-// (route, group) of topk_walk and the blocks an SM asked of ptxas:
-// 0 msda_topk_fwd's (1, 4, 1), 1 (1, 4, 2), 2 (1, 4, 3), 3 (2, 4, 1),
-// 4 (2, 4, 2), 5 (2, 4, 3), 6 (2, 2, 2).
+// (route, group) of topk_walk: 0 msda_topk_fwd's (1, 4), 1 (0, 4),
+// 2 (2, 4), 3 (2, 2), 4 (2, 8).
 extern "C" int msda_topk_fwd_variant(int variant, const void* value,
                                      int dtype, const void* shapes,
                                      const void* starts, const void* loc,
@@ -876,13 +935,11 @@ extern "C" int msda_topk_fwd_variant(int variant, const void* value,
              P, K, stream);
   };
   switch (variant) {
-    case 0: return go(kinet::launch_topk_float<4, 1, true, 1>);
-    case 1: return go(kinet::launch_topk_float<4, 1, true, 2>);
-    case 2: return go(kinet::launch_topk_float<4, 1, true, 3>);
-    case 3: return go(kinet::launch_topk_float<4, 2, true, 1>);
-    case 4: return go(kinet::launch_topk_float<4, 2, true, 2>);
-    case 5: return go(kinet::launch_topk_float<4, 2, true, 3>);
-    case 6: return go(kinet::launch_topk_float<2, 2, true, 2>);
+    case 0: return go(kinet::launch_topk_float<4, 1, true>);
+    case 1: return go(kinet::launch_topk_float<4, 0, true>);
+    case 2: return go(kinet::launch_topk_float<4, 2, true>);
+    case 3: return go(kinet::launch_topk_float<2, 2, true>);
+    case 4: return go(kinet::launch_topk_float<8, 2, true>);
   }
   return (int)cudaErrorInvalidValue;
 }
