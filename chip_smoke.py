@@ -3333,9 +3333,11 @@ def phase_variants_train(torch, msda):
 
 # phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
 # msda_topk_fwd_variant) against each other
-TOPK_VARIANTS = ("slots of 4, branches", "index groups of 4, predicated",
-                 "slots of 4, predicated", "slots of 2, predicated",
-                 "slots of 8, predicated")
+TOPK_VARIANTS = ("slots of 4, branches", "slots of 4, predicated, 2 blocks",
+                 "slots of 4, predicated, 3 blocks",
+                 "index groups of 4, predicated, 2 blocks",
+                 "index groups of 4, predicated, 3 blocks",
+                 "slots of 2, predicated, 3 blocks")
 
 
 def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):

@@ -690,14 +690,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // The top-k kernels (msda_topk_fwd's): kL = 0 for the generic instance.
-template <typename T, int V, int kL, int kP, int kG, int kRoute>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int V, int kL, int kP, int kG, int kRoute,
+          int kMinBlocks = 1>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     msda_topk_fwd_kernel(FwdArgs<T> a) {
   fwd_lanes<T, V, kL, kP, false, kG, kRoute>(a);
 }
 
-template <int kL, int kP, int kG, int kRoute>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kL, int kP, int kG, int kRoute, int kMinBlocks = 1>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     msda_topk_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
   fwd_wide<__nv_bfloat16, kL, kP, false, kG, kRoute>(a);
 }
@@ -769,7 +770,7 @@ static int topk_fixed(const FwdArgs<T>& a) {
   return 0;
 }
 
-template <typename T, int V, int kG, int kRoute, bool kProbe>
+template <typename T, int V, int kG, int kRoute, bool kProbe, int kMin = 1>
 static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
                                      cudaStream_t stream) {
   const int per_query = a.M * (a.D / V);
@@ -778,11 +779,11 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
     return launch_runs(kernel, threads, per_query, a, stream);
   };
   if (fixed == 22)
-    return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute>);
+    return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute, kMin>);
   if (fixed == 12)
-    return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute>);
+    return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute, kMin>);
   if (fixed == 44)
-    return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute>);
+    return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute, kMin>);
   if constexpr (kProbe) return cudaErrorInvalidValue;
   else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kRoute>);
 }
@@ -792,7 +793,7 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
 // lanes that D and the pointers allow; any other L*P <= 64 takes the
 // generic instance. kProbe: the measured designs' entry, which takes only
 // the fixed (L, P) on wide or 4-channel lanes.
-template <int kG, int kRoute, bool kProbe = false, typename T>
+template <int kG, int kRoute, bool kProbe = false, int kMin = 1, typename T>
 static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
   if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
     return cudaErrorInvalidValue;
@@ -803,15 +804,16 @@ static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
         a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
       const int per_query = a.M * (a.D / 12);
       return launch_runs(
-          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute>
-          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute>
-                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute>,
+          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute, kMin>
+          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute, kMin>
+                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute, kMin>,
           block_threads(per_query), per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
   if (v == 4)
-    return launch_topk_lanes<T, 4, kG, kRoute, kProbe>(a, fixed, stream);
+    return launch_topk_lanes<T, 4, kG, kRoute, kProbe, kMin>(a, fixed,
+                                                             stream);
   if constexpr (kProbe) {
     return cudaErrorInvalidValue;
   } else {
@@ -853,7 +855,7 @@ static int launch_float(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k C entries' launch: kG kept samples in flight at (4, 4).
-template <int kG, int kRoute, bool kProbe = false>
+template <int kG, int kRoute, bool kProbe = false, int kMin = 1>
 static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              const void* starts, const void* loc,
                              const void* aw, void* out, int B, int S, int M,
@@ -861,12 +863,12 @@ static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return (int)launch_topk<kG, kRoute, kProbe>(
+    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
         fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
                                 B, S, M, D, Lq, L, P, K),
         s);
   if (dtype == kF32)
-    return (int)launch_topk<kG, kRoute, kProbe>(
+    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
                         D, Lq, L, P, K),
         s);
@@ -922,8 +924,9 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k designs measured against each other (chip_smoke.py phase F),
-// (route, group) of topk_walk: 0 msda_topk_fwd's (1, 4), 1 (0, 4),
-// 2 (2, 4), 3 (2, 2), 4 (2, 8).
+// (route, group) of topk_walk and the blocks an SM asked of ptxas:
+// 0 msda_topk_fwd's (1, 4, 1), 1 (2, 4, 2), 2 (2, 4, 3), 3 (0, 4, 2),
+// 4 (0, 4, 3), 5 (2, 2, 3).
 extern "C" int msda_topk_fwd_variant(int variant, const void* value,
                                      int dtype, const void* shapes,
                                      const void* starts, const void* loc,
@@ -936,10 +939,11 @@ extern "C" int msda_topk_fwd_variant(int variant, const void* value,
   };
   switch (variant) {
     case 0: return go(kinet::launch_topk_float<4, 1, true>);
-    case 1: return go(kinet::launch_topk_float<4, 0, true>);
-    case 2: return go(kinet::launch_topk_float<4, 2, true>);
-    case 3: return go(kinet::launch_topk_float<2, 2, true>);
-    case 4: return go(kinet::launch_topk_float<8, 2, true>);
+    case 1: return go(kinet::launch_topk_float<4, 2, true, 2>);
+    case 2: return go(kinet::launch_topk_float<4, 2, true, 3>);
+    case 3: return go(kinet::launch_topk_float<4, 0, true, 2>);
+    case 4: return go(kinet::launch_topk_float<4, 0, true, 3>);
+    case 5: return go(kinet::launch_topk_float<2, 2, true, 3>);
   }
   return (int)cudaErrorInvalidValue;
 }
