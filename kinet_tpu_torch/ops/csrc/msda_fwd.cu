@@ -137,6 +137,34 @@ static long long resident_blocks(const void* kernel, int threads) {
   return slots;
 }
 
+// Threads of a top-k block: whole queries, a multiple of 32, at most
+// kMaxThreads, the size that keeps the most threads resident on an SM (at
+// 130-170 registers a thread, one block of 288 leaves a third of the
+// register file idle). Asked once per (kernel, device) and kept.
+static int fit_threads(const void* kernel, int per_query) {
+  struct Entry {
+    const void* kernel;
+    int dev, per_query, threads;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(mu);
+  for (const Entry& e : known)
+    if (e.kernel == kernel && e.dev == dev && e.per_query == per_query)
+      return e.threads;
+  int best = block_threads(per_query), most = 0;
+  for (int t = per_query; t <= kMaxThreads; t += per_query) {
+    if (t % 32 != 0) continue;
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, t, 0);
+    if (per_sm * t >= most) most = per_sm * t, best = t;
+  }
+  known.push_back({kernel, dev, per_query, best});
+  return best;
+}
+
 // Launches `kernel` with `threads` threads a block (per_query of them a
 // query) on at most as many blocks as fit on the card at once, each walking
 // a.run consecutive queries: an even share, rounded up to whole passes of
@@ -380,7 +408,7 @@ __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
                                           int b, int c0, Lane& lane) {
   using Raw = typename Lane::Raw;
   constexpr int kLP = kL * kP;
-  constexpr int kGe = kLP <= 4 ? kLP : kG;
+  constexpr int kGe = kG < kLP ? kG : kLP;
   static_assert(kLP % kGe == 0, "groups tile the samples");
   const long long row_stride = (long long)a.M * a.D;
   const float* loc = a.loc + bqm * 2 * kLP;
@@ -770,12 +798,14 @@ static int topk_fixed(const FwdArgs<T>& a) {
   return 0;
 }
 
-template <typename T, int V, int kG, int kRoute, bool kProbe, int kMin = 1>
+template <typename T, int V, int kG, int kRoute, bool kProbe, int kMin = 1,
+          bool kFit = false>
 static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
                                      cudaStream_t stream) {
   const int per_query = a.M * (a.D / V);
-  const int threads = block_threads(per_query);
   auto go = [&](auto kernel) {
+    const int threads = kFit ? fit_threads((const void*)kernel, per_query)
+                             : block_threads(per_query);
     return launch_runs(kernel, threads, per_query, a, stream);
   };
   if (fixed == 22)
@@ -793,7 +823,8 @@ static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
 // lanes that D and the pointers allow; any other L*P <= 64 takes the
 // generic instance. kProbe: the measured designs' entry, which takes only
 // the fixed (L, P) on wide or 4-channel lanes.
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1, typename T>
+template <int kG, int kRoute, bool kProbe = false, int kMin = 1,
+          bool kFit = false, typename T>
 static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
   if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
     return cudaErrorInvalidValue;
@@ -803,17 +834,19 @@ static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
     if (fixed && (uintptr_t)a.out % 16 == 0 && row % 8 == 0 &&
         a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
       const int per_query = a.M * (a.D / 12);
-      return launch_runs(
+      auto kernel =
           fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute, kMin>
           : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute, kMin>
-                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute, kMin>,
-          block_threads(per_query), per_query, a, stream);
+                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute, kMin>;
+      const int threads = kFit ? fit_threads((const void*)kernel, per_query)
+                               : block_threads(per_query);
+      return launch_runs(kernel, threads, per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
   if (v == 4)
-    return launch_topk_lanes<T, 4, kG, kRoute, kProbe, kMin>(a, fixed,
-                                                             stream);
+    return launch_topk_lanes<T, 4, kG, kRoute, kProbe, kMin, kFit>(a, fixed,
+                                                                   stream);
   if constexpr (kProbe) {
     return cudaErrorInvalidValue;
   } else {
@@ -855,7 +888,8 @@ static int launch_float(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k C entries' launch: kG kept samples in flight at (4, 4).
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1>
+template <int kG, int kRoute, bool kProbe = false, int kMin = 1,
+          bool kFit = false>
 static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              const void* starts, const void* loc,
                              const void* aw, void* out, int B, int S, int M,
@@ -863,12 +897,12 @@ static int launch_topk_float(const void* value, int dtype, const void* shapes,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
+    return (int)launch_topk<kG, kRoute, kProbe, kMin, kFit>(
         fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
                                 B, S, M, D, Lq, L, P, K),
         s);
   if (dtype == kF32)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin>(
+    return (int)launch_topk<kG, kRoute, kProbe, kMin, kFit>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
                         D, Lq, L, P, K),
         s);
@@ -924,9 +958,10 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
 }
 
 // The top-k designs measured against each other (chip_smoke.py phase F),
-// (route, group) of topk_walk and the blocks an SM asked of ptxas:
-// 0 msda_topk_fwd's (1, 4, 1), 1 (2, 4, 2), 2 (2, 4, 3), 3 (0, 4, 2),
-// 4 (0, 4, 3), 5 (2, 2, 3).
+// (route, group) of topk_walk, the blocks an SM asked of ptxas and the
+// block size (fit_threads or block_threads): 0 msda_topk_fwd's
+// (1, 4, 1, 288), 1 (1, 4, 1, fit), 2 (1, 2, 1, 288), 3 (1, 2, 1, fit),
+// 4 (2, 4, 1, fit), 5 (2, 2, 3, 288), 6 (2, 2, 3, fit).
 extern "C" int msda_topk_fwd_variant(int variant, const void* value,
                                      int dtype, const void* shapes,
                                      const void* starts, const void* loc,
@@ -939,11 +974,12 @@ extern "C" int msda_topk_fwd_variant(int variant, const void* value,
   };
   switch (variant) {
     case 0: return go(kinet::launch_topk_float<4, 1, true>);
-    case 1: return go(kinet::launch_topk_float<4, 2, true, 2>);
-    case 2: return go(kinet::launch_topk_float<4, 2, true, 3>);
-    case 3: return go(kinet::launch_topk_float<4, 0, true, 2>);
-    case 4: return go(kinet::launch_topk_float<4, 0, true, 3>);
+    case 1: return go(kinet::launch_topk_float<4, 1, true, 1, true>);
+    case 2: return go(kinet::launch_topk_float<2, 1, true>);
+    case 3: return go(kinet::launch_topk_float<2, 1, true, 1, true>);
+    case 4: return go(kinet::launch_topk_float<4, 2, true, 1, true>);
     case 5: return go(kinet::launch_topk_float<2, 2, true, 3>);
+    case 6: return go(kinet::launch_topk_float<2, 2, true, 3, true>);
   }
   return (int)cudaErrorInvalidValue;
 }
