@@ -3333,11 +3333,10 @@ def phase_variants_train(torch, msda):
 
 # phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
 # msda_topk_fwd_variant) against each other
-TOPK_VARIANTS = ("slots of 2, branches", "index groups of 2, predicated",
-                 "the same, 3 blocks", "slots of 1, branches",
-                 "slots of 2, predicated, 3 blocks",
-                 "slots of 2, predicated, 2 blocks",
-                 "slots of 2, branches, 2 blocks")
+TOPK_VARIANTS = ("slots of 1, predicated", "the same, 3 blocks",
+                 "the same, 4 blocks", "slots of 2, predicated, 3 blocks",
+                 "slots of 1, branches", "slots of 4, predicated, 3 blocks",
+                 "slots of 2, predicated, 4 blocks")
 
 
 def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):

@@ -959,8 +959,8 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
 
 // The top-k designs measured against each other (chip_smoke.py phase F),
 // (route, group) of topk_walk, the blocks an SM asked of ptxas, every
-// block sized by fit_threads: 0 (1, 2, 1), 1 (0, 2, 1), 2 (0, 2, 3),
-// 3 (1, 1, 1), 4 (2, 2, 3), 5 (2, 2, 2), 6 (1, 2, 2).
+// block sized by fit_threads: 0 (2, 1, 1), 1 (2, 1, 3), 2 (2, 1, 4),
+// 3 (2, 2, 3), 4 (1, 1, 1), 5 (2, 4, 3), 6 (2, 2, 4).
 extern "C" int msda_topk_fwd_variant(int variant, const void* value,
                                      int dtype, const void* shapes,
                                      const void* starts, const void* loc,
@@ -972,13 +972,13 @@ extern "C" int msda_topk_fwd_variant(int variant, const void* value,
              P, K, stream);
   };
   switch (variant) {
-    case 0: return go(kinet::launch_topk_float<2, 1, true, 1, true>);
-    case 1: return go(kinet::launch_topk_float<2, 0, true, 1, true>);
-    case 2: return go(kinet::launch_topk_float<2, 0, true, 3, true>);
-    case 3: return go(kinet::launch_topk_float<1, 1, true, 1, true>);
-    case 4: return go(kinet::launch_topk_float<2, 2, true, 3, true>);
-    case 5: return go(kinet::launch_topk_float<2, 2, true, 2, true>);
-    case 6: return go(kinet::launch_topk_float<2, 1, true, 2, true>);
+    case 0: return go(kinet::launch_topk_float<1, 2, true, 1, true>);
+    case 1: return go(kinet::launch_topk_float<1, 2, true, 3, true>);
+    case 2: return go(kinet::launch_topk_float<1, 2, true, 4, true>);
+    case 3: return go(kinet::launch_topk_float<2, 2, true, 3, true>);
+    case 4: return go(kinet::launch_topk_float<1, 1, true, 1, true>);
+    case 5: return go(kinet::launch_topk_float<4, 2, true, 3, true>);
+    case 6: return go(kinet::launch_topk_float<2, 2, true, 4, true>);
   }
   return (int)cudaErrorInvalidValue;
 }
