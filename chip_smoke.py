@@ -3331,97 +3331,6 @@ def phase_variants_train(torch, msda):
         torch.cuda.empty_cache()
 
 
-# phase F, a measurement: the top-k designs of csrc/msda_fwd.cu (C entry
-# msda_topk_fwd_variant) against each other
-TOPK_VARIANTS = ("slots of 1, predicated", "the same, 3 blocks",
-                 "the same, 4 blocks", "slots of 2, predicated, 3 blocks",
-                 "slots of 1, branches", "slots of 4, predicated, 3 blocks",
-                 "slots of 2, predicated, 4 blocks")
-
-
-def topk_variant_fn(torch, msda, variant, value, shapes, loc, aw, k):
-    """A call of design ``variant`` of the top-k kernel on these inputs."""
-    b, s, m, d = value.shape
-    lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    shapes_t, starts_t = msda._level_tables(shapes, value.device)
-    _P, _I = msda._P, msda._I
-
-    def run():
-        out = torch.empty(b, lq, m * d, dtype=torch.float32,
-                          device=value.device)
-        msda._launch(
-            "msda_topk_fwd_variant", [_I, _P, _I] + [_P] * 5 + [_I] * 8 + [_P],
-            value.device, variant, value.data_ptr(),
-            msda._DTYPE_CODE[value.dtype], shapes_t.data_ptr(),
-            starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-            out.data_ptr(), b, s, m, d, lq, l, p, k, lib="msda_fwd")
-        return out
-    return run
-
-
-def phase_topk_designs(torch, msda):
-    """F: each top-k design against the plain version on snapped samples,
-    then device ms in turns (designs 0..n, n..0) on V1's (2, 2) k = 3 and
-    (4, 4) k = 8 inputs (f32 and bf16) and on one served enc_msda_topk
-    frame's 5 top-k calls, beside msda_fwd on the same inputs unpruned and
-    the msda_topk_fwd wrapper."""
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    cases = []
-    for shapes, lq, p, k in ((LEVELS[:2], sum(h * w for h, w in LEVELS[1:]),
-                              2, 3), (LEVELS, 4000, 4, 8)):
-        s = sum(h * w for h, w in shapes)
-        loc, aw = make_samples(torch, gen, 1, lq, 8, shapes, p)
-        for dtype in (torch.float32, torch.bfloat16):
-            value = torch.randn(1, s, 8, 36, generator=gen,
-                                device=DEVICE).to(dtype)
-            cases.append((f"V1 ({len(shapes)}, {p}) k={k} {dtype}", value,
-                          shapes, loc, aw, k, False))
-    tracker, model, frames = served_tracker(torch, flagship_cfg().replace(
-        **V_VARIANTS["enc_msda_topk"][0]))
-    timed_frames(torch, tracker, frames[:V_FRAMES])
-    calls = record_forward_calls(torch, lambda: tracker.step(frames[V_FRAMES]))
-    topk_calls = [a for kern, a in calls if kern == "msda_topk_fwd"]
-    check(len(topk_calls) == 5, f"F: {len(topk_calls)} top-k calls a frame")
-    for i, (value, shapes, loc, aw, k) in enumerate(topk_calls):
-        cases.append((f"replay call {i} Lq {loc.shape[1]} k={k}", value,
-                      shapes, loc, aw, k, True))
-    del tracker, model, frames, calls
-    torch.cuda.empty_cache()
-    n = len(TOPK_VARIANTS)
-    order = list(range(n)) + list(range(n))[::-1]
-    replay = {v: [] for v in range(n)}
-    replay["msda_fwd"], replay["msda_topk_fwd"] = [], []
-    with torch.inference_mode():
-        for name, value, shapes, loc, aw, k, served in cases:
-            loc_s = snapped(torch, loc)
-            ref = msda.ms_deform_attn_topk_plain(value, shapes, loc_s, aw, k)
-            for v in range(n):
-                out = topk_variant_fn(torch, msda, v, value, shapes, loc_s,
-                                      aw, k)()
-                assert_close(torch, f"F {name} design {v}", out, ref, 1e-4,
-                             1e-5)
-            ms = {v: [] for v in range(n)}
-            for v in order:
-                ms[v].append(device_ms(torch, topk_variant_fn(
-                    torch, msda, v, value, shapes, loc, aw, k)))
-            fwd = device_ms(torch, lambda: msda.ms_deform_attn(
-                value, shapes, loc, aw))
-            wrap = device_ms(torch, lambda: msda.ms_deform_attn_topk(
-                value, shapes, loc, aw, k))
-            log(f"  {name}: " + "; ".join(
-                f"{v} ({TOPK_VARIANTS[v]}) {ms[v][0]:.5f} / {ms[v][1]:.5f}"
-                for v in range(n)) +
-                f"; msda_fwd {fwd:.5f}; msda_topk_fwd {wrap:.5f} ms device")
-            if served:
-                for v in range(n):
-                    replay[v].append(statistics.mean(ms[v]))
-                replay["msda_fwd"].append(fwd)
-                replay["msda_topk_fwd"].append(wrap)
-    log("  served frame's 5 top-k calls, mean device ms a launch: " +
-        "; ".join(f"{TOPK_VARIANTS[v] if isinstance(v, int) else v} "
-                  f"{statistics.mean(t):.5f}" for v, t in replay.items()))
-
-
 def two_stage_cfg():
     """train.yaml + train_deformable + two_stage with box refinement:
     upstream Deformable DETR's two-stage recipe (hidden 256, 8 heads, 6 + 6
@@ -3680,9 +3589,6 @@ def main(argv=None) -> int:
             log(f"  {kernel}: {entry[:110]}: {regs}; {spills}")
 
     summary, launches = {}, {}
-    if "F" in phases:
-        log("== F. the top-k designs of msda_fwd.cu against each other")
-        phase_topk_designs(torch, msda)
     if "3" in phases:
         log("== 3. forward kernels vs plain (800x1440 shapes, B=1)")
         summary.update(kernel_summary(torch, phase_kernels(torch, msda)))

@@ -137,34 +137,6 @@ static long long resident_blocks(const void* kernel, int threads) {
   return slots;
 }
 
-// Threads of a top-k block: whole queries, a multiple of 32, at most
-// kMaxThreads, the size that keeps the most threads resident on an SM (at
-// 130-170 registers a thread, one block of 288 leaves a third of the
-// register file idle). Asked once per (kernel, device) and kept.
-static int fit_threads(const void* kernel, int per_query) {
-  struct Entry {
-    const void* kernel;
-    int dev, per_query, threads;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> known;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  std::lock_guard<std::mutex> hold(mu);
-  for (const Entry& e : known)
-    if (e.kernel == kernel && e.dev == dev && e.per_query == per_query)
-      return e.threads;
-  int best = block_threads(per_query), most = 0;
-  for (int t = per_query; t <= kMaxThreads; t += per_query) {
-    if (t % 32 != 0) continue;
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, t, 0);
-    if (per_sm * t >= most) most = per_sm * t, best = t;
-  }
-  known.push_back({kernel, dev, per_query, best});
-  return best;
-}
-
 // Launches `kernel` with `threads` threads a block (per_query of them a
 // query) on at most as many blocks as fit on the card at once, each walking
 // a.run consecutive queries: an even share, rounded up to whole passes of
@@ -309,195 +281,80 @@ __device__ __forceinline__ void sample_generic(const FwdArgs<T>& a,
   }
 }
 
-// Read-only loads that read nothing where p is false, the destination
-// then keeping its value (the callers zero it). As predicated instructions,
-// not branches, they leave ptxas free to interleave a thread's loads with
-// its FMAs, as it does for msda_fwd's unconditional ones.
-__device__ __forceinline__ void ldg_if(bool p, const void* q, uint4& r) {
-  asm("{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
-      " @p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}"
-      : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w)
-      : "l"(q), "r"((int)p));
-}
-__device__ __forceinline__ void ldg_if(bool p, const void* q, uint2& r) {
-  asm("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
-      " @p ld.global.nc.v2.u32 {%0, %1}, [%2];\n}"
-      : "+r"(r.x), "+r"(r.y)
-      : "l"(q), "r"((int)p));
-}
-__device__ __forceinline__ void ldg_if(bool p, const void* q, unsigned& r) {
-  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p ld.global.nc.u32 %0, [%1];\n}"
-      : "+r"(r)
-      : "l"(q), "r"((int)p));
-}
-__device__ __forceinline__ void ldg_if(bool p, const void* q,
-                                       unsigned short& r) {
-  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p ld.global.nc.u16 %0, [%1];\n}"
-      : "+h"(r)
-      : "l"(q), "r"((int)p));
-}
-
-// The raw bits of V channels of T, and their f32 values.
-template <int kBytes>
-struct RawBits;
-template <>
-struct RawBits<2> { using type = unsigned short; };
-template <>
-struct RawBits<4> { using type = unsigned; };
-template <>
-struct RawBits<8> { using type = uint2; };
-template <>
-struct RawBits<16> { using type = uint4; };
-
-template <typename T, int V>
-__device__ __forceinline__ void raw_floats(
-    const typename RawBits<V * sizeof(T)>::type& r, float (&o)[V]) {
-  if constexpr (std::is_same<T, float>::value) {
-    const unsigned* w = reinterpret_cast<const unsigned*>(&r);
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = __uint_as_float(w[i]);
-  } else if constexpr (V == 1) {
-    o[0] = __uint_as_float((unsigned)r << 16);
-  } else {
-    const unsigned* w = reinterpret_cast<const unsigned*>(&r);
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i) {
-      const float2 f = bf2_to_f2(w[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-}
-
 // What a top-k thread reads of one corner and adds to its sums: V channels
-// (VecLane), or the 12-channel wide lane's two loads (WideLane, after
-// Wide12). Raw{} is zero, which a load that does not happen leaves.
+// converted to f32 at the load (VecLane), or the 12-channel wide lane's
+// raw words (WideLane, after Wide12).
 template <typename T, int V>
 struct VecLane {
   struct Raw {
-    typename RawBits<V * sizeof(T)>::type bits;
+    float v[V];
   };
   float (&acc)[V];
-  __device__ __forceinline__ void load_if(bool p, const T* q, Raw& r) const {
-    ldg_if(p, q, r.bits);
+  __device__ __forceinline__ void load(const T* q, Raw& r) const {
+    VecIO<T, V>::load(q, r.v);
   }
   __device__ __forceinline__ void add(float wt, const Raw& r) {
-    float v[V];
-    raw_floats<T, V>(r.bits, v);
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, r.v[i], acc[i]);
   }
 };
 
 // One (b, q, m, lane) of the top-k instances, L and P fixed at compile
-// time: the (q, m)'s weights read as vectors and ranked in registers, then
-// the samples walked kG at a time (all kLP at once where kLP <= 4), every
-// load of a group in flight before its first FMA. kRoute:
-//   0: a group is kG consecutive samples, their locations read as vectors;
-//      a dropped sample's corners are not loaded, their registers hold 0
-//      and their weights are 0, so every FMA runs;
-//   1: a group is the next kG kept samples (slots; the slot count K is the
-//      same on every thread), each one's location and weight read by its
-//      index (the weights from L1), its level's shape by selects; FMAs
-//      only for the slots below K;
-//   2: slots as 1, with every FMA run (a slot at or past K adds zeros).
-template <typename T, typename Lane, int kL, int kP, int kG, int kRoute>
+// time: the (q, m)'s kLP weights read as vectors and ranked in registers,
+// then the K kept samples in index order, one at a time: the next set bit
+// of the mask gives a sample's index, its location and weight are read by
+// it (the weight from L1, where the vector read left it), its level's
+// shape picked by selects, and its four corners loaded and added. Nothing
+// of a dropped sample is read. One sample's corners in flight keep a thread
+// at ~72 registers, three blocks of 288 an SM; all of a (q, m)'s kept
+// corners in flight took 157 and one block, and ran 1.3x slower (PERF.md).
+template <typename T, typename Lane, int kL, int kP>
 __device__ __forceinline__ void topk_walk(const FwdArgs<T>& a, long long bqm,
                                           int b, int c0, Lane& lane) {
-  using Raw = typename Lane::Raw;
   constexpr int kLP = kL * kP;
-  constexpr int kGe = kG < kLP ? kG : kLP;
-  static_assert(kLP % kGe == 0, "groups tile the samples");
   const long long row_stride = (long long)a.M * a.D;
   const float* loc = a.loc + bqm * 2 * kLP;
+  const float* aw = a.aw + bqm * kLP;
   float sw[kLP];
-  load_floats<kLP>(a.aw + bqm * kLP, sw);
-  const unsigned keep = rank_keep<kLP>(sw, a.K);
-  if constexpr (kRoute == 0) {
+  load_floats<kLP>(aw, sw);
+  unsigned keep = rank_keep<kLP>(sw, a.K);
+  int hs[kL], ws[kL], starts[kL];
 #pragma unroll
-    for (int g = 0; g < kLP; g += kGe) {
-      if (!((keep >> g) & ((1u << kGe) - 1u))) continue;
-      float xy[2 * kGe];
-      load_floats<2 * kGe>(loc + 2 * g, xy);
-      Raw r[4 * kGe];
-      float wt[4 * kGe];
+  for (int l = 0; l < kL; ++l) {
+    hs[l] = __ldg(a.spatial_shapes + 2 * l);
+    ws[l] = __ldg(a.spatial_shapes + 2 * l + 1);
+    starts[l] = __ldg(a.level_start + l);
+  }
+  const T* head = a.value + (long long)b * a.S * row_stride + c0;
 #pragma unroll
-      for (int j = 0; j < kGe; ++j) {
-        const int k = g + j, l = k / kP;
-        const int h = __ldg(a.spatial_shapes + 2 * l);
-        const int w = __ldg(a.spatial_shapes + 2 * l + 1);
-        const T* base = a.value +
-                        ((long long)b * a.S + __ldg(a.level_start + l)) *
-                            row_stride + c0;
-        const float x = xy[2 * j] * w - 0.5f;
-        const float y = xy[2 * j + 1] * h - 0.5f;
-        const bool kept = (keep >> k) & 1u;
+  for (int j = 0; j < kLP; ++j) {
+    if (j >= a.K) break;
+    const int k = __ffs((int)keep) - 1;
+    keep &= keep - 1;
+    const int lv = k / kP;
+    int h = hs[0], w = ws[0], start = starts[0];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const long long cell = corner_branch_free(
-              c, h, w, x, y, kept ? sw[k] : 0.0f, wt[4 * j + c]);
-          r[4 * j + c] = Raw{};
-          lane.load_if(kept, base + cell * row_stride, r[4 * j + c]);
-        }
-      }
+    for (int l = 1; l < kL; ++l)
+      if (lv == l) h = hs[l], w = ws[l], start = starts[l];
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + k);
+    const float x = xy.x * w - 0.5f;
+    const float y = xy.y * h - 0.5f;
+    typename Lane::Raw r[4];
+    float wt[4];
 #pragma unroll
-      for (int t = 0; t < 4 * kGe; ++t) lane.add(wt[t], r[t]);
+    for (int c = 0; c < 4; ++c) {
+      const long long cell =
+          corner_branch_free(c, h, w, x, y, __ldg(aw + k), wt[c]);
+      lane.load(head + (start + cell) * row_stride, r[c]);
     }
-  } else {
-    int hs[kL], ws[kL], starts[kL];
 #pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      hs[l] = __ldg(a.spatial_shapes + 2 * l);
-      ws[l] = __ldg(a.spatial_shapes + 2 * l + 1);
-      starts[l] = __ldg(a.level_start + l);
-    }
-    const T* head = a.value + (long long)b * a.S * row_stride + c0;
-    unsigned rem = keep;
-#pragma unroll
-    for (int g = 0; g < kLP; g += kGe) {
-      if (g >= a.K) break;
-      Raw r[4 * kGe];
-      float wt[4 * kGe];
-#pragma unroll
-      for (int j = 0; j < kGe; ++j) {
-        const bool valid = g + j < a.K;
-        if (kRoute == 1 && !valid) break;
-        const int k = max(__ffs((int)rem) - 1, 0);  // the slot's sample
-        rem &= rem - 1;
-        const int lv = k / kP;
-        int h = hs[0], w = ws[0], start = starts[0];
-#pragma unroll
-        for (int l = 1; l < kL; ++l)
-          if (lv == l) h = hs[l], w = ws[l], start = starts[l];
-        const float2 p = __ldg(reinterpret_cast<const float2*>(loc) + k);
-        const float sk = __ldg(a.aw + bqm * kLP + k);
-        const float s = valid ? sk : 0.0f;
-        const float x = p.x * w - 0.5f;
-        const float y = p.y * h - 0.5f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const long long cell =
-              corner_branch_free(c, h, w, x, y, s, wt[4 * j + c]);
-          r[4 * j + c] = Raw{};
-          lane.load_if(valid, head + (start + cell) * row_stride,
-                       r[4 * j + c]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kGe; ++j)
-        if (kRoute == 2 || g + j < a.K)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) lane.add(wt[4 * j + c], r[4 * j + c]);
-    }
+    for (int c = 0; c < 4; ++c) lane.add(wt[c], r[c]);
   }
 }
 
-// V-channel lanes: one thread per (b, q, m, V channels). kG > 0: the top-k
-// instances (topk_walk's groups; kL = 0 the generic one).
-template <typename T, int V, int kL, int kP, bool kShared, int kG = 0,
-          int kRoute = 0>
+// V-channel lanes: one thread per (b, q, m, V channels). kTopk: the top-k
+// instances (kL = 0 the generic one).
+template <typename T, int V, int kL, int kP, bool kShared, bool kTopk = false>
 __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
   const int groups = a.D / V;
   const int per_query = a.M * groups;
@@ -516,13 +373,13 @@ __device__ __forceinline__ void fwd_lanes(const FwdArgs<T>& a) {
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-    if constexpr (kG > 0 && kL > 0) {
+    if constexpr (kTopk && kL > 0) {
       VecLane<T, V> lane{acc};
-      topk_walk<T, VecLane<T, V>, kL, kP, kG, kRoute>(a, bqm, b, c0, lane);
+      topk_walk<T, VecLane<T, V>, kL, kP>(a, bqm, b, c0, lane);
     } else if constexpr (kL > 0) {
       sample_fixed<T, V, kL, kP, kShared>(a, bq, bqm, b, c0, scale, acc);
     } else {
-      sample_generic<T, V, kShared, (kG > 0)>(a, bq, bqm, b, c0, scale, acc);
+      sample_generic<T, V, kShared, kTopk>(a, bq, bqm, b, c0, scale, acc);
     }
     VecIO<float, V>::store(a.out + bq * a.M * a.D + c0, acc);
   }
@@ -589,10 +446,9 @@ struct WideLane {
   int off_big, off_small;
   float (&ab)[8];
   float (&as)[4];
-  __device__ __forceinline__ void load_if(bool p, const __nv_bfloat16* q,
-                                          Raw& r) const {
-    ldg_if(p, q + off_big, r.big);
-    ldg_if(p, q + off_small, r.small);
+  __device__ __forceinline__ void load(const __nv_bfloat16* q, Raw& r) const {
+    r.big = __ldg(reinterpret_cast<const uint4*>(q + off_big));
+    r.small = __ldg(reinterpret_cast<const uint2*>(q + off_small));
   }
   __device__ __forceinline__ void add(float wt, const Raw& r) {
     Wide12<__nv_bfloat16>::fma(wt, r.big, ab);
@@ -603,10 +459,8 @@ struct WideLane {
 // 12-channel lanes (D % 12 == 0), L and P fixed: see the top. A lane's
 // first channel e0 is a multiple of 4, so its 12 channels start 8-channel
 // aligned (e0 % 8 == 0: Big at e0, Small at e0 + 8) or 4 past it (Small at
-// e0, Big at e0 + 4). kG > 0: the top-k instances (bf16), topk_walk's
-// groups.
-template <typename T, int kL, int kP, bool kShared, int kG = 0,
-          int kRoute = 0>
+// e0, Big at e0 + 4). kTopk: the top-k instances (bf16).
+template <typename T, int kL, int kP, bool kShared, bool kTopk = false>
 __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
   using W = Wide12<T>;
   constexpr int kLP = kL * kP;
@@ -627,13 +481,13 @@ __device__ __forceinline__ void fwd_wide(const FwdArgs<T>& a) {
     const int b = (int)(bq / a.Lq);
     const long long bqm = bq * a.M + m;
     float ab[8], as[4];
-    if constexpr (kG > 0) {
+    if constexpr (kTopk) {
 #pragma unroll
       for (int t = 0; t < 8; ++t) ab[t] = 0.0f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) as[t] = 0.0f;
       WideLane lane{off_big, off_small, ab, as};
-      topk_walk<T, WideLane, kL, kP, kG, kRoute>(a, bqm, b, e0, lane);
+      topk_walk<T, WideLane, kL, kP>(a, bqm, b, e0, lane);
     } else {
       float xy[2 * kLP], sw[kLP];
       load_floats<2 * kLP>(a.loc + loc_index<kShared>(bq, bqm) * 2 * kLP, xy);
@@ -718,17 +572,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // The top-k kernels (msda_topk_fwd's): kL = 0 for the generic instance.
-template <typename T, int V, int kL, int kP, int kG, int kRoute,
-          int kMinBlocks = 1>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// Unlike msda_fwd's, they are asked to fit kTopkBlocks blocks an SM: one
+// sample's corners at a time fit the 72 registers that leaves without a
+// spill, where the 78-86 ptxas picks alone fit two (PERF.md).
+constexpr int kTopkBlocks = 3;
+
+template <typename T, int V, int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads, kTopkBlocks)
     msda_topk_fwd_kernel(FwdArgs<T> a) {
-  fwd_lanes<T, V, kL, kP, false, kG, kRoute>(a);
+  fwd_lanes<T, V, kL, kP, false, true>(a);
 }
 
-template <int kL, int kP, int kG, int kRoute, int kMinBlocks = 1>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <int kL, int kP>
+__global__ void __launch_bounds__(kMaxThreads, kTopkBlocks)
     msda_topk_fwd_wide_kernel(FwdArgs<__nv_bfloat16> a) {
-  fwd_wide<__nv_bfloat16, kL, kP, false, kG, kRoute>(a);
+  fwd_wide<__nv_bfloat16, kL, kP, false, true>(a);
 }
 
 // The V-channel kernel of one entry and (L, P) instance.
@@ -798,33 +656,23 @@ static int topk_fixed(const FwdArgs<T>& a) {
   return 0;
 }
 
-template <typename T, int V, int kG, int kRoute, bool kProbe, int kMin = 1,
-          bool kFit = false>
+template <typename T, int V>
 static cudaError_t launch_topk_lanes(const FwdArgs<T>& a, int fixed,
                                      cudaStream_t stream) {
   const int per_query = a.M * (a.D / V);
-  auto go = [&](auto kernel) {
-    const int threads = kFit ? fit_threads((const void*)kernel, per_query)
-                             : block_threads(per_query);
-    return launch_runs(kernel, threads, per_query, a, stream);
-  };
-  if (fixed == 22)
-    return go(msda_topk_fwd_kernel<T, V, 2, 2, kG, kRoute, kMin>);
-  if (fixed == 12)
-    return go(msda_topk_fwd_kernel<T, V, 1, 2, kG, kRoute, kMin>);
-  if (fixed == 44)
-    return go(msda_topk_fwd_kernel<T, V, 4, 4, kG, kRoute, kMin>);
-  if constexpr (kProbe) return cudaErrorInvalidValue;
-  else return go(msda_topk_fwd_kernel<T, V, 0, 0, kG, kRoute>);
+  const int threads = block_threads(per_query);
+  return launch_runs(fixed == 22   ? msda_topk_fwd_kernel<T, V, 2, 2>
+                     : fixed == 12 ? msda_topk_fwd_kernel<T, V, 1, 2>
+                     : fixed == 44 ? msda_topk_fwd_kernel<T, V, 4, 4>
+                                   : msda_topk_fwd_kernel<T, V, 0, 0>,
+                     threads, per_query, a, stream);
 }
 
 // Picks the top-k instance: wide lanes for bf16 at a fixed (L, P) where
 // D % 12 == 0 and every wide access is aligned, else the widest V-channel
 // lanes that D and the pointers allow; any other L*P <= 64 takes the
-// generic instance. kProbe: the measured designs' entry, which takes only
-// the fixed (L, P) on wide or 4-channel lanes.
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1,
-          bool kFit = false, typename T>
+// generic instance.
+template <typename T>
 static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
   if (a.L * a.P > 64 || a.K < 1 || a.K > a.L * a.P)
     return cudaErrorInvalidValue;
@@ -834,26 +682,16 @@ static cudaError_t launch_topk(FwdArgs<T> a, cudaStream_t stream) {
     if (fixed && (uintptr_t)a.out % 16 == 0 && row % 8 == 0 &&
         a.D % 12 == 0 && (uintptr_t)a.value % 16 == 0) {
       const int per_query = a.M * (a.D / 12);
-      auto kernel =
-          fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2, kG, kRoute, kMin>
-          : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2, kG, kRoute, kMin>
-                        : msda_topk_fwd_wide_kernel<4, 4, kG, kRoute, kMin>;
-      const int threads = kFit ? fit_threads((const void*)kernel, per_query)
-                               : block_threads(per_query);
-      return launch_runs(kernel, threads, per_query, a, stream);
+      return launch_runs(fixed == 22   ? msda_topk_fwd_wide_kernel<2, 2>
+                         : fixed == 12 ? msda_topk_fwd_wide_kernel<1, 2>
+                                       : msda_topk_fwd_wide_kernel<4, 4>,
+                         block_threads(per_query), per_query, a, stream);
     }
   }
   const int v = pick_vec(a.D, a.value, sizeof(T), a.out, sizeof(float));
-  if (v == 4)
-    return launch_topk_lanes<T, 4, kG, kRoute, kProbe, kMin, kFit>(a, fixed,
-                                                                   stream);
-  if constexpr (kProbe) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (v == 2)
-      return launch_topk_lanes<T, 2, kG, kRoute, false>(a, fixed, stream);
-    return launch_topk_lanes<T, 1, kG, kRoute, false>(a, fixed, stream);
-  }
+  if (v == 4) return launch_topk_lanes<T, 4>(a, fixed, stream);
+  if (v == 2) return launch_topk_lanes<T, 2>(a, fixed, stream);
+  return launch_topk_lanes<T, 1>(a, fixed, stream);
 }
 
 template <typename T>
@@ -883,28 +721,6 @@ static int launch_float(const void* value, int dtype, const void* shapes,
     return (int)launch<float, kShared>(
         fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S,
                         M, D, Lq, L, P),
-        s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The top-k C entries' launch: kG kept samples in flight at (4, 4).
-template <int kG, int kRoute, bool kProbe = false, int kMin = 1,
-          bool kFit = false>
-static int launch_topk_float(const void* value, int dtype, const void* shapes,
-                             const void* starts, const void* loc,
-                             const void* aw, void* out, int B, int S, int M,
-                             int D, int Lq, int L, int P, int K,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin, kFit>(
-        fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc, aw, out,
-                                B, S, M, D, Lq, L, P, K),
-        s);
-  if (dtype == kF32)
-    return (int)launch_topk<kG, kRoute, kProbe, kMin, kFit>(
-        fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out, B, S, M,
-                        D, Lq, L, P, K),
         s);
   return (int)cudaErrorInvalidValue;
 }
@@ -952,33 +768,16 @@ extern "C" int msda_topk_fwd(const void* value, int dtype, const void* shapes,
                              const void* aw, void* out, int B, int S, int M,
                              int D, int Lq, int L, int P, int K,
                              void* stream) {
-  return kinet::launch_topk_float<4, 1>(value, dtype, shapes, starts, loc,
-                                            aw, out, B, S, M, D, Lq, L, P, K,
-                                            stream);
-}
-
-// The top-k designs measured against each other (chip_smoke.py phase F),
-// (route, group) of topk_walk, the blocks an SM asked of ptxas, every
-// block sized by fit_threads: 0 (2, 1, 1), 1 (2, 1, 3), 2 (2, 1, 4),
-// 3 (2, 2, 3), 4 (1, 1, 1), 5 (2, 4, 3), 6 (2, 2, 4).
-extern "C" int msda_topk_fwd_variant(int variant, const void* value,
-                                     int dtype, const void* shapes,
-                                     const void* starts, const void* loc,
-                                     const void* aw, void* out, int B, int S,
-                                     int M, int D, int Lq, int L, int P,
-                                     int K, void* stream) {
-  auto go = [&](auto f) {
-    return f(value, dtype, shapes, starts, loc, aw, out, B, S, M, D, Lq, L,
-             P, K, stream);
-  };
-  switch (variant) {
-    case 0: return go(kinet::launch_topk_float<1, 2, true, 1, true>);
-    case 1: return go(kinet::launch_topk_float<1, 2, true, 3, true>);
-    case 2: return go(kinet::launch_topk_float<1, 2, true, 4, true>);
-    case 3: return go(kinet::launch_topk_float<2, 2, true, 3, true>);
-    case 4: return go(kinet::launch_topk_float<1, 1, true, 1, true>);
-    case 5: return go(kinet::launch_topk_float<4, 2, true, 3, true>);
-    case 6: return go(kinet::launch_topk_float<2, 2, true, 4, true>);
-  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kinet::kBF16)
+    return (int)kinet::launch_topk(
+        kinet::fwd_args<__nv_bfloat16>(value, nullptr, shapes, starts, loc,
+                                       aw, out, B, S, M, D, Lq, L, P, K),
+        s);
+  if (dtype == kinet::kF32)
+    return (int)kinet::launch_topk(
+        kinet::fwd_args<float>(value, nullptr, shapes, starts, loc, aw, out,
+                               B, S, M, D, Lq, L, P, K),
+        s);
   return (int)cudaErrorInvalidValue;
 }
