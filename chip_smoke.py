@@ -130,9 +130,9 @@ V. the encoder's MSDA variants, two-stage and merge_frame_features:
    plain on the snapped samples, device ms and reads on the frame's own
    samples, ``replay_ms``; the int8 calls also time msda_fwd over the same
    values in bf16, ``replay_bf16_ms``, the top-k calls msda_fwd on the
-   same weights unpruned, ``replay_fwd_ms``), then one bf16 remat train step at
-   672x1184 with top-k and with shared locations (msda_bwd launches,
-   finite gradients); V3,
+   same weights unpruned, ``replay_fwd_ms``), then one bf16 remat train
+   step at 672x1184 with top-k and with shared locations (msda_bwd
+   launches, finite gradients); V3,
    two-stage (train.yaml + train_deformable, two_stage, box refine: hidden
    256, 300 proposals): card vs CPU in f32 at 256x448 (the card given the
    CPU's proposal choice, whose scores can tie within the two devices'
@@ -3159,8 +3159,9 @@ def variant_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, k=None):
         f"{timed_text(timed)} bound {t_b:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
         f"{flops / 1e6:.1f} Mflop)")
     if kind == "topk":
+        ratio = timed["ms"] / timed["fwd_ms"]
         log(f"      msda_fwd on the same inputs, every sample kept: "
-            f"{timed['fwd_ms']:.4f} ms device ({timed['ms'] / timed['fwd_ms']:.3f}x)")
+            f"{timed['fwd_ms']:.4f} ms device ({ratio:.3f}x)")
     log(f"      {stats_text(st, timed['ms'])}")
     return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
 
@@ -3684,34 +3685,33 @@ def main(argv=None) -> int:
             f"s; on {smi}")
     if phases & {"V", "V1", "V2"}:
         t0 = time.perf_counter()
-    if phases & {"V", "V1"}:
-        log("== V1. the encoder's MSDA variant kernels vs plain (800x1440 "
-            "encoder shapes and a generic (4, 4), B=1)")
-        summary.update(phase_variant_kernels(torch, msda))
-    if phases & {"V", "V2"}:
-        log(f"== V2. the variants on the served flagship: Tracker.step bf16 "
-            f"{MAIN_HW[0]}x{MAIN_HW[1]}, {V_FRAMES} frames each; a train step "
-            f"each of top-k and shared locations")
-        served, replay = phase_variants_served(torch, msda)
-        launches.update(served)
-        for k in V_REPLAYED.values():
-            summary.setdefault(k, {})["replay_ms"] = replay[k]
-        summary["msda_fwd_i8"]["replay_bf16_ms"] = \
-            replay["msda_fwd (bf16 table)"]
-        summary["msda_topk_fwd"]["replay_fwd_ms"] = \
-            replay["msda_fwd (unpruned)"]
-        for k, t in sorted(replay.items()):
-            log(f"  {k}: {t:.5f} device ms a launch on a served frame's "
-                f"own calls")
-    if "V" in phases:
-        phase_variants_train(torch, msda)
-        log("== V3. two-stage (train.yaml + train_deformable, two_stage, box "
-            "refine): card vs CPU, train(cfg), evaluate()")
-        phase_two_stage(torch, msda)
-        log("== V4. merge_frame_features on the flagship: card vs CPU, "
-            "Tracker.step")
-        phase_merge(torch, msda)
-    if phases & {"V", "V1", "V2"}:
+        if phases & {"V", "V1"}:
+            log("== V1. the encoder's MSDA variant kernels vs plain "
+                "(800x1440 encoder shapes and a generic (4, 4), B=1)")
+            summary.update(phase_variant_kernels(torch, msda))
+        if phases & {"V", "V2"}:
+            log(f"== V2. the variants on the served flagship: Tracker.step "
+                f"bf16 {MAIN_HW[0]}x{MAIN_HW[1]}, {V_FRAMES} frames each; a "
+                f"train step each of top-k and shared locations")
+            served, replay = phase_variants_served(torch, msda)
+            launches.update(served)
+            for k in V_REPLAYED.values():
+                summary.setdefault(k, {})["replay_ms"] = replay[k]
+            summary["msda_fwd_i8"]["replay_bf16_ms"] = \
+                replay["msda_fwd (bf16 table)"]
+            summary["msda_topk_fwd"]["replay_fwd_ms"] = \
+                replay["msda_fwd (unpruned)"]
+            for k, t in sorted(replay.items()):
+                log(f"  {k}: {t:.5f} device ms a launch on a served frame's "
+                    f"own calls")
+        if "V" in phases:
+            phase_variants_train(torch, msda)
+            log("== V3. two-stage (train.yaml + train_deformable, two_stage, "
+                "box refine): card vs CPU, train(cfg), evaluate()")
+            phase_two_stage(torch, msda)
+            log("== V4. merge_frame_features on the flagship: card vs CPU, "
+                "Tracker.step")
+            phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):

@@ -63,6 +63,13 @@
 //   - otherwise one thread per V channels (msda_fwd_kernel /
 //     msda_shared_fwd_kernel: 16-byte lanes in f32, 1-8 bytes where D or the
 //     alignment allow no wider), and a generic instance for other (L, P);
+//   - the top-k instances (msda_topk_fwd_wide_kernel / msda_topk_fwd_kernel)
+//     take the same lanes at (2, 2), (1, 2) and (4, 4) fixed, and a generic
+//     instance for any other L*P <= 64. A thread walks only its (q, m)'s
+//     kept samples, one at a time, found by the set bits of its mask
+//     (topk_walk); three blocks fit an SM. Keeping all of a (q, m)'s kept
+//     corners in flight at once, as msda_fwd's code asks, cost ptxas 157
+//     registers and the SM two of its three blocks;
 //   - a block walks a run of consecutive queries, as many as spread the
 //     launch evenly over the blocks that fit on the card at once, rounded
 //     up to whole passes of the block: the encoder's queries are
