@@ -141,6 +141,31 @@ V. the encoder's MSDA variants, two-stage and merge_frame_features:
    host match over the ~24k encoder proposals timed; V4,
    merge_frame_features on the flagship (cache_prev_encoder off): card vs
    CPU, then 8 frames of Tracker.step (12 + 6 launches a frame).
+B. batched serving (tracking/batched.py) on the served config
+   (dec_msda_int8, bf16): 4 synthetic sequences of 8 moving-box frames
+   (~20 live tracks each) through BatchedTracker at 800x1440 with B = 1,
+   2, 4 in the stacked and the interleaved form, and at 544x960 with B =
+   4 in both; every sequence's results held to its own single Tracker's
+   (the same track ids and frames, boxes within 1e-3 px), the launches a
+   step asserted (6 + 6 a forward), aggregate frames/s, ms a step and the
+   device's busy share (profiler) of each; then a replay of one stacked
+   B = 4 step's 12 MSDA calls as phase 5's (msda_fwd and the int8 raw
+   pool, and the raw pool over the same calls' bf16 table: each kernel vs
+   its plain version, device ms a launch beside 4 x phase 5's B = 1
+   replay, and its bound); then the tracking CLI with batch_sequences 4
+   and batch_exec auto on four synthetic 1080x1920 JPEG sequences of 8
+   frames (its RUNTIME line, steady-state aggregate frames/s, the share
+   waiting for decoded frames);
+S. processes on the one card: (a) main_track in 2 gloo processes (each
+   takes half of B's four sequences) against 1: the same summary and
+   result files; (b) 3 flagship train steps at 672x1184 through
+   tools/launch.py in a world-1 NCCL group (torchrun's environment)
+   against the same run without a group: the same losses and parameters,
+   bit for bit; then 3 full-width f32 steps in 2 gloo processes sharing
+   the card, one image each, against 1 process on both images, at
+   tests/test_torch_ddp.py's tolerances; (c) the launcher with
+   --requeue-on-preempt sent SIGUSR1 after its first step: its
+   checkpoint, the requeue (a re-exec) and the resume to the end.
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -158,7 +183,8 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 
 Then one JSON line listing every kernel with its launches, error and times
 (``eval_launches``: phase E's detection-eval launches; ``mots_launches``:
-phase M5's);
+phase M5's; ``batched_launches``: a stacked batched step's at B = 1, 2,
+4, ``batched_replay_ms`` / ``batched_bound_ms``: phase B's B = 4 replay);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
 phase V, V2 without its train steps) and prints no result line.
@@ -895,46 +921,73 @@ def moving_boxes(np, h, w, n_frames, seed=0):
         }
 
 
-def served_tracker(torch, cfg, seed=1, nms_thresh=0.9):
-    """The served model (random weights from ``seed``, class heads biased to
-    class 0, bf16) and a Tracker whose thresholds are calibrated on one
-    frame so that about 7 detections a frame start tracks, which live 3
-    frames: about 20 active track slots, as in the JAX bench
-    (``nms_thresh``: the detection and track NMS thresholds, 0 for none).
-    Returns (tracker, model, frames)."""
-    import numpy as np
-
+def served_parts(torch, cfg, blob, seed=1, nms_thresh=0.9):
+    """The served model (random weights from ``seed``, class heads biased
+    to class 0, bf16), its postprocess and a tracker config whose
+    thresholds are calibrated on ``blob`` so that about 7 detections a
+    frame start tracks, which live 3 frames: about 20 active track slots,
+    as in the JAX bench (``nms_thresh``: the detection and track NMS
+    thresholds, 0 for none). Returns (model, postprocess, tracker_cfg)."""
     from kinet_tpu_torch.models.build import build_model
-    from kinet_tpu_torch.structs import ImageBatch
-    from kinet_tpu_torch.tracking.tracker import Tracker, make_forward_fn
 
-    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
     model, post = build_model(cfg, seed=seed)
     bias_to_person(torch, model, cfg)
     model.to(torch.bfloat16)
-    h, w = MAIN_HW
-    frames = list(moving_boxes(np, h, w, N_FRAMES + 3))
-
     # random weights give low, random scores: the thresholds come from one
     # calibration frame
-    blob, dev = frames[0], next(model.parameters()).device
+    cand = class0_scores(torch, model, post["bbox"], blob,
+                         int(cfg.max_track_queries))
+    thresh = cand[min(7, cand.numel() - 1)].item()
+    tracker_cfg = served_tracker_cfg(thresh, nms_thresh)
+    log(f"  tracker thresholds {thresh:.5f} (calibrated), steps_termination 3")
+    return model, post["bbox"], tracker_cfg
+
+
+def class0_scores(torch, model, post, blob, t_slots):
+    """The object queries' class-0 scores on one frame, descending."""
+    from kinet_tpu_torch.structs import ImageBatch
+    from kinet_tpu_torch.tracking.tracker import make_forward_fn
+
+    h, w = blob["images"].shape[1:3]
+    dev = next(model.parameters()).device
     batch = ImageBatch(torch.from_numpy(blob["images"]).to(dev),
                        torch.from_numpy(blob["pad_mask"]).to(dev))
     size = torch.tensor([[float(h), float(w)]], device=dev)
-    res = make_forward_fn(model, post["bbox"])(batch, None, size, None, None, None)
+    res = make_forward_fn(model, post)(batch, None, size, None, None, None)
     scores = res["scores"][0, t_slots:].float()
     cand = scores[res["labels"][0, t_slots:] == 0].sort(descending=True).values
     check(cand.numel() > 0, "no query scores class 0")
-    thresh = cand[min(7, cand.numel() - 1)].item()
-    tracker_cfg = dict(
+    return cand
+
+
+def served_tracker_cfg(thresh, nms_thresh=0.9):
+    return dict(
         detection_obj_score_thresh=thresh, track_obj_score_thresh=thresh,
         reid_score_thresh=thresh, detection_nms_thresh=nms_thresh,
         track_nms_thresh=nms_thresh, steps_termination=3, inactive_patience=0,
         reid_sim_threshold=0.0, prev_frame_dist=1,
     )
-    tracker = Tracker(model, post["bbox"], tracker_cfg, int(cfg.num_queries),
-                      t_slots, hidden, overflow_boxes=bool(cfg.overflow_boxes))
-    log(f"  tracker thresholds {thresh:.5f} (calibrated), steps_termination 3")
+
+
+def tracker_kwargs(cfg):
+    return dict(num_object_queries=int(cfg.num_queries),
+                num_track_slots=int(cfg.max_track_queries),
+                hidden_dim=int(cfg.hidden_dim),
+                overflow_boxes=bool(cfg.overflow_boxes))
+
+
+def served_tracker(torch, cfg, seed=1, nms_thresh=0.9):
+    """The served model of ``served_parts`` and a Tracker, calibrated on
+    the first of the synthetic frames at MAIN_HW. Returns (tracker, model,
+    frames)."""
+    import numpy as np
+
+    from kinet_tpu_torch.tracking.tracker import Tracker
+
+    frames = list(moving_boxes(np, *MAIN_HW, N_FRAMES + 3))
+    model, post, tracker_cfg = served_parts(torch, cfg, frames[0], seed,
+                                            nms_thresh)
+    tracker = Tracker(model, post, tracker_cfg, **tracker_kwargs(cfg))
     return tracker, model, frames
 
 
@@ -1202,18 +1255,37 @@ def replay_call(torch, msda, kernel, args):
             table, shapes, loc, aw, ext, scales, out_dtype)
         st = read_stats(torch, "raw", loc, shapes, ext, table.shape[2], esize)
         if int8:
-            per_row = torch.cat([
-                scales[:, lid:lid + 1].expand(-1, h * w)
-                for lid, (h, w) in enumerate(shapes)], dim=1)
-            bf16 = (table.float() * per_row[..., None]).to(out_dtype)
+            bf16 = dequantized_table(torch, args)
             times["msda_raw_pool_fwd (bf16 table)"] = device_ms(
                 torch, lambda: msda.ms_deform_attn_raw_pool(
                     bf16, shapes, loc, aw, ext))
     ms = times[kernel] = device_ms(torch, run_k)
+    # the bound: the distinct rows (head slices) the corners read, every
+    # other input and every output once
+    outs = run_k()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    width = (table.shape[3] if kernel in ("msda_fwd", "msda_fwd_i8",
+                                          "msda_topk_fwd")
+             else table.shape[2] * table.shape[3]
+             if kernel == "msda_shared_fwd" else table.shape[2])
+    others = [a for a in args if torch.is_tensor(a) and a is not table]
+    moved = st["distinct"] * width * esize + sum(
+        t.numel() * t.element_size() for t in others + list(outs))
+    flops = st["corners"] * width * 2 + aw.numel() * 20
+    times[f"{kernel} bound"], _ = bound_ms(moved, flops)
     other = "".join(f"; {k} {t:.5f} ms" for k, t in times.items() if k != kernel)
     log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
         f"err {err:.3e}; {stats_text(st, ms)}")
     return times
+
+
+def dequantized_table(torch, args):
+    """The table of an int8 raw-pool call's values (each level's int8 rows
+    times its scale) in the call's pooled dtype."""
+    table, shapes, scales, out_dtype = args[0], args[1], args[5], args[6]
+    per_row = torch.cat([scales[:, lid:lid + 1].expand(-1, h * w)
+                         for lid, (h, w) in enumerate(shapes)], dim=1)
+    return (table.float() * per_row[..., None]).to(out_dtype)
 
 
 def phase_replay(torch, msda, calls):
@@ -1843,10 +1915,12 @@ def phase_accuracy(torch, msda, gate="simple"):
 
 # runs ``python -m kinet_tpu_torch.engine.track`` (runpy, as -m does) with
 # its arguments, then prints the forward kernels' launch counts and the
-# host-clock ms of each tracker step (Tracker or TrackerKinematic) as JSON
+# host-clock ms of each tracker step (Tracker, TrackerKinematic or
+# BatchedTracker) as JSON
 CLI_RUNNER = """
 import json, runpy, sys, time
 from kinet_tpu_torch.ops import msda
+from kinet_tpu_torch.tracking.batched import BatchedTracker
 from kinet_tpu_torch.tracking.kine_tracker import TrackerKinematic
 from kinet_tpu_torch.tracking.tracker import Tracker
 msda.ms_deform_attn.launches = 0
@@ -1861,6 +1935,7 @@ def timed(step):
     return timed_step
 Tracker.step = timed(Tracker.step)
 TrackerKinematic.step = timed(TrackerKinematic.step)
+BatchedTracker.step = timed(BatchedTracker.step)
 sys.argv = ["kinet_tpu_torch.engine.track"] + sys.argv[1:]
 runpy.run_module("kinet_tpu_torch.engine.track", run_name="__main__",
                  alter_sys=True)
@@ -1872,28 +1947,29 @@ print(json.dumps({"launches": {
 """
 
 
-def write_mot17_sequence(root: Path, n_frames, h, w):
-    """MOT17/train/MOT17-02-FRCNN in the MOTChallenge layout: seqinfo.ini,
-    img1/*.jpg (eight boxes of box_tracks moving over noise), det/det.txt
-    and gt/gt.txt with the boxes (1-based pixels and frames)."""
+def write_mot17_sequence(root: Path, n_frames, h, w, name=T_SEQ, seed=0):
+    """MOT17/train/<name> (MOT17-02-FRCNN) in the MOTChallenge layout:
+    seqinfo.ini, img1/*.jpg (eight boxes of box_tracks(seed) moving over
+    noise), det/det.txt and gt/gt.txt with the boxes (1-based pixels and
+    frames)."""
     import configparser
 
     import numpy as np
     from PIL import Image
 
-    seq = root / "MOT17" / "train" / T_SEQ
+    seq = root / "MOT17" / "train" / name
     for d in ("img1", "det", "gt"):
         (seq / d).mkdir(parents=True)
     info = configparser.ConfigParser()
-    info["Sequence"] = {"name": T_SEQ, "imDir": "img1", "frameRate": "30",
+    info["Sequence"] = {"name": name, "imDir": "img1", "frameRate": "30",
                         "seqLength": str(n_frames), "imWidth": str(w),
                         "imHeight": str(h), "imExt": ".jpg"}
     with open(seq / "seqinfo.ini", "w") as f:
         info.write(f)
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(7 + seed)
     background = rng.integers(40, 120, size=(h, w, 3)).astype(np.uint8)
     det, gt = [], []
-    for f, boxes in enumerate(box_tracks(np, h, w, n_frames), start=1):
+    for f, boxes in enumerate(box_tracks(np, h, w, n_frames, seed), start=1):
         img = background.copy()
         for tid, (y0, x0, bh, bw) in enumerate(boxes, start=1):
             img[y0:y0 + bh, x0:x0 + bw] = 230
@@ -2026,6 +2102,780 @@ def phase_track_cli(torch, msda):
         f"(waiting for the prefetch thread's frames)")
     steady = (T_FRAMES - 1) / (loop_s - step_ms[0] / 1e3)
     return launches, steady, float(hz.group(2))
+
+
+# ---------------------------------------------------------------------------
+# phase B: batched serving (tracking/batched.py); phase S: processes
+
+
+B_SEQS, B_FRAMES, B_SIZES = 4, 8, (1, 2, 4)
+# a second, smaller frame size: both forms at B = 4
+B_SMALL_HW = (544, 960)
+# the CLI's sequences (1080x1920 JPEGs, T_TRANSFORM)
+B_CLI_SEQS = [f"MOT17-{n:02d}-FRCNN" for n in (2, 4, 5, 9)]
+# config overrides of phase S's training runs (a rehearsal on the CPU sets
+# tiny widths)
+S_OVERRIDES: dict = {}
+
+
+def same_results(np, got, ref, atol=1e-3):
+    """None when ``got`` has ``ref``'s track ids and frames with boxes
+    within ``atol`` px, else what differs."""
+    if got.keys() != ref.keys():
+        return f"track ids {sorted(got)} vs {sorted(ref)}"
+    worst = 0.0
+    for tid, frames in ref.items():
+        if got[tid].keys() != frames.keys():
+            return f"track {tid}: frames {sorted(got[tid])} vs {sorted(frames)}"
+        for f, r in frames.items():
+            worst = max(worst, float(np.abs(got[tid][f]["bbox"]
+                                            - r["bbox"]).max()))
+    return None if worst <= atol else f"boxes up to {worst:.4g} px apart"
+
+
+def batched_run(bt, seqs, n):
+    """The sequences, in chunks of n, through the batched tracker ``bt``
+    (reset between chunks; every sequence B_FRAMES long): (results of each
+    sequence, host ms of each step, each ending in its fetch; seconds in
+    all)."""
+    results, step_ms = [], []
+    t0 = time.perf_counter()
+    for i0 in range(0, len(seqs), n):
+        chunk = seqs[i0:i0 + n]
+        bt.reset()
+        for f in range(B_FRAMES):
+            t = time.perf_counter()
+            bt.step([s[f] for s in chunk])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        results += [bt.get_results(i) for i in range(n)]
+    return results, step_ms, time.perf_counter() - t0
+
+
+def forward_rows_diff(torch, tracker, blob, n):
+    """Max abs difference of the scores, boxes (px) and embeddings of a
+    frame forwarded alone and as row 0 of a stacked batch of n copies."""
+    one = tracker._build_inputs(blob)
+    many = {k: torch.cat([torch.from_numpy(v).to(tracker.device)] * n)
+            for k, v in one.items()}
+    a = tracker._fwd(*tracker.make_device_inputs(one), None, None, None)
+    b = tracker._fwd(*tracker.make_device_inputs(many), None, None, None)
+    return {k: (a[k][0].float() - b[k][0].float()).abs().max().item()
+            for k in ("scores", "boxes", "hs_embed")}
+
+
+def score_margin(np, tracker, run):
+    """Runs ``run()`` with the tracker's state machine recording the scores
+    it compares (its track rows and its object rows); returns the least
+    distance of one of them to the score threshold."""
+    thresh = tracker.detection_obj_score_thresh
+    consume, least = tracker._consume, [np.inf]
+
+    def recording(out, blob):
+        s = out["scores"]
+        used = np.concatenate([s[:tracker._num_prev],
+                               s[tracker.num_track_slots:]])
+        least[0] = min(least[0], float(np.abs(used - thresh).min()))
+        consume(out, blob)
+
+    tracker._consume = recording
+    try:
+        run()
+    finally:
+        del tracker._consume
+    return least[0]
+
+
+def single_runs(tracker, seqs):
+    """Each sequence through one Tracker (reset between them): (results of
+    each, host ms of each step, seconds in all)."""
+    results, step_ms = [], []
+    t0 = time.perf_counter()
+    for s in seqs:
+        tracker.reset()
+        for blob in s:
+            t = time.perf_counter()
+            tracker.step(blob)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        results.append(tracker.get_results())
+    return results, step_ms, time.perf_counter() - t0
+
+
+def stacked_f32_gate(torch, cfg, seqs, kw):
+    """The stacked form at B = 2 and 4 against one Tracker a sequence, in
+    f32 (TF32 off), the thresholds halfway between the 7th and 8th class-0
+    scores of the first frame: the same track ids and frames, boxes within
+    1e-3 px or, where more, within what the forward's own boxes differ
+    between a batch-4 row and the frame alone (the kernels that cuBLAS and
+    cuDNN pick by batch sum in another order, and 12 layers of random
+    weights grow that to ~1e-2 px at 800x1440). Returns (least
+    score-to-threshold distance of the reference, the batch-4 forward's
+    row differences)."""
+    import numpy as np
+
+    from kinet_tpu_torch.tracking.batched import BatchedTracker
+    from kinet_tpu_torch.tracking.tracker import Tracker
+
+    model, post, _ = served_parts(torch, cfg, seqs[0][0])
+    model.float()
+    cand = class0_scores(torch, model, post, seqs[0][0], kw["num_track_slots"])
+    tcfg = served_tracker_cfg(float(cand[6] + cand[7]) / 2)
+    single = Tracker(model, post, tcfg, **kw)
+    ref = []
+    margin = score_margin(np, single,
+                          lambda: ref.extend(single_runs(single, seqs)[0]))
+    diff = forward_rows_diff(torch, single, seqs[0][0], B_SEQS)
+    for n in (2, B_SEQS):
+        bt = BatchedTracker(model, post, {**tcfg, "batch_exec": "stacked"},
+                            n_sequences=n, **kw)
+        got = batched_run(bt, seqs, n)[0]
+        for i, (g, r) in enumerate(zip(got, ref)):
+            d = same_results(np, g, r, atol=max(1e-3, diff["boxes"]))
+            check(d is None, f"f32 stacked B={n}: sequence {i} differs from "
+                  f"its single Tracker: {d} (closest score to the threshold "
+                  f"{margin:.3g} off; a batch-{B_SEQS} row differs by {diff})")
+    del model, single, bt
+    torch.cuda.empty_cache()
+    return margin, diff
+
+
+def phase_batched(torch, msda, b1_replay):
+    """BatchedTracker on the served config (dec_msda_int8, bf16) over
+    B_SEQS synthetic sequences of B_FRAMES frames: at MAIN_HW with B = 1,
+    2, 4 in both forms, at B_SMALL_HW with B = 4 in both. Every sequence
+    of the forms whose forward is the single Tracker's (B = 1, interleaved)
+    is held to its single Tracker's results; the stacked form's bf16 rows
+    differ from a batch-1 forward's in the last bits, so its results are
+    reported beside the single Tracker's and held to them in f32
+    (stacked_f32_gate). Then a replay of one stacked B = 4 step's MSDA
+    calls (``b1_replay``: phase 5's B = 1 replay, or None). Returns
+    ({(hw, B, form): measures}, {kernel: replay ms}, {B: {kernel: launches
+    a stacked step}})."""
+    import numpy as np
+
+    from kinet_tpu_torch.tracking.batched import BatchedTracker
+    from kinet_tpu_torch.tracking.tracker import Tracker
+
+    cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True)
+    kw = tracker_kwargs(cfg)
+    rows, per_step, replay = {}, {}, {}
+    for hw in (MAIN_HW, B_SMALL_HW):
+        seqs = [list(moving_boxes(np, *hw, B_FRAMES, seed=20 + s))
+                for s in range(B_SEQS)]
+        model, post, tcfg = served_parts(torch, cfg, seqs[0][0])
+        single = Tracker(model, post, tcfg, **kw)
+        for blob in seqs[0][:2]:  # warm-up
+            single.step(blob)
+        ref, ref_ms, ref_s = single_runs(single, seqs)
+        check(all(ref), "a sequence got no track")
+        diff = forward_rows_diff(torch, single, seqs[0][0], B_SEQS)
+        log(f"  {hw[0]}x{hw[1]}: one Tracker a sequence: "
+            f"{B_SEQS * B_FRAMES / ref_s:.3f} frames/s, median "
+            f"{statistics.median(ref_ms):.3f} ms a frame; tracks per "
+            f"sequence {[len(r) for r in ref]}, result boxes "
+            f"{[sum(len(t) for t in r.values()) for r in ref]}; a frame as "
+            f"row 0 of a stacked batch of {B_SEQS} copies vs alone, max abs "
+            f"difference (bf16): {diff}")
+        rows[(hw, 1, "single")] = dict(
+            fps=B_SEQS * B_FRAMES / ref_s, step_ms=statistics.median(ref_ms))
+        stacked4 = None
+        for n in (B_SIZES if hw == MAIN_HW else (B_SEQS,)):
+            for form in ("stacked",) if n == 1 else ("stacked", "interleaved"):
+                bt = BatchedTracker(model, post, {**tcfg, "batch_exec": form},
+                                    n_sequences=n, **kw)
+                for f in range(2):  # warm-up at this batch and form
+                    bt.step([s[f] for s in seqs[:n]])
+                torch.cuda.synchronize()
+                reset_launches(msda)
+                got, step_ms, secs = batched_run(bt, seqs, n)
+                counts = read_launches(msda)
+                fwd = len(step_ms) * (1 if form == "stacked" else n)
+                for k, c in counts.items():
+                    want = 6 * fwd if k in ("msda_fwd",
+                                            "msda_raw_pool_fwd_i8") else 0
+                    check(c == want, f"B={n} {form}: {k} launched {c} times, "
+                          f"expected {want}")
+                diffs = [same_results(np, g, r) for g, r in zip(got, ref)]
+                if n == 1 or form == "interleaved":
+                    for i, d in enumerate(diffs):
+                        check(d is None, f"B={n} {form} at {hw}: sequence {i}"
+                              f" differs from its single Tracker: {d}")
+                    agree = "every sequence as its single Tracker's"
+                else:
+                    agree = (f"{diffs.count(None)} of {B_SEQS} sequences as "
+                             f"their single Tracker's in bf16"
+                             + "".join(f"; sequence {i}: {d}"
+                                       for i, d in enumerate(diffs) if d))
+                cyc = itertools.cycle(range(B_FRAMES))
+                last = seqs[len(seqs) - n:]
+                by_name = device_profile(
+                    torch, lambda: bt.step([s[next(cyc)] for s in last]), 3)
+                busy = sum(t for t, _ in by_name.values())
+                med = statistics.median(step_ms)
+                row = rows[(hw, n, form)] = dict(
+                    fps=B_SEQS * B_FRAMES / secs, step_ms=med, busy_ms=busy,
+                    launches={k: c / len(step_ms) for k, c in counts.items()
+                              if c})
+                if form == "stacked" and hw == MAIN_HW:
+                    per_step[n] = row["launches"]
+                    if n == B_SEQS:
+                        stacked4 = bt
+                share = (f"{100 * busy / med:.1f} %" if busy > 0
+                         else "not measured (the profiler saw nothing)")
+                log(f"  B={n} {form:<11} {row['fps']:.3f} frames/s over "
+                    f"{B_SEQS} sequences, median {med:.3f} ms a step "
+                    f"({med / n:.3f} a frame); device busy {busy:.3f} ms a "
+                    f"step = {share}; launches a step {row['launches']}; "
+                    f"{agree}")
+        if stacked4 is not None:
+            calls = record_forward_calls(
+                torch, lambda: stacked4.step([s[-1] for s in seqs]))
+            kinds = [k for k, _ in calls]
+            check(kinds.count("msda_fwd") == 6
+                  and kinds.count("msda_raw_pool_fwd_i8") == 6
+                  and len(kinds) == 12, f"a stacked B=4 step made {kinds}")
+            log(f"  replay of one stacked B={B_SEQS} step's 12 forward MSDA "
+                f"calls, the int8 raw pool's also over its bf16 table "
+                f"(msda_raw_pool_fwd):")
+            got = {}
+            with torch.inference_mode():
+                for kernel, args in calls:
+                    cases = [(kernel, args)]
+                    if kernel == "msda_raw_pool_fwd_i8":
+                        cases.append(("msda_raw_pool_fwd",
+                                      (dequantized_table(torch, args),)
+                                      + tuple(args[1:5])))
+                    for k, a in cases:
+                        for name, t in replay_call(torch, msda, k, a).items():
+                            got.setdefault(name, []).append(t)
+            replay = {k: statistics.mean(t) for k, t in got.items()}
+            for k in ("msda_fwd", "msda_raw_pool_fwd_i8", "msda_raw_pool_fwd"):
+                b1 = (b1_replay or {}).get(k)
+                vs = (f"; {B_SEQS} x phase 5's B=1 replay {B_SEQS * b1:.5f} ms"
+                      f" ({replay[k] / (B_SEQS * b1):.3f}x)") if b1 else ""
+                log(f"  {k} at B={B_SEQS}: {replay[k]:.5f} device ms a launch"
+                    f", bound {replay[k + ' bound']:.5f} ms "
+                    f"({100 * replay[k + ' bound'] / replay[k]:.1f} %){vs}")
+            del calls
+        del model, single, bt, stacked4
+        torch.cuda.empty_cache()
+        if hw == MAIN_HW:
+            margin, diff = stacked_f32_gate(torch, cfg, seqs, kw)
+            log(f"  f32 (TF32 off), thresholds between two scores: stacked "
+                f"B=2 and B={B_SEQS} give every sequence its single "
+                f"Tracker's tracks and frames, boxes within "
+                f"{max(1e-3, diff['boxes']):.3g} px (a batch-{B_SEQS} row "
+                f"differs from the frame alone by {diff}); the closest "
+                f"compared score {margin:.3g} from its threshold")
+    for hw in (MAIN_HW, B_SMALL_HW):
+        s4, i4 = rows[(hw, B_SEQS, "stacked")], rows[(hw, B_SEQS, "interleaved")]
+        log(f"  {hw[0]}x{hw[1]} B={B_SEQS}: stacked {s4['fps']:.3f} vs "
+            f"interleaved {i4['fps']:.3f} frames/s "
+            f"({s4['fps'] / i4['fps']:.3f}x)")
+    return rows, replay, per_step
+
+
+def cli_runs(torch, root: Path):
+    """B_CLI_SEQS (B_FRAMES 1080x1920 JPEG frames each) under root/data and
+    a saved full-width run with dec_msda_int8 under root/run, calibrated as
+    phase T's on the first sequence's first frame; written once. Returns
+    (the run's directory, the frames' padded size after the transform)."""
+    from kinet_tpu_torch.config import save_config
+    from kinet_tpu_torch.data.sequences import MOT17Sequence
+    from kinet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    run = root / "run"
+    if (run / "checkpoint.pth").exists():
+        return run, tuple(json.loads((root / "frame_hw.json").read_text()))
+    for i, name in enumerate(B_CLI_SEQS):
+        write_mot17_sequence(root / "data", B_FRAMES, *T_HW, name=name, seed=i)
+    cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True,
+                                 **T_TRANSFORM)
+    seq = MOT17Sequence(str(root / "data"), "MOT17-02", "FRCNN",
+                        img_transform=cfg.img_transform)
+    model, shift = calibrated_model(torch, cfg, seq[0])
+    save_config(cfg, run)
+    CheckpointManager(str(run)).save_epoch(
+        model, torch.optim.SGD(model.parameters(), lr=0.0), 0, 0)
+    del model
+    torch.cuda.empty_cache()
+    hw = tuple(seq[0]["images"].shape[1:3])
+    (root / "frame_hw.json").write_text(json.dumps(hw))
+    log(f"  {len(B_CLI_SEQS)} sequences of {B_FRAMES} frames "
+        f"{T_HW[0]}x{T_HW[1]} ({hw[0]}x{hw[1]} after the transform) and a "
+        f"saved run (class-0 bias {shift:+.3f})")
+    return run, hw
+
+
+def phase_batched_cli(torch, msda, root: Path):
+    """``python -m kinet_tpu_torch.engine.track`` with batch_sequences 4 and
+    batch_exec auto over cli_runs' four sequences. Returns (the RUNTIME
+    line, steady-state aggregate frames/s: the RUNTIME window less the
+    first step, over the other steps' frames; the share of the window
+    outside the batched steps, waiting for the prefetch threads' frames)."""
+    import math
+    import re
+
+    from kinet_tpu_torch.tracking import batched
+
+    run, (h, w) = cli_runs(torch, root)
+    n = len(B_CLI_SEQS)
+    out = root / "out_batched"
+    cmd = [sys.executable, "-c", CLI_RUNNER, f"obj_detect_checkpoint_dir={run}",
+           f"data_root_dir={root / 'data'}",
+           f"dataset_name={','.join(B_CLI_SEQS)}", f"output_dir={out}",
+           "tracker_cfg.steps_termination=3", "tracker_cfg.inactive_patience=0",
+           f"batch_sequences={n}", "batch_exec=auto", f"device={DEVICE}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    check(proc.returncode == 0, f"the batched tracking CLI exited "
+          f"{proc.returncode}:\n{text[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in text.strip().splitlines()[:-1]:
+        log(f"  | {line}")
+    child = json.loads(text.strip().splitlines()[-1])
+    launches, step_ms = child["launches"], child["step_ms"]
+    frames = n * B_FRAMES
+    form = ("stacked" if h * w <= batched._STACKED_MAX_PIXELS
+            else "interleaved")
+    want = 6 * B_FRAMES * (1 if form == "stacked" else n)
+    for k, c in launches.items():
+        check(c == (0 if k == "msda_raw_pool_fwd" else want),
+              f"the batched CLI launched {k} {c} times ({form}: {want})")
+    check(len(step_ms) == B_FRAMES, f"{len(step_ms)} batched steps")
+    line = next(ln for ln in text.splitlines() if ln.startswith("RUNTIME"))
+    hz = re.search(r"for (\d+) frames \(([\d.]+) Hz\)", line)
+    check(hz is not None and int(hz.group(1)) == frames,
+          f"RUNTIME line {line!r}")
+    rows = [ln for ln in text.splitlines()
+            if ln.split() and ln.split()[0] in B_CLI_SEQS + ["OVERALL"]]
+    check(len(rows) == n + 1 and all(
+        math.isfinite(float(v)) for r in rows for v in r.split()[1:]),
+        f"summary rows {rows}")
+    loop_s = frames / float(hz.group(2))
+    steady = (frames - n) / (loop_s - step_ms[0] / 1e3)
+    waiting = (loop_s - sum(step_ms) / 1e3) / loop_s
+    log(f"  batch_exec auto took the {form} form at {h}x{w}; launches "
+        f"{launches} (CLI process {wall:.1f} s); batched steps: first "
+        f"{step_ms[0]:.1f} ms, then median {statistics.median(step_ms[1:]):.3f}"
+        f" ms")
+    return line, steady, waiting
+
+
+# the processes of phase S: each joins a gloo group of ``world`` on the
+# rendezvous URL, on the card (DEVICE)
+S_TRACK_RUNNER = """
+import json, sys
+import torch.distributed as tdist
+from kinet_tpu_torch.config import load_config, parse_cli_overrides
+from kinet_tpu_torch.engine.track import main_track
+rank, world, rdv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+tdist.init_process_group("gloo", init_method=rdv, world_size=world, rank=rank)
+summary = main_track(load_config("track.yaml",
+                                 overrides=parse_cli_overrides(sys.argv[4:])))
+tdist.destroy_process_group()
+print(json.dumps({s: {k: float(v) for k, v in r.items()}
+                  for s, r in summary.items()}))
+"""
+S_STEPS_RUNNER = """
+import sys
+import torch
+import torch.distributed as tdist
+import chip_smoke
+import json
+rank, world, rdv, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+for name, value in json.loads(sys.argv[5]).items():  # the parent's settings
+    setattr(chip_smoke, name, value)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+tdist.init_process_group("gloo", init_method=rdv, world_size=world, rank=rank)
+losses, params, grads = chip_smoke.s_train_steps(torch, rank, world)
+tdist.destroy_process_group()
+torch.save({"losses": losses, "params": params, "grads": grads}, out)
+"""
+# tools/launch.py with each train step's losses recorded (as float.hex)
+# and printed at the end; with ``--signal`` the process sends itself
+# SIGUSR1 after its first step
+S_LAUNCH_RUNNER = """
+import json, os, signal, sys
+import torch
+import torch.distributed as tdist
+from kinet_tpu_torch.engine import train_step
+from kinet_tpu_torch.tools import launch
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+send = sys.argv[1] == "--signal"
+argv = sys.argv[2:] if send else sys.argv[1:]
+steps = []
+make = train_step.make_train_step
+def recording(*a, **kw):
+    step = make(*a, **kw)
+    def run(*b, **k):
+        out = step(*b, **k)
+        steps.append({"group": tdist.is_initialized() and
+                      tdist.get_world_size(),
+                      **{n: float(v).hex() for n, v in out.items()}})
+        if send and len(steps) == 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return out
+    return run
+train_step.make_train_step = recording
+launch.main(argv)
+print(json.dumps(steps))
+"""
+S_HW = (672, 1184)
+S_STEPS, S_OBJECTS = 3, 20
+
+
+def s_inputs(torch, step, images, t_slots, hidden):
+    """(batch, targets, prev_batch, prev_targets) of images ``images`` (of
+    two) at train step ``step``: random pictures, S_OBJECTS tracks an
+    image at random boxes, on DEVICE. The same image gets the same data
+    whatever the batch it is in."""
+    from kinet_tpu_torch.structs import ImageBatch, Targets
+
+    h, w = S_HW
+    frames = []
+    for f in range(2):  # the current frame, the previous one
+        imgs, boxes = [], []
+        for i in images:
+            gen = torch.Generator().manual_seed(1000 * step + 10 * i + f)
+            imgs.append(torch.randn(h, w, 3, generator=gen))
+            boxes.append(0.2 + 0.4 * torch.rand(S_OBJECTS, 4, generator=gen))
+        n = len(images)
+        targets = Targets.create(
+            torch.stack(boxes), torch.zeros(n, S_OBJECTS, dtype=torch.int64),
+            torch.ones(n, S_OBJECTS, dtype=torch.bool),
+            track_ids=torch.arange(S_OBJECTS).expand(n, -1).clone(),
+            num_track_queries=t_slots, hidden_dim=hidden)
+        frames += [ImageBatch(torch.stack(imgs),
+                              torch.zeros(n, h, w, dtype=torch.bool)), targets]
+    return [x.to(DEVICE) for x in frames]
+
+
+def s_train_steps(torch, rank, world, split=False):
+    """S_STEPS f32 train steps of the full-width flagship (dropout 0, the
+    track-query simulation's false positives and negatives off) on this
+    process's share of a batch of two images. With ``split`` (one
+    process), each image steps through the model on its own, with a
+    generator of its own, as each process of a 2-process run does, and
+    the optimizer applies the mean of the two gradients: the arithmetic
+    of the 2-process run without its processes. Returns (each step's
+    weighted losses, total and gradient norm: a list of one dict per image
+    with ``split``; the parameters after the last step and the first
+    step's all-reduced, unclipped gradients, on the CPU)."""
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+
+    cfg = flagship_cfg().replace(compute_dtype="float32", lr=1e-4,
+                                 track_query_false_positive_prob=0.0,
+                                 track_query_false_negative_prob=0.0,
+                                 **S_OVERRIDES)
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    model, _ = build_model(cfg, device=DEVICE, seed=3)
+    model.train()
+    criterion = build_criterion(cfg)
+    opt = Optimizer(model, cfg, 1000)
+    keys = set(criterion.weight_dict) | {"loss", "grad_norm"}
+    grads, losses = {}, []
+
+    def first_grads():
+        if not grads:
+            grads.update({k: p.grad.detach().cpu()
+                          for k, p in model.named_parameters()})
+
+    if not split:
+        update = opt.step
+
+        def recording():  # the first step's gradients, unclipped
+            first_grads()
+            return update()
+
+        opt.step = recording
+        step = make_train_step(model, criterion, opt, cfg,
+                               generator=torch.Generator().manual_seed(5))
+        for s in range(S_STEPS):
+            out = step(*s_inputs(torch, s, [0, 1][rank::world], t_slots,
+                                 hidden))
+            losses.append({k: float(v) for k, v in out.items() if k in keys})
+    else:
+        kept = []
+
+        class Keeping:
+            """The optimizer to each image's step: keeps its gradients."""
+            params = opt.params
+            zero_grad = opt.zero_grad
+
+            def step(self):
+                kept.append([torch.zeros_like(p) if p.grad is None else
+                             p.grad.clone() for p in opt.params])
+                return torch.zeros(())
+
+        steps = [make_train_step(model, criterion, Keeping(), cfg,
+                                 generator=torch.Generator().manual_seed(5))
+                 for _ in range(2)]
+        for s in range(S_STEPS):
+            outs = [steps[i](*s_inputs(torch, s, [i], t_slots, hidden))
+                    for i in range(2)]
+            for p, g0, g1 in zip(opt.params, *kept):
+                p.grad = (g0 + g1) / 2  # all_reduce_grads: the sum, / 2
+            kept.clear()
+            first_grads()
+            norm = float(opt.step())
+            losses.append([{**{k: float(v) for k, v in o.items() if k in keys},
+                            "grad_norm": norm} for o in outs])
+    return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}, \
+        grads
+
+
+class Children:
+    """The subprocesses a phase starts (stdout and stderr to files under
+    ``root``), all killed on the way out."""
+
+    def __init__(self, root: Path):
+        self.root, self.procs = root, []
+
+    def start(self, name, cmd, env=None):
+        import os
+
+        out = open(self.root / f"{name}.out", "w")
+        err = open(self.root / f"{name}.err", "w")
+        proc = subprocess.Popen(
+            cmd, cwd=Path(__file__).resolve().parent, stdout=out,
+            stderr=err, text=True, env={**os.environ, **(env or {})})
+        self.procs.append((name, proc, out, err))
+        return name
+
+    def wait(self, name, timeout=600):
+        """The child's stdout; fails the run if it did not exit 0."""
+        for n, proc, out, err in self.procs:
+            if n == name:
+                try:
+                    proc.wait(timeout)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
+                text = (self.root / f"{name}.out").read_text()
+                check(proc.returncode == 0, f"{name} exited {proc.returncode}:"
+                      f"\n{text[-3000:]}\n"
+                      f"{(self.root / f'{name}.err').read_text()[-3000:]}")
+                return text
+        raise KeyError(name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for _, proc, out, err in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        return False
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_args(root: Path, out: Path, **over):
+    """tools/launch.py's arguments for the flagship recipe on the synthetic
+    MOT tree under root/mot672 (frames of S_HW, one bucket of S_HW)."""
+    run = dict(dataset="mot", epochs=1, batch_size=1, val_interval=0,
+               tracking_eval=False,
+               num_workers=1, log_interval=1, size_buckets=[list(S_HW)],
+               **{"img_transform.max_size": S_HW[1],
+                  "img_transform.val_width": S_HW[0]}, **S_OVERRIDES, **over)
+    return (["--device", DEVICE, "--config", "train.yaml", "--named",
+             *FLAGSHIP, "--", f"mot_path_train={root / 'mot672'}",
+             f"mot_path_val={root / 'mot672'}", f"output_dir={out}"]
+            + [f"{k}={json.dumps(v)}" for k, v in run.items()])
+
+
+def phase_processes(torch, root: Path):
+    """Processes on the one card: (a) main_track in 2 gloo processes
+    against 1; (b) S_STEPS flagship train steps at S_HW through
+    tools/launch.py in a world-1 NCCL group against the same run without
+    a group, bit for bit; then S_STEPS f32 steps in 2 gloo processes
+    against 1 process on the concatenated batch (tests/test_torch_ddp.py's
+    tolerance); (c) the launcher with --requeue-on-preempt given SIGUSR1
+    after its first step: checkpoint, requeue, resume. Returns {part:
+    seconds}."""
+    from kinet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    run, _ = cli_runs(torch, root)
+    write_mot_dataset(root / "mot672", S_STEPS, *S_HW)
+    write_mot_dataset(root / "mot_small", 6)
+    track = [f"obj_detect_checkpoint_dir={run}",
+             f"data_root_dir={root / 'data'}",
+             f"dataset_name={','.join(B_CLI_SEQS)}",
+             "tracker_cfg.steps_termination=3",
+             "tracker_cfg.inactive_patience=0", f"device={DEVICE}"]
+    times = {}
+    torch.cuda.empty_cache()
+    with Children(root) as kids:
+        t0 = time.perf_counter()
+        # (a) and (b)'s launcher runs and (c), all at once
+        rdv = f"file://{root}/rdv_track"
+        for r in range(2):
+            kids.start(f"track{r}", [sys.executable, "-c", S_TRACK_RUNNER,
+                                     str(r), "2", rdv, *track,
+                                     f"output_dir={root / 'out_s2'}"])
+        kids.start("track_one", [sys.executable, "-c", S_TRACK_RUNNER, "0",
+                                 "1", f"file://{root}/rdv_one", *track,
+                                 f"output_dir={root / 'out_s1'}"])
+        torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "localhost",
+                    "MASTER_PORT": str(free_port())}
+        kids.start("launch_nccl", [sys.executable, "-c", S_LAUNCH_RUNNER,
+                                   *launch_args(root, root / "run_nccl")],
+                   env=torchrun)
+        kids.start("launch_alone", [sys.executable, "-c", S_LAUNCH_RUNNER,
+                                    *launch_args(root, root / "run_alone")])
+        small = root / "run_preempt"
+        kids.start("preempt", [
+            sys.executable, "-c", S_LAUNCH_RUNNER, "--signal",
+            "--requeue-on-preempt", "--device", DEVICE, "--config",
+            "train.yaml", "--named", *FLAGSHIP, "--",
+            f"mot_path_train={root / 'mot_small'}",
+            f"mot_path_val={root / 'mot_small'}", f"output_dir={small}",
+            "dataset=mot", "epochs=2", "val_interval=0",
+            "tracking_eval=false", "num_workers=1", "log_interval=1",
+            *[f"{k}={json.dumps(v)}" for k, v in S_OVERRIDES.items()]])
+
+        summaries = [json.loads(kids.wait(n).strip().splitlines()[-1])
+                     for n in ("track_one", "track0", "track1")]
+        ref = summaries[0]
+        check(set(ref) == set(B_CLI_SEQS) | {"OVERALL"}, f"summary {ref}")
+        for got in summaries[1:]:
+            check(got.keys() == ref.keys(), f"summary keys {sorted(got)}")
+            for seq, row in ref.items():
+                for k, v in row.items():
+                    tol = 1e-9 if k in ("motp", "loc_a") else 0.0
+                    check(abs(got[seq][k] - v) <= tol or got[seq][k] == v,
+                          f"2-process summary {seq} {k}: {got[seq][k]} vs {v}")
+        sub = ",".join(B_CLI_SEQS)
+        for name in B_CLI_SEQS:
+            a = (root / "out_s2" / sub / f"{name}.txt").read_bytes()
+            check(a and a == (root / "out_s1" / sub / f"{name}.txt").read_bytes(),
+                  f"{name}'s result file differs between 2 processes and 1")
+        log(f"  (a) main_track over {len(B_CLI_SEQS)} sequences in 2 gloo "
+            f"processes on the card = 1 process: summaries and result files "
+            f"(OVERALL MOTA {ref['OVERALL']['mota']:.3f}, IDF1 "
+            f"{ref['OVERALL']['idf1']:.3f})")
+        times["a"] = time.perf_counter() - t0
+
+        nccl = json.loads(kids.wait("launch_nccl").strip().splitlines()[-1])
+        alone = json.loads(kids.wait("launch_alone").strip().splitlines()[-1])
+        check(len(nccl) == S_STEPS and all(s["group"] == 1 for s in nccl),
+              f"the launcher's steps under torchrun: {nccl}")
+        check(len(alone) == S_STEPS and not any(s["group"] for s in alone),
+              f"the launcher's steps alone: {alone}")
+        strip = [[{k: v for k, v in s.items() if k != "group"} for s in r]
+                 for r in (nccl, alone)]
+        check(strip[0] == strip[1], f"world-1 NCCL losses {strip[0]} vs no "
+              f"group {strip[1]}")
+        pa = load_checkpoint(root / "run_nccl" / "checkpoint.pth")["params"]
+        pb = load_checkpoint(root / "run_alone" / "checkpoint.pth")["params"]
+        check(pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k])
+                                            for k in pa),
+              "world-1 NCCL parameters differ from the run without a group")
+        log(f"  (b) {S_STEPS} flagship steps at {S_HW[0]}x{S_HW[1]} through "
+            f"tools/launch.py in a world-1 NCCL group = without a group, bit "
+            f"for bit: losses {[float.fromhex(s['loss']) for s in strip[0]]}"
+            f", {len(pa)} parameter tensors")
+        times["b_launch"] = time.perf_counter() - t0
+
+        text = kids.wait("preempt")
+        for want in ("preemption requested: checkpoint saved at step 1",
+                     "requeueing after preemption",
+                     f"auto-resuming from {small / 'checkpoint.pth'}"):
+            check(want in text, f"the preempted launcher printed no {want!r}")
+        ckpt = load_checkpoint(small / "checkpoint.pth")
+        check(ckpt["epoch"] == 2 and ckpt["step"] == 7,
+              f"the requeued run ended at epoch {ckpt['epoch']} step "
+              f"{ckpt['step']}, expected epoch 2 step 7")
+        log("  (c) SIGUSR1 after step 1: checkpoint (epoch 0), requeue "
+            "(re-exec of tools/launch.py), resume: epoch 2 at step 7 "
+            "(1 + 3 + 3)")
+        times["c"] = time.perf_counter() - t0
+
+        # (b) 2 gloo processes on the card against 1 on the whole batch
+        t1 = time.perf_counter()
+        settings = dict(DEVICE=DEVICE, S_OVERRIDES=S_OVERRIDES, S_HW=S_HW,
+                        S_OBJECTS=S_OBJECTS)
+        for r in range(2):
+            kids.start(f"steps{r}", [sys.executable, "-c", S_STEPS_RUNNER,
+                                     str(r), "2", f"file://{root}/rdv_steps",
+                                     str(root / f"steps{r}.pt"),
+                                     json.dumps(settings)])
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # as the children
+        try:
+            split = s_train_steps(torch, 0, 1, split=True)
+            torch.cuda.empty_cache()
+            whole = s_train_steps(torch, 0, 1)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+        for r in range(2):
+            kids.wait(f"steps{r}")
+        two = [torch.load(root / f"steps{r}.pt", weights_only=True)
+               for r in range(2)]
+        # the 2 processes against 1 process stepping each image on its own:
+        # the same arithmetic, so the same bits
+        for s in range(S_STEPS):
+            for r in range(2):
+                check(two[r]["losses"][s] == split[0][s][r],
+                      f"step {s}: process {r}'s losses {two[r]['losses'][s]}"
+                      f" vs image {r} stepped alone {split[0][s][r]}")
+        for k, p in split[1].items():
+            check(torch.equal(two[0]["params"][k], p)
+                  and torch.equal(two[1]["params"][k], p),
+                  f"{k} after {S_STEPS} steps: 2 processes vs each image "
+                  f"stepped alone")
+        for k, g in split[2].items():
+            check(torch.equal(two[0]["grads"][k], g),
+                  f"step 0's all-reduced gradient of {k} differs")
+        log(f"  (b) {S_STEPS} f32 steps at {S_HW[0]}x{S_HW[1]} in 2 gloo "
+            f"processes on the card, one image each, = 1 process stepping "
+            f"each image on its own and applying the mean gradient: losses, "
+            f"gradient norms, step 0's gradients and the parameters, bit "
+            f"for bit (grad norms "
+            f"{[round(x[0]['grad_norm'], 4) for x in split[0]]})")
+        # readings: against 1 process on the concatenated batch, whose
+        # batch-2 kernels sum in another order
+        rel = {}
+        for s, ref_s in enumerate(whole[0]):
+            for k, v in ref_s.items():
+                got = (two[0]["losses"][s][k] if k == "grad_norm" else
+                       statistics.mean(t["losses"][s][k] for t in two))
+                rel[(s, k)] = abs(got - v) / abs(v)
+        diffs = {k: torch.linalg.vector_norm(two[0]["grads"][k] - g).item()
+                 for k, g in whole[2].items()}
+        total = torch.linalg.vector_norm(torch.tensor(list(diffs.values())))
+        for s in range(S_STEPS):
+            worst = max((r, k) for (t, k), r in rel.items() if t == s)
+            log(f"  (b) step {s} vs 1 process on both images: losses and "
+                f"gradient norm within rel {worst[0]:.2e} ({worst[1]}); "
+                f"grad_norm {rel[(s, 'grad_norm')]:.2e}")
+        log(f"  (b) step 0's gradient vs 1 process on both images: "
+            f"|difference| / |gradient| {total / whole[0][0]['grad_norm']:.2e}"
+            f", most in " + ", ".join(
+                f"{k} {v:.3g}" for k, v in sorted(
+                    diffs.items(), key=lambda kv: -kv[1])[:5]))
+        times["b_steps"] = time.perf_counter() - t1
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -3549,7 +4399,7 @@ KERNEL_META = {
                         "kinet_tpu/ops/msda.py:1149"),
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
-          "V")
+          "V", "B", "S")
 
 
 def main(argv=None) -> int:
@@ -3713,6 +4563,44 @@ def main(argv=None) -> int:
                 "Tracker.step")
             phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
+    shared = tempfile.TemporaryDirectory()  # phase B's CLI runs, reused by S
+    try:
+        if "B" in phases:
+            log(f"== B. batched serving: BatchedTracker on the served config "
+                f"(dec_msda_int8, bf16), {B_SEQS} sequences of {B_FRAMES} "
+                f"frames, B = {B_SIZES} at {MAIN_HW[0]}x{MAIN_HW[1]}, B = "
+                f"{B_SEQS} at {B_SMALL_HW[0]}x{B_SMALL_HW[1]}; then the CLI "
+                f"with batch_sequences {len(B_CLI_SEQS)}")
+            t0 = time.perf_counter()
+            b1 = {k: summary.get(k, {}).get("replay_ms") for k in (
+                "msda_fwd", "msda_raw_pool_fwd", "msda_raw_pool_fwd_i8")}
+            _, breplay, per_step = phase_batched(torch, msda, b1)
+            for n, counts in per_step.items():
+                for k, c in counts.items():
+                    summary.setdefault(k, {}).setdefault(
+                        "batched_launches", {})[f"B{n}"] = c
+            for k in b1:
+                summary.setdefault(k, {})["batched_replay_ms"] = breplay[k]
+                summary[k]["batched_bound_ms"] = breplay[k + " bound"]
+            line, steady, waiting = phase_batched_cli(torch, msda,
+                                                      Path(shared.name))
+            log(f"  {line}")
+            log(f"  {steady:.3f} frames/s steady state over "
+                f"{len(B_CLI_SEQS)} sequences (the RUNTIME window less the "
+                f"first batched step); {100 * waiting:.1f} % of the window "
+                f"waiting for the prefetch threads' frames; phase B in "
+                f"{time.perf_counter() - t0:.1f} s; on {smi}")
+        if "S" in phases:
+            log("== S. processes on the one card: main_track in 2 gloo "
+                "processes, tools/launch.py in a world-1 NCCL group, 2 gloo "
+                "train processes, preemption and requeue")
+            t0 = time.perf_counter()
+            times = phase_processes(torch, Path(shared.name))
+            log(f"  phase S in {time.perf_counter() - t0:.1f} s "
+                f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items())}); "
+                f"on {smi}")
+    finally:
+        shared.cleanup()
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -3729,7 +4617,9 @@ def main(argv=None) -> int:
          **{key: summary[k][key]
             for key in ("replay_ms", "replay_bf16_ms", "replay_fwd_ms",
                         "fwd_ms", "cold_ms", "library_cold_ms",
-                        "eval_launches", "mots_launches", "grad_max_abs_err")
+                        "eval_launches", "mots_launches", "grad_max_abs_err",
+                        "batched_launches", "batched_replay_ms",
+                        "batched_bound_ms")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

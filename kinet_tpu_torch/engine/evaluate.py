@@ -17,10 +17,15 @@ KineT configs batch with ``collate_kine`` and run the model on the
 detections with empty track slots (the reference zero-fills them at
 evaluation); the tracking eval then runs the kinematic tracker.
 
+Over several processes (``utils/dist.py``) each process evaluates every
+world-th image from its rank and the evaluator merges the prediction
+shards (``CocoEvaluator.synchronize_between_processes``), so every process
+scores the whole val set; the tracking eval splits the sequences the same
+way.
+
 Returns {"coco_eval_bbox": the 12 COCO stats, "mota"?, "idf1"?}. The
 model is left in the mode, and on the device, it had. Runs on the card
-unless ``device="cpu"``. Evaluation over several processes raises
-NotImplementedError naming its ROADMAP item.
+unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 
 from ..config import load_config
 from ..data.loader import DataLoader, RandomSampler
-from ..models.build import not_ported, resolve_device
+from ..models.build import resolve_device
+from ..utils import dist
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.logging import MetricLogger
 from . import track
@@ -38,13 +44,13 @@ from .train_step import kine_batch, kine_collate, kine_targets
 def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
     device = resolve_device(device)
     kine = bool(cfg.get("kine", False))
-    if track._process_count() > 1:
-        not_ported("evaluation over more than one process", "Scale-out")
     n_track = int(cfg.max_track_queries) if cfg.tracking else 0
     loader = DataLoader(
         dataset_val,
         batch_size=int(cfg.batch_size),
-        sampler=RandomSampler(dataset_val, seed=0),
+        # each process its shard (reference engine.py:259-264)
+        sampler=RandomSampler(dataset_val, rank=dist.get_rank(),
+                              world_size=dist.get_world_size(), seed=0),
         buckets=cfg.size_buckets,
         max_objects=int(cfg.max_objects),
         num_track_queries=n_track,

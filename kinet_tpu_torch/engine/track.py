@@ -21,16 +21,21 @@ JAX package:
   run with a mask head (``masks``) over MOTS20 sequences
   (``dataset_name=MOTS20-02`` ...) writes MOTS result lines with each
   track's RLE mask (``data/mots20_sequence.py``);
-- CLEAR-MOT, IDF1 and HOTA over all sequences with ground truth.
+- CLEAR-MOT, IDF1 and HOTA over all sequences with ground truth;
+- ``batch_sequences: N`` > 1 steps up to N sequences of one padded frame
+  shape through one forward a step (``tracking/batched.py``, in the form
+  ``batch_exec`` names); every decision stays each sequence's own;
+- over several processes (an initialised ``torch.distributed`` group,
+  ``utils/dist.py``) each process tracks every world-th sequence from its
+  rank, and the metrics accumulators of all processes are gathered, so
+  each process prints the summary over every sequence.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-``batch_sequences > 1``, ``spatial_parallel > 1`` and runs over more than
-one process ("Scale-out"), ``write_images`` ("Host tools").
+``spatial_parallel > 1`` ("Scale-out"), ``write_images`` ("Host tools").
 """
 from __future__ import annotations
 
 import argparse
-import os
 import os.path as osp
 import time
 
@@ -41,8 +46,14 @@ from ..config import Config, load_config, load_saved_config, parse_cli_overrides
 from ..data.sequences import TrackDatasetFactory
 from ..models.build import build_model, kine_dims, not_ported, resolve_device
 from ..models.postprocess import build_postprocessors
+from ..tracking.batched import (
+    BatchedTracker,
+    BatchedTrackerKinematic,
+    run_batched,
+)
 from ..tracking.kine_tracker import TrackerKinematic
 from ..tracking.tracker import Tracker
+from ..utils import dist
 from ..utils.checkpoint import CheckpointManager
 from ..utils.mot_metrics import evaluate_mot_accums, format_summary, get_mot_accum
 
@@ -155,12 +166,6 @@ class _Prefetcher:
         return False
 
 
-def _process_count() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def restore_model(ckpt_dir, device, train_cfg=None):
     """(model, train_cfg) from a training run's output directory: its saved
     config (``train_cfg`` if given) rebuilds the model, its checkpoint fills
@@ -193,12 +198,8 @@ def main_track(cfg, obj_detector_model=None):
     np.random.seed(seed)
     device = resolve_device(cfg.get("device"))
 
-    if int(cfg.get("batch_sequences", 1)) > 1:
-        not_ported("batch_sequences > 1 (BatchedTracker)", "Scale-out")
     if int(cfg.get("spatial_parallel", 0)) > 1:
         not_ported("spatial_parallel > 1", "Scale-out")
-    if _process_count() > 1:
-        not_ported("tracking over more than one process", "Scale-out")
     if cfg.get("write_images", False):
         not_ported("write_images (utils/vis.py::plot_sequence)", "Host tools")
 
@@ -248,41 +249,76 @@ def _kine_blob(blob: dict, max_det: int) -> dict:
     }
 
 
-def _make_tracker(cfg, model, train_cfg, gen_attn):
-    post = build_postprocessors(train_cfg)["bbox"]
+def _tracker_cfg(cfg) -> dict:
     tracker_cfg = (
         cfg.tracker_cfg.to_dict()
         if isinstance(cfg.tracker_cfg, Config)
         else dict(cfg.tracker_cfg)
     )
+    # the batched mode's execution form: a top-level track.yaml key
+    tracker_cfg.setdefault("batch_exec", cfg.get("batch_exec", "auto"))
+    return tracker_cfg
+
+
+def _make_tracker(cfg, model, train_cfg, gen_attn, n_sequences=None):
+    """The config's tracker, or with ``n_sequences`` its batched tracker
+    over that many sequences."""
+    post = build_postprocessors(train_cfg)["bbox"]
     common = dict(
         num_object_queries=int(train_cfg.num_queries),
         num_track_slots=int(train_cfg.get("max_track_queries", 100)),
         overflow_boxes=bool(train_cfg.get("overflow_boxes", False)),
     )
+    batched = {} if n_sequences is None else {"n_sequences": n_sequences}
     if cfg.get("kinet", False) or train_cfg.get("kine", False):
         trail_len, enc, meta_dim = kine_dims(train_cfg)
-        return TrackerKinematic(model, post, tracker_cfg, trail_len=trail_len,
-                                trail_enc_dim=enc, meta_dim=meta_dim, **common)
-    return Tracker(model, post, tracker_cfg,
-                   hidden_dim=int(train_cfg.hidden_dim),
-                   generate_attention_maps=gen_attn, **common)
+        cls = TrackerKinematic if n_sequences is None else BatchedTrackerKinematic
+        return cls(model, post, _tracker_cfg(cfg), trail_len=trail_len,
+                   trail_enc_dim=enc, meta_dim=meta_dim, **common, **batched)
+    cls = Tracker if n_sequences is None else BatchedTracker
+    return cls(model, post, _tracker_cfg(cfg),
+               hidden_dim=int(train_cfg.hidden_dim),
+               generate_attention_maps=gen_attn, **common, **batched)
+
+
+def _write_and_score(cfg, seq, results, num_reids, accums, accum_names):
+    if cfg.get("interpolate", False):
+        results = interpolate_tracks(results)
+    if cfg.output_dir:
+        seq.write_results(
+            results, osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
+        )
+    if not seq.no_gt:
+        accums.append(get_mot_accum(results, seq))
+        accum_names.append(str(seq))
+    print(f"NUM TRACKS: {len(results)} ReIDs: {num_reids}", flush=True)
 
 
 def _track_sequences(cfg, model, train_cfg, gen_attn=False):
-    tracker = _make_tracker(cfg, model, train_cfg, gen_attn)
-    kinet = isinstance(tracker, TrackerKinematic)
-
+    kinet = bool(cfg.get("kinet", False) or train_cfg.get("kine", False))
+    max_det = int(train_cfg.get("max_number_detection", 0))
     dataset = TrackDatasetFactory(
         cfg.dataset_name,
         root_dir=cfg.data_root_dir,
         img_transform=train_cfg.img_transform,
     )
+    # over several processes each tracks every world-th sequence; the
+    # accumulators are gathered below (reference engine.py:291-304,
+    # 333-344)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    seqs = list(dataset)[rank::world]
 
     time_total = 0.0
     num_frames = 0
     accums, accum_names = [], []
-    for seq in dataset:
+    batch_n = int(cfg.get("batch_sequences", 1))
+    if batch_n > 1 and not cfg.get("load_results_dir"):
+        time_total, num_frames = _track_batched(
+            cfg, model, train_cfg, gen_attn, seqs, batch_n, accums,
+            accum_names)
+        seqs = []
+    tracker = _make_tracker(cfg, model, train_cfg, gen_attn) if seqs else None
+    for seq in seqs:
         tracker.reset()
         print(f"TRACK SEQ: {seq}", flush=True)
         start_frame = int(cfg.frame_range.start * len(seq))
@@ -297,29 +333,13 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             with _Prefetcher(seq, start_frame, end_frame) as frames:
                 for blob in frames:
                     if kinet:
-                        blob = _kine_blob(
-                            blob, int(train_cfg.max_number_detection))
+                        blob = _kine_blob(blob, max_det)
                     tracker.step(blob)
                     num_frames += 1
             results = tracker.get_results()
         time_total += time.time() - t0
-
-        if cfg.get("interpolate", False):
-            results = interpolate_tracks(results)
-
-        if cfg.output_dir:
-            seq.write_results(
-                results, osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
-            )
-
-        if not seq.no_gt:
-            accums.append(get_mot_accum(results, seq))
-            accum_names.append(str(seq))
-
-        print(
-            f"NUM TRACKS: {len(results)} ReIDs: {tracker.num_reids}",
-            flush=True,
-        )
+        _write_and_score(cfg, seq, results, tracker.num_reids, accums,
+                         accum_names)
 
     if num_frames:
         print(
@@ -328,11 +348,73 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             f"({num_frames / max(time_total, 1e-9):.2f} Hz)",
             flush=True,
         )
+    if world > 1:
+        gathered = dist.all_gather_objects((accums, accum_names))
+        accums = [a for accs, _ in gathered for a in accs]
+        accum_names = [n for _, names in gathered for n in names]
     if accums:
         summary = evaluate_mot_accums(accums, accum_names)
         print(format_summary(summary), flush=True)
         return summary
     return None
+
+
+def _track_batched(cfg, model, train_cfg, gen_attn, seqs, batch_n, accums,
+                   accum_names):
+    """Groups the sequences by padded frame shape (a KineT model's forward
+    reads no image: one group) and tracks each group in chunks of at most
+    ``batch_n`` through a batched tracker, one per chunk size, reset
+    between chunks, with one prefetch thread per sequence. Returns
+    (seconds, frames)."""
+    kinet = bool(cfg.get("kinet", False) or train_cfg.get("kine", False))
+    max_det = int(train_cfg.get("max_number_detection", 0))
+    groups: dict[tuple, list] = {}
+    for seq in seqs:
+        if kinet:
+            shape = ("kine",)
+        else:
+            # the first frame in range: the batch starts on it
+            probe = min(int(cfg.frame_range.start * len(seq)),
+                        max(len(seq) - 1, 0))
+            shape = tuple(seq[probe]["images"].shape)
+        groups.setdefault(shape, []).append(seq)
+
+    time_total, num_frames = 0.0, 0
+    by_size: dict[int, object] = {}
+    for shape, group in groups.items():
+        for i0 in range(0, len(group), batch_n):
+            chunk = group[i0:i0 + batch_n]
+            batched = by_size.get(len(chunk))
+            if batched is None:
+                batched = by_size[len(chunk)] = _make_tracker(
+                    cfg, model, train_cfg, gen_attn, n_sequences=len(chunk))
+            else:
+                batched.reset()
+            desc = "kine" if kinet else f"{shape[1]}x{shape[2]}"
+            print(f"TRACK BATCH ({len(chunk)} seqs, {desc}): "
+                  + ", ".join(str(s) for s in chunk), flush=True)
+            ranges = [(int(cfg.frame_range.start * len(s)),
+                       int(cfg.frame_range.end * len(s))) for s in chunk]
+            t0 = time.time()
+            prefetchers = [_Prefetcher(s, a, b)
+                           for s, (a, b) in zip(chunk, ranges)]
+
+            def frames(p):
+                for blob in p:
+                    yield _kine_blob(blob, max_det) if kinet else blob
+
+            try:
+                run_batched(batched, [frames(p) for p in prefetchers])
+            finally:
+                for p in prefetchers:
+                    p.close()
+            time_total += time.time() - t0
+            num_frames += sum(b - a for a, b in ranges)
+            for i, seq in enumerate(chunk):
+                _write_and_score(cfg, seq, batched.get_results(i),
+                                 batched.trackers[i].num_reids, accums,
+                                 accum_names)
+    return time_total, num_frames
 
 
 def main(argv=None):

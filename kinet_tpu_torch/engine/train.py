@@ -26,9 +26,24 @@ KineT configs (``kine``, dataset ``mot_kine``) batch with ``collate_kine``
 and step with ``make_kine_train_step``.
 
 Runs on the card (``device=None``); ``train(cfg, device="cpu")`` runs on
-the CPU. A device mesh of more than one device is not ported yet and
-raises NotImplementedError naming its ROADMAP item; the JAX trainer's
-preemption checkpoint comes with the scale-out slice.
+the CPU.
+
+Data parallel over processes: under an initialised ``torch.distributed``
+group (``tools/launch.py`` starts one process per card) every process
+loads ``batch_size`` samples of its own shard (the samplers take the rank
+and the world size), seeds ``np.random`` with ``seed + rank`` and steps on
+its samples; the step averages the gradients over the processes
+(``engine/train_step.py``), so all apply the same update. ``mesh.data``
+is the number of processes (-1: every process of the group). Only rank 0
+writes the config, the checkpoints, the metrics and the curves, and only
+rank 0 prints. A tensor-parallel mesh (``mesh.model > 1``) is not ported
+yet and raises NotImplementedError naming its ROADMAP item.
+
+Preemption: once a step, the loop polls ``utils/preempt.py``'s flag (on
+any process: the flag is reduced over the group); when it is up, rank 0
+saves a mid-epoch checkpoint recorded as the previous epoch
+(``CheckpointManager.save_preempt``) and ``train`` returns, for the
+launcher to requeue and resume.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ from ..models.build import (
     not_ported,
     resolve_device,
 )
+from ..utils import dist, preempt
 from ..utils.checkpoint import CheckpointManager, load_for_resume
 from ..utils.logging import MetricLogger
 from ..utils.vis import build_visualizers
@@ -58,14 +74,20 @@ from .state import Optimizer
 from .train_step import kine_collate, make_kine_train_step, make_train_step
 
 
-def _check_supported(cfg, device: torch.device):
-    n_model, n_data = int(cfg.mesh.model), int(cfg.mesh.data)
-    if n_data == -1:
-        n_data = torch.cuda.device_count() if device.type == "cuda" else 1
-    n_data = math.gcd(n_data, int(cfg.batch_size)) or 1
-    if n_model * n_data > 1:
-        not_ported(f"a device mesh of {n_data} x {n_model} devices",
-                    "Scale-out")
+def _check_supported(cfg):
+    if int(cfg.mesh.model) > 1:
+        not_ported(f"tensor parallel (mesh.model {int(cfg.mesh.model)})",
+                   "Scale-out, 10c")
+    n_data, world = int(cfg.mesh.data), dist.get_world_size()
+    if n_data not in (-1, world):
+        raise ValueError(f"mesh.data {n_data}, but the process group has "
+                         f"{world} processes")
+
+
+def _preempted() -> bool:
+    """The preemption flag of any process of the group."""
+    flag = torch.tensor(float(preempt.requested()))
+    return bool(dist.mean_over_processes(flag) > 0)
 
 
 def to_device(x, device):
@@ -75,17 +97,21 @@ def to_device(x, device):
 def train(cfg, device=None):
     """Trains as the config says; returns (model, optimizer, step)."""
     device = resolve_device(device)
-    _check_supported(cfg, device)
-    if cfg.output_dir:
+    _check_supported(cfg)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    main = rank == 0
+    dist.setup_for_distributed(main)
+    if cfg.output_dir and main:
         save_config(cfg, cfg.output_dir)
     seed = int(cfg.seed)
-    np.random.seed(seed)  # the datasets' augmentation base seed
+    np.random.seed(seed + rank)  # the datasets' augmentation base seed
 
     model, postprocessors = build_model(cfg, device=device, seed=seed)
     criterion = build_criterion(cfg)
     dataset = build_dataset("train", cfg)
     sampler = (WeightedRandomSampler if hasattr(dataset, "sample_weight")
-               else RandomSampler)(dataset, seed=seed)
+               else RandomSampler)(dataset, rank=rank, world_size=world,
+                                   seed=seed)
     loader = DataLoader(
         dataset, batch_size=int(cfg.batch_size), sampler=sampler,
         buckets=cfg.size_buckets, max_objects=int(cfg.max_objects),
@@ -106,8 +132,8 @@ def train(cfg, device=None):
         generator=torch.Generator().manual_seed(seed),
     )
     ckpt = (CheckpointManager(cfg.output_dir, int(cfg.save_model_interval))
-            if cfg.output_dir else None)
-    visualizers = build_visualizers(cfg)
+            if cfg.output_dir and main else None)
+    visualizers = build_visualizers(cfg) if main else {"train": {}}
     iter_vis = visualizers["train"].get("iter_metrics")
     epoch_vis = visualizers["train"].get("epoch_metrics")
 
@@ -125,7 +151,7 @@ def train(cfg, device=None):
                     "image", "target", "prev_image", "prev_target",
                     "prev_prev_image", "prev_prev_target")))
             step += 1
-            scalars = {k: float(v) for k, v in losses.items()}
+            scalars = dist.reduce_dict({k: float(v) for k, v in losses.items()})
             if not math.isfinite(scalars["loss"]):
                 print("Loss is NaN, stopping (reference engine.py:140-143)")
                 sys.exit(1)
@@ -133,6 +159,13 @@ def train(cfg, device=None):
             if iter_vis is not None:
                 iter_vis.plot([scalars.get(k, 0.0) for k in (
                     "loss", "loss_ce", "loss_bbox", "loss_giou")], step)
+            if _preempted():
+                # the resumed run runs this epoch again (save_preempt)
+                if ckpt is not None:
+                    ckpt.save_preempt(model, optimizer, step, epoch)
+                print(f"preemption requested: checkpoint saved at step "
+                      f"{step}; the requeued run resumes in epoch {epoch}")
+                return model, optimizer, step
 
         eval_stats = None
         if (int(cfg.val_interval) > 0 and epoch % int(cfg.val_interval) == 0
@@ -146,7 +179,7 @@ def train(cfg, device=None):
                     "mota": stats.get("mota"),
                     "idf1": stats.get("idf1"),
                 }
-                if cfg.output_dir:
+                if cfg.output_dir and main:
                     with open(osp.join(cfg.output_dir, "metrics.jsonl"),
                               "a") as f:
                         f.write(json.dumps({"epoch": epoch, **eval_stats})

@@ -12,6 +12,17 @@ the whole forward runs in bfloat16 and the gradients come back to the
 float32 masters through the casts. autocast's per-op policy would keep
 some ops in float32 and is a different numeric recipe.
 
+Over several processes (``utils/dist.py``) each process steps on its own
+part of the batch: the criterion normalises by the mean target count over
+the processes, and once the backward pass has run the gradients are
+all-reduced to their mean over the processes (``all_reduce_grads``)
+before the optimizer clips them, so every process applies the same
+update, the one of the whole batch, as the JAX package's data-parallel
+step does. ``DistributedDataParallel`` would not see this step: the
+forward runs through ``functional_call`` on cast copies of the parameters,
+which bypasses ``DistributedDataParallel.forward``, so its reducer would
+never be prepared. In a run of one process nothing is reduced.
+
 ``make_kine_train_step``: the KineT step (reference KinetTrackingBase2):
 trail augmentation (``tracking/kine_augment.py``, no previous-frame
 forward), the forward, the criterion and the update, in float32 as the JAX
@@ -29,6 +40,7 @@ from ..models.build import kine_dims
 from ..structs import ImageBatch, KineBatch, Targets
 from ..tracking.kine_augment import add_kine_track_queries, kine_track_embed_dims
 from ..tracking.train_augment import tracking_train_forward
+from ..utils.dist import all_reduce_grads
 
 
 def make_train_step(model, criterion, optimizer, cfg, generator=None):
@@ -80,6 +92,7 @@ def make_train_step(model, criterion, optimizer, cfg, generator=None):
         losses = criterion(out, aug_targets)
         total = criterion.total_loss(losses)
         total.backward()
+        all_reduce_grads(optimizer.params)
         grad_norm = optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = total.detach()
@@ -151,6 +164,7 @@ def make_kine_train_step(model, criterion, optimizer, cfg, generator=None):
         losses = criterion(out, aug)
         total = criterion.total_loss(losses)
         total.backward()
+        all_reduce_grads(optimizer.params)
         grad_norm = optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = total.detach()

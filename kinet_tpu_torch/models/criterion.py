@@ -7,7 +7,10 @@ models, and the mask losses of ``SegmWrapper``).
   (``matcher_kind`` "ordered_encoder" / "ordered_transformer"), which read
   the input detections from the model outputs;
 - per-query target classes are a masked scatter of the target labels;
-- ``num_boxes`` is the count of valid targets in the batch;
+- ``num_boxes`` is the count of valid targets in the batch; over several
+  processes the mean of that count over them (reference detr.py:844-846),
+  so that the mean of the processes' gradients is the gradient of the
+  loss over their whole batch;
 - padded query slots (inactive track slots) are left out of every loss via
   the model's ``query_valid``.
 
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou
+from ..utils.dist import mean_over_processes
 from .matcher import (
     hungarian_match,
     ordered_match_from_track_ids,
@@ -230,7 +234,8 @@ class SetCriterion:
         return fns[name](outputs, targets, q4t, num_boxes)
 
     def __call__(self, outputs, targets) -> dict:
-        num_boxes = targets.valid.float().sum().clamp(min=1.0)
+        num_boxes = mean_over_processes(
+            targets.valid.float().sum()).clamp(min=1.0)
         q4t = self.match(outputs, targets)
         losses = {}
         for name in self.losses:

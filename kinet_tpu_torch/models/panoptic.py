@@ -17,7 +17,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .build import not_ported
+from ..utils.dist import all_gather_objects, get_world_size
 
 
 def postprocess_panoptic(
@@ -120,13 +120,12 @@ class PanopticEvaluator:
         self.predictions += predictions
 
     def synchronize_between_processes(self):
-        """One process holds every prediction; merging the shards of
-        several processes comes with the scale-out slice."""
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            not_ported("merging panoptic predictions over processes",
-                       "Scale-out")
+        """Merges every process's predictions, in rank order."""
+        if get_world_size() > 1:
+            merged = []
+            for p in all_gather_objects(self.predictions):
+                merged += p
+            self.predictions = merged
 
     def summarize(self):
         if not self.gt_pairs:

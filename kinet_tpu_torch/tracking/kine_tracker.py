@@ -96,6 +96,17 @@ def make_kine_forward_fn(model, postprocess):
     return fwd
 
 
+def fetch_kine_rows(res: torch.Tensor, rows) -> dict:
+    """{i: the kinematic state machine's inputs from batch row i} for each
+    i of ``rows``, from the forward's [B, rows, 10] output, in one
+    device-to-host copy."""
+    table = res.cpu().numpy()
+    return {i: {"scores": table[i, :, 0],
+                "labels": table[i, :, 1].astype(np.int64),
+                "boxes": table[i, :, 2:6], "rel_boxes": table[i, :, 6:10]}
+            for i in rows}
+
+
 class TrackerKinematic(Tracker):
     def __init__(
         self,
@@ -199,11 +210,8 @@ class TrackerKinematic(Tracker):
         """blob: detections [K, 4] cxcywh normalized, metadata [K, M],
         orig_size (h, w), max_detections, dets [K, 4] xyxy absolute."""
         inputs = self._build_inputs(blob)
-        rows = self._fwd_kine(*self.make_device_inputs(inputs))[0].cpu().numpy()
-        self._consume({
-            "scores": rows[:, 0], "labels": rows[:, 1].astype(np.int64),
-            "boxes": rows[:, 2:6], "rel_boxes": rows[:, 6:10],
-        }, blob)
+        res = self._fwd_kine(*self.make_device_inputs(inputs))
+        self._consume(fetch_kine_rows(res, [0])[0], blob)
 
     def _num_spawn_rows(self) -> int:
         return self._num_dets if self.rows_per_detection else self.num_object_queries

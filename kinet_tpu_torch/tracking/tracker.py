@@ -39,6 +39,17 @@ from ..ops.nms import nms_numpy
 from ..structs import ImageBatch, Targets
 
 
+def dense(a, dtype) -> np.ndarray:
+    """``a`` as a C-ordered array with the strides of a fresh one, a view
+    where ``a`` is C-contiguous already. A frame's leading axis added by
+    indexing has stride 0, and the CPU convolutions take another path over
+    such an array than over a batch row of the same values, which changes
+    the last bits: with the strides made alike, a frame stepped alone and
+    the same frame in a batch reach the model alike."""
+    a = np.ascontiguousarray(a, dtype)
+    return a.reshape(-1).reshape(a.shape)
+
+
 def box_xyxy_to_cxcywh_np(b):
     x0, y0, x1, y1 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
     return np.stack(
@@ -129,6 +140,51 @@ def make_forward_fn(model, postprocess, attention_maps=False):
         }
 
     return fwd
+
+
+def fetch_rows(res: dict, rows) -> dict:
+    """{i: the state machine's inputs from batch row i} for each i of
+    ``rows``, as numpy, from one forward's outputs ``res``. ONE blocking
+    device-to-host copy brings every row's scores, labels, boxes and
+    embeddings (and attention maps); with masks, the probabilities of each
+    of ``rows`` (hundreds of MB a frame) go first, on the same stream, into
+    page-locked memory, so the rows' blocking copy is the one
+    synchronization for all of them. ``Tracker.step`` fetches its one row,
+    ``BatchedTracker.step`` the rows of its live sequences."""
+    probs = res["mask_probs"]
+    host_probs = {}
+    if probs is not None:
+        for i in rows:
+            host_probs[i] = torch.empty(probs.shape[1:], dtype=probs.dtype,
+                                        pin_memory=probs.is_cuda)
+            host_probs[i].copy_(probs[i], non_blocking=probs.is_cuda)
+    parts = [
+        res["scores"][..., None].float(),
+        res["labels"][..., None].float(),
+        res["boxes"].float(),
+        res["hs_embed"].float(),
+    ]
+    maps = res["attention_maps"]
+    if maps is not None:
+        parts.append(maps.flatten(2).float())
+    table = torch.cat(parts, dim=-1).cpu().numpy()  # [B, Q, columns]
+    d = res["hs_embed"].shape[-1]
+    outs = {}
+    for i in rows:
+        r = table[i]
+        out = {
+            "scores": r[:, 0],
+            "labels": r[:, 1].astype(np.int64),
+            "boxes": r[:, 2:6],
+            "hs_embed": r[:, 6:6 + d],
+        }
+        if maps is not None:
+            out["attention_maps"] = r[:, 6 + d:].reshape(r.shape[0],
+                                                         *maps.shape[2:])
+        if i in host_probs:
+            out["mask_probs"] = host_probs[i].numpy()
+        outs[i] = out
+    return outs
 
 
 class Tracker:
@@ -333,8 +389,8 @@ class Tracker:
             tq_mask[0, :num_prev] = True
 
         return {
-            "images": np.asarray(blob["images"], np.float32),
-            "pad_mask": np.asarray(blob["pad_mask"]),
+            "images": dense(blob["images"], np.float32),
+            "pad_mask": dense(blob["pad_mask"], bool),
             "tq_embeds": tq_embeds,
             "tq_boxes": tq_boxes,
             "tq_mask": tq_mask,
@@ -342,12 +398,13 @@ class Tracker:
         }
 
     def make_device_inputs(self, inputs: dict):
-        """Host [B, ...] input arrays -> (ImageBatch, Targets, orig_size)."""
+        """[B, ...] inputs (host numpy arrays, or tensors on the device) ->
+        (ImageBatch, Targets, orig_size)."""
         dev = self.device
         b, t_slots, hidden = inputs["tq_embeds"].shape
 
         def put(a):
-            return torch.from_numpy(a).to(dev)
+            return (a if torch.is_tensor(a) else torch.from_numpy(a)).to(dev)
 
         batch = ImageBatch(images=put(inputs["images"]),
                            pad_mask=put(inputs["pad_mask"]))
@@ -372,39 +429,7 @@ class Tracker:
             batch, targets, orig_size,
             self._prev_features[0], self._prev_memory[0], self._pos_cache,
         )
-        # ONE device-to-host copy of the rows the state machine reads; the
-        # mask probabilities (hundreds of MB a frame) go first, on the same
-        # stream, into page-locked memory, so the rows' blocking copy is the
-        # one synchronization for both
-        probs = res["mask_probs"]
-        host_probs = None
-        if probs is not None:
-            host_probs = torch.empty(probs.shape[1:], dtype=probs.dtype,
-                                     pin_memory=probs.is_cuda)
-            host_probs.copy_(probs[0], non_blocking=probs.is_cuda)
-        parts = [
-            res["scores"][0, :, None].float(),
-            res["labels"][0, :, None].float(),
-            res["boxes"][0].float(),
-            res["hs_embed"][0].float(),
-        ]
-        maps = res["attention_maps"]
-        if maps is not None:
-            parts.append(maps[0].flatten(1).float())
-        rows = torch.cat(parts, dim=-1).cpu().numpy()
-        d = res["hs_embed"].shape[-1]
-        out = {
-            "scores": rows[:, 0],
-            "labels": rows[:, 1].astype(np.int64),
-            "boxes": rows[:, 2:6],
-            "hs_embed": rows[:, 6:6 + d],
-        }
-        if maps is not None:
-            out["attention_maps"] = rows[:, 6 + d:].reshape(
-                rows.shape[0], *maps.shape[2:])
-        if host_probs is not None:
-            out["mask_probs"] = host_probs.numpy()
-        self._consume(out, blob)
+        self._consume(fetch_rows(res, [0])[0], blob)
 
         if res["frame_features"] is not None:
             self._prev_features.append(res["frame_features"])

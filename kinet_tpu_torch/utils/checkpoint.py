@@ -76,6 +76,16 @@ class CheckpointManager:
         torch.save(payload, tmp)
         tmp.replace(path)
 
+    def save_preempt(self, model, optimizer, step: int, epoch: int):
+        """The mid-epoch checkpoint of a preempted run: only
+        ``checkpoint.pth``, recorded as epoch ``epoch - 1``, so the resumed
+        run (which starts at the recorded epoch + 1) runs the interrupted
+        epoch again instead of skipping its remaining steps."""
+        self._save(self.dir / "checkpoint.pth",
+                   {"params": model.state_dict(),
+                    "opt_state": optimizer.state_dict(),
+                    "step": int(step), "epoch": int(epoch) - 1})
+
     def save_epoch(self, model, optimizer, step: int, epoch: int,
                    eval_stats: dict | None = None):
         """``eval_stats``: {metric: value or None} of this epoch's

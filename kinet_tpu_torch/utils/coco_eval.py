@@ -17,9 +17,8 @@ API mirrors the reference evaluator: update(predictions) with
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..models.build import not_ported
+from .dist import all_gather_objects, get_world_size
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -61,13 +60,14 @@ class CocoEvaluator:
             }
 
     def synchronize_between_processes(self):
-        """One process holds every prediction; merging the shards of
-        several processes comes with the scale-out slice."""
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            not_ported("merging evaluation shards over processes",
-                       "Scale-out")
+        """Merges every process's prediction shard, so each process scores
+        the whole val set (reference coco_eval.py:58-64)."""
+        if get_world_size() == 1:
+            return
+        merged = {}
+        for shard in all_gather_objects(self.preds):
+            merged.update(shard)
+        self.preds = merged
 
     def _gt_for(self, img_id, cat):
         anns = self.gt.anns_by_img.get(img_id, [])

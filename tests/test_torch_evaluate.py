@@ -238,12 +238,29 @@ def test_evaluate_defaults_to_the_card(models, val_root, monkeypatch):
 
 
 def test_kine_evaluation_raises(models, val_root, monkeypatch):
-    """KineT evaluation is ported (tests/test_torch_kine.py); over more than
-    one process it raises, as every evaluation does (Scale-out)."""
+    """KineT evaluation is ported (tests/test_torch_kine.py), and so is
+    evaluation over several processes (tests/test_torch_dist.py): the val
+    loader's sampler is the process's shard, by the process group's rank
+    and size (WORLD_SIZE in the environment alone shards nothing). The
+    loader is stopped with an exception once its sampler is seen."""
     _, cfg = _cfgs(val_root)
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def loader(dataset, sampler, **kw):
+        seen.append((sampler.rank, sampler.world_size))
+        raise Stop
+
+    monkeypatch.setattr(port_eval, "DataLoader", loader)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Scale-out"):
-        port_eval.evaluate(models[2], build_criterion(cfg),
-                           build_postprocessors(cfg),
-                           build_dataset("val", cfg), cfg.replace(kine=True),
-                           device="cpu")
+    args = (models[2], build_criterion(cfg), build_postprocessors(cfg),
+            build_dataset("val", cfg), cfg.replace(kine=True))
+    with pytest.raises(Stop):
+        port_eval.evaluate(*args, device="cpu")
+    monkeypatch.setattr(port_eval.dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(port_eval.dist, "get_world_size", lambda: 2)
+    with pytest.raises(Stop):
+        port_eval.evaluate(*args, device="cpu")
+    assert seen == [(0, 1), (1, 2)]

@@ -13,7 +13,8 @@
   result files and the same metrics, after the same mask probabilities
   (within 1e-5) every frame, with every result mask boolean, disjoint and
   of the padded input size (no score the tracker compares lies within 1e-3
-  of its threshold);
+  of its threshold; no track mask probability within 1e-4 of 0.5, and no
+  pixel's winning track within 1e-4 of the runner-up);
 - the tracker's host state machine with masks (track, re-identified and
   new-detection masks, masks kept from earlier frames, the per-pixel
   overlap resolution with its ties) on the same forward outputs as the
@@ -223,7 +224,13 @@ def test_mot_samples_with_masks_match_jax(data_root, split):
 def _models():
     """The JAX MOTS model with its params and the port model on the same
     weights; the class heads' biases of every real class but 0 (person)
-    pushed down by 20, so every query's label is 0."""
+    pushed down by 20, so every query's label is 0. The mask head reads
+    its queries: the attention maps' input channels of ``lay1`` scaled by
+    2000 (a map's values are ~1 / (heads * h * w)) and ``q_linear`` by 5,
+    so each query's mask is its own; ``out_lay`` doubled with its bias
+    lowered by 2, so masks are small blobs. With random weights and no
+    such scaling every query's mask probabilities agree to ~1e-6, and the
+    per-pixel winner between tracks is decided by rounding."""
     jcfg = jax_load_config("train.yaml", named=MOTS).replace(**TINY, **IMG)
     cfg = load_config("train.yaml", named=MOTS).replace(**TINY, **IMG)
     jmodel, _, _ = jax_build_model(jcfg)
@@ -244,6 +251,12 @@ def _models():
         x = np.array(x)
         if "class_embed" in key and "bias" in key:
             x[1:-1] -= 20.0
+        if "mask_head" in key and "lay1" in key and "kernel" in key:
+            x[:, :, -2:, :] *= 2000.0  # the 2 heads' attention maps
+        if "bbox_attention" in key and "q_linear" in key and "kernel" in key:
+            x *= 5.0
+        if "out_lay" in key:
+            x = x * 2.0 - 2.0 * ("bias" in key)
         return x
 
     params = jax.tree_util.tree_map_with_path(push, params)
@@ -283,6 +296,16 @@ def test_main_track_mots20_matches_jax(data_root, tmp_path, monkeypatch):
 
     recording(jax_tracker.Tracker, "jax")
     recording(port_tracker.Tracker, "port")
+    resolved = []
+    resolve = port_tracker.Tracker._resolve_masks
+
+    def recording_resolve(self, hw):
+        resolved.append(np.stack([t.mask for t in self.tracks
+                                  if t.mask is not None]))
+        resolve(self, hw)
+
+    monkeypatch.setattr(port_tracker.Tracker, "_resolve_masks",
+                        recording_resolve)
     ref = jax_track.main_track(
         _track_cfg(jax_load_config, data_root, tmp_path / "jax"),
         obj_detector_model=(jmodel, params, None, jcfg))
@@ -298,6 +321,20 @@ def test_main_track_mots20_matches_jax(data_root, tmp_path, monkeypatch):
     flat = np.concatenate(scores)
     for k in THRESH.values():
         assert np.abs(flat - k).min() > 1e-3, k
+    # every track mask probability the overlap resolution reads is 1e-4
+    # from 0.5, and where a pixel's winner is above 0.5 it leads the
+    # runner-up by 1e-4: ten times the 1e-5 agreement asserted above, so
+    # both packages resolve every pixel alike
+    assert len(resolved) == N_FRAMES
+    n_on = 0
+    for stack in resolved:
+        assert np.abs(stack - 0.5).min() > 1e-4
+        top = np.sort(stack, axis=0)
+        on = top[-1] > 0.5
+        if len(stack) > 1:
+            assert (top[-1] - top[-2])[on].min(initial=1.0) > 1e-4
+        n_on += int(on.sum())
+    assert n_on >= 20
 
     name = f"{SEQ}.txt"
     text = (tmp_path / "port" / SEQ / name).read_bytes()

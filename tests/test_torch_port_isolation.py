@@ -33,7 +33,7 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=240,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 57  # every submodule was imported
+    assert int(res.stdout.split()[-1]) >= 62  # every submodule was imported
 
 
 _FORBIDDEN = re.compile(
@@ -44,7 +44,7 @@ _FORBIDDEN = re.compile(
 
 def test_no_source_imports_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 59
+    assert len(files) >= 64
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}"
         for f in files

@@ -15,7 +15,9 @@ package's, on the CPU:
 - the sequence loader's blobs (image, dets, gt, vis) against JAX's;
 - ``interpolate_tracks`` against JAX's, and the result files' round trip;
 - the configurations that are not ported raise, naming their ROADMAP
-  item; without a card the CLI refuses to run unless asked for the CPU.
+  item; without a card the CLI refuses to run unless asked for the CPU;
+- ``batch_sequences: 2`` writes the same result files, byte for byte, as
+  ``batch_sequences: 1`` over two sequences, in both ``batch_exec`` forms.
 """
 import numpy as np
 import pytest
@@ -227,12 +229,14 @@ def test_results_round_trip(data_root, tmp_path):
 
 
 @pytest.mark.parametrize("over,error,item", [
-    # the kinematic tracker is ported; its batched form is Scale-out
-    (dict(kinet=True, batch_sequences=2), NotImplementedError, "Scale-out"),
+    # the kinematic tracker and the batched trackers are ported
+    # (tests/test_torch_batched_tracker.py); spatial parallelism is not
+    (dict(kinet=True, spatial_parallel=2), NotImplementedError, "Scale-out"),
     # attention maps are ported for vanilla DETR; a deformable model has
     # none, as the JAX package asserts
     (dict(generate_attention_maps=True), ValueError, "deformable"),
-    (dict(batch_sequences=2), NotImplementedError, "Scale-out"),
+    (dict(batch_sequences=2, spatial_parallel=2), NotImplementedError,
+     "Scale-out"),
     (dict(spatial_parallel=2), NotImplementedError, "Scale-out"),
     (dict(write_images=True), NotImplementedError, "Host tools"),
 ])
@@ -253,9 +257,14 @@ def test_mots20_and_many_processes_raise(data_root, monkeypatch):
     # does not hold raises as in the JAX package
     with pytest.raises(AssertionError, match="MOTS20-02"):
         TrackDatasetFactory("MOTS20-02", root_dir=str(data_root))
+    # tracking over several processes is ported (tests/test_torch_dist.py):
+    # the process group, not the environment, makes a run of several
+    # processes, so WORLD_SIZE alone splits nothing
+    from kinet_tpu_torch.utils import dist
+
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Scale-out"):
-        track.main_track(_track_cfg(load_config, data_root, "", device="cpu"))
+    monkeypatch.setenv("RANK", "1")
+    assert (dist.get_world_size(), dist.get_rank()) == (1, 0)
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(data_root, monkeypatch):
@@ -286,3 +295,50 @@ def test_cli_restores_a_saved_model(data_root, tmp_path, capsys):
     assert f"for {N_FRAMES} frames" in text
     rows = _results(tmp_path / "out")
     assert rows.shape[1] == 10 and len(rows) > 0
+
+
+@pytest.mark.parametrize("form", ["stacked", "interleaved"])
+def test_main_track_batched_writes_the_same_files(form, tmp_path):
+    """``batch_sequences: 2`` over two sequences of one frame size (one
+    batch) against ``batch_sequences: 1``. Interleaved runs each sequence's
+    own batch-1 forward: byte-identical result files and summaries.
+    Stacked runs one forward of batch 2, whose sums run in another order:
+    the same tracks and frames, boxes within 1e-3 px, and the same
+    summary but for the means of IoU distances (within 1e-6)."""
+    names = [SEQ, "MOT17-04-FRCNN"]
+    root = tmp_path / "data"
+    for i, name in enumerate(names):
+        _write_sequence(root, name, n_frames=N_FRAMES, seed=i)
+    _, _, model = _models({})
+    cfg = load_config("train.yaml", named=FLAGSHIP).replace(**TINY, **IMG)
+
+    def run(out, **over):
+        track_cfg = load_config("track.yaml").replace(
+            data_root_dir=str(root), dataset_name=",".join(names),
+            output_dir=str(out), device="cpu",
+            **{f"tracker_cfg.{k}": v for k, v in THRESH.items()}, **over)
+        return track.main_track(track_cfg, obj_detector_model=(model, None, cfg))
+
+    ref = run(tmp_path / "single")
+    got = run(tmp_path / "batched", batch_sequences=2, batch_exec=form)
+    sub = ",".join(names)
+    for name in names:
+        text = (tmp_path / "batched" / sub / f"{name}.txt").read_bytes()
+        want = (tmp_path / "single" / sub / f"{name}.txt").read_bytes()
+        if form == "interleaved":
+            assert text == want, name
+            continue
+        a = np.loadtxt(tmp_path / "batched" / sub / f"{name}.txt",
+                       delimiter=",", ndmin=2)
+        b = np.loadtxt(tmp_path / "single" / sub / f"{name}.txt",
+                       delimiter=",", ndmin=2)
+        assert len(b) >= N_FRAMES
+        np.testing.assert_array_equal(a[:, :2], b[:, :2])
+        np.testing.assert_allclose(a[:, 2:], b[:, 2:], atol=1e-3)
+    assert got.keys() == ref.keys()
+    for seq, row in ref.items():
+        for k, v in row.items():
+            if form == "stacked" and k in ("motp", "loc_a"):
+                assert abs(got[seq][k] - v) < 1e-6, (seq, k)
+            else:
+                assert got[seq][k] == v, (seq, k)

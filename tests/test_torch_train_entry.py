@@ -87,10 +87,11 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
     # KineT, vanilla DETR and masks train (tests/test_torch_kine.py,
     # tests/test_torch_detr.py, tests/test_torch_mots.py), and two-stage
     # (tests/test_torch_two_stage.py) with masks or without; data-parallel
-    # meshes do not yet
+    # processes do too (tests/test_torch_ddp.py), a tensor-parallel mesh
+    # not yet
     ({"masks": True, "two_stage": True}, "two-stage"),
     ({"two_stage": True}, "two-stage"),
-    ({"mesh.data": 2, "batch_size": 2}, "Scale-out"),
+    ({"mesh.data": 2, "mesh.model": 2, "batch_size": 2}, "Scale-out"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):
     """Scale-out raises naming its ROADMAP item; two-stage, which an
