@@ -18,8 +18,8 @@ Each process joins the default process group, then trains
   without a group. ``--coordinator`` also takes an init URL as it stands
   (``tcp://...``, ``file://...``);
 - the backend is NCCL on the card, with ``torch.cuda.set_device`` to the
-  local rank, and gloo on the CPU (``--device cpu``); ``--backend gloo``
-  on the card runs several processes on one card, which NCCL refuses;
+  local rank, and gloo on the CPU (``--device cpu``) or when a host runs
+  more processes than it has cards (NCCL refuses two ranks on one card);
 - it resumes from ``output_dir/checkpoint.pth`` when that exists and no
   ``resume`` is given (the requeue point of a preempted run);
 - with ``--requeue-on-preempt`` it installs the SIGTERM / SIGUSR1 handler
@@ -39,9 +39,9 @@ import torch
 import torch.distributed as tdist
 
 
-def _coordinates(args) -> tuple[str, int, int, int] | None:
-    """(init method, world size, rank, local rank), or None for a run of
-    one process without a group."""
+def _coordinates(args) -> tuple[str, int, int, int, int] | None:
+    """(init method, world size, rank, local rank, processes on this
+    host), or None for a run of one process without a group."""
     if args.coordinator:
         url = args.coordinator
         if "://" not in url:
@@ -49,10 +49,13 @@ def _coordinates(args) -> tuple[str, int, int, int] | None:
         local = (args.local_rank if args.local_rank is not None
                  else int(os.environ.get("LOCAL_RANK", 0)))
         return (url, args.num_hosts * args.gpus_per_host,
-                args.host_id * args.gpus_per_host + local, local)
+                args.host_id * args.gpus_per_host + local, local,
+                args.gpus_per_host)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        return ("env://", int(os.environ["WORLD_SIZE"]),
-                int(os.environ["RANK"]), int(os.environ.get("LOCAL_RANK", 0)))
+        world = int(os.environ["WORLD_SIZE"])
+        return ("env://", world, int(os.environ["RANK"]),
+                int(os.environ.get("LOCAL_RANK", 0)),
+                int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     return None
 
 
@@ -62,10 +65,13 @@ def init_process_group(args) -> None:
     coords = _coordinates(args)
     if coords is None:
         return
-    url, world, rank, local = coords
-    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    url, world, rank, local, on_host = coords
+    backend = "gloo"
     if args.device != "cpu":
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(local % cards)
+        if on_host <= cards:
+            backend = "nccl"
     tdist.init_process_group(backend, init_method=url, world_size=world,
                              rank=rank, timeout=timedelta(minutes=30))
 
@@ -75,8 +81,6 @@ def parse_args(argv=None):
     p.add_argument("--config", default="train.yaml")
     p.add_argument("--named", nargs="*", default=[])
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
-                   help="nccl on the card, gloo on the CPU by default")
     p.add_argument("--coordinator", default=None,
                    help="host:port of rank 0, or an init URL")
     p.add_argument("--num-hosts", type=int, default=1)
@@ -116,7 +120,6 @@ def main(argv=None):
             tdist.destroy_process_group()
     if args.requeue_on_preempt and preempt.requested():
         print("requeueing after preemption", flush=True)
-        sys.stdout.flush()
         os.execv(sys.executable,
                  [sys.executable, "-m", "kinet_tpu_torch.tools.launch"]
                  + list(sys.argv[1:] if argv is None else argv))

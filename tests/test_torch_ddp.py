@@ -21,6 +21,10 @@ with the criterion's ``num_boxes`` averaged over the processes.
 - 1 process in a group of one against 1 process without a group, both
   on one torch thread: the same losses, gradient norm and parameters,
   bit for bit;
+- ``python -m kinet_tpu_torch.tools.launch`` in 2 processes on the CPU
+  (gloo, a ``file://`` rendezvous): each trains on its shard of the
+  frames (half the steps of one process), and rank 0 alone prints and
+  writes the checkpoint;
 - a ``mesh.data`` that is not the process count is refused.
 """
 import numpy as np
@@ -29,7 +33,7 @@ import torch
 
 from kinet_tpu_torch.config import load_config
 
-from test_torch_dist import run_processes
+from test_torch_dist import run_processes, write_mot_tree
 
 FLAGSHIP = ["train_deformable", "train_tracking", "train_multi_frame"]
 TINY = dict(
@@ -191,3 +195,39 @@ def test_mesh_data_must_be_the_process_count():
         **TINY, **{"mesh.data": 2})
     with pytest.raises(ValueError, match="mesh.data 2"):
         train(cfg, device="cpu")
+
+
+def test_launcher_trains_in_two_processes(tmp_path):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from kinet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    write_mot_tree(tmp_path / "mot")
+    over = dict(TINY, max_objects=6, batch_size=1, epochs=1, num_workers=1,
+                val_interval=0, log_interval=1, size_buckets=[[64, 96]],
+                **{"img_transform.max_size": 96, "img_transform.val_width": 64})
+    argv = ["--device", "cpu", "--coordinator", f"file://{tmp_path}/rdv",
+            "--num-hosts", "2", "--config", "train.yaml", "--named",
+            *FLAGSHIP, "--", f"mot_path_train={tmp_path / 'mot'}",
+            f"mot_path_val={tmp_path / 'mot'}",
+            f"output_dir={tmp_path / 'out'}"]
+    argv += [f"{k}={json.dumps(v)}" for k, v in over.items()]
+    repo = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kinet_tpu_torch.tools.launch", *argv[:4],
+         "--host-id", str(r), *argv[4:]], cwd=repo, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=240))
+        finally:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1] + outs[1][1]
+    assert "Epoch [1]" in outs[0][0] and outs[1][0] == ""
+    ckpt = load_checkpoint(tmp_path / "out" / "checkpoint.pth")
+    # 4 frames, 2 processes, batch 1: 2 steps each
+    assert ckpt["step"] == 2 and ckpt["epoch"] == 1
