@@ -40,14 +40,16 @@ from .kine_tracker import TrackerKinematic, fetch_kine_rows
 from .tracker import Tracker, fetch_rows
 
 # Frame pixels up to which ``auto`` takes the stacked form: the largest
-# frame at which the forms were timed on the card. There, stacked was the
-# faster by far: 4 sequences of the served flagship (dec_msda_int8, bf16),
-# B = 4, aggregate frames/s stacked vs interleaved 64.3 vs 23.0 at
-# 800x1440 and 92.9 vs 20.4 at 544x960 (chip_smoke.py phase B, "NVIDIA
-# H100 80GB HBM3, 700.00 W"; PERF.md §6, PR 13): the host's Python of a
-# forward, which interleaving pays once a sequence, outweighs the device
-# time. Larger frames were not timed; they take the interleaved form,
-# whose batch-1 forwards are the single tracker's own.
+# frame at which the two forms were timed on the card. There the stacked
+# form was the faster by 2-4.6x: 4 sequences of the served flagship
+# (dec_msda_int8, bf16), B = 4, aggregate frames/s stacked vs interleaved
+# 64.3 vs 23.0 and 68.1 vs 29.2 at 800x1440, 92.9 vs 20.4 and 55.0 vs
+# 26.7 at 544x960, in two runs of chip_smoke.py's phase B on an "NVIDIA
+# H100 80GB HBM3, 700.00 W" (PERF.md §6, PR 13): interleaving pays the
+# host's Python of a forward once a sequence, and that outweighs the
+# device time. Larger frames were not timed; they take the interleaved
+# form, whose batch-1 forwards give each sequence its single tracker's
+# results bit for bit.
 _STACKED_MAX_PIXELS = 800 * 1440
 
 
