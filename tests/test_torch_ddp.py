@@ -109,9 +109,14 @@ def _steps(rank, world, tmp, n_steps=N_STEPS):
     return losses, params
 
 
-def test_two_processes_equal_one_on_the_whole_batch(tmp_path):
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    """The 2-process run, for the two comparisons below."""
+    return run_processes(_steps, 2, tmp_path_factory.mktemp("two"))
+
+
+def test_two_processes_equal_one_on_the_whole_batch(two, tmp_path):
     (one,) = run_processes(_steps, 1, tmp_path / "one")
-    two = run_processes(_steps, 2, tmp_path / "two")
     for s in range(N_STEPS):
         ref = one[0][s]
         assert ref["loss"] > 0 and ref["grad_norm"] > 0
@@ -169,8 +174,7 @@ def _split_steps(rank, world, tmp):
     return losses, params
 
 
-def test_two_processes_equal_one_stepping_each_image(tmp_path):
-    two = run_processes(_steps, 2, tmp_path / "two")
+def test_two_processes_equal_one_stepping_each_image(two, tmp_path):
     (split,) = run_processes(_split_steps, 1, tmp_path / "one", group=False)
     for s in range(N_STEPS):
         for r in range(2):

@@ -96,7 +96,7 @@ def test_sigusr1_checkpoints_requeues_and_resumes(mot_root, tmp_path):
     out = tmp_path / "out"
     proc = subprocess.run(
         [sys.executable, "-c", PREEMPTED, "--requeue-on-preempt",
-         *_argv(mot_root, out)],
+         *_argv(mot_root, out, epochs=1)],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     text = proc.stdout
     assert proc.returncode == 0, text[-3000:] + proc.stderr[-3000:]
@@ -104,8 +104,8 @@ def test_sigusr1_checkpoints_requeues_and_resumes(mot_root, tmp_path):
     assert "requeueing after preemption" in text
     assert f"auto-resuming from {out / 'checkpoint.pth'}" in text
     ckpt = load_checkpoint(out / "checkpoint.pth")
-    # the preempted epoch 1 ran again in full, then epoch 2: 1 + 3 + 3
-    assert ckpt["epoch"] == 2 and ckpt["step"] == 7
+    # the preempted epoch 1 ran again in full: 1 + 3 steps
+    assert ckpt["epoch"] == 1 and ckpt["step"] == 4
 
 
 def _script(*extra):
