@@ -144,11 +144,16 @@ V. the encoder's MSDA variants, two-stage and merge_frame_features:
 B. batched serving (tracking/batched.py) on the served config
    (dec_msda_int8, bf16): 4 synthetic sequences of 8 moving-box frames
    (~20 live tracks each) through BatchedTracker at 800x1440 with B = 1,
-   2, 4 in the stacked and the interleaved form, and at 544x960 with B =
-   4 in both; every sequence's results held to its own single Tracker's
-   (the same track ids and frames, boxes within 1e-3 px), the launches a
-   step asserted (6 + 6 a forward), aggregate frames/s, ms a step and the
-   device's busy share (profiler) of each; then a replay of one stacked
+   2, 4 in the stacked and the interleaved form, and at 544x960 and
+   1088x1920 with B = 4 in both; the results of B = 1 and of the
+   interleaved form held to each sequence's single Tracker's (the same
+   track ids and frames, boxes within 1e-3 px); the stacked form's bf16
+   results held to themselves with the sequences in reverse order, bit
+   for bit, and in f32 to the single Trackers' (boxes within
+   F32_STACKED_BOX_PX); a frame as a row of a batch of 4 against the frame
+   alone, with the kernels and with the plain MSDA versions; the launches
+   a step asserted (6 + 6 a forward), aggregate frames/s, ms a step and
+   the device's busy share (profiler) of each; then a replay of one stacked
    B = 4 step's 12 MSDA calls as phase 5's (msda_fwd and the int8 raw
    pool, and the raw pool over the same calls' bf16 table: each kernel vs
    its plain version, device ms a launch beside 4 x phase 5's B = 1
@@ -162,8 +167,10 @@ S. processes on the one card: (a) main_track in 2 gloo processes (each
    tools/launch.py in a world-1 NCCL group (torchrun's environment)
    against the same run without a group: the same losses and parameters,
    bit for bit; then 3 full-width f32 steps in 2 gloo processes sharing
-   the card, one image each, against 1 process on both images, at
-   tests/test_torch_ddp.py's tolerances; (c) the launcher with
+   the card, one image each, against 1 process stepping each image on its
+   own with the mean gradient, bit for bit, and against 1 process on both
+   images (printed); step 0's gradient of both images against the mean of
+   the two images' in f64 with the plain MSDA versions; (c) the launcher with
    --requeue-on-preempt sent SIGUSR1 after its first step: its
    checkpoint, the requeue (a re-exec) and the resume to the end.
 
@@ -195,6 +202,8 @@ kinet_tpu_torch package beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import itertools
 import json
 import statistics
@@ -2109,8 +2118,15 @@ def phase_track_cli(torch, msda):
 
 
 B_SEQS, B_FRAMES, B_SIZES = 4, 8, (1, 2, 4)
-# a second, smaller frame size: both forms at B = 4
-B_SMALL_HW = (544, 960)
+# two more frame sizes, both forms at B = 4: a smaller one, and MOT17's
+# 1080x1920 frames untransformed (padded to 1088 rows)
+B_OTHER_HW = ((544, 960), (1088, 1920))
+# the f32 stacked form's boxes against one Tracker a sequence, px: twice
+# the largest reading of two sound runs on an "NVIDIA H100 80GB HBM3,
+# 700.00 W" (PERF.md §6), where a frame as row 0 of an f32 batch of
+# 4 differed from the frame alone by 0.0598 px and the results by up to
+# 0.0308 px
+F32_STACKED_BOX_PX = 0.12
 # the CLI's sequences (1080x1920 JPEGs, T_TRANSFORM)
 B_CLI_SEQS = [f"MOT17-{n:02d}-FRCNN" for n in (2, 4, 5, 9)]
 # config overrides of phase S's training runs (a rehearsal on the CPU sets
@@ -2123,21 +2139,66 @@ def same_results(np, got, ref, atol=1e-3):
     within ``atol`` px, else what differs."""
     if got.keys() != ref.keys():
         return f"track ids {sorted(got)} vs {sorted(ref)}"
-    worst = 0.0
     for tid, frames in ref.items():
         if got[tid].keys() != frames.keys():
             return f"track {tid}: frames {sorted(got[tid])} vs {sorted(frames)}"
-        for f, r in frames.items():
-            worst = max(worst, float(np.abs(got[tid][f]["bbox"]
-                                            - r["bbox"]).max()))
+    worst = box_gap(np, got, ref)
     return None if worst <= atol else f"boxes up to {worst:.4g} px apart"
+
+
+def box_gap(np, got, ref):
+    """The largest box difference, px, of two results with the same track
+    ids and frames."""
+    return max((float(np.abs(got[tid][f]["bbox"] - r["bbox"]).max())
+                for tid, frames in ref.items() for f, r in frames.items()),
+               default=0.0)
+
+
+def identical_results(np, got, ref):
+    """Whether two results hold the same tracks, frames, boxes, scores and
+    detection indices, bit for bit."""
+    return got.keys() == ref.keys() and all(
+        got[t].keys() == ref[t].keys() and all(
+            got[t][f].keys() == r.keys()
+            and all(np.array_equal(got[t][f][k], v) for k, v in r.items())
+            for f, r in ref[t].items())
+        for t in ref)
+
+
+@contextlib.contextmanager
+def plain_msda(torch):
+    """The model's MSDA and raw pool entries, where
+    models/deformable_transformer.py binds them, swapped for their plain
+    PyTorch versions, so that no hand kernel runs inside; with float64
+    values the samples are cast to float64 too (the model gives them in
+    float32, which grid_sample refuses beside float64 values)."""
+    from kinet_tpu_torch.models import deformable_transformer as dt
+    from kinet_tpu_torch.ops import msda as ops
+
+    orig = dt.ms_deform_attn, dt.ms_deform_attn_raw_pool
+
+    def like(t, x):
+        return t.to(x.dtype) if x.dtype == torch.float64 else t
+
+    def attn(v, shapes, loc, aw):
+        return ops.ms_deform_attn_plain(v, shapes, like(loc, v), like(aw, v))
+
+    def raw_pool(src, shapes, loc, aw, *rest):
+        return ops.ms_deform_attn_raw_pool_plain(
+            src, shapes, like(loc, src), like(aw, src), *rest)
+
+    dt.ms_deform_attn, dt.ms_deform_attn_raw_pool = attn, raw_pool
+    try:
+        yield
+    finally:
+        dt.ms_deform_attn, dt.ms_deform_attn_raw_pool = orig
 
 
 def batched_run(bt, seqs, n):
     """The sequences, in chunks of n, through the batched tracker ``bt``
     (reset between chunks; every sequence B_FRAMES long): (results of each
-    sequence, host ms of each step, each ending in its fetch; seconds in
-    all)."""
+    sequence, copied, since a tracker goes on adding to its own; host ms of
+    each step, each ending in its fetch; seconds in all)."""
     results, step_ms = [], []
     t0 = time.perf_counter()
     for i0 in range(0, len(seqs), n):
@@ -2147,7 +2208,7 @@ def batched_run(bt, seqs, n):
             t = time.perf_counter()
             bt.step([s[f] for s in chunk])
             step_ms.append((time.perf_counter() - t) * 1e3)
-        results += [bt.get_results(i) for i in range(n)]
+        results += [copy.deepcopy(bt.get_results(i)) for i in range(n)]
     return results, step_ms, time.perf_counter() - t0
 
 
@@ -2204,12 +2265,11 @@ def stacked_f32_gate(torch, cfg, seqs, kw):
     """The stacked form at B = 2 and 4 against one Tracker a sequence, in
     f32 (TF32 off), the thresholds halfway between the 7th and 8th class-0
     scores of the first frame: the same track ids and frames, boxes within
-    1e-3 px or, where more, within what the forward's own boxes differ
-    between a batch-4 row and the frame alone (the kernels that cuBLAS and
-    cuDNN pick by batch sum in another order, and 12 layers of random
-    weights grow that to ~1e-2 px at 800x1440). Returns (least
-    score-to-threshold distance of the reference, the batch-4 forward's
-    row differences)."""
+    F32_STACKED_BOX_PX (the kernels that cuBLAS and cuDNN pick by batch
+    sum in another order, and 12 layers of random weights grow that to
+    ~0.06 px at 800x1440). Returns (least score-to-threshold distance of
+    the reference, the batch-4 forward's row differences, the largest box
+    difference of the results)."""
     import numpy as np
 
     from kinet_tpu_torch.tracking.batched import BatchedTracker
@@ -2224,30 +2284,36 @@ def stacked_f32_gate(torch, cfg, seqs, kw):
     margin = score_margin(np, single,
                           lambda: ref.extend(single_runs(single, seqs)[0]))
     diff = forward_rows_diff(torch, single, seqs[0][0], B_SEQS)
+    worst = 0.0
     for n in (2, B_SEQS):
         bt = BatchedTracker(model, post, {**tcfg, "batch_exec": "stacked"},
                             n_sequences=n, **kw)
         got = batched_run(bt, seqs, n)[0]
         for i, (g, r) in enumerate(zip(got, ref)):
-            d = same_results(np, g, r, atol=max(1e-3, diff["boxes"]))
+            d = same_results(np, g, r, atol=F32_STACKED_BOX_PX)
             check(d is None, f"f32 stacked B={n}: sequence {i} differs from "
                   f"its single Tracker: {d} (closest score to the threshold "
                   f"{margin:.3g} off; a batch-{B_SEQS} row differs by {diff})")
+            worst = max(worst, box_gap(np, g, r))
     del model, single, bt
     torch.cuda.empty_cache()
-    return margin, diff
+    return margin, diff, worst
 
 
 def phase_batched(torch, msda, b1_replay):
     """BatchedTracker on the served config (dec_msda_int8, bf16) over
     B_SEQS synthetic sequences of B_FRAMES frames: at MAIN_HW with B = 1,
-    2, 4 in both forms, at B_SMALL_HW with B = 4 in both. Every sequence
-    of the forms whose forward is the single Tracker's (B = 1, interleaved)
-    is held to its single Tracker's results; the stacked form's bf16 rows
-    differ from a batch-1 forward's in the last bits, so its results are
-    reported beside the single Tracker's and held to them in f32
-    (stacked_f32_gate). Then a replay of one stacked B = 4 step's MSDA
-    calls (``b1_replay``: phase 5's B = 1 replay, or None). Returns
+    2, 4 in both forms, at each of B_OTHER_HW with B = 4 in both. Every
+    sequence of the forms whose forward is the single Tracker's (B = 1,
+    interleaved) is held to its single Tracker's results; the stacked
+    form's bf16 rows differ from a batch-1 forward's in the last bits, so
+    its results are reported beside the single Tracker's, held to
+    themselves with the sequences in reverse order (each row's results
+    depend on its own inputs alone), and held to the single Tracker's in
+    f32 (stacked_f32_gate). The bf16 gap between a batch-4 row and the
+    frame alone is also read with the plain MSDA versions in place of the
+    kernels. Then a replay of one stacked B = 4 step's MSDA calls
+    (``b1_replay``: phase 5's B = 1 replay, or None). Returns
     ({(hw, B, form): measures}, {kernel: replay ms}, {B: {kernel: launches
     a stacked step}})."""
     import numpy as np
@@ -2258,7 +2324,7 @@ def phase_batched(torch, msda, b1_replay):
     cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True)
     kw = tracker_kwargs(cfg)
     rows, per_step, replay = {}, {}, {}
-    for hw in (MAIN_HW, B_SMALL_HW):
+    for hw in (MAIN_HW, *B_OTHER_HW):
         seqs = [list(moving_boxes(np, *hw, B_FRAMES, seed=20 + s))
                 for s in range(B_SEQS)]
         model, post, tcfg = served_parts(torch, cfg, seqs[0][0])
@@ -2275,6 +2341,16 @@ def phase_batched(torch, msda, b1_replay):
             f"{[sum(len(t) for t in r.values()) for r in ref]}; a frame as "
             f"row 0 of a stacked batch of {B_SEQS} copies vs alone, max abs "
             f"difference (bf16): {diff}")
+        if hw == MAIN_HW:
+            with plain_msda(torch):
+                plain = forward_rows_diff(torch, single, seqs[0][0], B_SEQS)
+            log(f"  the same with the plain MSDA versions in place of the "
+                f"kernels: {plain}")
+            for k in ("scores", "hs_embed"):
+                check(diff[k] / 10 <= plain[k] <= 10 * diff[k],
+                      f"a batch-{B_SEQS} row's {k} differ from the frame "
+                      f"alone by {plain[k]:.3g} with the plain MSDA versions,"
+                      f" {diff[k]:.3g} with the kernels")
         rows[(hw, 1, "single")] = dict(
             fps=B_SEQS * B_FRAMES / ref_s, step_ms=statistics.median(ref_ms))
         stacked4 = None
@@ -2318,7 +2394,7 @@ def phase_batched(torch, msda, b1_replay):
                 if form == "stacked" and hw == MAIN_HW:
                     per_step[n] = row["launches"]
                     if n == B_SEQS:
-                        stacked4 = bt
+                        stacked4, forward_order = bt, got
                 share = (f"{100 * busy / med:.1f} %" if busy > 0
                          else "not measured (the profiler saw nothing)")
                 log(f"  B={n} {form:<11} {row['fps']:.3f} frames/s over "
@@ -2327,6 +2403,14 @@ def phase_batched(torch, msda, b1_replay):
                     f"step = {share}; launches a step {row['launches']}; "
                     f"{agree}")
         if stacked4 is not None:
+            backward = batched_run(stacked4, seqs[::-1], B_SEQS)[0][::-1]
+            for i, (g, r) in enumerate(zip(backward, forward_order)):
+                check(identical_results(np, g, r),
+                      f"stacked B={B_SEQS} (bf16): sequence {i} in row "
+                      f"{B_SEQS - 1 - i} differs from the same sequence in "
+                      f"row {i}: {same_results(np, g, r, atol=0.0)}")
+            log(f"  stacked B={B_SEQS} with the sequences in reverse order: "
+                f"every sequence's results as in forward order, bit for bit")
             calls = record_forward_calls(
                 torch, lambda: stacked4.step([s[-1] for s in seqs]))
             kinds = [k for k, _ in calls]
@@ -2359,14 +2443,14 @@ def phase_batched(torch, msda, b1_replay):
         del model, single, bt, stacked4
         torch.cuda.empty_cache()
         if hw == MAIN_HW:
-            margin, diff = stacked_f32_gate(torch, cfg, seqs, kw)
+            margin, diff, worst = stacked_f32_gate(torch, cfg, seqs, kw)
             log(f"  f32 (TF32 off), thresholds between two scores: stacked "
                 f"B=2 and B={B_SEQS} give every sequence its single "
-                f"Tracker's tracks and frames, boxes within "
-                f"{max(1e-3, diff['boxes']):.3g} px (a batch-{B_SEQS} row "
+                f"Tracker's tracks and frames, boxes up to {worst:.4g} px "
+                f"apart (bound {F32_STACKED_BOX_PX} px; a batch-{B_SEQS} row "
                 f"differs from the frame alone by {diff}); the closest "
                 f"compared score {margin:.3g} from its threshold")
-    for hw in (MAIN_HW, B_SMALL_HW):
+    for hw in (MAIN_HW, *B_OTHER_HW):
         s4, i4 = rows[(hw, B_SEQS, "stacked")], rows[(hw, B_SEQS, "interleaved")]
         log(f"  {hw[0]}x{hw[1]} B={B_SEQS}: stacked {s4['fps']:.3f} vs "
             f"interleaved {i4['fps']:.3f} frames/s "
@@ -2415,8 +2499,6 @@ def phase_batched_cli(torch, msda, root: Path):
     import math
     import re
 
-    from kinet_tpu_torch.tracking import batched
-
     run, (h, w) = cli_runs(torch, root)
     n = len(B_CLI_SEQS)
     out = root / "out_batched"
@@ -2437,12 +2519,10 @@ def phase_batched_cli(torch, msda, root: Path):
     child = json.loads(text.strip().splitlines()[-1])
     launches, step_ms = child["launches"], child["step_ms"]
     frames = n * B_FRAMES
-    form = ("stacked" if h * w <= batched._STACKED_MAX_PIXELS
-            else "interleaved")
-    want = 6 * B_FRAMES * (1 if form == "stacked" else n)
+    want = 6 * B_FRAMES  # auto is the stacked form: one forward a step
     for k, c in launches.items():
         check(c == (0 if k == "msda_raw_pool_fwd" else want),
-              f"the batched CLI launched {k} {c} times ({form}: {want})")
+              f"the batched CLI launched {k} {c} times (stacked: {want})")
     check(len(step_ms) == B_FRAMES, f"{len(step_ms)} batched steps")
     line = next(ln for ln in text.splitlines() if ln.startswith("RUNTIME"))
     hz = re.search(r"for (\d+) frames \(([\d.]+) Hz\)", line)
@@ -2456,7 +2536,7 @@ def phase_batched_cli(torch, msda, root: Path):
     loop_s = frames / float(hz.group(2))
     steady = (frames - n) / (loop_s - step_ms[0] / 1e3)
     waiting = (loop_s - sum(step_ms) / 1e3) / loop_s
-    log(f"  batch_exec auto took the {form} form at {h}x{w}; launches "
+    log(f"  batch_exec auto at {h}x{w}; launches "
         f"{launches} (CLI process {wall:.1f} s); batched steps: first "
         f"{step_ms[0]:.1f} ms, then median {statistics.median(step_ms[1:]):.3f}"
         f" ms")
@@ -2529,11 +2609,12 @@ S_HW = (672, 1184)
 S_STEPS, S_OBJECTS = 3, 20
 
 
-def s_inputs(torch, step, images, t_slots, hidden):
+def s_inputs(torch, step, images, t_slots, hidden, dtype=None):
     """(batch, targets, prev_batch, prev_targets) of images ``images`` (of
     two) at train step ``step``: random pictures, S_OBJECTS tracks an
-    image at random boxes, on DEVICE. The same image gets the same data
-    whatever the batch it is in."""
+    image at random boxes, on DEVICE, the pictures and boxes in ``dtype``
+    (default float32). The same image gets the same data whatever the
+    batch it is in."""
     from kinet_tpu_torch.structs import ImageBatch, Targets
 
     h, w = S_HW
@@ -2542,8 +2623,9 @@ def s_inputs(torch, step, images, t_slots, hidden):
         imgs, boxes = [], []
         for i in images:
             gen = torch.Generator().manual_seed(1000 * step + 10 * i + f)
-            imgs.append(torch.randn(h, w, 3, generator=gen))
-            boxes.append(0.2 + 0.4 * torch.rand(S_OBJECTS, 4, generator=gen))
+            imgs.append(torch.randn(h, w, 3, generator=gen).to(dtype))
+            boxes.append((0.2 + 0.4 * torch.rand(S_OBJECTS, 4, generator=gen))
+                         .to(dtype))
         n = len(images)
         targets = Targets.create(
             torch.stack(boxes), torch.zeros(n, S_OBJECTS, dtype=torch.int64),
@@ -2555,17 +2637,20 @@ def s_inputs(torch, step, images, t_slots, hidden):
     return [x.to(DEVICE) for x in frames]
 
 
-def s_train_steps(torch, rank, world, split=False):
-    """S_STEPS f32 train steps of the full-width flagship (dropout 0, the
+def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
+                  dtype=None):
+    """``steps`` f32 train steps of the full-width flagship (dropout 0, the
     track-query simulation's false positives and negatives off) on this
-    process's share of a batch of two images. With ``split`` (one
-    process), each image steps through the model on its own, with a
-    generator of its own, as each process of a 2-process run does, and
-    the optimizer applies the mean of the two gradients: the arithmetic
-    of the 2-process run without its processes. Returns (each step's
-    weighted losses, total and gradient norm: a list of one dict per image
-    with ``split``; the parameters after the last step and the first
-    step's all-reduced, unclipped gradients, on the CPU)."""
+    process's share of a batch of two images; with ``dtype`` float64 the
+    model, pictures and boxes are float64 and the MSDA runs its plain
+    versions (``plain_msda``; the kernels take float32 and bfloat16). With
+    ``split`` (one process), each image steps through the model on its
+    own, with a generator of its own, as each process of a 2-process run
+    does, and the optimizer applies the mean of the two gradients: the
+    arithmetic of the 2-process run without its processes. Returns (each
+    step's weighted losses, total and gradient norm: a list of one dict
+    per image with ``split``; the parameters after the last step and the
+    first step's all-reduced, unclipped gradients, on the CPU)."""
     from kinet_tpu_torch.engine.state import Optimizer
     from kinet_tpu_torch.engine.train_step import make_train_step
     from kinet_tpu_torch.models.build import build_criterion, build_model
@@ -2577,6 +2662,9 @@ def s_train_steps(torch, rank, world, split=False):
     t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
     model, _ = build_model(cfg, device=DEVICE, seed=3)
     model.train()
+    f64 = dtype == torch.float64
+    if f64:
+        model.double()
     criterion = build_criterion(cfg)
     opt = Optimizer(model, cfg, 1000)
     keys = set(criterion.weight_dict) | {"loss", "grad_norm"}
@@ -2597,9 +2685,10 @@ def s_train_steps(torch, rank, world, split=False):
         opt.step = recording
         step = make_train_step(model, criterion, opt, cfg,
                                generator=torch.Generator().manual_seed(5))
-        for s in range(S_STEPS):
-            out = step(*s_inputs(torch, s, [0, 1][rank::world], t_slots,
-                                 hidden))
+        for s in range(steps):
+            with plain_msda(torch) if f64 else contextlib.nullcontext():
+                out = step(*s_inputs(torch, s, [0, 1][rank::world], t_slots,
+                                     hidden, dtype))
             losses.append({k: float(v) for k, v in out.items() if k in keys})
     else:
         kept = []
@@ -2614,12 +2703,14 @@ def s_train_steps(torch, rank, world, split=False):
                              p.grad.clone() for p in opt.params])
                 return torch.zeros(())
 
-        steps = [make_train_step(model, criterion, Keeping(), cfg,
-                                 generator=torch.Generator().manual_seed(5))
-                 for _ in range(2)]
-        for s in range(S_STEPS):
-            outs = [steps[i](*s_inputs(torch, s, [i], t_slots, hidden))
-                    for i in range(2)]
+        per_image = [make_train_step(model, criterion, Keeping(), cfg,
+                                     generator=torch.Generator().manual_seed(5))
+                     for _ in range(2)]
+        for s in range(steps):
+            with plain_msda(torch) if f64 else contextlib.nullcontext():
+                outs = [per_image[i](*s_inputs(torch, s, [i], t_slots,
+                                               hidden, dtype))
+                        for i in range(2)]
             for p, g0, g1 in zip(opt.params, *kept):
                 p.grad = (g0 + g1) / 2  # all_reduce_grads: the sum, / 2
             kept.clear()
@@ -2707,10 +2798,13 @@ def phase_processes(torch, root: Path):
     against 1; (b) S_STEPS flagship train steps at S_HW through
     tools/launch.py in a world-1 NCCL group against the same run without
     a group, bit for bit; then S_STEPS f32 steps in 2 gloo processes
-    against 1 process on the concatenated batch (tests/test_torch_ddp.py's
-    tolerance); (c) the launcher with --requeue-on-preempt given SIGUSR1
-    after its first step: checkpoint, requeue, resume. Returns {part:
-    seconds}."""
+    against 1 process stepping each image on its own with the mean
+    gradient, bit for bit, and against 1 process on the concatenated
+    batch (printed); step 0 in f64 on the concatenated batch against the
+    mean of each image's gradient (the witness that the f32 gap is
+    rounding); (c) the launcher with --requeue-on-preempt given SIGUSR1
+    after its first step: checkpoint, requeue, resume. Every process
+    starts at once; returns {part: seconds until its checks were made}."""
     from kinet_tpu_torch.utils.checkpoint import load_checkpoint
 
     run, _ = cli_runs(torch, root)
@@ -2725,7 +2819,7 @@ def phase_processes(torch, root: Path):
     torch.cuda.empty_cache()
     with Children(root) as kids:
         t0 = time.perf_counter()
-        # (a) and (b)'s launcher runs and (c), all at once
+        # (a), (b)'s launcher and 2-process runs and (c), all at once
         rdv = f"file://{root}/rdv_track"
         for r in range(2):
             kids.start(f"track{r}", [sys.executable, "-c", S_TRACK_RUNNER,
@@ -2752,6 +2846,30 @@ def phase_processes(torch, root: Path):
             "dataset=mot", "epochs=2", "val_interval=0",
             "tracking_eval=false", "num_workers=1", "log_interval=1",
             *[f"{k}={json.dumps(v)}" for k, v in S_OVERRIDES.items()]])
+        settings = dict(DEVICE=DEVICE, S_OVERRIDES=S_OVERRIDES, S_HW=S_HW,
+                        S_OBJECTS=S_OBJECTS)
+        for r in range(2):
+            kids.start(f"steps{r}", [sys.executable, "-c", S_STEPS_RUNNER,
+                                     str(r), "2", f"file://{root}/rdv_steps",
+                                     str(root / f"steps{r}.pt"),
+                                     json.dumps(settings)])
+        # meanwhile here: (b)'s 1-process runs and the f64 witness
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # as the children
+        try:
+            split = s_train_steps(torch, 0, 1, split=True)
+            torch.cuda.empty_cache()
+            whole = s_train_steps(torch, 0, 1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            f64 = [s_train_steps(torch, 0, 1, split=split_, steps=1,
+                                 dtype=torch.float64)[2]
+                   for split_ in (True, False)]
+            f64_gib = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+        times["b_parent"] = time.perf_counter() - t0
 
         summaries = [json.loads(kids.wait(n).strip().splitlines()[-1])
                      for n in ("track_one", "track0", "track1")]
@@ -2811,23 +2929,6 @@ def phase_processes(torch, root: Path):
         times["c"] = time.perf_counter() - t0
 
         # (b) 2 gloo processes on the card against 1 on the whole batch
-        t1 = time.perf_counter()
-        settings = dict(DEVICE=DEVICE, S_OVERRIDES=S_OVERRIDES, S_HW=S_HW,
-                        S_OBJECTS=S_OBJECTS)
-        for r in range(2):
-            kids.start(f"steps{r}", [sys.executable, "-c", S_STEPS_RUNNER,
-                                     str(r), "2", f"file://{root}/rdv_steps",
-                                     str(root / f"steps{r}.pt"),
-                                     json.dumps(settings)])
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True  # as the children
-        try:
-            split = s_train_steps(torch, 0, 1, split=True)
-            torch.cuda.empty_cache()
-            whole = s_train_steps(torch, 0, 1)
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        torch.cuda.empty_cache()
         for r in range(2):
             kids.wait(f"steps{r}")
         two = [torch.load(root / f"steps{r}.pt", weights_only=True)
@@ -2854,7 +2955,10 @@ def phase_processes(torch, root: Path):
             f"for bit (grad norms "
             f"{[round(x[0]['grad_norm'], 4) for x in split[0]]})")
         # readings: against 1 process on the concatenated batch, whose
-        # batch-2 kernels sum in another order
+        # batch-2 kernels sum in another order, and a bilinear sample's
+        # location gradient jumps where rounding moves it across a pixel
+        # edge. The witness: in f64, where rounding moves no sample across
+        # an edge, the two agree to rounding
         rel = {}
         for s, ref_s in enumerate(whole[0]):
             for k, v in ref_s.items():
@@ -2874,7 +2978,20 @@ def phase_processes(torch, root: Path):
             f", most in " + ", ".join(
                 f"{k} {v:.3g}" for k, v in sorted(
                     diffs.items(), key=lambda kv: -kv[1])[:5]))
-        times["b_steps"] = time.perf_counter() - t1
+        gap = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(f64[1][k] - g) for k, g in f64[0].items()]))
+        size = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(g) for g in f64[1].values()]))
+        rel64 = (gap / size).item()
+        check(rel64 <= 1e-6, f"f64 step 0: the gradient of both images "
+              f"differs from the mean of each image's by {rel64:.3g} of "
+              f"its norm")
+        log(f"  (b) witness, f64 with the plain MSDA versions: step 0's "
+            f"gradient of both images vs the mean of each image's "
+            f"gradient, |difference| / |gradient| {rel64:.3g} (f32 "
+            f"{total / whole[0][0]['grad_norm']:.3g}); peak "
+            f"{f64_gib:.1f} GiB")
+        times["b_steps"] = time.perf_counter() - t0
     return times
 
 
@@ -4569,8 +4686,9 @@ def main(argv=None) -> int:
             log(f"== B. batched serving: BatchedTracker on the served config "
                 f"(dec_msda_int8, bf16), {B_SEQS} sequences of {B_FRAMES} "
                 f"frames, B = {B_SIZES} at {MAIN_HW[0]}x{MAIN_HW[1]}, B = "
-                f"{B_SEQS} at {B_SMALL_HW[0]}x{B_SMALL_HW[1]}; then the CLI "
-                f"with batch_sequences {len(B_CLI_SEQS)}")
+                f"{B_SEQS} at "
+                + " and ".join(f"{h}x{w}" for h, w in B_OTHER_HW)
+                + f"; then the CLI with batch_sequences {len(B_CLI_SEQS)}")
             t0 = time.perf_counter()
             b1 = {k: summary.get(k, {}).get("replay_ms") for k in (
                 "msda_fwd", "msda_raw_pool_fwd", "msda_raw_pool_fwd_i8")}

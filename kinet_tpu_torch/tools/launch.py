@@ -18,8 +18,11 @@ Each process joins the default process group, then trains
   without a group. ``--coordinator`` also takes an init URL as it stands
   (``tcp://...``, ``file://...``);
 - the backend is NCCL on the card, with ``torch.cuda.set_device`` to the
-  local rank, and gloo on the CPU (``--device cpu``) or when a host runs
-  more processes than it has cards (NCCL refuses two ranks on one card);
+  local rank, and gloo on the CPU (``--device cpu``). NCCL refuses two
+  ranks on one card, so a host that runs more processes than it has
+  cards is refused unless ``--backend gloo`` asks for processes that
+  share the cards (``torch.cuda.set_device`` to the local rank modulo
+  the cards);
 - it resumes from ``output_dir/checkpoint.pth`` when that exists and no
   ``resume`` is given (the requeue point of a preempted run);
 - with ``--requeue-on-preempt`` it installs the SIGTERM / SIGUSR1 handler
@@ -66,12 +69,22 @@ def init_process_group(args) -> None:
     if coords is None:
         return
     url, world, rank, local, on_host = coords
-    backend = "gloo"
-    if args.device != "cpu":
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    if args.device == "cpu":
+        if backend != "gloo":
+            raise ValueError(f"--backend {backend} needs the card; on the "
+                             f"CPU the backend is gloo")
+    else:
         cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("no CUDA device: pass --device cpu to train "
+                               "on the CPU")
+        if on_host > cards and backend != "gloo":
+            raise ValueError(
+                f"{on_host} processes a host on {cards} card(s): NCCL takes "
+                f"one card a process; pass --backend gloo for processes "
+                f"that share the cards")
         torch.cuda.set_device(local % cards)
-        if on_host <= cards:
-            backend = "nccl"
     tdist.init_process_group(backend, init_method=url, world_size=world,
                              rank=rank, timeout=timedelta(minutes=30))
 
@@ -81,6 +94,10 @@ def parse_args(argv=None):
     p.add_argument("--config", default="train.yaml")
     p.add_argument("--named", nargs="*", default=[])
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="the process group's backend: nccl on the card (the "
+                        "default), gloo on the CPU or for processes that "
+                        "share a card")
     p.add_argument("--coordinator", default=None,
                    help="host:port of rank 0, or an init URL")
     p.add_argument("--num-hosts", type=int, default=1)

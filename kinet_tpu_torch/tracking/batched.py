@@ -21,8 +21,8 @@ Two device execution forms, ``batch_exec``:
 - ``interleaved``: N forwards at batch 1 on row slices of the inputs and
   caches, their outputs concatenated, then the same one fetch. Each
   sequence's forward is then the single tracker's own, at its shapes;
-- ``auto``: stacked up to ``_STACKED_MAX_PIXELS`` pixels a frame, else
-  interleaved.
+- ``auto``: stacked, the faster form at every frame size timed on the
+  card (``exec_form``).
 
 All sequences of a batch share the padded frame shape (``engine/track.py``
 groups them). A finished sequence's slot rides on its own last inputs and
@@ -38,19 +38,6 @@ import torch
 
 from .kine_tracker import TrackerKinematic, fetch_kine_rows
 from .tracker import Tracker, fetch_rows
-
-# Frame pixels up to which ``auto`` takes the stacked form: the largest
-# frame at which the two forms were timed on the card. There the stacked
-# form was the faster by 2-4.6x: 4 sequences of the served flagship
-# (dec_msda_int8, bf16), B = 4, aggregate frames/s stacked vs interleaved
-# 64.3 vs 23.0 and 68.1 vs 29.2 at 800x1440, 92.9 vs 20.4 and 55.0 vs
-# 26.7 at 544x960, in two runs of chip_smoke.py's phase B on an "NVIDIA
-# H100 80GB HBM3, 700.00 W" (PERF.md §6, PR 13): interleaving pays the
-# host's Python of a forward once a sequence, and that outweighs the
-# device time. Larger frames were not timed; they take the interleaved
-# form, whose batch-1 forwards give each sequence its single tracker's
-# results bit for bit.
-_STACKED_MAX_PIXELS = 800 * 1440
 
 
 def _row(x, e: int):
@@ -139,12 +126,20 @@ class BatchedTracker:
         self._pos_cache = None
         self._last_inputs: list = [None] * len(self.trackers)
 
-    def exec_form(self, frame_hw) -> str:
-        """The form a step over frames of padded size ``frame_hw`` takes."""
+    def exec_form(self) -> str:
+        """The form a step takes.
+
+        ``auto`` takes the stacked form at every size: no crossover was
+        found. With 4 sequences of the served flagship (dec_msda_int8,
+        bf16) at B = 4, aggregate frames/s stacked vs interleaved were
+        109.8 vs 28.3 at 544x960, 85.8 vs 30.1 at 800x1440 and 71.2 vs
+        32.2 at 1088x1920 (chip_smoke.py's phase B on an "NVIDIA H100 80GB
+        HBM3, 700.00 W"; earlier runs 2.1-4.6x at the two smaller sizes;
+        PERF.md §6): interleaving pays the host's Python of a forward once
+        a sequence, and runs the same device work as the stacked form."""
         if self._batch_exec != "auto":
             return self._batch_exec
-        h, w = frame_hw
-        return "stacked" if h * w <= _STACKED_MAX_PIXELS else "interleaved"
+        return "stacked"
 
     def _forward(self, inputs: list):
         """The forward over every slot's staged inputs ([1, ...] host
@@ -154,7 +149,7 @@ class BatchedTracker:
         tracker = self.trackers[0]
         if len(inputs) == 1:
             return self._fwd(*tracker.make_device_inputs(inputs[0]), *caches)
-        if self.exec_form(inputs[0]["images"].shape[1:3]) == "stacked":
+        if self.exec_form() == "stacked":
             # each row copied to the device as it is, then concatenated
             # there: no host copy of the frames
             dev = tracker.device

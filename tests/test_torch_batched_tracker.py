@@ -14,6 +14,10 @@ runs, never a decision), in the cases of tests/test_batched_tracker.py:
   a threshold;
 - interleaved (batch-1 forwards on row slices of the inputs and caches):
   bit for bit the single trackers' results;
+- stacked, the flagship family over 4 sequences in reverse order: each
+  sequence's results as in forward order, bit for bit (a row's results
+  depend on its own inputs and caches alone; chip_smoke.py's phase B
+  makes this check at full width in bf16);
 - uneven lengths (a finished slot rides on its last inputs), a zero-frame
   slot riding on a donor's inputs, every slot empty;
 - the kinematic tracker (``BatchedTrackerKinematic``).
@@ -161,7 +165,7 @@ def test_batched_interleaved_equals_single(flagship):
     singles = _singles(model, postprocess_focal, seqs)
     bt = _batched(model, postprocess_focal, seqs,
                   tracker_cfg={**TRACKER_CFG, "batch_exec": "interleaved"})
-    assert bt.exec_form((64, 96)) == "interleaved"
+    assert bt.exec_form() == "interleaved"
     for s in range(N_SEQ):
         _results_equal(bt.get_results(s), singles[s], exact=True)
 
@@ -207,6 +211,19 @@ def test_batched_equals_single_flagship_family(flagship):
         assert sum(len(v) for v in got.values()) >= 4
         _results_equal(got, singles[s])
         _results_equal(got, jt.get_results(s))
+
+
+def test_batched_stacked_rows_are_independent(flagship):
+    _, _, model = flagship
+    seqs = _sequences(n_seq=4)
+    runs = []
+    for order in (seqs, seqs[::-1]):
+        bt = _batched(model, postprocess_focal, order,
+                      tracker_cfg={**TRACKER_CFG, "batch_exec": "stacked"})
+        runs.append([bt.get_results(s) for s in range(len(order))])
+    for got, ref in zip(runs[1][::-1], runs[0]):
+        assert sum(len(v) for v in ref.values()) >= 4
+        _results_equal(got, ref, exact=True)
 
 
 def test_batched_uneven_lengths():
@@ -285,6 +302,7 @@ def test_batch_exec_is_checked():
         BatchedTracker(model, post, {**TRACKER_CFG, "batch_exec": "fused"},
                        n_sequences=2, **KW)
     bt = BatchedTracker(model, post, TRACKER_CFG, n_sequences=2, **KW)
+    assert bt.exec_form() == "stacked"  # auto
     with pytest.raises(ValueError, match="3 blobs for 2"):
         bt.step([None, None, None])
 

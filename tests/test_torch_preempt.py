@@ -6,6 +6,9 @@ tests/test_slurm_launch.py):
   ``checkpoint.pth`` recorded as epoch 0, so the resumed run runs epoch 1
   again (``CheckpointManager.save_preempt``);
 - ``tools/launch.py`` resumes from ``output_dir/checkpoint.pth`` by itself;
+- the launcher's backend: gloo on the CPU, NCCL on the card with one card
+  a process; more processes than cards on a host, or no card, are refused
+  unless ``--backend gloo`` asks for processes that share the cards;
 - end to end: the launcher with ``--requeue-on-preempt`` gets SIGUSR1
   after its first step, checkpoints, re-execs itself
   (``python -m kinet_tpu_torch.tools.launch``), resumes and finishes the
@@ -167,3 +170,41 @@ def test_slurm_launch_command_line_dry_run():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "#SBATCH --nodes=2" in proc.stdout
+
+
+@pytest.mark.parametrize("device, backend, cards, on_host, local, want", [
+    ("cpu", None, 0, 2, 1, ("gloo", None)),
+    ("cpu", "nccl", 0, 1, 0, "needs the card"),
+    (None, None, 2, 2, 1, ("nccl", 1)),
+    (None, None, 1, 2, 1, "pass --backend gloo"),
+    (None, "gloo", 1, 2, 1, ("gloo", 0)),
+    (None, None, 0, 1, 0, "no CUDA device"),
+])
+def test_launcher_backend(monkeypatch, device, backend, cards, on_host,
+                          local, want):
+    """The backend and card ``init_process_group`` picks from torchrun's
+    environment, or the error it raises, with the group's start and the
+    card's selection recorded instead of made."""
+    import torch
+    import torch.distributed as tdist
+
+    made = {}
+    monkeypatch.setenv("RANK", str(local))
+    monkeypatch.setenv("WORLD_SIZE", str(on_host))
+    monkeypatch.setenv("LOCAL_RANK", str(local))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(on_host))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda i: made.setdefault("card", i))
+    monkeypatch.setattr(tdist, "init_process_group",
+                        lambda b, **kw: made.setdefault("backend", b))
+    argv = (["--device", device] if device else []) + (
+        ["--backend", backend] if backend else [])
+    args = launch.parse_args(argv)
+    if isinstance(want, str):
+        with pytest.raises((ValueError, RuntimeError), match=want):
+            launch.init_process_group(args)
+        assert "backend" not in made
+    else:
+        launch.init_process_group(args)
+        assert (made["backend"], made.get("card")) == want
