@@ -172,7 +172,22 @@ S. processes on the one card: (a) main_track in 2 gloo processes (each
    images (printed); step 0's gradient of both images against the mean of
    the two images' in f64 with the plain MSDA versions; (c) the launcher with
    --requeue-on-preempt sent SIGUSR1 after its first step: its
-   checkpoint, the requeue (a re-exec) and the resume to the end.
+   checkpoint, the requeue (a re-exec) and the resume to the end;
+P. the parallel package (``kinet_tpu_torch/parallel/``) in 2 gloo
+   processes sharing the card: (a) 3 f32 flagship steps at 672x1184 with
+   the model tensor parallel (mesh.model 2) against 1 process on the same
+   two images (losses within P_LOSS_RTOL, parameters within the CPU test's
+   rtol 1e-4 / atol 1e-5; the gradients' gap printed); phase 7's bf16
+   step timed at TP=2 and in 1 process; the path's kernels counted and
+   each (kernel, query count, levels) of one step's recorded calls held
+   to its plain version, forward and backward; (b) an f32 Tracker session
+   at 800x1440 spatially parallel over the 2 processes against 1 process
+   (the same tracks and frames, boxes within P_BOX_PX) and the served
+   config's (dec_msda_int8) bf16 ms a frame at SP=2 and in 1 process, its
+   launches, and one frame's msda_fwd calls (each process's own encoder
+   queries) and int8 decoder calls held to their plain versions. The
+   correctness parts run at once; the timed parts one after another. No
+   scaling is claimed: the processes share one card.
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -191,7 +206,10 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 Then one JSON line listing every kernel with its launches, error and times
 (``eval_launches``: phase E's detection-eval launches; ``mots_launches``:
 phase M5's; ``batched_launches``: a stacked batched step's at B = 1, 2,
-4, ``batched_replay_ms`` / ``batched_bound_ms``: phase B's B = 4 replay);
+4, ``batched_replay_ms`` / ``batched_bound_ms``: phase B's B = 4 replay;
+``tp_launches`` / ``sp_launches``: phase P's a step of a tensor-parallel
+process / a frame of a spatially parallel one, ``parallel_max_abs_err``:
+its kernels against their plain versions on those paths' calls);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
 phase V, V2 without its train steps) and prints no result line.
@@ -250,8 +268,20 @@ def check(ok: bool, msg: str):
         raise SmokeFailure(msg)
 
 
+PHASE_STARTS = []  # (phase label, perf_counter) at each "== " heading
+
+
 def log(msg: str):
+    if msg.startswith("== "):
+        PHASE_STARTS.append((msg[3:].split(".")[0], time.perf_counter()))
     print(msg, flush=True)
+
+
+def phase_seconds() -> str:
+    """Each phase's seconds, from one heading to the next."""
+    marks = PHASE_STARTS + [("end", time.perf_counter())]
+    return ", ".join(f"{a} {t1 - t0:.1f}"
+                     for (a, t0), (_, t1) in zip(marks, marks[1:]))
 
 
 def nvidia_smi_line() -> str:
@@ -2638,7 +2668,7 @@ def s_inputs(torch, step, images, t_slots, hidden, dtype=None):
 
 
 def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
-                  dtype=None):
+                  dtype=None, n_model=1, images=None):
     """``steps`` f32 train steps of the full-width flagship (dropout 0, the
     track-query simulation's false positives and negatives off) on this
     process's share of a batch of two images; with ``dtype`` float64 the
@@ -2650,10 +2680,16 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
     arithmetic of the 2-process run without its processes. Returns (each
     step's weighted losses, total and gradient norm: a list of one dict
     per image with ``split``; the parameters after the last step and the
-    first step's all-reduced, unclipped gradients, on the CPU)."""
+    first step's all-reduced, unclipped gradients, on the CPU). With
+    ``n_model`` > 1 (phase P) the model is tensor parallel over the group's
+    processes (``parallel/tp.py``), each stepping both images (or
+    ``images``); the parameters and gradients come back whole (gathered
+    over the group)."""
     from kinet_tpu_torch.engine.state import Optimizer
     from kinet_tpu_torch.engine.train_step import make_train_step
     from kinet_tpu_torch.models.build import build_criterion, build_model
+    from kinet_tpu_torch.parallel import mesh as pmesh, tp
+    from kinet_tpu_torch.utils import dist
 
     cfg = flagship_cfg().replace(compute_dtype="float32", lr=1e-4,
                                  track_query_false_positive_prob=0.0,
@@ -2661,6 +2697,11 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
                                  **S_OVERRIDES)
     t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
     model, _ = build_model(cfg, device=DEVICE, seed=3)
+    if n_model > 1:
+        tp.shard_params_tp(model, pmesh.make_mesh(1, n_model))
+        rank, world = 0, 1  # every process of the model group: both images
+    if images is None:
+        images = [0, 1][rank::world]
     model.train()
     f64 = dtype == torch.float64
     if f64:
@@ -2672,7 +2713,10 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
 
     def first_grads():
         if not grads:
-            grads.update({k: p.grad.detach().cpu()
+            dims, group = tp.sharded_dims(model), tp.model_group(model)
+            grads.update({k: dist.all_gather_cat(p.grad.detach(), dims[k],
+                                                 group).to("cpu", copy=True)
+                          if k in dims else p.grad.detach().to("cpu", copy=True)
                           for k, p in model.named_parameters()})
 
     if not split:
@@ -2687,7 +2731,7 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
                                generator=torch.Generator().manual_seed(5))
         for s in range(steps):
             with plain_msda(torch) if f64 else contextlib.nullcontext():
-                out = step(*s_inputs(torch, s, [0, 1][rank::world], t_slots,
+                out = step(*s_inputs(torch, s, images, t_slots,
                                      hidden, dtype))
             losses.append({k: float(v) for k, v in out.items() if k in keys})
     else:
@@ -2718,8 +2762,9 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
             norm = float(opt.step())
             losses.append([{**{k: float(v) for k, v in o.items() if k in keys},
                             "grad_norm": norm} for o in outs])
-    return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}, \
-        grads
+    return losses, {k: v.detach().cpu()
+                    for k, v in tp.full_state_dict(model).items()
+                    if k in dict(model.named_parameters())}, grads
 
 
 class Children:
@@ -2739,6 +2784,11 @@ class Children:
             stderr=err, text=True, env={**os.environ, **(env or {})})
         self.procs.append((name, proc, out, err))
         return name
+
+    def failed(self):
+        """The names of the children that exited with a non-zero code."""
+        return [n for n, proc, _, _ in self.procs
+                if proc.poll() not in (None, 0)]
 
     def wait(self, name, timeout=600):
         """The child's stdout; fails the run if it did not exit 0."""
@@ -2804,7 +2854,8 @@ def phase_processes(torch, root: Path):
     mean of each image's gradient (the witness that the f32 gap is
     rounding); (c) the launcher with --requeue-on-preempt given SIGUSR1
     after its first step: checkpoint, requeue, resume. Every process
-    starts at once; returns {part: seconds until its checks were made}."""
+    starts at once; returns ({part: seconds until its checks were made},
+    the 1-process f32 steps on both images, which phase P reuses)."""
     from kinet_tpu_torch.utils.checkpoint import load_checkpoint
 
     run, _ = cli_runs(torch, root)
@@ -2992,7 +3043,462 @@ def phase_processes(torch, root: Path):
             f"{total / whole[0][0]['grad_norm']:.3g}); peak "
             f"{f64_gib:.1f} GiB")
         times["b_steps"] = time.perf_counter() - t0
-    return times
+    return times, whole
+
+
+# ---------------------------------------------------------------------------
+# phase P: the parallel package (parallel/) in 2 gloo processes sharing the
+# card: tensor-parallel training (mesh.model 2) and spatially parallel
+# serving (spatial_parallel 2), each against 1 process
+
+P_RUNNER = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as tdist
+import chip_smoke
+part, rank, world, rdv = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+root = Path(sys.argv[5])
+for name, value in json.loads(sys.argv[6]).items():  # the parent's settings
+    setattr(chip_smoke, name, value)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+tdist.init_process_group("gloo", init_method=rdv, world_size=world, rank=rank)
+out = getattr(chip_smoke, "p_" + part + "_child")(torch, root)
+tdist.destroy_process_group()
+torch.save(out, root / f"p_{part}{rank}.pt")
+"""
+P_TIMED_STEPS, P_FRAMES, P_WARMUP = 3, 8, 2
+# f32 TP=2 against 1 process on the same two images, at full width. Step
+# 0 (the same parameters) differs by f32 rounding only: its losses within
+# P_LOSS0_RTOL (PR 14's reading 2.9e-5) and its gradient within
+# P_GRAD_REL of its norm (7.3e-3: rounding in other sums, grown where a
+# sample crosses a pixel edge; the f64 witness holds the arithmetic to
+# 1e-6, reading 7.6e-16). Adam then turns near-zero gradients of
+# either sign into full steps, so the parameters can part by 2 lr a step
+# (P_PARAM_ATOL: 3 steps of lr 1e-4; reading 5.0e-4) and the later losses
+# follow (P_LOSS_RTOL; reading 7.5e-2)
+P_LOSS0_RTOL, P_GRAD_REL, P_LOSS_RTOL = 1e-4, 2e-2, 0.2
+P_PARAM_RTOL, P_PARAM_ATOL = 1e-4, 2 * 1e-4 * 3
+# f32 SP=2 against 1 process: the same tracks and frames, boxes within
+# P_BOX_PX (PR 14's reading 0.028 px; PR 13's f32 stacked batches 0.031)
+P_BOX_PX = 0.1
+
+
+def p_cfg(**over):
+    """The flagship with the children's overrides (S_OVERRIDES: none on the
+    card) and ``over``."""
+    return flagship_cfg().replace(**S_OVERRIDES, **over)
+
+
+def wait_for(path: Path, kids=None, timeout=1200):
+    """Waits until ``path`` exists; fails the run after ``timeout`` s or as
+    soon as one of ``kids`` (a Children) has failed."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        check(time.perf_counter() - t0 < timeout, f"no {path.name} after "
+              f"{timeout} s")
+        if kids is not None and kids.failed():
+            kids.wait(kids.failed()[0])  # fails the run with its output
+        time.sleep(0.05)
+
+
+def p_call_errors(torch, msda, kernel, args, grads):
+    """One recorded call's kernel against its plain version on the snapped
+    samples, the table in f32: the outputs, and with ``grads`` the backward
+    kernel's gradients (value / src, locations, weights) against autograd
+    through the plain version, in the recorded dtype, phase 3b's
+    tolerances. Returns the largest max abs error."""
+    table, shapes, loc, aw = args[0].detach(), args[1], args[2], args[3]
+    rest = args[4:]
+    loc, aw = snapped(torch, loc.detach()), aw.detach()
+    raw = kernel.startswith("msda_raw_pool_fwd")
+    fn, plain = ((msda.ms_deform_attn_raw_pool,
+                  msda.ms_deform_attn_raw_pool_plain) if raw else
+                 (msda.ms_deform_attn, msda.ms_deform_attn_plain))
+    with torch.no_grad():
+        v = table if table.dtype == torch.int8 else table.float()
+        outs = fn(v, shapes, loc, aw, *rest)
+        refs = plain(v, shapes, loc, aw, *rest)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    err = 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        rtol = 1e-2 if o.dtype == torch.bfloat16 else 1e-4
+        assert_close(torch, f"phase P {kernel} output {i}", o, r, rtol, 1e-5)
+        err = max(err, errors(torch, o, r)[0])
+    if not grads:
+        return err
+    gen = torch.Generator(device=table.device).manual_seed(2)
+    ins = [t.detach().clone().requires_grad_(True) for t in (table, loc, aw)]
+    with torch.enable_grad():
+        outs = plain(ins[0], shapes, ins[1], ins[2], *rest)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [torch.randn(o.shape, generator=gen, device=o.device).to(
+            o.dtype) for o in outs]
+        ref = torch.autograd.grad(outs, ins, cots)
+    got = (msda._raw_pool_bwd(table, shapes, loc, aw, rest[0], *cots) if raw
+           else msda._msda_bwd(table, shapes, loc, aw, cots[0]))
+    tol_v = (1e-2, 1e-5) if table.dtype == torch.bfloat16 else (1e-4, 1e-5)
+
+    def scaled(r, floor):
+        return max(floor, 1e-5 * r.abs().max().item())
+
+    return max(err, grad_errors(torch, f"phase P {kernel} backward", [
+        ("dtable", got[0], ref[0], *tol_v),
+        ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
+        ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5))]))
+
+
+def p_check_calls(torch, msda, calls, grads):
+    """{kernel: largest error} over the first recorded call of each
+    (kernel, query count, levels), held to its plain version."""
+    seen, errs = set(), {}
+    if DEVICE == "cpu":  # a CPU rehearsal: no kernel ran
+        return errs
+    for kernel, args in calls:
+        key = (kernel, args[2].shape[1], tuple(args[1]))
+        if key in seen:
+            continue
+        seen.add(key)
+        errs[kernel] = max(errs.get(kernel, 0.0),
+                           p_call_errors(torch, msda, kernel, args, grads))
+    return errs
+
+
+def p_counters(msda, names):
+    table = {
+        "msda_fwd": (msda.ms_deform_attn, "launches"),
+        "msda_bwd": (msda.ms_deform_attn, "bwd_launches"),
+        "msda_raw_pool_fwd": (msda.ms_deform_attn_raw_pool, "launches"),
+        "msda_raw_pool_bwd": (msda.ms_deform_attn_raw_pool, "bwd_launches"),
+        "msda_raw_pool_fwd_i8": (msda.ms_deform_attn_raw_pool, "i8_launches"),
+    }
+    return {k: table[k] for k in names}
+
+
+def p_train_timing(torch, msda, n_model):
+    """Phase 7's bf16 remat step of the flagship at TRAIN_HW (one image and
+    its previous frame), tensor parallel over the group with ``n_model`` >
+    1: median ms a step over P_TIMED_STEPS after one warm-up step, the
+    kernels' launches over those steps, and one step's recorded MSDA calls
+    held to their plain versions, forward and backward."""
+    from kinet_tpu_torch.engine.state import Optimizer
+    from kinet_tpu_torch.engine.train_step import make_train_step
+    from kinet_tpu_torch.models.build import build_criterion, build_model
+    from kinet_tpu_torch.parallel import mesh as pmesh, tp
+
+    cfg = p_cfg(compute_dtype="bfloat16", remat=True, dropout=0.1)
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    model, _ = build_model(cfg, device=DEVICE, seed=5)
+    if n_model > 1:
+        tp.shard_params_tp(model, pmesh.make_mesh(1, n_model))
+    model.train()
+    step = make_train_step(model, build_criterion(cfg), Optimizer(model, cfg),
+                           cfg)
+    frames = train_frames(torch, 6, *TRAIN_HW, TRAIN_OBJECTS, t_slots, hidden,
+                          DEVICE)
+    float(step(*frames)["loss"])
+    counters = p_counters(msda, TRAIN_LAUNCHES)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    times, losses = [], []
+    for _ in range(P_TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*frames)["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    calls = record_forward_calls(torch, lambda: step(*frames))
+    errs = p_check_calls(torch, msda, calls, grads=True)
+    del model, step, frames, calls
+    torch.cuda.empty_cache()
+    return dict(ms=statistics.median(times), times=times, losses=losses,
+                launches=launches, errors=errs)
+
+
+def p_served(torch, cfg, thresh, frames, group=None):
+    """The flagship served (seed 1, class heads biased to class 0, in the
+    config's compute dtype) over ``frames`` through a Tracker, spatially
+    parallel over ``group``: (results, host ms of each frame)."""
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.tracking.tracker import Tracker
+
+    model, post = build_model(cfg, seed=1, device=DEVICE)
+    bias_to_person(torch, model, cfg)
+    if cfg.compute_dtype == "bfloat16":
+        model.to(torch.bfloat16)
+    tracker = Tracker(model, post["bbox"], served_tracker_cfg(thresh),
+                      **tracker_kwargs(cfg), spatial_group=group)
+    times, _ = timed_frames(torch, tracker, frames)
+    return tracker, times
+
+
+def p_tp_child(torch, root):
+    """One of the 2 processes of tensor-parallel training: S_STEPS f32
+    steps of both images at S_HW; then, once the parent says so, the bf16
+    timing and the kernels on this path's calls."""
+    from kinet_tpu_torch.ops import msda
+
+    torch.backends.cudnn.deterministic = True  # as the parent's reference
+    f32 = s_train_steps(torch, 0, 1, n_model=2)
+    torch.cuda.empty_cache()
+    f64 = p_f64_grads(torch, 2)
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    (root / f"p_tp_ready{torch.distributed.get_rank()}").touch()
+    wait_for(root / "p_go_tp")
+    return dict(f32=f32, f64=f64, bf16=p_train_timing(torch, msda, 2))
+
+
+def p_f64_grads(torch, n_model):
+    """Step 0's gradient (gathered whole) of image 0 in f64 with the plain
+    MSDA versions, tensor parallel with ``n_model`` > 1: the witness that
+    the f32 gap is rounding (in f64 no rounding moves a sample across a
+    pixel edge, and every algorithm's sums agree to ~1e-15)."""
+    return s_train_steps(torch, 0, 1, steps=1, dtype=torch.float64,
+                         n_model=n_model, images=[0])[2]
+
+
+def p_sp_child(torch, root):
+    """One of the 2 processes of spatially parallel serving: the f32
+    session; then, once the parent says so, the served config's bf16
+    session timed, its launches, and one frame's MSDA calls held to their
+    plain versions."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from kinet_tpu_torch.ops import msda
+
+    group = tdist.group.WORLD
+    thresh = json.loads((root / "p_thresh.json").read_text())
+    frames = list(moving_boxes(np, *MAIN_HW, P_FRAMES + 1))
+    tracker, _ = p_served(torch, p_cfg(compute_dtype="float32"),
+                          thresh["f32"], frames[:P_FRAMES], group)
+    f32 = tracker.get_results()
+    del tracker
+    torch.cuda.empty_cache()
+    (root / f"p_sp_ready{tdist.get_rank()}").touch()
+    wait_for(root / "p_go_sp")
+    return dict(f32=f32, bf16=p_serve_timing(torch, msda, thresh["bf16"],
+                                             frames, group))
+
+
+def p_serve_cfg():
+    return p_cfg(dec_msda_int8=True, allow_lossy=True)
+
+
+def p_serve_timing(torch, msda, thresh, frames, group=None):
+    """The served config (bf16, dec_msda_int8) over P_FRAMES frames:
+    median ms a frame after P_WARMUP, launches, and one more frame's
+    recorded MSDA calls (this process's own encoder queries) held to their
+    plain versions."""
+    counters = p_counters(msda, ("msda_fwd", "msda_raw_pool_fwd_i8"))
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    tracker, times = p_served(torch, p_serve_cfg(), thresh, frames[:P_FRAMES],
+                              group)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    calls = record_forward_calls(torch,
+                                 lambda: tracker.step(frames[P_FRAMES]))
+    errs = p_check_calls(torch, msda, calls, grads=False)
+    queries = sorted({args[2].shape[1] for k, args in calls
+                      if k == "msda_fwd"})
+    n_results = sum(len(f) for f in tracker.get_results().values())
+    del tracker, calls
+    torch.cuda.empty_cache()
+    return dict(ms=statistics.median(times[P_WARMUP:]), times=times,
+                launches=launches, errors=errs, queries=queries,
+                results=n_results)
+
+
+def phase_parallel(torch, msda, root: Path, whole=None):
+    """Phase P: (a) S_STEPS f32 flagship steps at S_HW in 2 gloo processes
+    at mesh.model 2 against 1 process on the same two images; bf16 ms a
+    step at TRAIN_HW for TP=2 and TP=1 (no scaling claimed); each kernel
+    of the path counted and held to its plain version on the path's own
+    calls. (b) an f32 Tracker session at MAIN_HW spatially parallel over 2
+    gloo processes against 1 process: the same tracks, boxes within
+    P_BOX_PX; the served config's bf16 ms a frame for SP=2 and 1; msda_fwd
+    on one process's own queries and the int8 decoder kernel held to
+    their plain versions. The correctness parts run at once; the timed
+    parts one after another. ``whole``: phase S's 1-process f32 steps on
+    both images (the same steps; computed here without it). Returns
+    ({kernel: launches a step or frame on the TP / SP path}, {kernel:
+    largest error}, {name: ms}, {part: seconds})."""
+    import numpy as np
+
+    frames = list(moving_boxes(np, *MAIN_HW, P_FRAMES + 1))
+    settings = dict(DEVICE=DEVICE, S_OVERRIDES=S_OVERRIDES, S_HW=S_HW,
+                    S_OBJECTS=S_OBJECTS, MAIN_HW=MAIN_HW, TRAIN_HW=TRAIN_HW,
+                    TRAIN_OBJECTS=TRAIN_OBJECTS, P_FRAMES=P_FRAMES,
+                    P_TIMED_STEPS=P_TIMED_STEPS, P_WARMUP=P_WARMUP)
+    # the tracker thresholds, between two calibration candidates, so that
+    # rounding moves no score across them
+    thresh = {}
+    for key, cfg in (("f32", p_cfg(compute_dtype="float32")),
+                     ("bf16", p_serve_cfg())):
+        from kinet_tpu_torch.models.build import build_model
+
+        model, post = build_model(cfg, seed=1, device=DEVICE)
+        bias_to_person(torch, model, cfg)
+        if key == "bf16":
+            model.to(torch.bfloat16)
+        cand = class0_scores(torch, model, post["bbox"], frames[0],
+                             int(cfg.max_track_queries))
+        check(cand.numel() > 8, f"{cand.numel()} class-0 candidates")
+        thresh[key] = 0.5 * (cand[7].item() + cand[8].item())
+        del model
+    torch.cuda.empty_cache()
+    (root / "p_thresh.json").write_text(json.dumps(thresh))
+    times = {}
+    with Children(root) as kids:
+        t0 = time.perf_counter()
+        for part in ("tp", "sp"):
+            for r in range(2):
+                kids.start(f"p_{part}{r}", [
+                    sys.executable, "-c", P_RUNNER, part, str(r), "2",
+                    f"file://{root}/rdv_p_{part}", str(root),
+                    json.dumps(settings)])
+        # the 1-process references meanwhile
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            if whole is None:
+                whole = s_train_steps(torch, 0, 1)
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            whole64 = p_f64_grads(torch, 1)
+            f64_gib = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        tracker, _ = p_served(torch, p_cfg(compute_dtype="float32"),
+                              thresh["f32"], frames[:P_FRAMES])
+        ref = tracker.get_results()
+        del tracker
+        torch.cuda.empty_cache()
+        for part in ("tp", "sp"):
+            for r in range(2):
+                wait_for(root / f"p_{part}_ready{r}", kids)
+        times["correctness"] = time.perf_counter() - t0
+        # the timed parts, one at a time
+        (root / "p_go_tp").touch()
+        for r in range(2):
+            kids.wait(f"p_tp{r}")
+        (root / "p_go_sp").touch()
+        for r in range(2):
+            kids.wait(f"p_sp{r}")
+        tp2 = [torch.load(root / f"p_tp{r}.pt", weights_only=False)
+               for r in range(2)]
+        sp2 = [torch.load(root / f"p_sp{r}.pt", weights_only=False)
+               for r in range(2)]
+        times["children"] = time.perf_counter() - t0
+    one_train = p_train_timing(torch, msda, 1)
+    one_serve = p_serve_timing(torch, msda, thresh["bf16"], frames)
+    times["one_process"] = time.perf_counter() - t0
+
+    def rel_gap(a, b):
+        gap = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(a[k] - g) for k, g in b.items()]))
+        size = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(g) for g in b.values()]))
+        return (gap / size).item()
+
+    # (a) TP=2 against 1 process on the same images, f32, and the f64
+    # witness; every reading logged before the checks
+    failures = []
+    for r, got in enumerate(tp2):
+        losses, params, grads = got["f32"]
+        rel = {(s, k): abs(losses[s][k] - v) / abs(v)
+               for s, row in enumerate(whole[0]) for k, v in row.items() if v}
+        worst = max(rel, key=rel.get)
+        worst0 = max(v for (t, _), v in rel.items() if t == 0)
+        grad_rel = rel_gap(grads, whole[2])
+        beyond = {k: ((params[k] - p).abs() - P_PARAM_RTOL * p.abs()).max()
+                  .item() for k, p in whole[1].items()}
+        worst_p = max(beyond, key=beyond.get)
+        rel64 = rel_gap(got["f64"], whole64)
+        log(f"  (a) TP=2 process {r} vs 1 process, {S_STEPS} f32 steps at "
+            f"{S_HW[0]}x{S_HW[1]} on both images: losses within rel "
+            f"{rel[worst]:.3e} (step {worst[0]} {worst[1]}; bound "
+            f"{P_LOSS_RTOL}); by step: " + ", ".join(
+                f"{max(v for (t, _), v in rel.items() if t == s):.2e}"
+                for s in range(S_STEPS))
+            + f" (bounds: step 0 {P_LOSS0_RTOL}, later {P_LOSS_RTOL}); "
+            f"parameters beyond rtol {P_PARAM_RTOL} by at most "
+            f"{beyond[worst_p]:.3e} ({worst_p}; bound {P_PARAM_ATOL:.0e}); "
+            f"step 0's gathered gradient |difference| / |gradient| "
+            f"{grad_rel:.3e} (bound {P_GRAD_REL}); f64 witness (image 0, "
+            f"plain MSDA) {rel64:.3e} (bound 1e-6; peak {f64_gib:.1f} GiB "
+            f"in 1 process)")
+        if worst0 > P_LOSS0_RTOL or rel[worst] > P_LOSS_RTOL:
+            failures.append(f"TP=2 process {r}'s losses: step 0 "
+                            f"{worst0:.3g}, worst {rel[worst]:.3g} rel")
+        if grad_rel > P_GRAD_REL:
+            failures.append(f"TP=2 process {r}'s step-0 gradient "
+                            f"{grad_rel:.3g}")
+        if beyond[worst_p] > P_PARAM_ATOL:
+            failures.append(f"TP=2 process {r}'s {worst_p} beyond rtol "
+                            f"{P_PARAM_RTOL} by {beyond[worst_p]:.3g}")
+        if rel64 > 1e-6:
+            failures.append(f"TP=2 process {r}'s f64 gradient {rel64:.3g}")
+        if not all(torch.equal(params[k], tp2[1 - r]["f32"][1][k])
+                   for k in params):
+            failures.append("the TP ranks' parameters differ")
+    # (b) SP=2 against 1 process, f32
+    n_boxes = sum(len(f) for f in ref.values())
+    for r, got in enumerate(sp2):
+        diff = same_results(np, got["f32"], ref, atol=P_BOX_PX)
+        log(f"  (b) SP=2 process {r}, f32 session at {MAIN_HW[0]}x"
+            f"{MAIN_HW[1]}, {P_FRAMES} frames, vs 1 process ({len(ref)} "
+            f"tracks, {n_boxes} boxes): "
+            + (f"the same ids and frames, boxes within "
+               f"{box_gap(np, got['f32'], ref):.3g} px (bound {P_BOX_PX})"
+               if diff is None else diff))
+        if diff is not None:
+            failures.append(f"SP process {r}'s f32 session: {diff}")
+    if n_boxes == 0:
+        failures.append("the f32 session tracked nothing")
+
+    tp_b, sp_b = tp2[0]["bf16"], sp2[0]["bf16"]
+    for name, runs, n in (("TP", [t["bf16"] for t in tp2] + [one_train],
+                           P_TIMED_STEPS),
+                          ("SP", [t["bf16"] for t in sp2] + [one_serve],
+                           P_FRAMES)):
+        for i, run in enumerate(runs):
+            who = f"process {i} of 2" if i < 2 else "1 process"
+            log(f"  {name} {who}: launches {run['launches']} over {n}; "
+                f"max abs err vs plain {run['errors']}")
+        for k, c in runs[0]["launches"].items():
+            want = (TRAIN_LAUNCHES[k] * P_TIMED_STEPS if name == "TP"
+                    else 6 * P_FRAMES)
+            got = [run["launches"][k] for run in runs]
+            check(got == [want] * 3, f"{name}: {k} launched {got} times "
+                  f"(2 processes, 1 process), expected {want}")
+    check(sp_b["queries"] and max(sp_b["queries"]) < max(
+        one_serve["queries"]), f"the SP encoder's queries {sp_b['queries']} "
+        f"vs 1 process {one_serve['queries']}")
+
+    log(f"  SP encoder msda_fwd query counts, process 0: {sp_b['queries']} "
+        f"(1 process: {one_serve['queries']}); process 1: "
+        f"{sp2[1]['bf16']['queries']}")
+    ms = {"tp2_step": tp_b["ms"], "tp1_step": one_train["ms"],
+          "sp2_frame": sp_b["ms"], "sp1_frame": one_serve["ms"]}
+    log(f"  bf16 ms a train step at {TRAIN_HW[0]}x{TRAIN_HW[1]}: TP=2 (2 gloo "
+        f"processes sharing the card) {tp_b['ms']:.1f} "
+        f"({' '.join(f'{t:.1f}' for t in tp_b['times'])}), 1 process "
+        f"{one_train['ms']:.1f}; served bf16 ms a frame at "
+        f"{MAIN_HW[0]}x{MAIN_HW[1]}: SP=2 {sp_b['ms']:.3f}, 1 process "
+        f"{one_serve['ms']:.3f} (readings, no scaling claimed: one card)")
+    check(not failures, "; ".join(failures))
+    launches = {k: n / P_TIMED_STEPS for k, n in tp_b["launches"].items()}
+    launches.update({f"{k} (SP)": n / P_FRAMES
+                     for k, n in sp_b["launches"].items()})
+    errs = {}
+    for run in (tp2[0]["bf16"], tp2[1]["bf16"], sp2[0]["bf16"],
+                sp2[1]["bf16"]):
+        for k, e in run["errors"].items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    return launches, errs, ms, times
 
 
 # ---------------------------------------------------------------------------
@@ -4516,7 +5022,7 @@ KERNEL_META = {
                         "kinet_tpu/ops/msda.py:1149"),
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
-          "V", "B", "S")
+          "V", "B", "S", "P")
 
 
 def main(argv=None) -> int:
@@ -4680,7 +5186,9 @@ def main(argv=None) -> int:
                 "Tracker.step")
             phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
-    shared = tempfile.TemporaryDirectory()  # phase B's CLI runs, reused by S
+    # phase B's CLI runs, reused by S; S's 1-process steps, reused by P
+    shared = tempfile.TemporaryDirectory()
+    s_whole = None
     try:
         if "B" in phases:
             log(f"== B. batched serving: BatchedTracker on the served config "
@@ -4713,12 +5221,34 @@ def main(argv=None) -> int:
                 "processes, tools/launch.py in a world-1 NCCL group, 2 gloo "
                 "train processes, preemption and requeue")
             t0 = time.perf_counter()
-            times = phase_processes(torch, Path(shared.name))
+            times, s_whole = phase_processes(torch, Path(shared.name))
             log(f"  phase S in {time.perf_counter() - t0:.1f} s "
                 f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items())}); "
                 f"on {smi}")
+        if "P" in phases:
+            log(f"== P. the parallel package in 2 gloo processes on the one "
+                f"card: tensor-parallel training (mesh.model 2; {S_STEPS} f32 "
+                f"steps at {S_HW[0]}x{S_HW[1]}, bf16 steps at "
+                f"{TRAIN_HW[0]}x{TRAIN_HW[1]}) and spatially parallel serving "
+                f"(spatial_parallel 2, {MAIN_HW[0]}x{MAIN_HW[1]}), each "
+                f"against 1 process")
+            t0 = time.perf_counter()
+            p_launches, p_errs, p_ms, times = phase_parallel(
+                torch, msda, Path(shared.name), s_whole)
+            for k, n in p_launches.items():
+                if k.endswith(" (SP)"):
+                    summary.setdefault(k[:-5], {})["sp_launches"] = n
+                else:
+                    summary.setdefault(k, {})["tp_launches"] = n
+            for k, e in p_errs.items():
+                summary.setdefault(k, {})["parallel_max_abs_err"] = e
+            log(f"  {json.dumps(p_ms)}; phase P in "
+                f"{time.perf_counter() - t0:.1f} s ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+                + f"); on {smi}")
     finally:
         shared.cleanup()
+    log(f"  seconds by phase: {phase_seconds()}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log("  (a subset of the phases: no result line)")
@@ -4737,7 +5267,8 @@ def main(argv=None) -> int:
                         "fwd_ms", "cold_ms", "library_cold_ms",
                         "eval_launches", "mots_launches", "grad_max_abs_err",
                         "batched_launches", "batched_replay_ms",
-                        "batched_bound_ms")
+                        "batched_bound_ms", "tp_launches", "sp_launches",
+                        "parallel_max_abs_err")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

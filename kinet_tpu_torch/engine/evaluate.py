@@ -17,11 +17,15 @@ KineT configs batch with ``collate_kine`` and run the model on the
 detections with empty track slots (the reference zero-fills them at
 evaluation); the tracking eval then runs the kinematic tracker.
 
-Over several processes (``utils/dist.py``) each process evaluates every
-world-th image from its rank and the evaluator merges the prediction
-shards (``CocoEvaluator.synchronize_between_processes``), so every process
-scores the whole val set; the tracking eval splits the sequences the same
-way.
+Over several processes (``utils/dist.py``) each data group of the
+model's mesh (``parallel/mesh.py``; every process is its own data group
+without tensor parallelism) evaluates every data_world-th image from its
+data_rank, and the evaluator merges the prediction shards
+(``CocoEvaluator.synchronize_between_processes``; the ranks of a model
+group give the same predictions), so every process scores the whole val
+set; the tracking eval splits the sequences the same way. Every rank of a
+model group steps the same images: the tensor-parallel forward's
+collectives need all of them.
 
 Returns {"coco_eval_bbox": the 12 COCO stats, "mota"?, "idf1"?}. The
 model is left in the mode, and on the device, it had. Runs on the card
@@ -34,7 +38,7 @@ import torch
 from ..config import load_config
 from ..data.loader import DataLoader, RandomSampler
 from ..models.build import resolve_device
-from ..utils import dist
+from ..parallel.mesh import mesh_of
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.logging import MetricLogger
 from . import track
@@ -45,12 +49,13 @@ def evaluate(model, criterion, postprocessors, dataset_val, cfg, device=None):
     device = resolve_device(device)
     kine = bool(cfg.get("kine", False))
     n_track = int(cfg.max_track_queries) if cfg.tracking else 0
+    mesh = mesh_of(model)
     loader = DataLoader(
         dataset_val,
         batch_size=int(cfg.batch_size),
-        # each process its shard (reference engine.py:259-264)
-        sampler=RandomSampler(dataset_val, rank=dist.get_rank(),
-                              world_size=dist.get_world_size(), seed=0),
+        # each data group its shard (reference engine.py:259-264)
+        sampler=RandomSampler(dataset_val, rank=mesh.data_rank,
+                              world_size=mesh.data_world, seed=0),
         buckets=cfg.size_buckets,
         max_objects=int(cfg.max_objects),
         num_track_queries=n_track,

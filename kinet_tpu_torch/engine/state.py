@@ -20,13 +20,24 @@ gradients are clipped to global norm ``clip_max_norm`` as
 clipping is chained before the group split, the norm counts the gradients
 of the frozen tensors too (upstream TrackFormer gives frozen tensors no
 gradient, so its norm leaves them out).
+
+Under tensor parallelism (``parallel/tp.py``; build the optimizer after
+``shard_params_tp``) the AdamW moments of a sharded parameter are shards
+too. The global norm counts each sharded parameter once, by its squared
+shard norms summed over the model group, and each replicated parameter
+once. ``state_dict`` holds the whole moments, gathered over the model
+group, and ``load_state_dict`` takes whole moments and keeps the rank's
+shards, so a checkpoint resumes on any number of model shards.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import mesh_of
+from ..parallel.tp import _shard, sharded_dims
 from ..tools.from_jax import flax_path
+from ..utils.dist import all_gather_cat, all_reduce_sum, group_size
 
 GROUPS = ("base", "backbone", "linear_proj", "track")
 
@@ -75,6 +86,11 @@ class Optimizer:
         labels = param_labels(model, cfg)
         named = dict(model.named_parameters())
         self.params = list(named.values())
+        self.mesh = mesh_of(model)
+        dims = sharded_dims(model)
+        # {id(parameter): its shard dimension} of the sharded parameters
+        self.shard_dims = {id(p): dims[n] for n, p in named.items()
+                           if n in dims}
         self.clip_max_norm = float(cfg.clip_max_norm)
         self.drop_step = int(cfg.lr_drop) * int(steps_per_epoch)
         base_lr = {
@@ -104,9 +120,21 @@ class Optimizer:
         """optax.clip_by_global_norm over every gradient; returns the norm
         before clipping."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-        )
+        if self.shard_dims:
+            sq = [torch.linalg.vector_norm(p.grad.float()) ** 2
+                  for p in self.params if p.grad is not None]
+            split = [id(p) in self.shard_dims
+                     for p in self.params if p.grad is not None]
+            sharded = torch.stack([q for q, s in zip(sq, split) if s]).sum()
+            replicated = torch.stack([q for q, s in zip(sq, split)
+                                      if not s]).sum()
+            norm = torch.sqrt(all_reduce_sum(sharded, self.mesh.model_group)
+                              + replicated)
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float())
+                             for g in grads])
+            )
         if self.clip_max_norm > 0:
             scale = torch.where(norm < self.clip_max_norm,
                                 torch.ones_like(norm),
@@ -130,9 +158,29 @@ class Optimizer:
         self.num_updates += 1
         return norm
 
+    def _map_moments(self, adamw: dict, fn) -> dict:
+        """``adamw`` (a ``torch.optim`` state dict) with ``fn(moment, shard
+        dimension)`` applied to each moment of a sharded parameter."""
+        ordered = [p for g in self.opt.param_groups for p in g["params"]]
+        dims = {i: self.shard_dims[id(p)] for i, p in enumerate(ordered)
+                if id(p) in self.shard_dims}
+        if not dims:
+            return adamw
+        state = {i: {k: fn(v, dims[i]) if i in dims and k != "step" else v
+                     for k, v in st.items()}
+                 for i, st in adamw["state"].items()}
+        return {**adamw, "state": state}
+
     def state_dict(self) -> dict:
-        return {"adamw": self.opt.state_dict(), "num_updates": self.num_updates}
+        """The AdamW state with whole moments (collective under tensor
+        parallelism: every rank of the model group calls it)."""
+        group = self.mesh.model_group
+        adamw = self._map_moments(self.opt.state_dict(),
+                                  lambda v, d: all_gather_cat(v, d, group))
+        return {"adamw": adamw, "num_updates": self.num_updates}
 
     def load_state_dict(self, state: dict):
-        self.opt.load_state_dict(state["adamw"])
+        n, r = group_size(self.mesh.model_group), self.mesh.model_rank
+        self.opt.load_state_dict(self._map_moments(
+            state["adamw"], lambda v, d: _shard(v, d, n, r)))
         self.num_updates = int(state["num_updates"])

@@ -28,10 +28,20 @@ JAX package:
 - over several processes (an initialised ``torch.distributed`` group,
   ``utils/dist.py``) each process tracks every world-th sequence from its
   rank, and the metrics accumulators of all processes are gathered, so
-  each process prints the summary over every sequence.
+  each process prints the summary over every sequence; a tensor-parallel
+  live model (evaluation during training, ``parallel/tp.py``) splits the
+  sequences over its data groups, every rank of a model group tracking
+  the same ones, and only the first rank of each model group writes and
+  contributes its accumulators;
+- ``spatial_parallel: N`` > 1 (N must be the process count): every
+  process serves every frame of every sequence, each frame's rows split
+  over the N processes (``parallel/sp.py``), with the outputs replicated,
+  so each runs the same host state machine; rank 0 alone writes the
+  result files and prints the metrics. Not with ``batch_sequences`` > 1
+  nor a KineT model.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-``spatial_parallel > 1`` ("Scale-out"), ``write_images`` ("Host tools").
+Not ported yet, and raising NotImplementedError with its ROADMAP item:
+``write_images`` ("Host tools").
 """
 from __future__ import annotations
 
@@ -41,11 +51,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..config import Config, load_config, load_saved_config, parse_cli_overrides
 from ..data.sequences import TrackDatasetFactory
 from ..models.build import build_model, kine_dims, not_ported, resolve_device
 from ..models.postprocess import build_postprocessors
+from ..parallel.mesh import mesh_of
 from ..tracking.batched import (
     BatchedTracker,
     BatchedTrackerKinematic,
@@ -198,8 +210,7 @@ def main_track(cfg, obj_detector_model=None):
     np.random.seed(seed)
     device = resolve_device(cfg.get("device"))
 
-    if int(cfg.get("spatial_parallel", 0)) > 1:
-        not_ported("spatial_parallel > 1", "Scale-out")
+    _spatial_processes(cfg)
     if cfg.get("write_images", False):
         not_ported("write_images (utils/vis.py::plot_sequence)", "Host tools")
 
@@ -223,6 +234,26 @@ def main_track(cfg, obj_detector_model=None):
         return _track_sequences(cfg, model, train_cfg, gen_attn)
     finally:
         model.to(where).train(mode)
+
+
+def _spatial_processes(cfg, train_cfg=None) -> int:
+    """``spatial_parallel`` (0 or 1: off), checked against the run: the
+    process count, ``batch_sequences`` and, given its train config, the
+    model (JAX ``engine/track.py:205-231``)."""
+    n = int(cfg.get("spatial_parallel", 0))
+    if n <= 1:
+        return 1
+    if n != dist.get_world_size():
+        raise ValueError(f"spatial_parallel {n} needs {n} processes, the "
+                         f"group has {dist.get_world_size()}")
+    if int(cfg.get("batch_sequences", 1)) > 1:
+        raise ValueError("spatial_parallel and batch_sequences > 1 are "
+                         "mutually exclusive serving modes")
+    if cfg.get("kinet", False) or (train_cfg is not None
+                                   and train_cfg.get("kine", False)):
+        raise ValueError("spatial_parallel splits image rows; a KineT model "
+                         "reads no image")
+    return n
 
 
 def _kine_blob(blob: dict, max_det: int) -> dict:
@@ -260,9 +291,11 @@ def _tracker_cfg(cfg) -> dict:
     return tracker_cfg
 
 
-def _make_tracker(cfg, model, train_cfg, gen_attn, n_sequences=None):
+def _make_tracker(cfg, model, train_cfg, gen_attn, n_sequences=None,
+                  spatial_group=None):
     """The config's tracker, or with ``n_sequences`` its batched tracker
-    over that many sequences."""
+    over that many sequences; ``spatial_group``: the spatially parallel
+    forward's group."""
     post = build_postprocessors(train_cfg)["bbox"]
     common = dict(
         num_object_queries=int(train_cfg.num_queries),
@@ -275,16 +308,19 @@ def _make_tracker(cfg, model, train_cfg, gen_attn, n_sequences=None):
         cls = TrackerKinematic if n_sequences is None else BatchedTrackerKinematic
         return cls(model, post, _tracker_cfg(cfg), trail_len=trail_len,
                    trail_enc_dim=enc, meta_dim=meta_dim, **common, **batched)
+    if spatial_group is not None:
+        batched["spatial_group"] = spatial_group
     cls = Tracker if n_sequences is None else BatchedTracker
     return cls(model, post, _tracker_cfg(cfg),
                hidden_dim=int(train_cfg.hidden_dim),
                generate_attention_maps=gen_attn, **common, **batched)
 
 
-def _write_and_score(cfg, seq, results, num_reids, accums, accum_names):
+def _write_and_score(cfg, seq, results, num_reids, accums, accum_names,
+                     write=True):
     if cfg.get("interpolate", False):
         results = interpolate_tracks(results)
-    if cfg.output_dir:
+    if cfg.output_dir and write:
         seq.write_results(
             results, osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
         )
@@ -302,11 +338,19 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
         root_dir=cfg.data_root_dir,
         img_transform=train_cfg.img_transform,
     )
-    # over several processes each tracks every world-th sequence; the
-    # accumulators are gathered below (reference engine.py:291-304,
-    # 333-344)
-    world, rank = dist.get_world_size(), dist.get_rank()
-    seqs = list(dataset)[rank::world]
+    # over several processes each data group tracks every data_world-th
+    # sequence; the accumulators are gathered below (reference
+    # engine.py:291-304, 333-344). Spatially parallel: every process serves
+    # every sequence, and rank 0 writes.
+    world = dist.get_world_size()
+    spatial = _spatial_processes(cfg, train_cfg) > 1
+    mesh = mesh_of(model)
+    seqs = list(dataset)
+    if not spatial:
+        seqs = seqs[mesh.data_rank::mesh.data_world]
+    # the first rank of each model group writes and scores; with spatial
+    # parallelism rank 0
+    lead = dist.is_main_process() if spatial else mesh.model_rank == 0
 
     time_total = 0.0
     num_frames = 0
@@ -317,7 +361,10 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             cfg, model, train_cfg, gen_attn, seqs, batch_n, accums,
             accum_names)
         seqs = []
-    tracker = _make_tracker(cfg, model, train_cfg, gen_attn) if seqs else None
+    spatial_group = tdist.group.WORLD if spatial else None
+    tracker = (_make_tracker(cfg, model, train_cfg, gen_attn,
+                             spatial_group=spatial_group)
+               if seqs else None)
     for seq in seqs:
         tracker.reset()
         print(f"TRACK SEQ: {seq}", flush=True)
@@ -339,7 +386,7 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             results = tracker.get_results()
         time_total += time.time() - t0
         _write_and_score(cfg, seq, results, tracker.num_reids, accums,
-                         accum_names)
+                         accum_names, write=lead)
 
     if num_frames:
         print(
@@ -348,13 +395,15 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             f"({num_frames / max(time_total, 1e-9):.2f} Hz)",
             flush=True,
         )
-    if world > 1:
-        gathered = dist.all_gather_objects((accums, accum_names))
+    if world > 1 and not spatial:
+        gathered = dist.all_gather_objects(
+            (accums, accum_names) if lead else ([], []))
         accums = [a for accs, _ in gathered for a in accs]
         accum_names = [n for _, names in gathered for n in names]
     if accums:
         summary = evaluate_mot_accums(accums, accum_names)
-        print(format_summary(summary), flush=True)
+        if lead:
+            print(format_summary(summary), flush=True)
         return summary
     return None
 
@@ -413,7 +462,8 @@ def _track_batched(cfg, model, train_cfg, gen_attn, seqs, batch_n, accums,
             for i, seq in enumerate(chunk):
                 _write_and_score(cfg, seq, batched.get_results(i),
                                  batched.trackers[i].num_reids, accums,
-                                 accum_names)
+                                 accum_names,
+                                 write=mesh_of(model).model_rank == 0)
     return time_total, num_frames
 
 

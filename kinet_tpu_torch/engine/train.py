@@ -28,16 +28,22 @@ and step with ``make_kine_train_step``.
 Runs on the card (``device=None``); ``train(cfg, device="cpu")`` runs on
 the CPU.
 
-Data parallel over processes: under an initialised ``torch.distributed``
-group (``tools/launch.py`` starts one process per card) every process
-loads ``batch_size`` samples of its own shard (the samplers take the rank
-and the world size), seeds ``np.random`` with ``seed + rank`` and steps on
-its samples; the step averages the gradients over the processes
-(``engine/train_step.py``), so all apply the same update. ``mesh.data``
-is the number of processes (-1: every process of the group). Only rank 0
+Over processes (``tools/launch.py`` starts one per card) the run lays the
+("data", "model") mesh of ``parallel/mesh.py`` over the group: ``mesh.data``
+x ``mesh.model`` must be the process count (``mesh.data`` -1: every
+process over ``mesh.model``). Each model group (``mesh.model`` consecutive
+ranks) holds one tensor-parallel model (``parallel/tp.py``: the sharded
+modules are swapped in before the optimizer is built, so the AdamW
+moments are shards too) and steps the same samples: the samplers shard
+the data by (data_rank, data_world), and ``np.random`` is seeded with
+``seed + data_rank``, so every rank of a model group augments the same
+samples; the dropout generator is seeded alike on every rank, so the
+replicated activations get identical masks. The step averages the
+gradients over the data group (``engine/train_step.py``), so all apply
+the same update. With ``mesh.model`` 1 this is plain data parallelism.
+Checkpoints hold whole tensors (``utils/checkpoint.py``); only rank 0
 writes the config, the checkpoints, the metrics and the curves, and only
-rank 0 prints. A tensor-parallel mesh (``mesh.model > 1``) is not ported
-yet and raises NotImplementedError naming its ROADMAP item.
+rank 0 prints.
 
 Preemption: once a step, the loop polls ``utils/preempt.py``'s flag (on
 any process: the flag is reduced over the group); when it is up, rank 0
@@ -59,12 +65,9 @@ import torch
 from ..config import load_config, parse_cli_overrides, save_config
 from ..data.builder import build_dataset
 from ..data.loader import DataLoader, RandomSampler, WeightedRandomSampler
-from ..models.build import (
-    build_criterion,
-    build_model,
-    not_ported,
-    resolve_device,
-)
+from ..models.build import build_criterion, build_model, resolve_device
+from ..parallel.mesh import make_mesh
+from ..parallel.tp import shard_params_tp
 from ..utils import dist, preempt
 from ..utils.checkpoint import CheckpointManager, load_for_resume
 from ..utils.logging import MetricLogger
@@ -72,16 +75,6 @@ from ..utils.vis import build_visualizers
 from .evaluate import evaluate
 from .state import Optimizer
 from .train_step import kine_collate, make_kine_train_step, make_train_step
-
-
-def _check_supported(cfg):
-    if int(cfg.mesh.model) > 1:
-        not_ported(f"tensor parallel (mesh.model {int(cfg.mesh.model)})",
-                   "Scale-out, 10c")
-    n_data, world = int(cfg.mesh.data), dist.get_world_size()
-    if n_data not in (-1, world):
-        raise ValueError(f"mesh.data {n_data}, but the process group has "
-                         f"{world} processes")
 
 
 def _preempted() -> bool:
@@ -97,21 +90,22 @@ def to_device(x, device):
 def train(cfg, device=None):
     """Trains as the config says; returns (model, optimizer, step)."""
     device = resolve_device(device)
-    _check_supported(cfg)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    main = rank == 0
+    mesh = make_mesh(int(cfg.mesh.data), int(cfg.mesh.model))
+    main = dist.is_main_process()
     dist.setup_for_distributed(main)
     if cfg.output_dir and main:
         save_config(cfg, cfg.output_dir)
     seed = int(cfg.seed)
-    np.random.seed(seed + rank)  # the datasets' augmentation base seed
+    # the datasets' augmentation base seed: one per model group
+    np.random.seed(seed + mesh.data_rank)
 
     model, postprocessors = build_model(cfg, device=device, seed=seed)
+    shard_params_tp(model, mesh)
     criterion = build_criterion(cfg)
     dataset = build_dataset("train", cfg)
     sampler = (WeightedRandomSampler if hasattr(dataset, "sample_weight")
-               else RandomSampler)(dataset, rank=rank, world_size=world,
-                                   seed=seed)
+               else RandomSampler)(dataset, rank=mesh.data_rank,
+                                   world_size=mesh.data_world, seed=seed)
     loader = DataLoader(
         dataset, batch_size=int(cfg.batch_size), sampler=sampler,
         buckets=cfg.size_buckets, max_objects=int(cfg.max_objects),
@@ -131,8 +125,10 @@ def train(cfg, device=None):
         model, criterion, optimizer, cfg,
         generator=torch.Generator().manual_seed(seed),
     )
+    # every rank saves (the tensor-parallel gathers are collective); rank 0
+    # alone writes
     ckpt = (CheckpointManager(cfg.output_dir, int(cfg.save_model_interval))
-            if cfg.output_dir and main else None)
+            if cfg.output_dir else None)
     visualizers = build_visualizers(cfg) if main else {"train": {}}
     iter_vis = visualizers["train"].get("iter_metrics")
     epoch_vis = visualizers["train"].get("epoch_metrics")

@@ -18,7 +18,9 @@ the processes, and once the backward pass has run the gradients are
 all-reduced to their mean over the processes (``all_reduce_grads``)
 before the optimizer clips them, so every process applies the same
 update, the one of the whole batch, as the JAX package's data-parallel
-step does. ``DistributedDataParallel`` would not see this step: the
+step does. Under a tensor-parallel mesh (``parallel/``) the mean is over
+the optimizer's data group only: the ranks of a model group step the
+same samples and hold different shards. ``DistributedDataParallel`` would not see this step: the
 forward runs through ``functional_call`` on cast copies of the parameters,
 which bypasses ``DistributedDataParallel.forward``, so its reducer would
 never be prepared. In a run of one process nothing is reduced.
@@ -41,6 +43,14 @@ from ..structs import ImageBatch, KineBatch, Targets
 from ..tracking.kine_augment import add_kine_track_queries, kine_track_embed_dims
 from ..tracking.train_augment import tracking_train_forward
 from ..utils.dist import all_reduce_grads
+
+
+def _reduce_grads(optimizer):
+    """The gradients' mean over the optimizer's data group (every process
+    for an optimizer without a mesh)."""
+    mesh = getattr(optimizer, "mesh", None)
+    all_reduce_grads(optimizer.params,
+                     group="all" if mesh is None else mesh.data_group)
 
 
 def make_train_step(model, criterion, optimizer, cfg, generator=None):
@@ -92,7 +102,7 @@ def make_train_step(model, criterion, optimizer, cfg, generator=None):
         losses = criterion(out, aug_targets)
         total = criterion.total_loss(losses)
         total.backward()
-        all_reduce_grads(optimizer.params)
+        _reduce_grads(optimizer)
         grad_norm = optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = total.detach()
@@ -164,7 +174,7 @@ def make_kine_train_step(model, criterion, optimizer, cfg, generator=None):
         losses = criterion(out, aug)
         total = criterion.total_loss(losses)
         total.backward()
-        all_reduce_grads(optimizer.params)
+        _reduce_grads(optimizer)
         grad_norm = optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = total.detach()

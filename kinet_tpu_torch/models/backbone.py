@@ -92,12 +92,14 @@ class ResNet(nn.Module):
         self.bn1 = FrozenBatchNorm(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.blocks = []  # [(stage, module name)] in order
+        self.strides = []  # each stage's output stride
         in_ch = 64
         widths = (64, 128, 256, 512)
         for stage, (blocks, width) in enumerate(zip(stage_sizes, widths)):
             last = stage == len(stage_sizes) - 1
             dil = 2 if (dilation and last) else 1
             stride = 1 if stage == 0 or (dilation and last) else 2
+            self.strides.append((self.strides[-1] if stage else 4) * stride)
             for b in range(blocks):
                 name = f"layer{stage + 1}_{b}"
                 # DC5 (torchvision replace_stride_with_dilation): the FIRST
@@ -155,10 +157,24 @@ class Backbone(nn.Module):
         self.return_interm_layers = return_interm_layers
         self.trunk = ResNet(_STAGE_SIZES[name_arch], dilation=dilation)
 
-    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
-        """images [B, H, W, 3] -> (features [B, C, h, w] list, masks)."""
-        feats = self.trunk(images.permute(0, 3, 1, 2))
-        feats = feats[1:] if self.return_interm_layers else feats[-1:]
+    def select(self, levels: list) -> list:
+        """The levels this backbone returns of the trunk's [C2..C5]."""
+        return levels[1:] if self.return_interm_layers else levels[-1:]
+
+    @property
+    def strides(self) -> list:
+        return self.select(self.trunk.strides)
+
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor,
+                spatial=None):
+        """images [B, H, W, 3] -> (features [B, C, h, w] list, masks). With
+        ``spatial`` (``parallel/sp.py``) the trunk runs on this process's
+        rows and the features are all-gathered whole."""
+        if spatial is None:
+            feats = self.select(self.trunk(images.permute(0, 3, 1, 2)))
+        else:
+            feats = [spatial.gather(f, s) for f, s in
+                     zip(spatial.features(self, images), self.strides)]
         masks = [
             downsample_pad_mask(pad_mask, f.shape[-2:]) for f in feats
         ]
@@ -173,10 +189,8 @@ class BackboneWithMasksAll(Backbone):
     """All four levels C2..C5 (strides 4 to 32), for the mask head's FPN;
     ``num_channels`` stays that of C3..C5."""
 
-    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
-        feats = self.trunk(images.permute(0, 3, 1, 2))
-        return feats, [downsample_pad_mask(pad_mask, f.shape[-2:])
-                       for f in feats]
+    def select(self, levels: list) -> list:
+        return list(levels)
 
 
 class LayerBackboneFC(nn.Module):

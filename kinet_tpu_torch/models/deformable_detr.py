@@ -35,6 +35,11 @@
   Evaluation asks for them in eval mode too (``aux_outputs=True``), as
   the JAX model always gives them.
   Dropout draws from ``self.dropout_rng``.
+- ``spatial`` (``parallel/sp.py``, inference): the frame's rows split over
+  a process group; the trunk, the input projections (halo convolutions,
+  GroupNorm statistics reduced over the group) and the encoder run on
+  this process's rows, pad masks and position encodings whole; the memory
+  is gathered and the rest runs replicated.
 - ``masks``: the backbone gives all four levels C2..C5, the pyramid still
   uses C3..C5, and the output carries the four levels
   (``backbone_features``) and the flattened ``memory`` [B, S, D] (the
@@ -193,12 +198,22 @@ class DeformableDETR(nn.Module):
     def bbox_head(self, i):
         return getattr(self, f"bbox_embed{i}") if self.per_layer_heads else self.bbox_embed
 
-    def _project_levels(self, feats, pad_mask, merge_with=None):
+    def level_strides(self) -> list:
+        """The stride of each pyramid level: C3..C5's, then each extra
+        level twice the one before."""
+        out = list(self.backbone.trunk.strides[-3:])[:self.num_feature_levels]
+        while len(out) < self.num_feature_levels:
+            out.append(out[-1] * 2)
+        return out
+
+    def _project_levels(self, feats, pad_mask, merge_with=None, spatial=None):
         """Input projections + extra stride-64 level; masks per level. With
         ``merge_with`` (merge_frame_features) each level is merged with that
         level of it, and the next extra level is projected from the merged
-        one, as in the JAX package."""
+        one, as in the JAX package. With ``spatial`` the levels are this
+        process's rows (the masks whole)."""
         srcs, masks = [], []
+        strides = self.level_strides()
         for i in range(self.num_feature_levels):
             conv = getattr(self, f"input_proj{i}")
             gn = getattr(self, f"input_proj_gn{i}")
@@ -208,12 +223,18 @@ class DeformableDETR(nn.Module):
                 x = feats[-1]  # the extra stride-64 level, from C5
             else:
                 x = srcs[-1]
-            src = gn(conv(x))
+            if spatial is None:
+                src = gn(conv(x))
+                hw = src.shape[-2:]
+            else:
+                s_in = strides[i] if i < len(feats) else strides[i - 1]
+                src = spatial.group_norm(gn, spatial.conv(conv, x, s_in))
+                hw = (spatial.level_height(strides[i]), src.shape[-1])
             if merge_with is not None:
                 src = getattr(self, f"merge{i}")(
                     torch.cat([src, merge_with[i]], dim=1))
             srcs.append(src)
-            masks.append(downsample_pad_mask(pad_mask, src.shape[-2:]))
+            masks.append(downsample_pad_mask(pad_mask, hw))
         return srcs, masks
 
     def _pos_embeds(self, masks, frame_idx: int):
@@ -248,9 +269,13 @@ class DeformableDETR(nn.Module):
         # previous frame, as out["frame_memory"] (cache_prev_encoder)
         pos_cache=None,  # out["pos_cache"] of an earlier frame, same pad mask
         aux_outputs: Optional[bool] = None,  # default: in train() mode
+        spatial=None,  # parallel/sp.py: this process's rows of the frame
     ) -> dict:
         images = batch.images.to(self.transformer.level_embed.dtype)
-        feats_all, _ = self.backbone(images, batch.pad_mask)
+        if spatial is None:
+            feats_all, _ = self.backbone(images, batch.pad_mask)
+        else:
+            feats_all = spatial.features(self.backbone, images)
         feats = feats_all[-3:]  # the pyramid's C3..C5
         b = images.shape[0]
 
@@ -259,9 +284,10 @@ class DeformableDETR(nn.Module):
             # the previous frame's levels, projected with no merge (the
             # current frame's on a first frame)
             prev_projected = self._project_levels(
-                *(prev_features or (feats, batch.pad_mask)))[0]
+                *(prev_features or (feats, batch.pad_mask)),
+                spatial=spatial)[0]
         srcs, masks = self._project_levels(feats, batch.pad_mask,
-                                           prev_projected)
+                                           prev_projected, spatial)
         pos = list(pos_cache) if pos_cache is not None else self._pos_embeds(masks, 0)
 
         tf_kwargs = {}
@@ -279,8 +305,8 @@ class DeformableDETR(nn.Module):
                     prev_feats, prev_pad = feats, batch.pad_mask
                 else:
                     prev_feats, prev_pad = prev_features
-                p_srcs, p_masks = self._project_levels(prev_feats, prev_pad,
-                                                       prev_projected)
+                p_srcs, p_masks = self._project_levels(
+                    prev_feats, prev_pad, prev_projected, spatial)
                 p_pos = self._pos_embeds(
                     p_masks, frame_idx=0 if self.cache_prev_encoder else 1
                 )
@@ -308,6 +334,13 @@ class DeformableDETR(nn.Module):
         if self.two_stage:
             tf_kwargs.update(class_embed_fn=self.class_head(self.dec_layers),
                              bbox_embed_fn=self.bbox_head(self.dec_layers))
+        if spatial is not None:
+            # whole-frame levels (zeros outside this process's rows) for
+            # the flattening; the encoder reads only its own tokens
+            strides = self.level_strides()
+            srcs = [spatial.whole(x, strides[i % self.num_feature_levels])
+                    for i, x in enumerate(srcs)]
+            tf_kwargs["spatial"] = spatial
         (hs, memory, init_ref, inter_refs, q_pad, enc_class,
          enc_coord) = self.transformer(
             srcs, masks, pos, None if self.two_stage else self.query_embed,
@@ -352,6 +385,9 @@ class DeformableDETR(nn.Module):
             out["frame_memory"] = (memory[:, :split], batch.pad_mask)
             out["pos_cache"] = tuple(pos[: self.num_feature_levels])
         if self.masks:
+            if spatial is not None:
+                feats_all = [spatial.gather(f, st) for f, st in
+                             zip(feats_all, self.backbone.strides)]
             out["backbone_features"] = feats_all
             out["memory"] = memory
         return out

@@ -183,6 +183,7 @@ class MSDeformAttn(nn.Module):
         src_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True=pad
         query_mask: Optional[torch.Tensor] = None,  # [B, Lq] True=masked
         src_table=None,  # (int8 [B, S, C], scales [B, L]), gather_raw only
+        value=None,  # [B, S, C] the projected, masked values, instead of src
     ) -> torch.Tensor:
         b, lq, _ = query.shape
         m, l, p = self.n_heads, self.n_levels, self.n_points
@@ -227,9 +228,11 @@ class MSDeformAttn(nn.Module):
                 )
             out = self._project_pooled(pooled, wsum)
         else:
-            value = self.value_proj(src)
-            if src_padding_mask is not None:
-                value = value.masked_fill(src_padding_mask[..., None], 0.0)
+            if value is None:
+                value = self.value_proj(src)
+                if src_padding_mask is not None:
+                    value = value.masked_fill(src_padding_mask[..., None],
+                                              0.0)
             value = value.view(b, -1, m, self.d_model // m)
             out = self._sample(value, spatial_shapes, loc, attn)
         return self.output_proj(out.to(query.dtype))
@@ -258,9 +261,20 @@ class MSDeformAttn(nn.Module):
     def _project_pooled(self, pooled, wsum):
         """pooled [B, Lq, M, C] raw rows, wsum [B, Lq, M] -> [B, Lq, C]:
         each head's slice of the value projection, plus the bias weighted by
-        the head's summed sampling weights."""
+        the head's summed sampling weights. A column-parallel
+        ``value_proj`` (``parallel/tp.py``) computes its output rows, each
+        from its head's pooled row, and gathers them."""
         b, lq, m, c = pooled.shape
         dh = self.d_model // m
+        if self.value_proj.out_features != self.d_model:
+            vp = self.value_proj
+            heads = torch.div(
+                torch.arange(vp.out_features, device=pooled.device)
+                + vp.out_start, dh, rounding_mode="floor")
+            pooled, wsum = vp.copy_input(pooled), vp.copy_input(wsum)
+            out = torch.einsum("bqjc,jc->bqj", pooled[:, :, heads], vp.weight)
+            out = out + (wsum[:, :, heads] * vp.bias).to(out.dtype)
+            return vp.gather_output(out)
         w = self.value_proj.weight.view(m, dh, c)
         out = torch.einsum("bqmc,mdc->bqmd", pooled, w)
         bias = wsum[..., None] * self.value_proj.bias.view(m, dh)
@@ -286,13 +300,14 @@ class DeformableEncoderLayer(nn.Module):
         self.dropout2 = Dropout(dropout, rng)  # FFN output
 
     def forward(self, src, pos, reference_points, spatial_shapes,
-                padding_mask=None, src_value=None):
+                padding_mask=None, src_value=None, value=None):
         # src_value: the value tokens when the queries are a subset of them
-        # (Lite-DETR interleaved update); defaults to src
+        # (Lite-DETR interleaved update); defaults to src. value: the
+        # projected, masked value table itself (parallel/sp.py)
         q = src + pos if pos is not None else src
         src2 = self.self_attn(
             q, reference_points, src if src_value is None else src_value,
-            spatial_shapes, padding_mask,
+            spatial_shapes, padding_mask, value=value,
         )
         src = self.norm1(src + self.dropout1(src2))
         h = self.linear2(self.dropout_ffn(F.relu(self.linear1(src))))
@@ -733,7 +748,13 @@ class DeformableTransformer(nn.Module):
         prev_is_current=False,  # first frame: reuse mem_cur as mem_prev
         class_embed_fn=None,  # two_stage: the encoder's class head
         bbox_embed_fn=None,  # two_stage: the encoder's box head
+        spatial=None,  # parallel/sp.py: encode this process's tokens
     ):
+        def encode(src, shapes, vr, pos, mask):
+            if spatial is None:
+                return self.encoder(src, shapes, vr, pos, mask)
+            return spatial.encode(self.encoder, src, shapes, vr, pos, mask)
+
         b = srcs[0].shape[0]
         half_l = self.num_feature_levels // 2
         if prev_encoded is not None or prev_is_current:
@@ -750,8 +771,8 @@ class DeformableTransformer(nn.Module):
             src_flat, mask_cur, pos_flat, vr_cur = self._flat_inputs(
                 srcs, masks, pos_embeds, lambda i: i
             )
-            mem_cur = self.encoder(src_flat, spatial_cur, vr_cur, pos_flat,
-                                   mask_cur)
+            mem_cur = encode(src_flat, spatial_cur, vr_cur, pos_flat,
+                             mask_cur)
             if prev_is_current:
                 mem_prev, mask_prev, vr_prev = mem_cur, mask_cur, vr_cur
             else:
@@ -775,20 +796,20 @@ class DeformableTransformer(nn.Module):
             if self.separate_encoder:
                 # two frames, half the levels each, current frame first
                 split = sum(h * w for h, w in spatial_shapes[:half_l])
-                mem_cur = self.encoder(
+                mem_cur = encode(
                     src_flat[:, :split], spatial_shapes[:half_l],
                     valid_ratios[:, :half_l], pos_flat[:, :split],
                     mask_flat[:, :split],
                 )
-                mem_prev = self.encoder(
+                mem_prev = encode(
                     src_flat[:, split:], spatial_shapes[half_l:],
                     valid_ratios[:, half_l:], pos_flat[:, split:],
                     mask_flat[:, split:],
                 )
                 memory = torch.cat([mem_cur, mem_prev], dim=1)
             else:
-                memory = self.encoder(src_flat, spatial_shapes, valid_ratios,
-                                      pos_flat, mask_flat)
+                memory = encode(src_flat, spatial_shapes, valid_ratios,
+                                pos_flat, mask_flat)
 
         dtype = src_flat.dtype
         query_pad_mask = enc_class = enc_coord = None

@@ -141,9 +141,11 @@ class DETR(nn.Module):
     def forward(self, batch: ImageBatch, targets: Optional[Targets] = None,
                 prev_features=None,  # accepted for the tracker; single-frame
                 aux_outputs: Optional[bool] = None,
-                attention_maps: bool = False) -> dict:
+                attention_maps: bool = False, spatial=None) -> dict:
+        # spatial: parallel/sp.py's split of the frame's rows; the trunk
+        # runs on this process's rows, the rest on the gathered features
         images = batch.images.to(self.query_embed.dtype)
-        feats, masks = self.backbone(images, batch.pad_mask)
+        feats, masks = self.backbone(images, batch.pad_mask, spatial)
         src, pad = self.input_proj(feats[-1]), masks[-1]
         b, d, h, w = src.shape
         pos = sine_position_encoding(pad, self.hidden_dim // 2)

@@ -137,7 +137,7 @@ class SegmWrapper(nn.Module):
         if memory.dim() == 3:
             # deformable: the stride-8 level (the pyramid's first, C3) is
             # the flattened memory's first h8 * w8 rows
-            h8, w8 = out["frame_features"][0][0].shape[-2:]
+            h8, w8 = feats[-3].shape[-2:]
             memory = memory[:, : h8 * w8].reshape(memory.shape[0], h8, w8, -1)
             pad, src = None, memory.permute(0, 3, 1, 2)
         else:

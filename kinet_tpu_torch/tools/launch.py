@@ -1,5 +1,6 @@
-"""Multi-process training launcher (port of ``kinet_tpu/tools/launch.py``;
-reference src/run_with_submitit.py): one process per GPU.
+"""Multi-process launcher (port of ``kinet_tpu/tools/launch.py``;
+reference src/run_with_submitit.py): one process per GPU, training or,
+with ``--track``, tracking.
 
     torchrun --nproc-per-node 8 -m kinet_tpu_torch.tools.launch \\
         --config train.yaml --named train_deformable train_tracking -- \\
@@ -9,7 +10,12 @@ reference src/run_with_submitit.py): one process per GPU.
         --num-hosts 2 --host-id 0 --gpus-per-host 8 --local-rank 3 ...
 
 Each process joins the default process group, then trains
-(``engine/train.py``) on its shard of the data:
+(``engine/train.py``) on its shard of the data (``mesh.data`` x
+``mesh.model`` processes: ``mesh.model`` > 1 shards the model over each
+group of that many consecutive ranks, ``parallel/tp.py``), or with
+``--track`` runs ``engine/track.py::main_track`` (``--config`` defaults
+to ``track.yaml``; ``spatial_parallel=N`` over N processes serves each
+frame split over them, ``parallel/sp.py``):
 - its coordinates come from ``--coordinator host:port --num-hosts
   --host-id`` with ``--gpus-per-host`` and ``--local-rank`` (rank
   host_id * gpus_per_host + local_rank; ``tools/slurm_launch.py`` passes
@@ -91,7 +97,12 @@ def init_process_group(args) -> None:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="kinet_tpu_torch launcher")
-    p.add_argument("--config", default="train.yaml")
+    p.add_argument("--config", default=None,
+                   help="train.yaml (the default), or track.yaml with "
+                        "--track")
+    p.add_argument("--track", action="store_true",
+                   help="run the tracking entry point (main_track) in the "
+                        "group instead of training")
     p.add_argument("--named", nargs="*", default=[])
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
@@ -114,17 +125,30 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns what ``train`` returns: (model, optimizer, step)."""
+    """Returns what ``train`` returns: (model, optimizer, step); with
+    ``--track`` what ``main_track`` returns (the metrics summary)."""
     from ..config import load_config, parse_cli_overrides
+    from ..engine.track import main_track
     from ..engine.train import train
     from ..utils import preempt
 
     args = parse_args(argv)
+    if args.track:
+        init_process_group(args)
+        try:
+            cfg = load_config(args.config or "track.yaml", named=args.named,
+                              overrides=parse_cli_overrides(args.overrides))
+            if args.device:
+                cfg = cfg.replace(device=args.device)
+            return main_track(cfg)
+        finally:
+            if tdist.is_initialized():
+                tdist.destroy_process_group()
     if args.requeue_on_preempt:
         preempt.install()
     init_process_group(args)
     try:
-        cfg = load_config(args.config, named=args.named,
+        cfg = load_config(args.config or "train.yaml", named=args.named,
                           overrides=parse_cli_overrides(args.overrides))
         latest = osp.join(cfg.output_dir, "checkpoint.pth") \
             if cfg.output_dir else ""

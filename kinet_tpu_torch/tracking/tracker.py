@@ -22,7 +22,11 @@ before the results are written each pixel goes to the track of highest
 probability if that is above 0.5 (the per-pixel overlap resolution), so
 the results' boolean ``mask``s [H, W] are disjoint.
 
-Not ported yet (ROADMAP): the spatially partitioned forward.
+With ``spatial_group`` (a process group of N > 1 processes, each running
+this tracker on the same frames) each frame's forward is spatially
+parallel (``parallel/sp.py``): its rows are split over the group, and the
+outputs come back replicated on every process, so every process runs the
+same host state machine on the same rows.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from ..ops.nms import nms_numpy
+from ..parallel.sp import spatial_parallel
 from ..structs import ImageBatch, Targets
 
 
@@ -93,9 +98,12 @@ class Track:
         self.last_pos = [self.pos.copy()]
 
 
-def make_forward_fn(model, postprocess, attention_maps=False):
+def make_forward_fn(model, postprocess, attention_maps=False,
+                    spatial_group=None):
     """Per-frame forward with padded track-query slots:
-    fn(batch, targets, orig_size, prev_features, prev_memory, pos_cache).
+    fn(batch, targets, orig_size, prev_features, prev_memory, pos_cache);
+    with ``spatial_group`` the spatially parallel forward over that group
+    (``parallel/sp.py``), its outputs replicated.
     With ``attention_maps`` (vanilla DETR) it also returns the per-query
     maps [B, Q, Hf, Wf]: the head mean of the last decoder layer's
     cross-attention weights. A model with a mask head also gives
@@ -107,6 +115,9 @@ def make_forward_fn(model, postprocess, attention_maps=False):
     @torch.inference_mode()
     def fwd(batch, targets, orig_size, prev_features, prev_memory, pos_cache):
         kwargs = {"prev_features": prev_features}
+        if spatial_group is not None:
+            kwargs["spatial"] = spatial_parallel(
+                model, spatial_group, batch.images.shape[1])
         if attention_maps:
             kwargs["attention_maps"] = True
         if caches_memory:
@@ -198,11 +209,13 @@ class Tracker:
         hidden_dim: int,
         overflow_boxes: bool = False,
         generate_attention_maps: bool = False,
+        spatial_group=None,
     ):
         self.model = model
         self.device = next(model.parameters()).device
         self._fwd = make_forward_fn(model, postprocess,
-                                    attention_maps=generate_attention_maps)
+                                    attention_maps=generate_attention_maps,
+                                    spatial_group=spatial_group)
         self.num_object_queries = num_object_queries
         self.num_track_slots = num_track_slots
         self.hidden_dim = hidden_dim

@@ -14,6 +14,13 @@ checkpoint's last, eos, row: ``resume_shift_neuron``), query embeddings are
 tiled or cut, anything else copies the overlapping region. Shapes are in
 the port's layout (a linear weight is [out, in]).
 
+Under tensor parallelism (``parallel/tp.py``) the checkpoint holds the
+whole tensors, gathered over the model group, and the whole AdamW
+moments: every rank calls the save methods (the gathers are collective)
+and rank 0 alone writes. A resume cuts each tensor to the rank's shard, so
+a checkpoint saved on any number of model shards resumes on any other, and
+``engine/track.py`` loads it unchanged.
+
 ``load_mask_head_from_model`` (with ``masks``) then overwrites the mask
 head (``bbox_attention`` / ``mask_head``) with a second checkpoint's,
 where the shapes match (reference train.py:245-254; as in the JAX package
@@ -25,6 +32,9 @@ import math
 from pathlib import Path
 
 import torch
+
+from ..parallel.tp import full_state_dict, local_state_dict
+from .dist import is_main_process
 
 
 def _adapt_tensor(name: str, ckpt: torch.Tensor, model: torch.Tensor,
@@ -72,6 +82,8 @@ class CheckpointManager:
         self.best = {}
 
     def _save(self, path: Path, payload):
+        if not is_main_process():
+            return
         tmp = path.with_suffix(".tmp")
         torch.save(payload, tmp)
         tmp.replace(path)
@@ -82,7 +94,7 @@ class CheckpointManager:
         run (which starts at the recorded epoch + 1) runs the interrupted
         epoch again instead of skipping its remaining steps."""
         self._save(self.dir / "checkpoint.pth",
-                   {"params": model.state_dict(),
+                   {"params": full_state_dict(model),
                     "opt_state": optimizer.state_dict(),
                     "step": int(step), "epoch": int(epoch) - 1})
 
@@ -91,7 +103,7 @@ class CheckpointManager:
         """``eval_stats``: {metric: value or None} of this epoch's
         evaluation; a value above the best so far saves
         ``checkpoint_best_{metric}.pth``."""
-        payload = {"params": model.state_dict(),
+        payload = {"params": full_state_dict(model),
                    "opt_state": optimizer.state_dict(),
                    "step": int(step), "epoch": int(epoch)}
         self._save(self.dir / "checkpoint.pth", payload)
@@ -135,7 +147,8 @@ def load_mask_head_from_model(model: torch.nn.Module, path) -> None:
     if path.is_dir():
         path = path / "checkpoint.pth"
     own = model.state_dict()
-    spliced = splice_mask_head(own, load_checkpoint(path)["params"])
+    spliced = splice_mask_head(
+        own, local_state_dict(model, load_checkpoint(path)["params"]))
     for name, t in own.items():
         if spliced[name] is not t:
             t.copy_(spliced[name])
@@ -150,7 +163,8 @@ def load_for_resume(cfg, model, optimizer) -> tuple[int, int]:
     restored = None
     if cfg.resume:
         restored = load_checkpoint(cfg.resume)
-        adapt_params(model, restored["params"], bool(cfg.resume_shift_neuron))
+        adapt_params(model, local_state_dict(model, restored["params"]),
+                     bool(cfg.resume_shift_neuron))
     if cfg.get("masks") and cfg.get("load_mask_head_from_model"):
         load_mask_head_from_model(model, cfg.load_mask_head_from_model)
     if restored is None:

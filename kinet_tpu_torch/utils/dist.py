@@ -74,9 +74,59 @@ def all_gather_objects(obj) -> list:
             for b, k in zip(bufs, lengths)]
 
 
+def group_size(group) -> int:
+    """The number of processes of ``group``; 1 for None (a mesh axis of
+    one process, ``parallel/mesh.py``)."""
+    return 1 if group is None else tdist.get_world_size(group)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, on ``t``'s device; ``t`` itself for
+    a group of one process."""
+    if group_size(group) == 1:
+        return t
+    buf = t.detach().to(comm_device(), copy=True).contiguous()
+    tdist.all_reduce(buf, group=group)
+    return buf.to(t.device)
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every process's ``t`` (all of one shape) concatenated along ``dim``
+    in rank order of ``group``, on ``t``'s device; ``t`` itself for a group
+    of one process."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    buf = t.detach().to(comm_device()).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    tdist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim).to(t.device)
+
+
+def all_gather_uneven(t: torch.Tensor, sizes, dim: int, group) -> list:
+    """Every process's ``t``, whose extent along ``dim`` is ``sizes[r]`` on
+    rank r of ``group`` (the other dims alike), as a list in rank order on
+    ``t``'s device: one all-gather of ``t`` zero-padded to the largest."""
+    n = group_size(group)
+    if n == 1:
+        return [t]
+    size = max(sizes)
+    buf = t.detach().to(comm_device())
+    if buf.shape[dim] < size:
+        pad = list(buf.shape)
+        pad[dim] = size - buf.shape[dim]
+        buf = torch.cat([buf, buf.new_zeros(pad)], dim)
+    buf = buf.contiguous()
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    tdist.all_gather(parts, buf, group=group)
+    return [p.narrow(dim, 0, k).to(t.device) for p, k in zip(parts, sizes)]
+
+
 def mean_over_processes(t: torch.Tensor) -> torch.Tensor:
     """The mean of tensor ``t`` over the group's processes, on ``t``'s
-    device; ``t`` itself in a run of one process."""
+    device; ``t`` itself in a run of one process. Under a tensor-parallel
+    mesh (``parallel/mesh.py``) the processes of a model group hold the
+    same value, so its copies do not change the mean."""
     world = get_world_size()
     if world == 1:
         return t
@@ -89,7 +139,8 @@ def reduce_dict(d: dict) -> dict:
     """{key: the mean of the value over the processes} for a dict of
     scalars (floats or one-element tensors) with the same keys on every
     process (reference reduce_dict, misc.py:135-159); ``d`` itself in a
-    run of one process."""
+    run of one process. The processes of a model group (tensor parallel)
+    hold the same values, so the mean is the data groups' mean."""
     if get_world_size() == 1:
         return d
     keys = sorted(d)
@@ -98,15 +149,22 @@ def reduce_dict(d: dict) -> dict:
     return dict(zip(keys, vals.tolist()))
 
 
-def all_reduce_grads(params, bucket_elems: int = 1 << 24) -> None:
+def all_reduce_grads(params, bucket_elems: int = 1 << 24,
+                     group="all") -> None:
     """Replaces the gradient of every parameter in ``params`` with its mean
-    over the processes: the global-mean gradient of data-parallel
-    training. A parameter without a gradient takes a zero one first, as
-    ``Optimizer.step`` would give it, so every process reduces the same
-    tensors. The gradients go in flat buckets of one dtype and device of
-    at most ``bucket_elems`` elements, in parameter order. Nothing happens
-    in a run of one process."""
-    world = get_world_size()
+    over the processes of ``group`` (default: every process): the
+    global-mean gradient of data-parallel training. Under a
+    tensor-parallel mesh the group is the mesh's data group only: the
+    processes of a model group hold different shards of a sharded
+    parameter, which must never be mixed. A parameter without a gradient
+    takes a zero one first, as ``Optimizer.step`` would give it, so every
+    process reduces the same tensors. The gradients go in flat buckets of
+    one dtype and device of at most ``bucket_elems`` elements, in
+    parameter order. Nothing happens for a group of one process."""
+    if group == "all":
+        world, group = get_world_size(), None
+    else:
+        world = group_size(group)
     if world == 1:
         return
     dev = comm_device()
@@ -114,7 +172,7 @@ def all_reduce_grads(params, bucket_elems: int = 1 << 24) -> None:
 
     def flush():
         flat = torch.cat([g.reshape(-1) for g in bucket]).to(dev)
-        tdist.all_reduce(flat)
+        tdist.all_reduce(flat, group=group)
         flat = flat.div_(world).to(bucket[0].device)
         off = 0
         for g in bucket:

@@ -29,6 +29,7 @@ from kinet_tpu_torch.data.builder import build_dataset
 from kinet_tpu_torch.engine import evaluate as port_eval
 from kinet_tpu_torch.models.build import build_criterion
 from kinet_tpu_torch.models.postprocess import build_postprocessors
+from kinet_tpu_torch.utils import dist as port_dist
 
 from test_torch_port_model import FLAGSHIP, TINY, port_model, tiny_params
 
@@ -259,8 +260,10 @@ def test_kine_evaluation_raises(models, val_root, monkeypatch):
             build_dataset("val", cfg), cfg.replace(kine=True))
     with pytest.raises(Stop):
         port_eval.evaluate(*args, device="cpu")
-    monkeypatch.setattr(port_eval.dist, "get_rank", lambda: 1)
-    monkeypatch.setattr(port_eval.dist, "get_world_size", lambda: 2)
+    # the sampler takes the model's data shard (parallel/mesh.py), which
+    # without tensor parallelism is the process's
+    monkeypatch.setattr(port_dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(port_dist, "get_world_size", lambda: 2)
     with pytest.raises(Stop):
         port_eval.evaluate(*args, device="cpu")
     assert seen == [(0, 1), (1, 2)]

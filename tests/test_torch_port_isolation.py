@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=240,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 62  # every submodule was imported
+    # every submodule was imported, parallel/ (mesh, tp, sp) included
+    assert int(res.stdout.split()[-1]) >= 66
 
 
 _FORBIDDEN = re.compile(
@@ -44,7 +45,7 @@ _FORBIDDEN = re.compile(
 
 def test_no_source_imports_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 64
+    assert len(files) >= 68
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}"
         for f in files

@@ -230,14 +230,17 @@ def test_results_round_trip(data_root, tmp_path):
 
 @pytest.mark.parametrize("over,error,item", [
     # the kinematic tracker and the batched trackers are ported
-    # (tests/test_torch_batched_tracker.py); spatial parallelism is not
-    (dict(kinet=True, spatial_parallel=2), NotImplementedError, "Scale-out"),
+    # (tests/test_torch_batched_tracker.py), and spatial parallelism
+    # (tests/test_torch_spatial.py), which needs as many processes as it
+    # splits a frame over: one process refuses it, whatever else is asked
+    (dict(kinet=True, spatial_parallel=2), ValueError,
+     "spatial_parallel 2 needs 2"),
     # attention maps are ported for vanilla DETR; a deformable model has
     # none, as the JAX package asserts
     (dict(generate_attention_maps=True), ValueError, "deformable"),
-    (dict(batch_sequences=2, spatial_parallel=2), NotImplementedError,
-     "Scale-out"),
-    (dict(spatial_parallel=2), NotImplementedError, "Scale-out"),
+    (dict(batch_sequences=2, spatial_parallel=2), ValueError,
+     "spatial_parallel 2 needs 2"),
+    (dict(spatial_parallel=2), ValueError, "spatial_parallel 2 needs 2"),
     (dict(write_images=True), NotImplementedError, "Host tools"),
 ])
 def test_configs_outside_the_slice_raise(over, error, item, data_root,

@@ -83,23 +83,24 @@ def test_train_writes_a_checkpoint_and_resumes(mot_root, tmp_path):
 
 
 @pytest.mark.parametrize("over, item", [
-    ({"mesh.model": 2}, "Scale-out"),
+    ({"mesh.model": 2}, "mesh.data -1 x mesh.model 2"),
     # KineT, vanilla DETR and masks train (tests/test_torch_kine.py,
     # tests/test_torch_detr.py, tests/test_torch_mots.py), and two-stage
     # (tests/test_torch_two_stage.py) with masks or without; data-parallel
-    # processes do too (tests/test_torch_ddp.py), a tensor-parallel mesh
-    # not yet
+    # and tensor-parallel processes do too (tests/test_torch_ddp.py,
+    # tests/test_torch_parallel.py), on as many processes as the mesh has
     ({"masks": True, "two_stage": True}, "two-stage"),
     ({"two_stage": True}, "two-stage"),
-    ({"mesh.data": 2, "mesh.model": 2, "batch_size": 2}, "Scale-out"),
+    ({"mesh.data": 2, "mesh.model": 2, "batch_size": 2},
+     "mesh.data 2 x mesh.model 2"),
 ])
 def test_unported_parts_raise(mot_root, tmp_path, over, item):
-    """Scale-out raises naming its ROADMAP item; two-stage, which an
-    earlier slice refused, trains an epoch with its encoder proposals'
-    ``_enc`` losses and writes its checkpoint."""
+    """A mesh of more processes than the group has raises; two-stage,
+    which an earlier slice refused, trains an epoch with its encoder
+    proposals' ``_enc`` losses and writes its checkpoint."""
     cfg = _cfg(mot_root, tmp_path / "out", **over)
-    if item == "Scale-out":
-        with pytest.raises(NotImplementedError, match=item):
+    if item.startswith("mesh"):
+        with pytest.raises(ValueError, match=item):
             train(cfg, device="cpu")
         return
     model, optimizer, steps = train(cfg, device="cpu")
