@@ -3108,7 +3108,8 @@ def p_call_errors(torch, msda, kernel, args, grads):
     samples, the table in f32: the outputs, and with ``grads`` the backward
     kernel's gradients (value / src, locations, weights) against autograd
     through the plain version, in the recorded dtype, phase 3b's
-    tolerances. Returns the largest max abs error."""
+    tolerances. Returns {kernel: largest max abs error}, the backward
+    kernel's under its own name."""
     table, shapes, loc, aw = args[0].detach(), args[1], args[2], args[3]
     rest = args[4:]
     loc, aw = snapped(torch, loc.detach()), aw.detach()
@@ -3128,7 +3129,7 @@ def p_call_errors(torch, msda, kernel, args, grads):
         assert_close(torch, f"phase P {kernel} output {i}", o, r, rtol, 1e-5)
         err = max(err, errors(torch, o, r)[0])
     if not grads:
-        return err
+        return {kernel: err}
     gen = torch.Generator(device=table.device).manual_seed(2)
     ins = [t.detach().clone().requires_grad_(True) for t in (table, loc, aw)]
     with torch.enable_grad():
@@ -3144,15 +3145,17 @@ def p_call_errors(torch, msda, kernel, args, grads):
     def scaled(r, floor):
         return max(floor, 1e-5 * r.abs().max().item())
 
-    return max(err, grad_errors(torch, f"phase P {kernel} backward", [
+    bwd = "msda_raw_pool_bwd" if raw else "msda_bwd"
+    return {kernel: err, bwd: grad_errors(torch, f"phase P {bwd}", [
         ("dtable", got[0], ref[0], *tol_v),
         ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
-        ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5))]))
+        ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5))])}
 
 
 def p_check_calls(torch, msda, calls, grads):
     """{kernel: largest error} over the first recorded call of each
-    (kernel, query count, levels), held to its plain version."""
+    (kernel, query count, levels), held to its plain version (and with
+    ``grads`` its backward kernel)."""
     seen, errs = set(), {}
     if DEVICE == "cpu":  # a CPU rehearsal: no kernel ran
         return errs
@@ -3161,8 +3164,8 @@ def p_check_calls(torch, msda, calls, grads):
         if key in seen:
             continue
         seen.add(key)
-        errs[kernel] = max(errs.get(kernel, 0.0),
-                           p_call_errors(torch, msda, kernel, args, grads))
+        for k, e in p_call_errors(torch, msda, kernel, args, grads).items():
+            errs[k] = max(errs.get(k, 0.0), e)
     return errs
 
 
