@@ -176,11 +176,13 @@ S. processes on the one card: (a) main_track in 2 gloo processes (each
 P. the parallel package (``kinet_tpu_torch/parallel/``) in 2 gloo
    processes sharing the card: (a) 3 f32 flagship steps at 672x1184 with
    the model tensor parallel (mesh.model 2) against 1 process on the same
-   two images (losses within P_LOSS_RTOL, parameters within the CPU test's
-   rtol 1e-4 / atol 1e-5; the gradients' gap printed); phase 7's bf16
-   step timed at TP=2 and in 1 process; the path's kernels counted and
-   each (kernel, query count, levels) of one step's recorded calls held
-   to its plain version, forward and backward; (b) an f32 Tracker session
+   two images (step 0's losses and gradient, the later losses and the
+   parameters within the fixed P_* bounds) and step 0 of image 0 in f64
+   with the plain MSDA versions within 1e-6 (the witness that the f32 gap
+   is rounding); phase 7's bf16 step timed at TP=2 and in 1 process; the
+   path's kernels counted and each (kernel, query count, levels) of the
+   warm-up step's recorded calls held to its plain version, forward and
+   backward; (b) an f32 Tracker session
    at 800x1440 spatially parallel over the 2 processes against 1 process
    (the same tracks and frames, boxes within P_BOX_PX) and the served
    config's (dec_msda_int8) bf16 ms a frame at SP=2 and in 1 process, its
@@ -3184,8 +3186,8 @@ def p_train_timing(torch, msda, n_model):
     """Phase 7's bf16 remat step of the flagship at TRAIN_HW (one image and
     its previous frame), tensor parallel over the group with ``n_model`` >
     1: median ms a step over P_TIMED_STEPS after one warm-up step, the
-    kernels' launches over those steps, and one step's recorded MSDA calls
-    held to their plain versions, forward and backward."""
+    kernels' launches over those steps, and the warm-up step's recorded
+    MSDA calls held to their plain versions, forward and backward."""
     from kinet_tpu_torch.engine.state import Optimizer
     from kinet_tpu_torch.engine.train_step import make_train_step
     from kinet_tpu_torch.models.build import build_criterion, build_model
@@ -3201,7 +3203,8 @@ def p_train_timing(torch, msda, n_model):
                            cfg)
     frames = train_frames(torch, 6, *TRAIN_HW, TRAIN_OBJECTS, t_slots, hidden,
                           DEVICE)
-    float(step(*frames)["loss"])
+    # the warm-up step's MSDA calls, checked after the timed steps
+    calls = record_forward_calls(torch, lambda: float(step(*frames)["loss"]))
     counters = p_counters(msda, TRAIN_LAUNCHES)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -3211,7 +3214,6 @@ def p_train_timing(torch, msda, n_model):
         losses.append(float(step(*frames)["loss"]))
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-    calls = record_forward_calls(torch, lambda: step(*frames))
     errs = p_check_calls(torch, msda, calls, grads=True)
     del model, step, frames, calls
     torch.cuda.empty_cache()
@@ -3239,18 +3241,17 @@ def p_served(torch, cfg, thresh, frames, group=None):
 def p_tp_child(torch, root):
     """One of the 2 processes of tensor-parallel training: S_STEPS f32
     steps of both images at S_HW; then, once the parent says so, the bf16
-    timing and the kernels on this path's calls."""
+    timing and the kernels on this path's calls. (The TP f64 witness runs
+    in the SP pair, after its short f32 session, beside these steps.)"""
     from kinet_tpu_torch.ops import msda
 
     torch.backends.cudnn.deterministic = True  # as the parent's reference
     f32 = s_train_steps(torch, 0, 1, n_model=2)
     torch.cuda.empty_cache()
-    f64 = p_f64_grads(torch, 2)
-    torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     (root / f"p_tp_ready{torch.distributed.get_rank()}").touch()
     wait_for(root / "p_go_tp")
-    return dict(f32=f32, f64=f64, bf16=p_train_timing(torch, msda, 2))
+    return dict(f32=f32, bf16=p_train_timing(torch, msda, 2))
 
 
 def p_f64_grads(torch, n_model):
@@ -3264,9 +3265,10 @@ def p_f64_grads(torch, n_model):
 
 def p_sp_child(torch, root):
     """One of the 2 processes of spatially parallel serving: the f32
-    session; then, once the parent says so, the served config's bf16
-    session timed, its launches, and one frame's MSDA calls held to their
-    plain versions."""
+    session, then the TP f64 witness (``p_f64_grads``, this pair being the
+    other idle one); then, once the parent says so, the served config's
+    bf16 session timed, its launches, and one frame's MSDA calls held to
+    their plain versions."""
     import numpy as np
     import torch.distributed as tdist
 
@@ -3280,10 +3282,14 @@ def p_sp_child(torch, root):
     f32 = tracker.get_results()
     del tracker
     torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True  # as the parent's reference
+    f64 = p_f64_grads(torch, 2)  # this pair as a tensor-parallel group
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
     (root / f"p_sp_ready{tdist.get_rank()}").touch()
     wait_for(root / "p_go_sp")
-    return dict(f32=f32, bf16=p_serve_timing(torch, msda, thresh["bf16"],
-                                             frames, group))
+    return dict(f32=f32, f64=f64, bf16=p_serve_timing(
+        torch, msda, thresh["bf16"], frames, group))
 
 
 def p_serve_cfg():
@@ -3419,7 +3425,7 @@ def phase_parallel(torch, msda, root: Path, whole=None):
         beyond = {k: ((params[k] - p).abs() - P_PARAM_RTOL * p.abs()).max()
                   .item() for k, p in whole[1].items()}
         worst_p = max(beyond, key=beyond.get)
-        rel64 = rel_gap(got["f64"], whole64)
+        rel64 = rel_gap(sp2[r]["f64"], whole64)  # the TP pair in SP's
         log(f"  (a) TP=2 process {r} vs 1 process, {S_STEPS} f32 steps at "
             f"{S_HW[0]}x{S_HW[1]} on both images: losses within rel "
             f"{rel[worst]:.3e} (step {worst[0]} {worst[1]}; bound "
