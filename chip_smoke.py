@@ -178,16 +178,19 @@ P. the parallel package (``kinet_tpu_torch/parallel/``) in 2 gloo
    the model tensor parallel (mesh.model 2) against 1 process on the same
    two images (step 0's losses and gradient, the later losses and the
    parameters within the fixed P_* bounds) and step 0 of image 0 in f64
-   with the plain MSDA versions within 1e-6 (the witness that the f32 gap
-   is rounding); phase 7's bf16 step timed at TP=2 and in 1 process; the
-   path's kernels counted and each (kernel, query count, levels) of the
-   warm-up step's recorded calls held to its plain version, forward and
-   backward; (b) an f32 Tracker session
+   with the plain MSDA versions: its gradient within 1e-6 (the witness
+   that the f32 gap is rounding) and its parameters after the AdamW
+   update within P_F64_UPDATE lr (the sharded optimizer state); phase
+   7's bf16 step timed at TP=2 and in 1 process; the path's kernels
+   counted and each (kernel, query count, levels) of the warm-up step's
+   recorded calls held to its plain version, forward (the table as
+   recorded, bf16, and in f32) and backward; (b) an f32 Tracker session
    at 800x1440 spatially parallel over the 2 processes against 1 process
    (the same tracks and frames, boxes within P_BOX_PX) and the served
    config's (dec_msda_int8) bf16 ms a frame at SP=2 and in 1 process, its
    launches, and one frame's msda_fwd calls (each process's own encoder
-   queries) and int8 decoder calls held to their plain versions. The
+   queries; bf16 as recorded and f32) and int8 decoder calls (bf16 and
+   f32 output) held to their plain versions. The
    correctness parts run at once; the timed parts one after another. No
    scaling is claimed: the processes share one card.
 
@@ -211,7 +214,8 @@ phase M5's; ``batched_launches``: a stacked batched step's at B = 1, 2,
 4, ``batched_replay_ms`` / ``batched_bound_ms``: phase B's B = 4 replay;
 ``tp_launches`` / ``sp_launches``: phase P's a step of a tensor-parallel
 process / a frame of a spatially parallel one, ``parallel_max_abs_err``:
-its kernels against their plain versions on those paths' calls);
+its kernels against their plain versions on those paths' calls, and
+``parallel_max_abs_err_by_dtype`` the same by the table's dtype);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
 phase V, V2 without its train steps) and prints no result line.
@@ -2639,6 +2643,7 @@ print(json.dumps(steps))
 """
 S_HW = (672, 1184)
 S_STEPS, S_OBJECTS = 3, 20
+S_LR = 1e-4  # s_train_steps' learning rate
 
 
 def s_inputs(torch, step, images, t_slots, hidden, dtype=None):
@@ -2693,7 +2698,7 @@ def s_train_steps(torch, rank, world, split=False, steps=S_STEPS,
     from kinet_tpu_torch.parallel import mesh as pmesh, tp
     from kinet_tpu_torch.utils import dist
 
-    cfg = flagship_cfg().replace(compute_dtype="float32", lr=1e-4,
+    cfg = flagship_cfg().replace(compute_dtype="float32", lr=S_LR,
                                  track_query_false_positive_prob=0.0,
                                  track_query_false_negative_prob=0.0,
                                  **S_OVERRIDES)
@@ -3079,12 +3084,38 @@ P_TIMED_STEPS, P_FRAMES, P_WARMUP = 3, 8, 2
 # 1e-6, reading 7.6e-16). Adam then turns near-zero gradients of
 # either sign into full steps, so the parameters can part by 2 lr a step
 # (P_PARAM_ATOL: 3 steps of lr 1e-4; reading 5.0e-4) and the later losses
-# follow (P_LOSS_RTOL; reading 7.5e-2)
+# follow (P_LOSS_RTOL; reading 7.5e-2). P_PARAM_ATOL bounds that drift
+# only and would hold whatever the update did; the update itself is held
+# in f64 (f64_update_gap): the witness's parameters after its step within
+# P_F64_UPDATE lr of 1 process's, where a shard the optimizer did not move
+# would be ~1 lr off
 P_LOSS0_RTOL, P_GRAD_REL, P_LOSS_RTOL = 1e-4, 2e-2, 0.2
-P_PARAM_RTOL, P_PARAM_ATOL = 1e-4, 2 * 1e-4 * 3
+P_PARAM_RTOL, P_PARAM_ATOL = 1e-4, 2 * S_LR * 3
+P_F64_UPDATE, P_F64_GRAD_FLOOR = 1e-6, 1e-6
 # f32 SP=2 against 1 process: the same tracks and frames, boxes within
 # P_BOX_PX (PR 14's reading 0.028 px; PR 13's f32 stacked batches 0.031)
 P_BOX_PX = 0.1
+
+
+def f64_update_gap(torch, params, whole_params, whole_grads):
+    """The largest |parameter after the f64 witness's step - 1 process's|
+    in units of lr (the same start), over the entries whose clipped
+    gradient (1 process's) exceeds P_F64_GRAD_FLOOR, 100 x Adam's eps; and
+    (entries compared, entries). Adam's first step is lr g / (|g| + eps):
+    a gradient error e moves it by lr e eps / (|g| + eps)^2, at most
+    1e4 lr e above the floor, while a gradient that is rounding noise (a
+    key bias's in attention, zero analytically) turns into up to a whole
+    lr of either sign."""
+    norm = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(g) for g in whole_grads.values()]))
+    scale = min(1.0, flagship_cfg().clip_max_norm / norm.item())
+    gap, n, total = 0.0, 0, 0
+    for k, p in whole_params.items():
+        big = whole_grads[k].abs() * scale > P_F64_GRAD_FLOOR
+        if big.any():
+            gap = max(gap, (params[k] - p)[big].abs().max().item())
+        n, total = n + int(big.sum()), total + big.numel()
+    return gap / S_LR, (n, total)
 
 
 def p_cfg(**over):
@@ -3107,11 +3138,13 @@ def wait_for(path: Path, kids=None, timeout=1200):
 
 def p_call_errors(torch, msda, kernel, args, grads):
     """One recorded call's kernel against its plain version on the snapped
-    samples, the table in f32: the outputs, and with ``grads`` the backward
-    kernel's gradients (value / src, locations, weights) against autograd
-    through the plain version, in the recorded dtype, phase 3b's
-    tolerances. Returns {kernel: largest max abs error}, the backward
-    kernel's under its own name."""
+    samples: the outputs with the table as recorded (bf16 on the timed
+    paths) and in f32 (an int8 table: the recorded output dtype and f32),
+    and with ``grads`` the backward kernel's gradients (value / src,
+    locations, weights) against autograd through the plain version, in
+    the recorded dtype, phase 3b's tolerances. Returns {kernel: {dtype of
+    the table (of the output for an int8 table): largest max abs error}},
+    the backward kernel's under its own name."""
     table, shapes, loc, aw = args[0].detach(), args[1], args[2], args[3]
     rest = args[4:]
     loc, aw = snapped(torch, loc.detach()), aw.detach()
@@ -3119,19 +3152,26 @@ def p_call_errors(torch, msda, kernel, args, grads):
     fn, plain = ((msda.ms_deform_attn_raw_pool,
                   msda.ms_deform_attn_raw_pool_plain) if raw else
                  (msda.ms_deform_attn, msda.ms_deform_attn_plain))
-    with torch.no_grad():
-        v = table if table.dtype == torch.int8 else table.float()
-        outs = fn(v, shapes, loc, aw, *rest)
-        refs = plain(v, shapes, loc, aw, *rest)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    refs = refs if isinstance(refs, tuple) else (refs,)
-    err = 0.0
-    for i, (o, r) in enumerate(zip(outs, refs)):
-        rtol = 1e-2 if o.dtype == torch.bfloat16 else 1e-4
-        assert_close(torch, f"phase P {kernel} output {i}", o, r, rtol, 1e-5)
-        err = max(err, errors(torch, o, r)[0])
+    if table.dtype == torch.int8:  # (ext, scales, output dtype)
+        cases = [(table, rest), (table, (*rest[:2], torch.float32))]
+    else:
+        cases = [(table, rest), (table.float(), rest)]
+    errs = {}
+    for v, r in cases:
+        with torch.no_grad():
+            outs = fn(v, shapes, loc, aw, *r)
+            refs = plain(v, shapes, loc, aw, *r)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        for i, (o, ref) in enumerate(zip(outs, refs)):
+            rtol = 1e-2 if o.dtype == torch.bfloat16 else 1e-4
+            assert_close(torch, f"phase P {kernel} {v.dtype} output {i}", o,
+                         ref, rtol, 1e-5)
+            dt = str(v.dtype if v.dtype != torch.int8 else
+                     outs[0].dtype).replace("torch.", "")
+            errs[dt] = max(errs.get(dt, 0.0), errors(torch, o, ref)[0])
     if not grads:
-        return {kernel: err}
+        return {kernel: errs}
     gen = torch.Generator(device=table.device).manual_seed(2)
     ins = [t.detach().clone().requires_grad_(True) for t in (table, loc, aw)]
     with torch.enable_grad():
@@ -3148,16 +3188,18 @@ def p_call_errors(torch, msda, kernel, args, grads):
         return max(floor, 1e-5 * r.abs().max().item())
 
     bwd = "msda_raw_pool_bwd" if raw else "msda_bwd"
-    return {kernel: err, bwd: grad_errors(torch, f"phase P {bwd}", [
-        ("dtable", got[0], ref[0], *tol_v),
-        ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
-        ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5))])}
+    return {kernel: errs, bwd: {
+        str(table.dtype).replace("torch.", ""): grad_errors(
+            torch, f"phase P {bwd}", [
+                ("dtable", got[0], ref[0], *tol_v),
+                ("dloc", got[1], ref[1], 1e-3, scaled(ref[1], 1e-4)),
+                ("daw", got[2], ref[2], 1e-4, scaled(ref[2], 1e-5))])}}
 
 
 def p_check_calls(torch, msda, calls, grads):
-    """{kernel: largest error} over the first recorded call of each
-    (kernel, query count, levels), held to its plain version (and with
-    ``grads`` its backward kernel)."""
+    """{kernel: {dtype: largest error}} over the first recorded call of
+    each (kernel, query count, levels), held to its plain version (and
+    with ``grads`` its backward kernel)."""
     seen, errs = set(), {}
     if DEVICE == "cpu":  # a CPU rehearsal: no kernel ran
         return errs
@@ -3166,8 +3208,11 @@ def p_check_calls(torch, msda, calls, grads):
         if key in seen:
             continue
         seen.add(key)
-        for k, e in p_call_errors(torch, msda, kernel, args, grads).items():
-            errs[k] = max(errs.get(k, 0.0), e)
+        for k, by_dtype in p_call_errors(torch, msda, kernel, args,
+                                         grads).items():
+            for dt, e in by_dtype.items():
+                errs.setdefault(k, {})[dt] = max(
+                    errs.get(k, {}).get(dt, 0.0), e)
     return errs
 
 
@@ -3254,18 +3299,20 @@ def p_tp_child(torch, root):
     return dict(f32=f32, bf16=p_train_timing(torch, msda, 2))
 
 
-def p_f64_grads(torch, n_model):
-    """Step 0's gradient (gathered whole) of image 0 in f64 with the plain
-    MSDA versions, tensor parallel with ``n_model`` > 1: the witness that
-    the f32 gap is rounding (in f64 no rounding moves a sample across a
-    pixel edge, and every algorithm's sums agree to ~1e-15)."""
+def p_f64_step(torch, n_model):
+    """(the parameters after step 0, step 0's gradient), gathered whole,
+    of image 0 in f64 with the plain MSDA versions, tensor parallel with
+    ``n_model`` > 1: the witness that the f32 gap is rounding (in f64 no
+    rounding moves a sample across a pixel edge, and every algorithm's
+    sums agree to ~1e-15), and that the sharded AdamW state takes the
+    update of 1 process."""
     return s_train_steps(torch, 0, 1, steps=1, dtype=torch.float64,
-                         n_model=n_model, images=[0])[2]
+                         n_model=n_model, images=[0])[1:]
 
 
 def p_sp_child(torch, root):
     """One of the 2 processes of spatially parallel serving: the f32
-    session, then the TP f64 witness (``p_f64_grads``, this pair being the
+    session, then the TP f64 witness (``p_f64_step``, this pair being the
     other idle one); then, once the parent says so, the served config's
     bf16 session timed, its launches, and one frame's MSDA calls held to
     their plain versions."""
@@ -3283,7 +3330,7 @@ def p_sp_child(torch, root):
     del tracker
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = True  # as the parent's reference
-    f64 = p_f64_grads(torch, 2)  # this pair as a tensor-parallel group
+    f64 = p_f64_step(torch, 2)  # this pair as a tensor-parallel group
     torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
     (root / f"p_sp_ready{tdist.get_rank()}").touch()
@@ -3376,7 +3423,7 @@ def phase_parallel(torch, msda, root: Path, whole=None):
                 whole = s_train_steps(torch, 0, 1)
                 torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            whole64 = p_f64_grads(torch, 1)
+            whole64 = p_f64_step(torch, 1)
             f64_gib = torch.cuda.max_memory_allocated() / 2**30
         finally:
             torch.backends.cudnn.deterministic = deterministic
@@ -3425,7 +3472,8 @@ def phase_parallel(torch, msda, root: Path, whole=None):
         beyond = {k: ((params[k] - p).abs() - P_PARAM_RTOL * p.abs()).max()
                   .item() for k, p in whole[1].items()}
         worst_p = max(beyond, key=beyond.get)
-        rel64 = rel_gap(sp2[r]["f64"], whole64)  # the TP pair in SP's
+        rel64 = rel_gap(sp2[r]["f64"][1], whole64[1])  # the TP pair in SP's
+        upd64, n_upd = f64_update_gap(torch, sp2[r]["f64"][0], *whole64)
         log(f"  (a) TP=2 process {r} vs 1 process, {S_STEPS} f32 steps at "
             f"{S_HW[0]}x{S_HW[1]} on both images: losses within rel "
             f"{rel[worst]:.3e} (step {worst[0]} {worst[1]}; bound "
@@ -3437,8 +3485,11 @@ def phase_parallel(torch, msda, root: Path, whole=None):
             f"{beyond[worst_p]:.3e} ({worst_p}; bound {P_PARAM_ATOL:.0e}); "
             f"step 0's gathered gradient |difference| / |gradient| "
             f"{grad_rel:.3e} (bound {P_GRAD_REL}); f64 witness (image 0, "
-            f"plain MSDA) {rel64:.3e} (bound 1e-6; peak {f64_gib:.1f} GiB "
-            f"in 1 process)")
+            f"plain MSDA) {rel64:.3e} (bound 1e-6), its parameters after "
+            f"the update within {upd64:.3e} lr (bound {P_F64_UPDATE}) on "
+            f"the {n_upd[0]} of {n_upd[1]} entries whose clipped gradient "
+            f"exceeds {P_F64_GRAD_FLOOR:.0e}; peak {f64_gib:.1f} GiB in 1 "
+            f"process)")
         if worst0 > P_LOSS0_RTOL or rel[worst] > P_LOSS_RTOL:
             failures.append(f"TP=2 process {r}'s losses: step 0 "
                             f"{worst0:.3g}, worst {rel[worst]:.3g} rel")
@@ -3450,6 +3501,10 @@ def phase_parallel(torch, msda, root: Path, whole=None):
                             f"{P_PARAM_RTOL} by {beyond[worst_p]:.3g}")
         if rel64 > 1e-6:
             failures.append(f"TP=2 process {r}'s f64 gradient {rel64:.3g}")
+        if upd64 > P_F64_UPDATE or not n_upd[0]:
+            failures.append(f"TP=2 process {r}'s f64 parameters after the "
+                            f"update {upd64:.3g} lr from 1 process's on "
+                            f"{n_upd[0]} of {n_upd[1]} entries")
         if not all(torch.equal(params[k], tp2[1 - r]["f32"][1][k])
                    for k in params):
             failures.append("the TP ranks' parameters differ")
@@ -3502,11 +3557,13 @@ def phase_parallel(torch, msda, root: Path, whole=None):
     launches = {k: n / P_TIMED_STEPS for k, n in tp_b["launches"].items()}
     launches.update({f"{k} (SP)": n / P_FRAMES
                      for k, n in sp_b["launches"].items()})
-    errs = {}
+    errs = {}  # {kernel: {dtype: largest error}} over the four processes
     for run in (tp2[0]["bf16"], tp2[1]["bf16"], sp2[0]["bf16"],
                 sp2[1]["bf16"]):
-        for k, e in run["errors"].items():
-            errs[k] = max(errs.get(k, 0.0), e)
+        for k, by_dtype in run["errors"].items():
+            for dt, e in by_dtype.items():
+                errs.setdefault(k, {})[dt] = max(
+                    errs.get(k, {}).get(dt, 0.0), e)
     return launches, errs, ms, times
 
 
@@ -5249,8 +5306,10 @@ def main(argv=None) -> int:
                     summary.setdefault(k[:-5], {})["sp_launches"] = n
                 else:
                     summary.setdefault(k, {})["tp_launches"] = n
-            for k, e in p_errs.items():
-                summary.setdefault(k, {})["parallel_max_abs_err"] = e
+            for k, by_dtype in p_errs.items():
+                summary.setdefault(k, {}).update(
+                    parallel_max_abs_err=max(by_dtype.values()),
+                    parallel_max_abs_err_by_dtype=by_dtype)
             log(f"  {json.dumps(p_ms)}; phase P in "
                 f"{time.perf_counter() - t0:.1f} s ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
@@ -5277,7 +5336,8 @@ def main(argv=None) -> int:
                         "eval_launches", "mots_launches", "grad_max_abs_err",
                         "batched_launches", "batched_replay_ms",
                         "batched_bound_ms", "tp_launches", "sp_launches",
-                        "parallel_max_abs_err")
+                        "parallel_max_abs_err",
+                        "parallel_max_abs_err_by_dtype")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

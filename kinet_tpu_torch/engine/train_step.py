@@ -20,10 +20,12 @@ before the optimizer clips them, so every process applies the same
 update, the one of the whole batch, as the JAX package's data-parallel
 step does. Under a tensor-parallel mesh (``parallel/``) the mean is over
 the optimizer's data group only: the ranks of a model group step the
-same samples and hold different shards. ``DistributedDataParallel`` would not see this step: the
-forward runs through ``functional_call`` on cast copies of the parameters,
-which bypasses ``DistributedDataParallel.forward``, so its reducer would
-never be prepared. In a run of one process nothing is reduced.
+same samples and hold different shards; the replicated parameters'
+gradients are then averaged over the model group as well.
+``DistributedDataParallel`` would not see this step: the forward runs
+through ``functional_call`` on cast copies of the parameters, which
+bypasses ``DistributedDataParallel.forward``, so its reducer would never
+be prepared. In a run of one process nothing is reduced.
 
 ``make_kine_train_step``: the KineT step (reference KinetTrackingBase2):
 trail augmentation (``tracking/kine_augment.py``, no previous-frame
@@ -47,10 +49,19 @@ from ..utils.dist import all_reduce_grads
 
 def _reduce_grads(optimizer):
     """The gradients' mean over the optimizer's data group (every process
-    for an optimizer without a mesh)."""
+    for an optimizer without a mesh). Under tensor parallelism the
+    replicated parameters' gradients are then averaged over the model
+    group too: its ranks compute them from the same samples, but each on
+    its own card (cuDNN's choices, reduction orders), and one copy per
+    model group must take one update, or its copies drift apart."""
     mesh = getattr(optimizer, "mesh", None)
-    all_reduce_grads(optimizer.params,
-                     group="all" if mesh is None else mesh.data_group)
+    if mesh is None:
+        all_reduce_grads(optimizer.params)
+        return
+    all_reduce_grads(optimizer.params, group=mesh.data_group)
+    all_reduce_grads([p for p in optimizer.params
+                      if id(p) not in optimizer.shard_dims],
+                     group=mesh.model_group)
 
 
 def make_train_step(model, criterion, optimizer, cfg, generator=None):

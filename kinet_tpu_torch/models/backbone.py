@@ -48,6 +48,11 @@ class FrozenBatchNorm(nn.Module):
         return x * scale[:, None, None] + shift[:, None, None]
 
 
+def _call(module, x, stride):
+    """``module`` on ``x`` (whose rows are at ``stride`` of the image)."""
+    return module(x)
+
+
 class Bottleneck(nn.Module):
     """torchvision-style ResNet v1.5 bottleneck (stride on the 3x3)."""
 
@@ -72,13 +77,17 @@ class Bottleneck(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x, stride: int = 1, conv=_call):
+        """``x`` at ``stride`` of the image; ``conv(module, x, stride)`` runs
+        each convolution on an input at that stride (``_call``: the
+        module itself; ``parallel/sp.py`` passes its halo convolution)."""
+        y = torch.relu(self.bn1(conv(self.conv1, x, stride)))
+        y = torch.relu(self.bn2(conv(self.conv2, y, stride)))
+        y = self.bn3(conv(self.conv3, y, stride * self.conv2.stride[0]))
         identity = x
         if self.downsample_conv is not None:
-            identity = self.downsample_bn(self.downsample_conv(x))
+            identity = self.downsample_bn(
+                conv(self.downsample_conv, x, stride))
         return torch.relu(y + identity)
 
 
@@ -112,11 +121,15 @@ class ResNet(nn.Module):
                 self.blocks.append((stage, name))
                 in_ch = width * 4
 
-    def forward(self, x):  # x [B, 3, H, W]
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        feats = []
+    def forward(self, x, conv=_call, pool=_call):  # x [B, 3, H, W]
+        """``conv`` / ``pool`` (module, x, stride of x) run the
+        convolutions and the max pool (``Bottleneck.forward``)."""
+        x = pool(self.maxpool, torch.relu(self.bn1(conv(self.conv1, x, 1))), 2)
+        feats, stride = [], 4
         for i, (stage, name) in enumerate(self.blocks):
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = block(x, stride, conv)
+            stride *= block.conv2.stride[0]
             if i + 1 == len(self.blocks) or self.blocks[i + 1][0] != stage:
                 feats.append(x)
         return feats

@@ -7,8 +7,8 @@ a grid of processes of the initialised ``torch.distributed`` group
 (``utils/dist.py``) with a subgroup for each axis:
 
 - a **model group** is ``n_model`` consecutive ranks: they hold the shards
-  of one tensor-parallel model (``parallel/tp.py``) and step the same
-  samples;
+  of one tensor-parallel model (``parallel/tp.py``), step the same
+  samples and average the replicated parameters' gradients;
 - a **data group** is the ranks with the same position in their model
   group: they hold the same shards and average their gradients
   (``utils/dist.py::all_reduce_grads``).

@@ -181,31 +181,13 @@ class SpatialParallel:
             e, k, st, (0, p), d, pool.ceil_mode), fill=float("-inf"))
 
     # ---- the trunk -------------------------------------------------------
-    def trunk(self, trunk, images: torch.Tensor) -> list:
-        """``models/backbone.py::ResNet`` on this rank's rows of [B, H, W, 3]
-        images: its [C2, C3, C4, C5] rows (NCHW)."""
-        x = self.image_rows(images).permute(0, 3, 1, 2)
-        x = torch.relu(trunk.bn1(self.conv(trunk.conv1, x, 1)))
-        x = self.max_pool(trunk.maxpool, x, 2)
-        s, feats = 4, []
-        for i, (stage, name) in enumerate(trunk.blocks):
-            blk = getattr(trunk, name)
-            y = torch.relu(blk.bn1(blk.conv1(x)))
-            y = torch.relu(blk.bn2(self.conv(blk.conv2, y, s)))
-            y = blk.bn3(blk.conv3(y))
-            identity = x
-            if blk.downsample_conv is not None:
-                identity = blk.downsample_bn(
-                    self.conv(blk.downsample_conv, x, s))
-            x = torch.relu(y + identity)
-            s *= blk.conv2.stride[0]
-            if i + 1 == len(trunk.blocks) or trunk.blocks[i + 1][0] != stage:
-                feats.append(x)
-        return feats
-
     def features(self, backbone, images) -> list:
-        """The backbone's levels (``Backbone.select``), this rank's rows."""
-        return backbone.select(self.trunk(backbone.trunk, images))
+        """The backbone's levels (``Backbone.select``) of [B, H, W, 3]
+        images, this rank's rows (NCHW): ``models/backbone.py::ResNet`` on
+        the rank's image rows, its convolutions and max pool through
+        ``conv`` and ``max_pool``."""
+        x = self.image_rows(images).permute(0, 3, 1, 2)
+        return backbone.select(backbone.trunk(x, self.conv, self.max_pool))
 
     def gather(self, x: torch.Tensor, s: int) -> torch.Tensor:
         """The whole level at stride ``s`` from every rank's rows (dim 2)."""

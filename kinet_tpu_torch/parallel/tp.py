@@ -34,6 +34,11 @@ kernels, the matcher, the criterion) sees whole tensors as at ``n = 1``:
   all-gathers the input-gradient slices, so the input's gradient is
   replicated on every rank.
 
+Each rank of a model group computes the replicated parameters' gradients
+on its own card, so after the data group's mean they are averaged over
+the model group too (``engine/train_step.py``): their copies take one
+update and cannot drift apart.
+
 The collectives are ``torch.autograd.Function`` s over ``utils/dist.py``
 (staged through the CPU under gloo, on the card under NCCL). Parameters
 stay plain tensors (no DTensor), so ``functional_call`` on bf16 casts,

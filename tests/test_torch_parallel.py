@@ -12,12 +12,23 @@ false positives and negatives off).
   ``tp_partition_specs`` shards, parameter by parameter through
   ``tools/from_jax.py``'s paths and layouts; more than 20 are sharded
   (JAX :259-265);
+- the weights are JAX's tiny model's (``tools/from_jax.py``; the MSDA
+  offset and weight kernels perturbed so the samples depend on the
+  query), and step 0 takes the track queries that JAX's train step drew;
 - 2 processes at ``mesh.model = 2`` (both stepping the whole batch of 4)
   and a 2 x 2 mesh (each data rank its half) against 1 process on the
   batch: logits within atol 2e-5 and each step's loss within rtol 5e-3
   (JAX :295-299); every gathered gradient and every parameter after 2
   steps within rtol 1e-4, atol 1e-5; the ranks of a model group hold the
   same whole parameters;
+- each of these runs and 1 process against the JAX package on the same
+  inputs: logits (``model.apply``) within atol 2e-5 and step 0's loss
+  within rtol 5e-3 (JAX :295-299), and step 0's gathered gradient against
+  JAX's train step's, each tensor within 1e-4 of its largest entry plus
+  1e-6 of the largest gradient (rtol 1e-3), as
+  ``test_torch_train_step.py`` holds 1 process;
+- the replicated parameters' gradients are averaged over the model group
+  (ranks that differ agree afterwards), the shards' never mixed;
 - ``evaluate()`` of the stepped models over a MOT tree's 4 val images
   (each data group its shard) gives 1 process's 12 COCO stats and, image
   by image, its scores (atol 1e-4);
@@ -52,37 +63,124 @@ def _cfg(**over):
     return load_config("train.yaml", named=NAMED).replace(**{**TINY, **over})
 
 
-def _inputs(images, step):
-    """(batch, targets, prev_batch, prev_targets) of ``images`` (indices
-    into the batch of B) at train step ``step``: noise frames and two
+def _frames(step):
+    """[(images, boxes)] of the current and the previous frame of the
+    batch of B at train step ``step`` (numpy): noise frames and two
     distinct boxes an image (identical boxes tie every matching cost)."""
-    from kinet_tpu_torch.structs import ImageBatch, Targets
-
     out = []
     for f in (0, 1):  # current, previous
         rng = np.random.default_rng(1000 * step + 10 * f)
-        imgs = rng.normal(size=(B, H, W, 3)).astype(np.float32)[images]
+        imgs = rng.normal(size=(B, H, W, 3)).astype(np.float32)
         boxes = np.tile(np.asarray([[[0.3, 0.3, 0.2, 0.2],
                                      [0.7, 0.6, 0.15, 0.25]]], np.float32),
                         (B, 1, 1))
         boxes[:, :, :2] += rng.uniform(-0.05, 0.05, (B, 2, 2))
-        boxes = boxes[images]
-        n = len(images)
+        out.append((imgs, boxes))
+    return out
+
+
+def _inputs(images, step):
+    """(batch, targets, prev_batch, prev_targets) of ``images`` (indices
+    into the batch of B) at train step ``step``."""
+    from kinet_tpu_torch.structs import ImageBatch, Targets
+
+    out = []
+    n = len(images)
+    for imgs, boxes in _frames(step):
         targets = Targets.create(
-            torch.from_numpy(boxes), torch.zeros(n, 2, dtype=torch.int64),
+            torch.from_numpy(boxes[images]),
+            torch.zeros(n, 2, dtype=torch.int64),
             torch.ones(n, 2, dtype=torch.bool),
             track_ids=torch.arange(2).expand(n, 2).clone(),
             num_track_queries=8, hidden_dim=32)
-        out += [ImageBatch(torch.from_numpy(imgs),
+        out += [ImageBatch(torch.from_numpy(imgs[images]),
                            torch.zeros(n, H, W, dtype=torch.bool)), targets]
     return out
 
 
-def _steps(rank, world, tmp, n_model=1, use_mesh=True):
-    """STEPS train steps; returns the logits of a forward before them, the
-    losses, the gathered gradients after the last step and the whole
-    parameters after it (and the mesh and checkpoint checks under a
-    group)."""
+def _jax_reference():
+    """The JAX tiny model on the batch of B at step 0: its weights (numpy;
+    MSDA offset and weight kernels perturbed so the samples depend on the
+    query), its logits (``model.apply``), and its train step's loss, raw
+    gradients (flat by flax path) and augmented targets (the port's
+    ``Targets``). The gradients come out through an optimizer that keeps
+    them as its state, the targets through a debug callback."""
+    import jax.numpy as jnp
+    import optax
+
+    from kinet_tpu.config import load_config as jax_load_config
+    from kinet_tpu.engine.state import TrainState
+    from kinet_tpu.engine.train_step import make_train_step
+    from kinet_tpu.models.build import build_model as jax_build_model
+    from kinet_tpu.structs import ImageBatch, Targets
+    from kinet_tpu.tracking import train_augment
+    from test_torch_train_step import flat, torch_targets
+
+    jcfg = jax_load_config("train.yaml", named=NAMED).replace(**TINY)
+    model, criterion, _ = jax_build_model(jcfg)
+    inputs = []
+    for imgs, boxes in _frames(0):
+        inputs += [ImageBatch(images=jnp.asarray(imgs),
+                              pad_mask=jnp.zeros((B, H, W), bool)),
+                   Targets.create(jnp.asarray(boxes),
+                                  jnp.zeros((B, 2), jnp.int32),
+                                  jnp.ones((B, 2), bool),
+                                  jnp.tile(jnp.arange(2), (B, 1)),
+                                  num_track_queries=8, hidden_dim=32)]
+    params = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(1),
+                                                *inputs[:2]))
+    rng = np.random.default_rng(1)
+
+    def perturb(path, x):
+        key = jax.tree_util.keystr(path)
+        if (("sampling_offsets" in key or "attention_weights" in key)
+                and "kernel" in key):
+            return (x + rng.normal(0, 0.05, x.shape)).astype(x.dtype)
+        return np.asarray(x)
+
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    logits = jax.jit(lambda p, b, t: model.apply(
+        p, b, t, deterministic=True)["pred_logits"])(params, *inputs[:2])
+    captured = {}
+    make_aug = train_augment.add_track_queries_to_targets
+
+    def recording(*a, **kw):
+        out = make_aug(*a, **kw)
+        jax.debug.callback(lambda t: captured.setdefault("targets", t), out)
+        return out
+
+    keep_grads = optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_augment, "add_track_queries_to_targets", recording)
+        step = make_train_step(model, criterion, keep_grads, jcfg)
+        state, losses = step(TrainState.create(params, keep_grads),
+                             jax.random.PRNGKey(2), *inputs)
+        grads = jax.device_get(state.opt_state)
+        jax.effects_barrier()
+    aug = torch_targets(jax.tree_util.tree_map(np.asarray,
+                                               captured["targets"]))
+    return dict(params=params, logits=torch.from_numpy(np.array(logits)),
+                loss=float(losses["loss"]), grads=flat(grads), aug=aug)
+
+
+def _take(targets, images):
+    """The rows ``images`` of every tensor of ``targets``."""
+    from dataclasses import fields, replace
+
+    return replace(targets, **{
+        f.name: getattr(targets, f.name)[images] for f in fields(targets)
+        if getattr(targets, f.name) is not None})
+
+
+def _steps(rank, world, tmp, params, aug, n_model=1, use_mesh=True):
+    """STEPS train steps of the model with the JAX weights ``params``, step
+    0 taking the augmented targets ``aug`` (JAX's draw); returns the logits
+    of a forward before them, the losses, step 0's and the last step's
+    gathered gradients (unclipped, clipped) and the whole parameters after
+    the last (and the mesh, checkpoint and gradient-reduction checks under
+    a group)."""
     import torch.distributed as tdist
 
     from kinet_tpu_torch.engine.state import Optimizer
@@ -94,6 +192,8 @@ def _steps(rank, world, tmp, n_model=1, use_mesh=True):
         shard_params_tp,
         sharded_dims,
     )
+    from kinet_tpu_torch.tools.from_jax import load_jax_params
+    from kinet_tpu_torch.tracking import train_augment
     from kinet_tpu_torch.utils.dist import all_gather_cat
 
     cfg = _cfg(lr=1e-4)
@@ -108,6 +208,7 @@ def _steps(rank, world, tmp, n_model=1, use_mesh=True):
             except ValueError as e:
                 out["bad_product"] = str(e)
     model, _ = build_model(cfg, device="cpu", seed=0)
+    load_jax_params(model, params)
     if mesh is not None:
         shard_params_tp(model, mesh)
     model.train()
@@ -116,14 +217,35 @@ def _steps(rank, world, tmp, n_model=1, use_mesh=True):
     with torch.no_grad():
         out["logits"] = model(*_inputs(images, 0)[:2])["pred_logits"].clone()
     opt = Optimizer(model, cfg, 100)
-    step = make_train_step(model, build_criterion(cfg), opt, cfg,
-                           generator=torch.Generator().manual_seed(5))
-    out["losses"] = [float(step(*_inputs(images, s))["loss"])
-                     for s in range(STEPS)]
     dims = sharded_dims(model)
     group = None if mesh is None else mesh.model_group
-    out["grads"] = {n: all_gather_cat(p.grad, dims[n], group) if n in dims
-                    else p.grad.clone() for n, p in model.named_parameters()}
+
+    def whole_grads():  # a parameter with no gradient: zeros (as JAX's)
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in model.named_parameters()}
+        return {n: all_gather_cat(g, dims[n], group) if n in dims
+                else g.clone() for n, g in grads.items()}
+
+    update, make_aug = opt.step, train_augment.add_track_queries_to_targets
+
+    def first_step():  # step 0's gradients, reduced and unclipped
+        out["grads0"] = whole_grads()
+        opt.step = update
+        return update()
+
+    def jax_draw(*a, **kw):  # step 0 takes JAX's augmented targets
+        train_augment.add_track_queries_to_targets = make_aug
+        return _take(aug, images)
+
+    opt.step, train_augment.add_track_queries_to_targets = first_step, jax_draw
+    try:
+        step = make_train_step(model, build_criterion(cfg), opt, cfg,
+                               generator=torch.Generator().manual_seed(5))
+        out["losses"] = [float(step(*_inputs(images, s))["loss"])
+                         for s in range(STEPS)]
+    finally:
+        train_augment.add_track_queries_to_targets = make_aug
+    out["grads"] = whole_grads()
     out["params"] = {k: v.clone() for k, v in full_state_dict(model).items()}
     out["sharded"] = len(dims)
     out["eval"] = _evaluate(tmp, model)
@@ -131,9 +253,28 @@ def _steps(rank, world, tmp, n_model=1, use_mesh=True):
         out["resume"] = _checkpoint(tmp, world, cfg, mesh, model, opt)
     if world == 2:
         out["backward"] = _parallel_backward(mesh)
+    if world > 1:
+        out["reduced"] = _reduced_grads(model, opt)
     if use_mesh and world > 1:
         tdist.barrier()
     return out
+
+
+def _reduced_grads(model, opt):
+    """Gives every gradient the value rank + 1 and reduces them as the
+    train step does: {parameter name: (smallest, largest) entry, whether
+    it is sharded}."""
+    import torch.distributed as tdist
+
+    from kinet_tpu_torch.engine.train_step import _reduce_grads
+    from kinet_tpu_torch.parallel.tp import sharded_dims
+
+    for p in opt.params:
+        p.grad = torch.full_like(p, tdist.get_rank() + 1.0)
+    _reduce_grads(opt)
+    dims = sharded_dims(model)
+    return {n: (float(p.grad.min()), float(p.grad.max()), n in dims)
+            for n, p in model.named_parameters()}
 
 
 def _evaluate(tmp, model):
@@ -250,11 +391,14 @@ def _parallel_backward(mesh):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
     write_mot_tree(tmp / "mot")
+    ref = _jax_reference()
+    args = (ref["params"], ref["aug"])
     return {
-        "one": _steps(0, 1, str(tmp), use_mesh=False),
-        "mesh11": _steps(0, 1, str(tmp)),
-        "tp2": run_processes(_steps, 2, tmp, 2),
-        "dp2tp2": run_processes(_steps, 4, tmp, 2),
+        "one": _steps(0, 1, str(tmp), *args, use_mesh=False),
+        "mesh11": _steps(0, 1, str(tmp), *args),
+        "tp2": run_processes(_steps, 2, tmp, *args, 2),
+        "dp2tp2": run_processes(_steps, 4, tmp, *args, 2),
+        "jax": ref,
         "tmp": tmp,
     }
 
@@ -369,6 +513,58 @@ def test_tensor_parallel_steps_equal_one_process(runs, run):
         assert sorted(got["eval"][1]) == sorted(one["eval"][1]) == [0, 1, 2, 3]
         for i, scores in one["eval"][1].items():
             np.testing.assert_allclose(got["eval"][1][i], scores, atol=1e-4)
+
+
+@pytest.mark.parametrize("run", ["one", "tp2", "dp2tp2"])
+def test_step_zero_equals_jax(runs, run):
+    """The port's logits, step 0's loss and its gathered gradient against
+    the JAX package's on the same weights and inputs."""
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.tools.from_jax import flax_path, to_flax_layout
+
+    ref = runs["jax"]
+    procs = runs[run] if run != "one" else [runs["one"]]
+    for r, got in enumerate(procs):
+        images = (list(range(B)) if len(procs) < 4 else
+                  list(range(B))[r // 2::2])
+        torch.testing.assert_close(got["logits"], ref["logits"][images],
+                                   rtol=0, atol=2e-5, msg=f"rank {r} logits")
+    loss = np.mean([got["losses"][0] for got in procs])
+    assert loss == pytest.approx(ref["loss"], rel=5e-3)
+    # each tensor within 1e-4 of its largest |entry| (rtol 1e-3), plus 1e-6
+    # of the largest gradient overall (test_torch_train_step.py: the keys'
+    # biases in attention have zero gradient analytically, and both
+    # packages return rounding noise there)
+    model, _ = build_model(_cfg(), device="cpu")
+    overall = max(np.abs(g).max() for g in ref["grads"].values())
+    for r, got in enumerate(procs):
+        assert got["grads0"].keys() == dict(model.named_parameters()).keys()
+        for name, g in got["grads0"].items():
+            want = ref["grads"][flax_path(model, name)]
+            np.testing.assert_allclose(
+                to_flax_layout(model, name, g.numpy(), want.shape), want,
+                rtol=1e-3, atol=1e-4 * np.abs(want).max() + 1e-6 * overall,
+                err_msg=f"rank {r} gradient {name}")
+
+
+@pytest.mark.parametrize("run", ["tp2", "dp2tp2"])
+def test_replicated_gradients_are_averaged_over_the_model_group(runs, run):
+    """Each rank gave every gradient the value rank + 1: after the data
+    group's mean, a replicated parameter's gradient is also averaged over
+    the model group, so all its copies agree; a shard's stays its data
+    group's mean."""
+    procs = runs[run]
+    n_sharded = 0
+    for r, got in enumerate(procs):
+        model_rank = r % 2
+        data = ([r + 1] if len(procs) == 2 else
+                [model_rank + 1, model_rank + 3])  # the data group's ranks
+        for name, (lo, hi, sharded) in got["reduced"].items():
+            want = (np.mean(data) if sharded else
+                    np.mean(range(1, len(procs) + 1)))
+            assert lo == hi == want, (r, name, lo, hi, want)
+            n_sharded += sharded
+    assert n_sharded > 20 * len(procs)
 
 
 def test_tp_checkpoint_resumes_at_tp2_and_in_one_process(runs):
