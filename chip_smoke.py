@@ -193,6 +193,25 @@ P. the parallel package (``kinet_tpu_torch/parallel/``) in 2 gloo
    f32 output) held to their plain versions. The
    correctness parts run at once; the timed parts one after another. No
    scaling is claimed: the processes share one card.
+H. the host tools: (a) a seeded state dict under a reference
+   checkpoint's names for the full-width flagship (tests/_ref_state_dict.py
+   writes it from a seeded port model) imported under ``strict`` into
+   another port model on the card whose tensors were set to NaN: every
+   parameter and buffer filled, bit for bit the source, no reference key
+   unmapped; one f32 frame at 256x448 on those weights against the CPU
+   (phase 4's tolerances), then phase 5's served frames on them
+   (Tracker.step, bf16, 800x1440; 6 msda_fwd and 6 msda_raw_pool_fwd
+   launches a frame) and one frame's calls held to the plain versions as
+   in phase P; (b) ``tools/track_param_search.py::search`` over a 2 x 2
+   grid of detection_obj_score_thresh x track_obj_score_thresh on phase
+   T's saved run and sequence (dec_msda_int8, bf16, 16 JPEG frames
+   1080x1920), each combination's MOTA, IDF1 and seconds; then the
+   tracking CLI with the best combination and ``write_images: pretty``:
+   the same MOTA and IDF1 as the search's entry; (c) its 16 frame images
+   under output_dir/<dataset dir>/<sequence>/, frame 0 byte-equal to the
+   frame drawn again from the CLI's tracks, the largest box's top edge
+   in its track's palette colour, and the host ms a frame of the writing
+   beside the run's ms a frame.
 
 A kernel's time is its device time: CUDA events around 20 back-to-back
 calls of its wrapper on the same inputs (so the tables stay in L2 from one
@@ -215,7 +234,9 @@ phase M5's; ``batched_launches``: a stacked batched step's at B = 1, 2,
 ``tp_launches`` / ``sp_launches``: phase P's a step of a tensor-parallel
 process / a frame of a spatially parallel one, ``parallel_max_abs_err``:
 its kernels against their plain versions on those paths' calls, and
-``parallel_max_abs_err_by_dtype`` the same by the table's dtype);
+``parallel_max_abs_err_by_dtype`` the same by the table's dtype;
+``import_launches`` / ``import_max_abs_err``: phase H's served frames on
+the imported weights, ``tools_launches``: phase H's search and CLI run);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
 phase V, V2 without its train steps) and prints no result line.
@@ -926,10 +947,8 @@ def phase_model_vs_cpu(torch):
     # f32 on both, TF32 off: convolution algorithms and sums run in another
     # order on the card, and the differences grow through the 50-layer
     # backbone and 12 transformer layers
-    tol = {"pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
-           "hs_embed": (1e-3, 2e-3)}
     for f in range(2):
-        for k, (rtol, atol) in tol.items():
+        for k, (rtol, atol) in MODEL_TOL.items():
             a, r = outs["cuda"][f][k], outs["cpu"][f][k]
             check(bool(torch.isfinite(a).all()), f"frame {f} {k} not finite")
             err = (a - r).abs().max().item()
@@ -3631,10 +3650,8 @@ def phase_detr(torch, msda):
                       ("pred_logits", "pred_boxes", "hs_embed")} for o in (o1, o2)]
         del model, o1, o2
     torch.cuda.empty_cache()
-    tol = {"pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
-           "hs_embed": (1e-3, 2e-3)}
     for f in range(2):
-        for k, (rtol, atol) in tol.items():
+        for k, (rtol, atol) in MODEL_TOL.items():
             a, r = outs[DEVICE][f][k], outs["cpu"][f][k]
             check(bool(torch.isfinite(a).all()), f"DETR frame {f} {k} not finite")
             log(f"  card vs CPU frame {f} {k:<12} {tuple(a.shape)} max abs "
@@ -5061,6 +5078,350 @@ def phase_merge(torch, msda):
 
 
 # ---------------------------------------------------------------------------
+# phase H: the host tools (the importer, track_param_search, write_images)
+
+
+# around the saved run's calibration: 0.4 keeps about 7 new detections a
+# frame (phase T); the best combination by MOTA must track frame 0, whose
+# image phase H checks (at 0.5 the run's best kept one late track)
+H_GRID = {"detection_obj_score_thresh": [0.3, 0.4],
+          "track_obj_score_thresh": [0.3, 0.4]}
+# the track config's overrides of phase T's CLI run
+H_TRACK_OVER = {"tracker_cfg.steps_termination": 3,
+                "tracker_cfg.inactive_patience": 0}
+# phase 4's tolerances: f32 on both devices, TF32 off
+MODEL_TOL = {"pred_logits": (1e-3, 2e-3), "pred_boxes": (1e-3, 5e-4),
+             "hs_embed": (1e-3, 2e-3)}
+
+H_CLI_RUNNER = """
+import json, runpy, sys, time
+from kinet_tpu_torch.ops import msda
+from kinet_tpu_torch.utils import mot_metrics, vis
+msda.ms_deform_attn.launches = 0
+msda.ms_deform_attn_raw_pool.launches = 0
+msda.ms_deform_attn_raw_pool.i8_launches = 0
+write_ms, frame0, summary = [], [], {}
+plot = vis.plot_sequence
+def timed_plot(results, seq, output_dir, write_images="pretty"):
+    frame0.extend([int(t), [float(v) for v in tr[0]["bbox"]]]
+                  for t, tr in results.items() if 0 in tr)
+    t0 = time.perf_counter()
+    plot(results, seq, output_dir, write_images=write_images)
+    write_ms.append((time.perf_counter() - t0) * 1e3)
+vis.plot_sequence = timed_plot
+evaluate = mot_metrics.evaluate_mot_accums
+def captured(*args, **kwargs):
+    out = evaluate(*args, **kwargs)
+    summary.update(out)
+    return out
+mot_metrics.evaluate_mot_accums = captured
+sys.argv = ["kinet_tpu_torch.engine.track"] + sys.argv[1:]
+runpy.run_module("kinet_tpu_torch.engine.track", run_name="__main__",
+                 alter_sys=True)
+print(json.dumps({"launches": {
+    "msda_fwd": msda.ms_deform_attn.launches,
+    "msda_raw_pool_fwd": msda.ms_deform_attn_raw_pool.launches,
+    "msda_raw_pool_fwd_i8": msda.ms_deform_attn_raw_pool.i8_launches,
+}, "write_ms": write_ms, "frame0": frame0, "summary": summary},
+    default=float))
+"""
+
+
+def ref_state_dict_module():
+    """tests/_ref_state_dict.py: writes a port model's tensors under a
+    reference checkpoint's names (not part of the package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "_ref_state_dict.py"
+    spec = importlib.util.spec_from_file_location("_ref_state_dict", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nan_model(torch, cfg, device, seed):
+    """A port model of ``cfg`` whose floating tensors are all NaN (its
+    other tensors stay), so a tensor an import leaves unwritten shows."""
+    from kinet_tpu_torch.models.build import build_model
+
+    model, post = build_model(cfg, device=device, seed=seed)
+    with torch.no_grad():
+        for t in itertools.chain(model.parameters(), model.buffers()):
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+    return model, post
+
+
+def strict_import(torch, sd, model, cfg):
+    """The importer under strict into ``model``; checks its report."""
+    import warnings
+
+    from kinet_tpu_torch.tools.import_torch_weights import import_state_dict
+
+    with warnings.catch_warnings():  # the msda_ref_normalizer notice
+        warnings.simplefilter("ignore")
+        _, report = import_state_dict(sd, model, nheads=int(cfg.nheads),
+                                      strict=True)
+    n = len(model.state_dict())
+    check(report["unmapped"] == [] and report["applied"] == n,
+          f"strict import: applied {report['applied']} of {n} tensors, "
+          f"unmapped {report['unmapped'][:5]}")
+    return report
+
+
+def phase_tools_import(torch, msda):
+    """(a): the reference-named state dict of a seeded full-width flagship
+    (class heads biased to class 0) imported strictly into another port
+    model on the card, then card vs CPU on one f32 frame, the served
+    frames and one frame's calls vs the plain versions. Returns
+    (launches over the served frames, median ms a frame, {kernel: {dtype:
+    max abs err}})."""
+    import numpy as np
+
+    from kinet_tpu_torch.models.build import build_model
+    from kinet_tpu_torch.tracking.tracker import Tracker
+
+    cfg = flagship_cfg()
+    src, _ = build_model(cfg, device=DEVICE, seed=5)
+    bias_to_person(torch, src, cfg)
+    t0 = time.perf_counter()
+    sd = ref_state_dict_module().reference_state_dict(src)
+    write_s = time.perf_counter() - t0
+    model, post = nan_model(torch, cfg, DEVICE, seed=6)
+    t0 = time.perf_counter()
+    report = strict_import(torch, sd, model, cfg)
+    import_s = time.perf_counter() - t0
+    want = src.state_dict()
+    for k, v in model.state_dict().items():
+        check(torch.equal(v, want[k]), f"imported {k} is not the source's")
+    del src, want
+    log(f"  reference state dict: {len(sd)} tensors, "
+        f"{sum(v.numel() for v in sd.values()) / 1e6:.2f} M values, written "
+        f"in {write_s:.2f} s; strict import on the card: {report['applied']} "
+        f"port tensors (every parameter and buffer, bit for bit the source's), "
+        f"0 unmapped, in {import_s:.2f} s")
+
+    # one f32 frame against the CPU on the same imported weights
+    cpu, _ = nan_model(torch, cfg, "cpu", seed=6)
+    strict_import(torch, sd, cpu, cfg)
+    t_slots, hidden = int(cfg.max_track_queries), int(cfg.hidden_dim)
+    outs = {}
+    for dev, m in (("cpu", cpu), (DEVICE, model)):
+        inputs = model_inputs(torch, np.random.default_rng(5), 256, 448,
+                              t_slots, hidden, 20, dev)
+        with torch.inference_mode():
+            o = m(*inputs)
+        outs[dev] = {k: o[k].float().cpu() for k in MODEL_TOL}
+    del cpu, sd
+    for k, (rtol, atol) in MODEL_TOL.items():
+        a, r = outs[DEVICE][k], outs["cpu"][k]
+        check(bool(torch.isfinite(a).all()), f"imported {k} not finite")
+        log(f"  f32 256x448 {k:<12} {tuple(a.shape)} card vs CPU max abs err "
+            f"{(a - r).abs().max().item():.3e} (rtol {rtol}, atol {atol})")
+        assert_close(torch, f"imported model {k}", a, r, rtol, atol)
+
+    # phase 5's served frames on the imported weights
+    model.to(torch.bfloat16)
+    frames = list(moving_boxes(np, *MAIN_HW, N_FRAMES + 1))
+    cand = class0_scores(torch, model, post["bbox"], frames[0], t_slots)
+    thresh = cand[min(7, cand.numel() - 1)].item()
+    tracker = Tracker(model, post["bbox"], served_tracker_cfg(thresh),
+                      **tracker_kwargs(cfg))
+    torch.cuda.synchronize()
+    reset_launches(msda)
+    times, active = timed_frames(torch, tracker, frames[:N_FRAMES])
+    launches = read_launches(msda)
+    med = statistics.median(times[WARMUP:])
+    log(f"  served frames on the imported weights (thresholds {thresh:.5f}): "
+        f"{' '.join(f'{t:.2f}' for t in times)} ms; median {med:.3f} ms a "
+        f"frame after {WARMUP}; active track slots {active}")
+    log(f"  launches over {N_FRAMES} frames: {launches}")
+    for k, n in launches.items():
+        want_n = 6 * N_FRAMES if k in ("msda_fwd", "msda_raw_pool_fwd") else 0
+        check(n == want_n, f"{k} launched {n} times on the imported weights, "
+              f"expected {want_n}")
+    n_boxes = 0
+    for per_frame in tracker.get_results().values():
+        for r in per_frame.values():
+            check(bool(np.isfinite(r["bbox"]).all()), "non-finite result box")
+            n_boxes += 1
+    check(n_boxes > 0 and max(active[WARMUP:]) > 0,
+          "the imported weights tracked nothing")
+    calls = record_forward_calls(torch,
+                                 lambda: tracker.step(frames[N_FRAMES]))
+    kinds = [k for k, _ in calls]
+    check(kinds.count("msda_fwd") == 6
+          and kinds.count("msda_raw_pool_fwd") == 6 and len(kinds) == 12,
+          f"a frame made the forward MSDA calls {kinds}, expected 6 + 6")
+    errs = p_check_calls(torch, msda, calls, False)
+    log(f"  one frame's calls vs the plain versions (each kernel, query "
+        f"count and levels once): {json.dumps(errs)}")
+    del tracker, model, calls
+    torch.cuda.empty_cache()
+    return launches, med, errs
+
+
+def h_write_check(np, out_dir: Path, frame0, src_jpg: Path):
+    """Frame 0's image: byte-equal to the source frame drawn again with
+    the CLI's frame-0 tracks, and the largest box's top edge (the middle
+    half of its width) nearer its track's palette colour than the source
+    frame's pixels there are. Returns (track id, edge colour)."""
+    import io
+
+    from PIL import Image
+
+    from kinet_tpu_torch.utils.vis import PALETTE, draw_boxes
+
+    written = (out_dir / "000000.jpg").read_bytes()
+    img = np.asarray(Image.open(src_jpg).convert("RGB"))
+    for tid, box in frame0:
+        img = draw_boxes(img, [box], tuple(int(c) for c in
+                                           PALETTE[tid % len(PALETTE)]))
+    again = io.BytesIO()
+    Image.fromarray(img).save(again, format="JPEG")
+    check(again.getvalue() == written,
+          "frame 0's image is not the frame drawn with the CLI's tracks")
+    check(len(frame0) > 0, "no track in frame 0")
+    tid, box = max(frame0, key=lambda tb: (tb[1][2] - tb[1][0])
+                   * (tb[1][3] - tb[1][1]))
+    h, w = img.shape[:2]
+    x0, y0, x1 = (int(np.clip(round(v), 0, lim - 1))
+                  for v, lim in ((box[0], w), (box[1], h), (box[2], w)))
+    q = max((x1 - x0) // 4, 0)
+    rows, cols = slice(max(y0 - 1, 0), y0 + 1), slice(x0 + q, x1 - q + 1)
+    got = np.asarray(Image.open(out_dir / "000000.jpg").convert("RGB"))
+    src = np.asarray(Image.open(src_jpg).convert("RGB"))
+    edge = np.median(got[rows, cols].reshape(-1, 3).astype(float), axis=0)
+    before = np.median(src[rows, cols].reshape(-1, 3).astype(float), axis=0)
+    colour = PALETTE[tid % len(PALETTE)]
+    check(np.linalg.norm(edge - colour) < np.linalg.norm(before - colour),
+          f"track {tid}'s top edge {edge} is not nearer its colour {colour} "
+          f"than the source's {before}")
+    return tid, edge
+
+
+def phase_tools_search(torch, msda):
+    """(b) and (c): track_param_search on phase T's saved run, then the
+    tracking CLI with the best combination and write_images. Returns
+    ({kernel: launches of H's main_track runs}, seconds a combination,
+    the CLI's write ms a frame, its RUNTIME ms a frame)."""
+    import math
+    import re
+
+    import numpy as np
+
+    from kinet_tpu_torch.config import load_config, save_config
+    from kinet_tpu_torch.data.sequences import MOT17Sequence
+    from kinet_tpu_torch.tools import track_param_search as tps
+    from kinet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_mot17_sequence(tmp / "data", T_FRAMES, *T_HW)
+        cfg = flagship_cfg().replace(dec_msda_int8=True, allow_lossy=True,
+                                     **T_TRANSFORM)
+        seq = MOT17Sequence(str(tmp / "data"), "MOT17-02", "FRCNN",
+                            img_transform=cfg.img_transform)
+        model, shift = calibrated_model(torch, cfg, seq[0])
+        run = tmp / "run"
+        save_config(cfg, run)
+        CheckpointManager(str(run)).save_epoch(
+            model, torch.optim.SGD(model.parameters(), lr=0.0), 0, 0)
+        del model
+        torch.cuda.empty_cache()
+        log(f"  phase T's sequence and saved run (class-0 bias {shift:+.3f}) "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        track_cfg = load_config("track.yaml").replace(
+            obj_detect_checkpoint_dir=str(run), data_root_dir=str(tmp / "data"),
+            dataset_name=T_SEQ, output_dir=str(tmp / "search"),
+            **H_TRACK_OVER)
+        seconds = []
+        main_track = tps.main_track
+
+        def timed_main_track(run_cfg):
+            t1 = time.perf_counter()
+            out = main_track(run_cfg)
+            seconds.append(time.perf_counter() - t1)
+            return out
+
+        reset_launches(msda)
+        tps.main_track = timed_main_track
+        try:
+            results = tps.search(track_cfg, H_GRID)
+        finally:
+            tps.main_track = main_track
+        launches = read_launches(msda)
+        n_combos = math.prod(len(v) for v in H_GRID.values())
+        check(results is not None and len(results) == n_combos,
+              f"the search gave {results}")
+        for r, s in zip(results, seconds):
+            check(math.isfinite(r["mota"]) and math.isfinite(r["idf1"]),
+                  f"combination {r}")
+            log(f"  combination {r}: {s:.2f} s")
+        best = max(results, key=lambda r: r["mota"])
+        log(f"  best {best}; {statistics.mean(seconds):.2f} s a combination "
+            f"({T_FRAMES} frames and the checkpoint's restore each); "
+            f"launches over the search: {launches}")
+        for k, n in launches.items():
+            want = (6 * T_FRAMES * n_combos
+                    if k in ("msda_fwd", "msda_raw_pool_fwd_i8") else 0)
+            check(n == want, f"the search launched {k} {n} times, expected "
+                  f"{want}")
+
+        out = tmp / "cli"
+        cmd = [sys.executable, "-c", H_CLI_RUNNER,
+               f"obj_detect_checkpoint_dir={run}",
+               f"data_root_dir={tmp / 'data'}", f"dataset_name={T_SEQ}",
+               f"output_dir={out}", "write_images=pretty"] + [
+            f"{k}={v}" for k, v in H_TRACK_OVER.items()] + [
+            f"tracker_cfg.{k}={best[k]}" for k in H_GRID]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        text = proc.stdout
+        check(proc.returncode == 0, f"the tracking CLI exited "
+              f"{proc.returncode}:\n{text[-3000:]}\n{proc.stderr[-3000:]}")
+        for line in text.strip().splitlines()[:-1]:
+            log(f"  | {line}")
+        child = json.loads(text.strip().splitlines()[-1])
+        summary = child["summary"]
+        overall = summary.get("OVERALL") or next(iter(summary.values()))
+        check(overall["mota"] == best["mota"]
+              and overall["idf1"] == best["idf1"],
+              f"the CLI's MOTA {overall['mota']} IDF1 {overall['idf1']} are "
+              f"not the search's {best['mota']} {best['idf1']}")
+        for k, n in child["launches"].items():
+            want = 0 if k == "msda_raw_pool_fwd" else 6 * T_FRAMES
+            check(n == want, f"the CLI launched {k} {n} times, expected {want}")
+            launches[k] += n
+        img_dir = out / T_SEQ / T_SEQ
+        names = sorted(p.name for p in img_dir.iterdir())
+        check(names == [f"{i:06d}.jpg" for i in range(T_FRAMES)],
+              f"written images {names}")
+        tid, edge = h_write_check(
+            np, img_dir, child["frame0"],
+            tmp / "data" / "MOT17" / "train" / T_SEQ / "img1" / "000001.jpg")
+        hz = re.search(r"([\d.]+) s for (\d+) frames", text)
+        check(hz is not None and int(hz.group(2)) == T_FRAMES,
+              "no RUNTIME line for every frame")
+        run_ms = float(hz.group(1)) * 1e3 / T_FRAMES
+        write_ms = sum(child["write_ms"]) / T_FRAMES
+        log(f"  the CLI with the best combination and write_images: MOTA "
+            f"{overall['mota']:.6f} IDF1 {overall['idf1']:.6f}, the search's; "
+            f"{len(names)} images in {img_dir.relative_to(out)}; frame 0: "
+            f"track {tid}'s top edge {edge.round(1).tolist()}; CLI process "
+            f"{wall:.1f} s")
+        log(f"  writing images: {write_ms:.2f} ms a frame (host) beside the "
+            f"RUNTIME line's {run_ms:.2f} ms a frame: "
+            f"{100 * write_ms / (write_ms + run_ms):.1f} % of a written frame")
+    return launches, statistics.mean(seconds), write_ms, run_ms
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -5088,7 +5449,7 @@ KERNEL_META = {
                         "kinet_tpu/ops/msda.py:1149"),
 }
 PHASES = ("3", "3b", "P2", "4", "5", "6", "7", "T", "E", "A", "D", "K", "M",
-          "V", "B", "S", "P")
+          "V", "H", "B", "S", "P")
 
 
 def main(argv=None) -> int:
@@ -5252,6 +5613,25 @@ def main(argv=None) -> int:
                 "Tracker.step")
             phase_merge(torch, msda)
         log(f"  phase V in {time.perf_counter() - t0:.1f} s; on {smi}")
+    if "H" in phases:
+        log(f"== H. the host tools: a reference checkpoint imported into the "
+            f"full-width flagship and served (bf16 {MAIN_HW[0]}x{MAIN_HW[1]}); "
+            f"track_param_search over {len(H_GRID)} keys on phase T's run; "
+            f"the CLI with write_images")
+        t0 = time.perf_counter()
+        served, ms, errs = phase_tools_import(torch, msda)
+        for k in ("msda_fwd", "msda_raw_pool_fwd"):
+            summary.setdefault(k, {})["import_launches"] = served[k]
+        for k, by_dtype in errs.items():
+            summary.setdefault(k, {})["import_max_abs_err"] = \
+                max(by_dtype.values())
+        tools, combo_s, write_ms, run_ms = phase_tools_search(torch, msda)
+        for k in ("msda_fwd", "msda_raw_pool_fwd_i8"):
+            summary.setdefault(k, {})["tools_launches"] = tools[k]
+        log(f"  {ms:.3f} ms a served frame on the imported weights; "
+            f"{combo_s:.2f} s a search combination; writing images "
+            f"{write_ms:.2f} ms a frame beside {run_ms:.2f} ms; phase H in "
+            f"{time.perf_counter() - t0:.1f} s; on {smi}")
     # phase B's CLI runs, reused by S; S's 1-process steps, reused by P
     shared = tempfile.TemporaryDirectory()
     s_whole = None
@@ -5337,7 +5717,8 @@ def main(argv=None) -> int:
                         "batched_launches", "batched_replay_ms",
                         "batched_bound_ms", "tp_launches", "sp_launches",
                         "parallel_max_abs_err",
-                        "parallel_max_abs_err_by_dtype")
+                        "parallel_max_abs_err_by_dtype", "import_launches",
+                        "import_max_abs_err", "tools_launches")
             if key in summary[k]}}
         for k, (src, replaces) in KERNEL_META.items()
     ]

@@ -38,10 +38,11 @@ JAX package:
   over the N processes (``parallel/sp.py``), with the outputs replicated,
   so each runs the same host state machine; rank 0 alone writes the
   result files and prints the metrics. Not with ``batch_sequences`` > 1
-  nor a KineT model.
-
-Not ported yet, and raising NotImplementedError with its ROADMAP item:
-``write_images`` ("Host tools").
+  nor a KineT model;
+- ``write_images`` (with an ``output_dir``): each sequence's frames with
+  its tracks' boxes as ``output_dir/<dataset dir>/<sequence>/%06d.jpg``
+  (``utils/vis.py::plot_sequence``), written by the process that writes
+  the result files, after the frame loop (the RUNTIME line leaves it out).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ import torch.distributed as tdist
 
 from ..config import Config, load_config, load_saved_config, parse_cli_overrides
 from ..data.sequences import TrackDatasetFactory
-from ..models.build import build_model, kine_dims, not_ported, resolve_device
+from ..models.build import build_model, kine_dims, resolve_device
 from ..models.postprocess import build_postprocessors
 from ..parallel.mesh import mesh_of
 from ..tracking.batched import (
@@ -68,6 +69,7 @@ from ..tracking.tracker import Tracker
 from ..utils import dist
 from ..utils.checkpoint import CheckpointManager
 from ..utils.mot_metrics import evaluate_mot_accums, format_summary, get_mot_accum
+from ..utils.vis import plot_sequence
 
 
 def _dataset_dirname(dataset_name) -> str:
@@ -211,8 +213,6 @@ def main_track(cfg, obj_detector_model=None):
     device = resolve_device(cfg.get("device"))
 
     _spatial_processes(cfg)
-    if cfg.get("write_images", False):
-        not_ported("write_images (utils/vis.py::plot_sequence)", "Host tools")
 
     if obj_detector_model is None:
         train_cfg = load_saved_config(cfg.obj_detect_checkpoint_dir)
@@ -321,9 +321,11 @@ def _write_and_score(cfg, seq, results, num_reids, accums, accum_names,
     if cfg.get("interpolate", False):
         results = interpolate_tracks(results)
     if cfg.output_dir and write:
-        seq.write_results(
-            results, osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
-        )
+        out_dir = osp.join(cfg.output_dir, _dataset_dirname(cfg.dataset_name))
+        seq.write_results(results, out_dir)
+        if cfg.get("write_images", False):
+            plot_sequence(results, seq, osp.join(out_dir, str(seq)),
+                          write_images=cfg.write_images)
     if not seq.no_gt:
         accums.append(get_mot_accum(results, seq))
         accum_names.append(str(seq))

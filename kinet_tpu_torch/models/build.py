@@ -18,9 +18,6 @@ of ``build_weight_dict(cfg)`` and the matcher of the JAX package's
 dispatch: the ordered matchers for kine configs with
 ``used_ordered_queries``, else Hungarian; with ``masks`` it adds the mask
 losses.
-
-Configurations outside the ported slice raise NotImplementedError naming
-the ROADMAP item that ports them; nothing else is silently run instead.
 """
 from __future__ import annotations
 
@@ -47,14 +44,6 @@ def num_classes_for(dataset: str) -> int:
         return 250
     # mot, crowdhuman, coco_person, ...: the reference's 20-class setting
     return 20
-
-
-def not_ported(what: str, item: str):
-    """Raises NotImplementedError naming the ROADMAP item that ports ``what``."""
-    raise NotImplementedError(
-        f"{what} is not ported to kinet_tpu_torch yet "
-        f"(ROADMAP.md, 'Modules to port': {item})"
-    )
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,13 +1,15 @@
-"""Training visualization (the port's own copy of the metric and image
-windows of ``kinet_tpu/utils/vis.py``; reference:
-src/trackformer/vis.py).
+"""Training and tracking visualization (the port's own copy of
+``kinet_tpu/utils/vis.py``; reference: src/trackformer/vis.py and
+util/track_utils.py:127-237 plot_sequence).
 
 The reference streams line plots and example images to a Visdom server
 (vis.py:18-98). Here the same API writes matplotlib figures under
 ``output_dir/vis/``, and nothing when there is no output_dir or no
 matplotlib: pyplot is imported on first use, so a machine without it
-trains all the same. ``plot_sequence`` (the tracker's frame images) is
-not ported yet (ROADMAP.md, 'Modules to port': Host tools).
+trains all the same. ``draw_boxes`` and ``plot_sequence`` (the tracker's
+frame images, ``write_images`` in the track config) draw with numpy and
+write with PIL, so they need no matplotlib: ``plot_sequence`` writes every
+frame or raises.
 """
 from __future__ import annotations
 
@@ -174,3 +176,72 @@ def build_visualizers(cfg):
             {"title": f"{split} example results"}, output_dir
         )
     return out
+
+
+# the track colours of plot_sequence: track id modulo 8
+PALETTE = np.array(
+    [[255, 0, 0], [0, 255, 0], [0, 0, 255], [255, 255, 0],
+     [255, 0, 255], [0, 255, 255], [255, 128, 0], [128, 0, 255]]
+)
+
+
+def draw_boxes(img: np.ndarray, boxes, color=(255, 0, 0), width=2):
+    """Box overlay on an HWC uint8 image (no PIL.Draw dependency): each
+    x0, y0, x1, y1 box rounded to whole pixels and clipped to the image,
+    its edges ``width`` pixels wide, growing outwards."""
+    out = np.asarray(img).astype(np.uint8).copy()
+    h, w = out.shape[:2]
+    for b in boxes:
+        x0, y0, x1, y1 = [int(round(float(v))) for v in b[:4]]
+        x0, x1 = np.clip([x0, x1], 0, w - 1)
+        y0, y1 = np.clip([y0, y1], 0, h - 1)
+        for t in range(width):
+            xa, ya = max(x0 - t, 0), max(y0 - t, 0)
+            xb, yb = min(x1 + t, w - 1), min(y1 + t, h - 1)
+            out[ya, xa:xb + 1] = color
+            out[yb, xa:xb + 1] = color
+            out[ya:yb + 1, xa] = color
+            out[ya:yb + 1, xb] = color
+    return out
+
+
+def vis_results(visualizer, img, result, target, tracking: bool):
+    """≙ reference vis_results (vis.py:101-244): current-frame detections
+    (green), track queries (blue), false track queries (red), as one image
+    of ``visualizer``; a float image is taken as ImageNet-normalized."""
+    if visualizer is None or not getattr(visualizer, "enabled", False):
+        return
+    frame = np.asarray(img)
+    if frame.dtype != np.uint8:
+        mean = np.array([0.485, 0.456, 0.406])
+        std = np.array([0.229, 0.224, 0.225])
+        frame = np.clip((frame * std + mean) * 255, 0, 255).astype(np.uint8)
+    frame = draw_boxes(frame, np.asarray(result.get("boxes", [])), (0, 255, 0))
+    if tracking and "track_query_boxes" in result:
+        frame = draw_boxes(frame, result["track_query_boxes"], (0, 0, 255))
+    if tracking and "track_query_fp_boxes" in result:
+        frame = draw_boxes(frame, result["track_query_fp_boxes"], (255, 0, 0))
+    visualizer.plot([frame])
+
+
+def plot_sequence(results: dict, seq, output_dir: str, write_images="pretty"):
+    """Writes ``output_dir/%06d.jpg`` for every frame of ``seq`` (its
+    ``data[i]["im_path"]``): the frame with each track's box of that frame
+    in ``PALETTE[track id % 8]`` (reference track_utils.py:127-237).
+    ``results``: {track id: {frame index: {"bbox": x0, y0, x1, y1, ...}}}.
+    Every value of ``write_images`` draws the same boxes, as in the JAX
+    package."""
+    from PIL import Image
+
+    os.makedirs(output_dir, exist_ok=True)
+    for frame_idx in range(len(seq)):
+        img = np.asarray(
+            Image.open(seq.data[frame_idx]["im_path"]).convert("RGB")
+        )
+        for tid, track in results.items():
+            if frame_idx in track:
+                color = tuple(int(c) for c in PALETTE[tid % len(PALETTE)])
+                img = draw_boxes(img, [track[frame_idx]["bbox"]], color)
+        Image.fromarray(img).save(
+            osp.join(output_dir, f"{frame_idx:06d}.jpg")
+        )

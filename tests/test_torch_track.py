@@ -14,8 +14,10 @@ package's, on the CPU:
   threshold, so no decision rests on rounding;
 - the sequence loader's blobs (image, dets, gt, vis) against JAX's;
 - ``interpolate_tracks`` against JAX's, and the result files' round trip;
-- the configurations that are not ported raise, naming their ROADMAP
-  item; without a card the CLI refuses to run unless asked for the CPU;
+- the configurations the JAX package refuses raise; without a card the
+  CLI refuses to run unless asked for the CPU;
+- ``write_images`` writes one JPEG a frame of the sequence under
+  output_dir/<dataset dir>/<sequence>/, byte-equal to JAX's;
 - ``batch_sequences: 2`` writes the same result files, byte for byte, as
   ``batch_sequences: 1`` over two sequences, in both ``batch_exec`` forms.
 """
@@ -241,7 +243,6 @@ def test_results_round_trip(data_root, tmp_path):
     (dict(batch_sequences=2, spatial_parallel=2), ValueError,
      "spatial_parallel 2 needs 2"),
     (dict(spatial_parallel=2), ValueError, "spatial_parallel 2 needs 2"),
-    (dict(write_images=True), NotImplementedError, "Host tools"),
 ])
 def test_configs_outside_the_slice_raise(over, error, item, data_root,
                                          tmp_path):
@@ -253,6 +254,45 @@ def test_configs_outside_the_slice_raise(over, error, item, data_root,
     cfg = _track_cfg(load_config, data_root, "", device="cpu", **over)
     with pytest.raises(error, match=item):
         track.main_track(cfg)
+
+
+@pytest.mark.parametrize("batch", [1, 2], ids=["tracker", "batched"])
+def test_main_track_writes_images_as_jax(batch, tmp_path):
+    """main_track with write_images: one JPEG a frame of each sequence
+    under output_dir/<dataset dir>/<sequence>/, byte-equal to JAX's (whose
+    plot_sequence writes nothing without matplotlib); with
+    ``batch_sequences: 2`` each batched sequence's own tracks."""
+    pytest.importorskip("matplotlib")
+    root = tmp_path / "data"
+    names = [SEQ, "MOT17-04-FRCNN"][:batch]
+    for i, name in enumerate(names):
+        _write_sequence(root, name, n_frames=5, seed=2 + i)
+    jmodel, params, model = _models({})
+    cfg = load_config("train.yaml", named=FLAGSHIP).replace(**TINY, **IMG)
+    jcfg = jax_load_config("train.yaml", named=FLAGSHIP).replace(**TINY, **IMG)
+
+    def track_cfg(load, out, **extra):
+        return load("track.yaml").replace(
+            data_root_dir=str(root), dataset_name=",".join(names),
+            output_dir=str(out), write_images="pretty",
+            batch_sequences=batch, batch_exec="interleaved",
+            **{f"tracker_cfg.{k}": v for k, v in THRESH.items()}, **extra)
+
+    track.main_track(track_cfg(load_config, tmp_path / "port", device="cpu"),
+                     obj_detector_model=(model, None, cfg))
+    jax_track.main_track(track_cfg(jax_load_config, tmp_path / "jax"),
+                         obj_detector_model=(jmodel, params, None, jcfg))
+    sub = ",".join(names)
+    for name in names:
+        out = tmp_path / "port" / sub / name
+        files = sorted(p.name for p in out.iterdir())
+        assert files == [f"{i:06d}.jpg" for i in range(5)]
+        rows = np.loadtxt(tmp_path / "port" / sub / f"{name}.txt",
+                          delimiter=",", ndmin=2)
+        assert len(rows) > 0  # boxes were drawn
+        for f in files:
+            assert (out / f).read_bytes() == \
+                (tmp_path / "jax" / sub / name / f).read_bytes(), (name, f)
 
 
 def test_mots20_and_many_processes_raise(data_root, monkeypatch):
