@@ -10,14 +10,21 @@ failing the run on any mismatch:
 1. device: the card's name and power limit;
 2. build: nvcc builds the five kernel sources of kinet_tpu_torch/ops/csrc
    (nine kernel entry points: msda_fwd.cu also holds the int8, the
-   head-shared and the top-k instances, msda_raw_pool_fwd.cu an int8 one);
+   head-shared and the top-k instances, msda_raw_pool_fwd.cu the int8 one,
+   K1); K1's instances ((L, P) = (4, 2) at B = 1 and 4, (2, 2), a generic
+   (3, 1); pooled in bf16 and f32) with their registers, spilled bytes,
+   threads, shared bytes, resident blocks an SM, pairs a block and blocks,
+   beside the direct kernel's int8 instances that K1 ran before
+   (msda_raw_pool_fwd_i8_direct, kept as its yardstick);
 3. forward kernels vs their plain PyTorch versions on the card, at the
    flagship's 800x1440 shapes (encoder MSDA high- and low-level Lite
    updates, decoder raw-pool with a bottom/right pad; a random reference
    point per query; the int8 raw pool over each frame's half quantized
    on its own, pooled in f32 and bf16), f32 (TF32 off) and bf16, with
    times and what the corners read (corners, distinct rows, L2 bytes of the corner reads in
-   32-byte sectors, that over the device time);
+   32-byte sectors, that over the device time); K1 also against the direct
+   kernel on the same inputs, bit for bit, timed in turn (direct, K1, K1,
+   direct: ``direct_ms``);
 3b. backward kernels vs the plain versions' autograd gradients at the
    training shapes (672x1184), f32 and bf16, with times and each pass's
    device time;
@@ -39,7 +46,8 @@ P2. the row-gather probe kernel exactly against its plain version and
    then the same with the served config's int8 decoder table
    (dec_msda_int8): 6 + 6 launches a frame of msda_fwd and the int8 raw
    pool, whose replay also times the bf16 kernel on the same calls
-   (``replay_bf16_ms``);
+   (``replay_bf16_ms``) and the direct kernel in turn with K1, bit for bit
+   (``replay_direct_ms``);
 6. one full-width f32 train step (dropout 0) on the card against the CPU
    at 256x448, on the same augmented targets: loss, gradient norm and the
    MSDA linears' gradients;
@@ -157,7 +165,8 @@ B. batched serving (tracking/batched.py) on the served config
    B = 4 step's 12 MSDA calls as phase 5's (msda_fwd and the int8 raw
    pool, and the raw pool over the same calls' bf16 table: each kernel vs
    its plain version, device ms a launch beside 4 x phase 5's B = 1
-   replay, and its bound); then the tracking CLI with batch_sequences 4
+   replay, and its bound; K1 in turn with the direct kernel,
+   ``batched_replay_direct_ms``); then the tracking CLI with batch_sequences 4
    and batch_exec auto on four synthetic 1080x1920 JPEG sequences of 8
    frames (its RUNTIME line, steady-state aggregate frames/s, the share
    waiting for decoded frames);
@@ -228,15 +237,17 @@ waits, is reported beside it as ``wrapper_ms``. The plain versions and
 ``torch.gather`` are timed by ``device_ms`` too.
 
 Then one JSON line listing every kernel with its launches, error and times
-(``eval_launches``: phase E's detection-eval launches; ``mots_launches``:
-phase M5's; ``batched_launches``: a stacked batched step's at B = 1, 2,
-4, ``batched_replay_ms`` / ``batched_bound_ms``: phase B's B = 4 replay;
-``tp_launches`` / ``sp_launches``: phase P's a step of a tensor-parallel
-process / a frame of a spatially parallel one, ``parallel_max_abs_err``:
-its kernels against their plain versions on those paths' calls, and
-``parallel_max_abs_err_by_dtype`` the same by the table's dtype;
-``import_launches`` / ``import_max_abs_err``: phase H's served frames on
-the imported weights, ``tools_launches``: phase H's search and CLI run);
+(for K1 ``instances``, phase 2's facts, and ``direct_ms``,
+``replay_direct_ms``, ``batched_replay_direct_ms``: the direct kernel in
+turn with it; ``eval_launches``: phase E's detection-eval launches;
+``mots_launches``: phase M5's; ``batched_launches``: a stacked batched
+step's at B = 1, 2, 4, ``batched_replay_ms`` / ``batched_bound_ms``: phase
+B's B = 4 replay; ``tp_launches`` / ``sp_launches``: phase P's a step of a
+tensor-parallel process / a frame of a spatially parallel one,
+``parallel_max_abs_err``: its kernels against their plain versions on those
+paths' calls, and ``parallel_max_abs_err_by_dtype`` the same by the table's
+dtype; ``import_launches`` / ``import_max_abs_err``: phase H's served frames
+on the imported weights, ``tools_launches``: phase H's search and CLI run);
 nvidia-smi's name/power line; the result line. ``--phases 3b,P2`` runs a
 subset (phases 1 and 2 always run; ``V1`` and ``V2`` run those parts of
 phase V, V2 without its train steps) and prints no result line.
@@ -531,8 +542,10 @@ def bound_ms(bytes_moved, flops):
 
 def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
     """One kernel at one shape and dtype: error against the plain version
-    and medians of both, plus the bound of this run's inputs."""
+    and medians of both, plus the bound of this run's inputs; for K1 also
+    the direct kernel's time in turn with it (``direct_ms``)."""
     b, m = 1, 8
+    extra = {}
     s = sum(h * w for h, w in shapes)
     loc, aw = make_samples(torch, gen, b, lq, m, shapes, p)
     l = len(shapes)
@@ -575,6 +588,11 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         err = max(errors(torch, out, ref), errors(torch, wsum, ref_w))
         run_k = lambda: msda.ms_deform_attn_raw_pool(*args)  # noqa: E731
         run_p = lambda: msda.ms_deform_attn_raw_pool_plain(*args)  # noqa: E731
+        diff, k_ms, d_ms = k1_against_direct(torch, msda, args)
+        extra = dict(direct_ms=d_ms, in_turn_ms=k_ms)
+        log(f"      in turn with the direct kernel it replaced: K1 "
+            f"{k_ms:.5f} ms, direct {d_ms:.5f} ms ({k_ms / d_ms:.3f}x); "
+            f"largest difference {diff:.3e}")
         st = read_stats(torch, "raw", loc, shapes, extents, c, 1)
         # int8 rows, the samples, extents and scales read; pooled (in
         # dtype) and wsum written
@@ -606,7 +624,7 @@ def kernel_case(torch, msda, gen, name, kind, shapes, lq, p, dtype, extents):
         f"{err[1]:.3e} | {timed_text(timed)} bound {t_b:.4f} ms ({by}: "
         f"{moved / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop)")
     log(f"      {stats_text(st, timed['ms'])}")
-    return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed)
+    return dict(err=err[0], bound_ms=t_b, bound_by=by, **timed, **extra)
 
 
 def time_kernel(torch, run_k, run_p, passes=None):
@@ -622,6 +640,84 @@ def time_kernel(torch, run_k, run_p, passes=None):
 def timed_text(t):
     return (f"kernel {t['ms']:.4f} ms device (wrapper {t['wrapper_ms']:.4f} "
             f"ms)  plain {t['plain_ms']:.4f} ms device ")
+
+
+# K1 (msda_raw_pool_fwd_i8) beside the kernel it replaced: the direct
+# kernel's int8 instances, msda_raw_pool_fwd_kernel<int8_t, ..> (C entry
+# msda_raw_pool_fwd_i8_direct), on the same arguments.
+K1_INSTANCES = ((4, 2), (2, 2), (3, 1))  # the fixed instances, a generic one
+K1_FACTS = ("registers", "local_bytes", "threads", "shared_bytes",
+            "blocks_per_sm", "pairs_per_block", "blocks")
+
+
+def k1_facts(msda):
+    """{"K1|direct (L, P) B=b dtype": {registers, local (spilled) bytes,
+    threads, shared bytes and resident blocks an SM of the kernel, pairs a
+    block (0: the direct kernel's blocks are threads, not pairs), blocks}}
+    of what a launch at the decoder's Lq 600, M 8, C 288 with aligned
+    pointers runs, at B = 1 and for (4, 2) also B = 4, from the runtime
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    fn = msda._kernel_fn("msda_raw_pool_fwd_i8_facts",
+                         [ctypes.c_int] * 8 + [ctypes.c_void_p],
+                         "msda_raw_pool_fwd")
+    facts = {}
+    for dt_name, code in (("bf16", 1), ("f32", 0)):
+        for l, p in K1_INSTANCES:
+            for b in (1, 4) if (l, p) == (4, 2) else (1,):
+                for which, direct in (("K1", 0), ("direct", 1)):
+                    out = (ctypes.c_int * len(K1_FACTS))()
+                    rc = fn(code, direct, b, 600, 8, 288, l, p,
+                            ctypes.addressof(out))
+                    check(rc == 0,
+                          f"msda_raw_pool_fwd_i8_facts: CUDA error {rc}")
+                    facts[f"{which} ({l}, {p}) B={b} {dt_name}"] = dict(
+                        zip(K1_FACTS, list(out)))
+    return facts
+
+
+def k1_direct(torch, msda, q8, shapes, loc, aw, ext, scales, out_dtype):
+    """(pooled, wsum) of the direct kernel's int8 instance on K1's
+    arguments (ms_deform_attn_raw_pool's, in its order; contiguous, on the
+    card); not counted in i8_launches."""
+    b, s, c = q8.shape
+    _, lq, m, l, p, _ = loc.shape
+    pooled = torch.empty(b, lq, m, c, dtype=out_dtype, device=q8.device)
+    wsum = torch.empty(b, lq, m, dtype=torch.float32, device=q8.device)
+    shapes_t, starts_t = msda._level_tables(shapes, q8.device)
+    msda._launch(
+        "msda_raw_pool_fwd_i8_direct",
+        [msda._P, msda._P, msda._I] + [msda._P] * 7 + [msda._I] * 7
+        + [msda._P], q8.device, q8.data_ptr(), scales.data_ptr(),
+        msda._DTYPE_CODE[out_dtype], shapes_t.data_ptr(), starts_t.data_ptr(),
+        loc.data_ptr(), aw.data_ptr(), None if ext is None else ext.data_ptr(),
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
+        lib="msda_raw_pool_fwd")
+    return pooled, wsum
+
+
+def k1_against_direct(torch, msda, args):
+    """K1 and the direct kernel on one call's arguments (q8, shapes, loc,
+    aw, ext, scales, out_dtype): their largest difference (0 when they
+    agree bit for bit) and the device ms of each, timed in turn (direct,
+    K1, K1, direct) and averaged."""
+    def run_k():
+        return msda.ms_deform_attn_raw_pool(*args)
+
+    def run_d():
+        return k1_direct(torch, msda, *args)
+
+    got, ref = run_k(), run_d()
+    diff = max((g.float() - r.float()).abs().max().item()
+               for g, r in zip(got, ref))
+    # the same products summed in the same order: the same bits
+    check(diff == 0.0, f"msda_raw_pool_fwd_i8 differs from the direct "
+          f"kernel by {diff:.3e} ({args[-1]})")
+    t = {"direct": [], "K1": []}
+    for name in ("direct", "K1", "K1", "direct"):
+        t[name].append(device_ms(torch, run_k if name == "K1" else run_d))
+    return diff, statistics.mean(t["K1"]), statistics.mean(t["direct"])
 
 
 def phase_kernels(torch, msda):
@@ -665,7 +761,7 @@ def kernel_summary(torch, results):
             "bound_by": bf[0][1]["bound_by"],
         }
         for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
-                    "pr2_bound_ms", "fwd_ms"):
+                    "pr2_bound_ms", "fwd_ms", "direct_ms"):
             if key in bf[0][1]:
                 summary[kernel][key] = sum(n * r[key] for n, r in bf) / total
     return summary
@@ -1251,7 +1347,7 @@ def replay_call(torch, msda, kernel, args):
     lq, l = loc.shape[1], loc.shape[-3 if kernel == "msda_shared_fwd" else 3]
     esize = 1 if table.dtype == torch.int8 else torch.finfo(table.dtype).bits // 8
     loc_s = snapped(torch, loc)
-    err, times = 0.0, {}
+    err, times, ms = 0.0, {}, None
     if kernel == "msda_fwd_i8":
         for sc in (scale, scale.float() * (1.0 + 2.0 ** -12)):
             out = msda.ms_deform_attn_i8(q8, sc, shapes, loc_s, aw)
@@ -1323,7 +1419,13 @@ def replay_call(torch, msda, kernel, args):
             times["msda_raw_pool_fwd (bf16 table)"] = device_ms(
                 torch, lambda: msda.ms_deform_attn_raw_pool(
                     bf16, shapes, loc, aw, ext))
-    ms = times[kernel] = device_ms(torch, run_k)
+            diff, ms, d_ms = k1_against_direct(
+                torch, msda, (table, shapes, loc, aw, ext, scales, out_dtype))
+            times[f"{kernel} (direct kernel)"] = d_ms
+            times[f"{kernel} direct diff"] = diff
+    if ms is None:
+        ms = device_ms(torch, run_k)
+    times[kernel] = ms
     # the bound: the distinct rows (head slices) the corners read, every
     # other input and every output once
     outs = run_k()
@@ -1337,7 +1439,9 @@ def replay_call(torch, msda, kernel, args):
         t.numel() * t.element_size() for t in others + list(outs))
     flops = st["corners"] * width * 2 + aw.numel() * 20
     times[f"{kernel} bound"], _ = bound_ms(moved, flops)
-    other = "".join(f"; {k} {t:.5f} ms" for k, t in times.items() if k != kernel)
+    other = "".join(f"; {k} {t:.3e}" if k.endswith("diff") else
+                    f"; {k} {t:.5f} ms"
+                    for k, t in times.items() if k != kernel)
     log(f"  {kernel:<20} Lq {lq:5d} L {l}: {ms:.5f} ms device{other}, max abs "
         f"err {err:.3e}; {stats_text(st, ms)}")
     return times
@@ -1360,10 +1464,23 @@ def phase_replay(torch, msda, calls):
         for kernel, args in calls:
             for k, t in replay_call(torch, msda, kernel, args).items():
                 per_kernel.setdefault(k, []).append(t)
+    return replay_means(per_kernel, "frame")
+
+
+def replay_means(per_kernel, what):
+    """{name: mean device ms a launch} over a replay's calls (the largest
+    for a ``diff``), logged."""
+    out = {}
     for k, t in per_kernel.items():
-        log(f"  {k}: {statistics.mean(t):.5f} ms a launch over the frame's "
-            f"{len(t)} calls, {sum(t):.5f} ms a frame")
-    return {k: statistics.mean(t) for k, t in per_kernel.items()}
+        if k.endswith("diff"):
+            out[k] = max(t)
+            log(f"  {k}: largest {out[k]:.3e} over the {what}'s {len(t)} "
+                f"calls")
+            continue
+        out[k] = statistics.mean(t)
+        log(f"  {k}: {out[k]:.5f} ms a launch over the {what}'s {len(t)} "
+            f"calls, {sum(t):.5f} ms a {what}")
+    return out
 
 
 def forward_launch_ms(by_name, calls):
@@ -1371,10 +1488,12 @@ def forward_launch_ms(by_name, calls):
     profile of ``calls`` calls (device_profile's by_name)."""
     found = {}
     for k, (t, n) in by_name.items():
-        # the int8 instances: msda_raw_pool_fwd_kernel<signed char, ..>, and
+        # the int8 kernels: msda_raw_pool_fwd_i8_kernel (K1; the direct
+        # kernel's msda_raw_pool_fwd_kernel<signed char, ..> before it), and
         # msda_fwd_kernel / msda_fwd_wide_kernel <signed char, ..>; the
         # head-shared ones: msda_shared_fwd_*kernel
-        kernel = ("msda_raw_pool_fwd_i8" if "pool_fwd_kernel<signed" in k else
+        kernel = ("msda_raw_pool_fwd_i8" if "pool_fwd_i8_kernel" in k
+                  or "pool_fwd_kernel<signed" in k else
                   "msda_raw_pool_fwd" if "raw_pool_fwd" in k else
                   "msda_shared_fwd" if "msda_shared_fwd" in k else
                   "msda_topk_fwd" if "msda_topk_fwd" in k else
@@ -2486,7 +2605,7 @@ def phase_batched(torch, msda, b1_replay):
                     for k, a in cases:
                         for name, t in replay_call(torch, msda, k, a).items():
                             got.setdefault(name, []).append(t)
-            replay = {k: statistics.mean(t) for k, t in got.items()}
+            replay = replay_means(got, "step")
             for k in ("msda_fwd", "msda_raw_pool_fwd_i8", "msda_raw_pool_fwd"):
                 b1 = (b1_replay or {}).get(k)
                 vs = (f"; {B_SEQS} x phase 5's B=1 replay {B_SEQS * b1:.5f} ms"
@@ -2494,6 +2613,13 @@ def phase_batched(torch, msda, b1_replay):
                 log(f"  {k} at B={B_SEQS}: {replay[k]:.5f} device ms a launch"
                     f", bound {replay[k + ' bound']:.5f} ms "
                     f"({100 * replay[k + ' bound'] / replay[k]:.1f} %){vs}")
+            d = replay["msda_raw_pool_fwd_i8 (direct kernel)"]
+            log(f"  msda_raw_pool_fwd_i8 at B={B_SEQS} in turn with the "
+                f"direct kernel it replaced: "
+                f"{replay['msda_raw_pool_fwd_i8']:.5f} vs "
+                f"{d:.5f} ms ({replay['msda_raw_pool_fwd_i8'] / d:.3f}x), "
+                f"largest difference "
+                f"{replay['msda_raw_pool_fwd_i8 direct diff']:.3e}")
             del calls
         del model, single, bt, stacked4
         torch.cuda.empty_cache()
@@ -5490,9 +5616,15 @@ def main(argv=None) -> int:
             log(f"  {kernel}: {entry[:110]}: {regs}; {spills}")
 
     summary, launches = {}, {}
+    facts = k1_facts(msda)
+    summary["msda_raw_pool_fwd_i8"] = {"instances": facts}
+    for k, f in facts.items():
+        log(f"  msda_raw_pool_fwd_i8 instance {k}: "
+            + ", ".join(f"{n} {v}" for n, v in f.items()))
     if "3" in phases:
         log("== 3. forward kernels vs plain (800x1440 shapes, B=1)")
-        summary.update(kernel_summary(torch, phase_kernels(torch, msda)))
+        for k, r in kernel_summary(torch, phase_kernels(torch, msda)).items():
+            summary.setdefault(k, {}).update(r)
     if "3b" in phases:
         log("== 3b. backward kernels vs plain gradients (672x1184 shapes, B=1)")
         bwd = kernel_summary(torch, phase_backward_kernels(torch, msda))
@@ -5522,10 +5654,14 @@ def main(argv=None) -> int:
         i8 = summary.setdefault("msda_raw_pool_fwd_i8", {})
         i8["replay_ms"] = replay["msda_raw_pool_fwd_i8"]
         i8["replay_bf16_ms"] = replay["msda_raw_pool_fwd (bf16 table)"]
+        i8["replay_direct_ms"] = replay["msda_raw_pool_fwd_i8 (direct kernel)"]
         log(f"  {1000.0 / frame_ms:.3f} frames/s; the decoder's int8 kernel "
             f"{i8['replay_ms']:.5f} ms a launch, the bf16 kernel on the same "
             f"calls {i8['replay_bf16_ms']:.5f} "
-            f"({i8['replay_ms'] / i8['replay_bf16_ms']:.3f}x)")
+            f"({i8['replay_ms'] / i8['replay_bf16_ms']:.3f}x), the direct "
+            f"kernel it replaced, in turn with it, "
+            f"{i8['replay_direct_ms']:.5f} "
+            f"({i8['replay_ms'] / i8['replay_direct_ms']:.3f}x); on {smi}")
     if "6" in phases:
         log("== 6. train step: card vs CPU, f32, dropout 0, 256x448")
         phase_train_vs_cpu(torch)
@@ -5654,6 +5790,8 @@ def main(argv=None) -> int:
             for k in b1:
                 summary.setdefault(k, {})["batched_replay_ms"] = breplay[k]
                 summary[k]["batched_bound_ms"] = breplay[k + " bound"]
+            summary["msda_raw_pool_fwd_i8"]["batched_replay_direct_ms"] = \
+                breplay["msda_raw_pool_fwd_i8 (direct kernel)"]
             line, steady, waiting = phase_batched_cli(torch, msda,
                                                       Path(shared.name))
             log(f"  {line}")
@@ -5711,7 +5849,9 @@ def main(argv=None) -> int:
          "bound_by": summary[k]["bound_by"],
          "library_ms": summary[k].get("library_ms"),
          **{key: summary[k][key]
-            for key in ("replay_ms", "replay_bf16_ms", "replay_fwd_ms",
+            for key in ("replay_ms", "replay_bf16_ms", "replay_direct_ms",
+                        "replay_fwd_ms", "direct_ms",
+                        "batched_replay_direct_ms", "instances",
                         "fwd_ms", "cold_ms", "library_cold_ms",
                         "eval_launches", "mots_launches", "grad_max_abs_err",
                         "batched_launches", "batched_replay_ms",

@@ -43,24 +43,51 @@
 //
 // Over an int8 table (C entry msda_raw_pool_fwd_i8; dec_msda_int8:
 // ms_deform_attn_raw_pool with quad_scales, the table from quantize_rows)
-// the same kernel replaces the same function: src is int8 with one
-// dequantization scale per batch element and level, quad_scales [B, L] f32,
-// folded into each corner's pooling weight (w * scale), while wsum sums the
-// unscaled w (it restores the projection's bias). A row is 288 bytes at
-// C = 288, half the bf16 row, so a launch reads half the corner bytes, in
-// 16-byte lanes of 16 channels (18 lanes a row). The row loader (RowIO) is
-// the only difference: it keeps a corner's int8 channels as raw words until
-// its FMA and converts a channel without I2F (a quarter-rate instruction on
-// the SM): its byte, offset by 128, becomes the low byte of the float
-// 2^23 + byte (one PRMT), and one FADD takes the offset off, exactly.
-// pooled is written in f32 or bf16.
+// the same function has its own kernel, msda_raw_pool_fwd_i8_kernel: src is
+// int8 with one dequantization scale per batch element and level,
+// quad_scales [B, L] f32, folded into each corner's pooling weight
+// (w * scale), while wsum sums the unscaled w (it restores the projection's
+// bias). A row is 288 bytes at C = 288, half the bf16 row, so a launch reads
+// half the corner bytes; what bounds it instead is the instruction stream. A
+// channel costs an FMA and its conversion without I2F (a quarter-rate
+// instruction on the SM): its byte, offset by 128, becomes the low byte of
+// the float 2^23 + byte (one PRMT), and one FADD takes the offset off,
+// exactly. On an H100 at the served shapes the conversions and FMAs alone
+// (every corner an L1 hit) take as long as the whole kernel, the corner
+// loads alone 0.6 of it (PERF.md). The design cuts the instructions around
+// them:
+//   - a block holds whole (b, q, m) pairs and first plans their corners
+//     once, a thread a sample, into shared memory: the row, the pooling
+//     weight and w of every corner (corner_at's rule: a corner that is not
+//     read loads its level's cell 0 with weight 0). The direct kernel's
+//     lanes each computed all of their pair's corners again;
+//   - then a lane of V channels (16 int8 channels, one 16-byte load: 18
+//     lanes a row at C = 288; 8, 4, 2 or 1 where C or the pointers allow no
+//     wider) reads the plan as int4 vectors, loads 16 corners, one
+//     IMAD.WIDE.U32 an address, and adds them in the plan's order; lane 0
+//     sums the weights. The products and the order of the sums are the
+//     direct kernel's, so the results are its bits;
+//   - blocks of 16 pairs (288 threads) where a launch fills two waves of
+//     them, else 8 (i8_pick): the served B = 1 launch is one wave, which
+//     blocks of 8 spread more evenly over the SMs.
+// ptxas keeps the kernel at 72 registers and ~3 loads in flight a thread
+// whatever the grouping. Tried on the served shapes and dropped (PERF.md;
+// the direct kernel's 80 registers gave it 3 blocks an SM, so occupancy was
+// not what held it back): 8 or 32 corners a group, 8-byte lanes, register
+// double buffers, cp.async rings in shared memory (they take L1's room),
+// prefetch.global.L1 (2x slower), loads that bypass L1 (1.4x), an f16x2
+// conversion and a sign-extending PRMT with I2FP (more instructions).
+// pooled is written in f32 or bf16. The direct kernel's int8 instances stay
+// as the C entry msda_raw_pool_fwd_i8_direct, the yardstick that
+// chip_smoke.py times K1 against on the same calls.
 //
 // Tried and dropped (PERF.md): one block per query that merges the corner
 // pairs its heads and points share and fetches each distinct row once into
 // shared memory with cp.async.bulk and mbarriers. On the main path's
 // samples it took 1.7x this kernel's time on an H100: it merges almost
 // nothing there, and its per-level plan and small bulk copies add latency.
-#include <cuda_fp16.h>
+#include <mutex>
+#include <vector>
 
 #include "msda_common.cuh"
 
@@ -286,40 +313,38 @@ static cudaError_t launch(const void* src, void* pooled, const RawPoolArgs& a,
 }
 
 // ---------------------------------------------------------------------------
-// K1: the int8 table's own kernel (msda_raw_pool_fwd_i8_kernel)
+// K1: the int8 table's own kernel (msda_raw_pool_fwd_i8_kernel; see the top)
 
-// A block holds whole (b, q, m) pairs: as many as fit in kI8MaxThreads
-// threads of C / V lanes each, at most kI8MaxPairs.
-constexpr int kI8MaxThreads = 288;
-constexpr int kI8MaxPairs = 32;
-
-// Corners a thread has in flight: kG, or all 4 * kL * kP of a fixed
-// instance if fewer.
-template <int kL, int kP, int kG>
-__host__ __device__ constexpr int i8_group() {
-  return kL > 0 && 4 * kL * kP < kG ? 4 * kL * kP : kG;
-}
+constexpr int kI8MaxThreads = 288;  // a block: whole pairs, at most this many
+constexpr int kI8MaxPairs = 32;     // threads and pairs
+constexpr int kI8Group = 16;        // corners a lane loads before its FMAs
+constexpr size_t kI8MaxPlan = 48 * 1024;
 
 // Corners of a pair in the plan: 4 * L * P rounded up to whole groups (the
-// padding reads row 0 with weight 0), and the ints a pair takes in each
-// plan array: 4 more, so that the int4 reads of neighbouring pairs fall on
-// other banks.
-__host__ __device__ __forceinline__ int i8_plan_corners(int L, int P, int g) {
-  return (4 * L * P + g - 1) / g * g;
+// padding reads row 0 with weight 0).
+__host__ __device__ __forceinline__ int i8_plan_corners(int L, int P) {
+  return (4 * L * P + kI8Group - 1) / kI8Group * kI8Group;
+}
+
+// Ints a pair's plan takes in each array: 4 more than its corners, so that
+// the int4 reads of neighbouring pairs fall on other banks.
+__host__ __device__ __forceinline__ int i8_plan_stride(int L, int P) {
+  return i8_plan_corners(L, P) + 4;
 }
 
 // The plan: each sample's four corners (corner_at's rule) for the block's
-// pairs, one thread a sample, into shared memory: the table row (level
-// start + cell, or + 0 where the corner is not read), the pooling weight
-// (w times the level's scale) and w itself (for wsum).
+// pairs, a thread a sample, into shared memory: the table row (level start
+// + cell, or + 0 where the corner is not read), the pooling weight (w times
+// the level's scale, the product the direct kernel forms) and w (for wsum).
 template <int kL, int kP>
 __device__ __forceinline__ void plan_corners(const RawPoolArgs& a,
                                              long long p0, int pairs,
-                                             int kpad, int stride, int* rows,
-                                             float* wpool, float* wraw) {
+                                             int* rows, float* wpool,
+                                             float* wraw) {
   const int L = kL > 0 ? kL : a.L;
   const int P = kL > 0 ? kP : a.P;
   const int LP = L * P;
+  const int stride = i8_plan_stride(L, P);
   const long long total = (long long)a.B * a.Lq * a.M;
   for (int s = threadIdx.x; s < pairs * LP; s += blockDim.x) {
     const int pl = s / LP;
@@ -353,135 +378,44 @@ __device__ __forceinline__ void plan_corners(const RawPoolArgs& a,
       wraw[e + c] = wt;
     }
     if (k == LP - 1) {
-      for (int j = 4 * LP; j < kpad; ++j) {
-        rows[pl * stride + j] = 0;
-        wpool[pl * stride + j] = 0.0f;
-        wraw[pl * stride + j] = 0.0f;
+      for (int j = pl * stride + 4 * LP; j < pl * stride + stride - 4; ++j) {
+        rows[j] = 0;
+        wpool[j] = 0.0f;
+        wraw[j] = 0.0f;
       }
     }
   }
 }
 
-// kG corners from the plan at entry k0: loads, then FMAs.
-// Probe modes: 0 as designed; 1 loads, no FMA (the raw words XORed into
-// acc[0]); 2 FMAs, every corner on row 0 (L1 hits); 3 loads through L2
-// only (ld.global.cg).
-template <int V, int kMode>
-__device__ __forceinline__ void load_row(const int8_t* p,
-                                         typename RowIO<int8_t, V>::Raw& w) {
-  if constexpr (kMode == 9 && V == 16) {
-    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-                 : "l"(p));
-  } else if constexpr (kMode == 3 && V == 16) {
-    const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
-    w[0] = u.x;
-    w[1] = u.y;
-    w[2] = u.z;
-    w[3] = u.w;
-  } else {
-    RowIO<int8_t, V>::load(p, w);
-  }
-}
-
-template <int V, int kG, int kMode>
-__device__ __forceinline__ void load_group(const int8_t* src_b, int C,
-                                           const int* rows,
-                                           typename RowIO<int8_t, V>::Raw (&v)[kG],
-                                           int zero = 0) {
-#pragma unroll
-  for (int j = 0; j < kG; j += 4) {
-    int4 r = *reinterpret_cast<const int4*>(rows + j);
-    if (kMode == 2) {  // row 0, by a mask the compiler cannot see through
-      r.x &= zero;
-      r.y &= zero;
-      r.z &= zero;
-      r.w &= zero;
-    }
-    if constexpr (kMode >= 4) {  // rows are >= 0: one IMAD.WIDE.U32 each
-      const unsigned c = (unsigned)C;
-      load_row<V, kMode>(src_b + (unsigned long long)(unsigned)r.x * c, v[j]);
-      load_row<V, kMode>(src_b + (unsigned long long)(unsigned)r.y * c, v[j + 1]);
-      load_row<V, kMode>(src_b + (unsigned long long)(unsigned)r.z * c, v[j + 2]);
-      load_row<V, kMode>(src_b + (unsigned long long)(unsigned)r.w * c, v[j + 3]);
-    } else {
-      load_row<V, kMode>(src_b + (long long)r.x * C, v[j]);
-      load_row<V, kMode>(src_b + (long long)r.y * C, v[j + 1]);
-      load_row<V, kMode>(src_b + (long long)r.z * C, v[j + 2]);
-      load_row<V, kMode>(src_b + (long long)r.w * C, v[j + 3]);
-    }
-  }
-}
-
-// Two int8 channels of a flipped word (byte + 128) as one f16 pair: each
-// byte under the f16 exponent of 1024 (one PRMT for both), 1152 off both
-// with one HSUB2 (exact), each widened to f32 for its FMA.
+// A lane's loads of kI8Group planned corners: row * C + the lane's offset
+// from the batch element's table, one IMAD.WIDE.U32 an address (rows are
+// >= 0).
 template <int V>
-__device__ __forceinline__ void half2_fma(float wt,
-                                          const unsigned int (&w)[V / 4],
-                                          float (&acc)[V]) {
+__device__ __forceinline__ void load_group(
+    const int8_t* src_b, int C, const int* rows,
+    typename RowIO<int8_t, V>::Raw (&v)[kI8Group]) {
+  const unsigned c = (unsigned)C;
 #pragma unroll
-  for (int j = 0; j < V / 4; ++j) {
-    const unsigned int f = w[j] ^ 0x80808080u;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const unsigned int bits = __byte_perm(f, 0x64646464u, h ? 0x4342 : 0x4140);
-      __half2 x = *reinterpret_cast<const __half2*>(&bits);
-      x = __hsub2(x, __floats2half2_rn(1152.0f, 1152.0f));
-      const float2 xf = __half22float2(x);
-      acc[4 * j + 2 * h] = fmaf(wt, xf.x, acc[4 * j + 2 * h]);
-      acc[4 * j + 2 * h + 1] = fmaf(wt, xf.y, acc[4 * j + 2 * h + 1]);
-    }
+  for (int j = 0; j < kI8Group; j += 4) {
+    const int4 r = *reinterpret_cast<const int4*>(rows + j);
+    RowIO<int8_t, V>::load(src_b + (unsigned long long)(unsigned)r.x * c, v[j]);
+    RowIO<int8_t, V>::load(src_b + (unsigned long long)(unsigned)r.y * c,
+                           v[j + 1]);
+    RowIO<int8_t, V>::load(src_b + (unsigned long long)(unsigned)r.z * c,
+                           v[j + 2]);
+    RowIO<int8_t, V>::load(src_b + (unsigned long long)(unsigned)r.w * c,
+                           v[j + 3]);
   }
 }
 
-// Channel k of a word as a sign-extended int32 (one PRMT: the byte, then
-// its sign bit replicated), converted to f32 (I2FP) for its FMA.
+// Their FMAs, in the plan's order, with the planned pooling weights.
 template <int V>
-__device__ __forceinline__ void sext_fma(float wt,
-                                         const unsigned int (&w)[V / 4],
-                                         float (&acc)[V]) {
-#pragma unroll
-  for (int j = 0; j < V / 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int b;
-      asm("prmt.b32 %0, %1, 0, %2;"
-          : "=r"(b)
-          : "r"(w[j]), "r"(k | ((8 + k) << 4) | ((8 + k) << 8) | ((8 + k) << 12)));
-      acc[4 * j + k] = fmaf(wt, __int2float_rn(b), acc[4 * j + k]);
-    }
-}
-
-template <int V, int kG, int kMode>
 __device__ __forceinline__ void fma_group(
-    const float* wpool, const typename RowIO<int8_t, V>::Raw (&v)[kG],
+    const float* wpool, const typename RowIO<int8_t, V>::Raw (&v)[kI8Group],
     float (&acc)[V]) {
 #pragma unroll
-  for (int j = 0; j < kG; j += 4) {
-    if constexpr (kMode == 1) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int i = 0; i < RowIO<int8_t, V>::kWords; ++i)
-          acc[0] = __int_as_float(__float_as_int(acc[0]) ^ v[j + t][i]);
-      continue;
-    }
+  for (int j = 0; j < kI8Group; j += 4) {
     const float4 t = *reinterpret_cast<const float4*>(wpool + j);
-    if constexpr (kMode == 8) {
-      sext_fma<V>(t.x, v[j], acc);
-      sext_fma<V>(t.y, v[j + 1], acc);
-      sext_fma<V>(t.z, v[j + 2], acc);
-      sext_fma<V>(t.w, v[j + 3], acc);
-      continue;
-    }
-    if constexpr (kMode == 4) {
-      half2_fma<V>(t.x, v[j], acc);
-      half2_fma<V>(t.y, v[j + 1], acc);
-      half2_fma<V>(t.z, v[j + 2], acc);
-      half2_fma<V>(t.w, v[j + 3], acc);
-      continue;
-    }
     RowIO<int8_t, V>::fma(t.x, v[j], acc);
     RowIO<int8_t, V>::fma(t.y, v[j + 1], acc);
     RowIO<int8_t, V>::fma(t.z, v[j + 2], acc);
@@ -489,39 +423,22 @@ __device__ __forceinline__ void fma_group(
   }
 }
 
-// V bytes from global to shared memory without registers (cp.async,
-// through L1), and the group bookkeeping of such copies.
-template <int V>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(V));
-}
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename TO, int V, int kL, int kP, int kG, int kStages,
-          int kMode = 0>
+// The kernel (see the top): `pairs` pairs a block, V int8 channels a lane;
+// kL > 0 fixes L and P at compile time, kL = 0 is the generic instance.
+template <typename TO, int V, int kL, int kP>
 __global__ void __launch_bounds__(kI8MaxThreads)
     msda_raw_pool_fwd_i8_kernel(const int8_t* __restrict__ src, RawPoolArgs a,
                                 TO* __restrict__ pooled, int pairs) {
-  using Raw = typename RowIO<int8_t, V>::Raw;
-  constexpr int G = i8_group<kL, kP, kG>();
   extern __shared__ __align__(16) int plan[];
   const int L = kL > 0 ? kL : a.L;
   const int P = kL > 0 ? kP : a.P;
-  const int kpad = i8_plan_corners(L, P, G);
-  const int stride = kpad + 4;
+  const int kpad = i8_plan_corners(L, P);
+  const int stride = i8_plan_stride(L, P);
   int* rows_s = plan;
   float* wpool_s = reinterpret_cast<float*>(plan + pairs * stride);
   float* wraw_s = wpool_s + pairs * stride;
   const long long p0 = (long long)blockIdx.x * pairs;
-  plan_corners<kL, kP>(a, p0, pairs, kpad, stride, rows_s, wpool_s, wraw_s);
+  plan_corners<kL, kP>(a, p0, pairs, rows_s, wpool_s, wraw_s);
   __syncthreads();
   const int groups = a.C / V;
   const long long total = (long long)a.B * a.Lq * a.M;
@@ -537,93 +454,14 @@ __global__ void __launch_bounds__(kI8MaxThreads)
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-    if constexpr (kStages == 1) {
-      // modes 6 and 7: the lines of the corners one or two groups ahead
-      // prefetched into L1 (no registers held)
-      constexpr int kAhead = kMode == 6 ? 1 : kMode == 7 ? 2 : 0;
-      auto prefetch = [&](int k0) {
-        if (k0 >= kpad) return;
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          const int8_t* q =
-              src_b + (unsigned long long)(unsigned)rows[k0 + j] * (unsigned)a.C;
-          asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
-        }
-      };
-      if constexpr (kAhead > 0) {
-#pragma unroll
-        for (int i = 0; i < kAhead; ++i) prefetch(i * G);
-      }
 #pragma unroll 1
-      for (int k0 = 0; k0 < kpad; k0 += G) {
-        if constexpr (kAhead > 0) prefetch(k0 + kAhead * G);
-        Raw v[G];
-        load_group<V, G, kMode>(src_b, a.C, rows + k0, v, a.B < 0 ? -1 : 0);
-        fma_group<V, G, kMode>(wpool + k0, v, acc);
-      }
-    } else if constexpr (kStages == 0) {
-      // two register buffers: the next group's loads before this group's FMAs
-      Raw va[G], vb[G];
-      load_group<V, G, kMode>(src_b, a.C, rows, va);
-#pragma unroll 1
-      for (int k0 = 0; k0 < kpad; k0 += 2 * G) {
-        const bool second = k0 + G < kpad;
-        if (second) load_group<V, G, kMode>(src_b, a.C, rows + k0 + G, vb);
-        fma_group<V, G, kMode>(wpool + k0, va, acc);
-        if (k0 + 2 * G < kpad)
-          load_group<V, G, kMode>(src_b, a.C, rows + k0 + 2 * G, va);
-        if (second) fma_group<V, G, kMode>(wpool + k0 + G, vb, acc);
-      }
-    } else {
-      // a ring of kStages groups of G corners a thread in shared memory,
-      // [stage][corner][thread]: the copies of kStages - 1 groups in flight
-      // while the thread adds the oldest
-      static_assert(V == 16 || V == 8 || V == 4, "cp.async copies 4-16 B");
-      char* ring = reinterpret_cast<char*>(wraw_s + pairs * stride);
-      const int T = blockDim.x;
-      const int ngroups = kpad / G;
-      auto slot = [&](int grp, int j) {
-        return ring + ((size_t)((grp % kStages) * G + j) * T + threadIdx.x) * V;
-      };
-      auto issue = [&](int grp) {
-        const int* r = rows + grp * G;
-#pragma unroll
-        for (int j = 0; j < G; ++j)
-          copy_async<V>(slot(grp, j), src_b + (long long)r[j] * a.C);
-      };
-#pragma unroll
-      for (int g0 = 0; g0 < kStages - 1; ++g0) {
-        if (g0 < ngroups) issue(g0);
-        commit_copies();
-      }
-#pragma unroll 1
-      for (int grp = 0; grp < ngroups; ++grp) {
-        if (grp + kStages - 1 < ngroups) issue(grp + kStages - 1);
-        commit_copies();
-        wait_copies<kStages - 1>();
-        Raw v[G];
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          const char* q = slot(grp, j);
-          if constexpr (V == 16) {
-            const uint4 u = *reinterpret_cast<const uint4*>(q);
-            v[j][0] = u.x;
-            v[j][1] = u.y;
-            v[j][2] = u.z;
-            v[j][3] = u.w;
-          } else if constexpr (V == 8) {
-            const uint2 u = *reinterpret_cast<const uint2*>(q);
-            v[j][0] = u.x;
-            v[j][1] = u.y;
-          } else {
-            v[j][0] = *reinterpret_cast<const unsigned int*>(q);
-          }
-        }
-        fma_group<V, G, kMode>(wpool + grp * G, v, acc);
-      }
+    for (int k0 = 0; k0 < kpad; k0 += kI8Group) {
+      typename RowIO<int8_t, V>::Raw v[kI8Group];
+      load_group<V>(src_b, a.C, rows + k0, v);
+      fma_group<V>(wpool + k0, v, acc);
     }
     store_channels<TO, V>(pooled + bqm * a.C + (long long)g * V, acc);
-    if (g == 0) {
+    if (g == 0) {  // the unscaled weights, in the same order
       const float* wraw = wraw_s + pl * stride;
       float wsum = 0.0f;
       for (int k = 0; k < 4 * L * P; k += 4) {
@@ -638,63 +476,90 @@ __global__ void __launch_bounds__(kI8MaxThreads)
   }
 }
 
-// One K1 launch's shape: pairs a block, threads, shared bytes and blocks.
-struct I8Launch {
-  int pairs, threads;
-  size_t smem;
-  unsigned blocks;
-};
-
-inline I8Launch i8_launch(const RawPoolArgs& a, int V, int G, int pairs) {
-  const int groups = a.C / V;
-  if (pairs <= 0)
-    pairs = groups >= kI8MaxThreads
-                ? 1
-                : (kI8MaxThreads / groups < kI8MaxPairs ? kI8MaxThreads / groups
-                                                        : kI8MaxPairs);
-  const int threads =
-      pairs * groups < kI8MaxThreads ? pairs * groups : kI8MaxThreads;
-  const int stride = i8_plan_corners(a.L, a.P, G) + 4;
-  const long long total = (long long)a.B * a.Lq * a.M;
-  return {pairs, threads, (size_t)3 * pairs * stride * sizeof(int),
-          (unsigned)((total + pairs - 1) / pairs)};
-}
+template <typename TO>
+using I8Kernel = void (*)(const int8_t*, RawPoolArgs, TO*, int);
 
 // The instance for (L, P): (4, 2) and (2, 2) fixed, else generic.
-template <typename TO, int V, int kG, int kStages, int kMode>
-static const void* i8_kernel(int L, int P) {
-  if (L == 4 && P == 2)
-    return (const void*)
-        msda_raw_pool_fwd_i8_kernel<TO, V, 4, 2, kG, kStages, kMode>;
-  if (L == 2 && P == 2)
-    return (const void*)
-        msda_raw_pool_fwd_i8_kernel<TO, V, 2, 2, kG, kStages, kMode>;
-  return (const void*)
-      msda_raw_pool_fwd_i8_kernel<TO, V, 0, 0, kG, kStages, kMode>;
+template <typename TO, int V>
+static I8Kernel<TO> i8_kernel(int L, int P) {
+  if (L == 4 && P == 2) return msda_raw_pool_fwd_i8_kernel<TO, V, 4, 2>;
+  if (L == 2 && P == 2) return msda_raw_pool_fwd_i8_kernel<TO, V, 2, 2>;
+  return msda_raw_pool_fwd_i8_kernel<TO, V, 0, 0>;
 }
 
-template <typename TO, int V, int kG, int kStages, int kMode>
+// Blocks of `kernel` with `threads` threads and `smem` shared bytes that fit
+// on the card at once, asked of the runtime once per (kernel, device, block
+// size) and kept.
+static long long i8_slots(const void* kernel, int threads, size_t smem) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    long long slots;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(mu);
+  for (const Entry& e : known)
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads &&
+        e.smem == smem)
+      return e.slots;
+  int sms = 1, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  known.push_back({kernel, dev, threads, smem, slots});
+  return slots;
+}
+
+// One K1 launch's shape.
+struct I8Shape {
+  int pairs, threads;
+  size_t smem;
+  long long blocks;
+};
+
+inline I8Shape i8_shape(const RawPoolArgs& a, int V, int pairs) {
+  const int groups = a.C / V;
+  const long long total = (long long)a.B * a.Lq * a.M;
+  return {pairs,
+          pairs * groups < kI8MaxThreads ? pairs * groups : kI8MaxThreads,
+          (size_t)3 * pairs * i8_plan_stride(a.L, a.P) * sizeof(int),
+          (total + pairs - 1) / pairs};
+}
+
+// The launch: blocks of as many whole pairs as fit in kI8MaxThreads threads
+// (16 at C = 288) where they fill at least two waves of the card, else half
+// as many, so that a launch of one wave spreads evenly: the served B = 1
+// launch takes 600 blocks of 8 pairs, 4-5 an SM (300 of 16 would put 2 or
+// 3 on an SM), a B = 4 launch 1200 of 16. Fewer pairs where their plan
+// would not fit in kI8MaxPlan bytes.
+inline I8Shape i8_pick(const RawPoolArgs& a, int V, const void* kernel) {
+  const int groups = a.C / V;
+  int full = groups >= kI8MaxThreads ? 1 : kI8MaxThreads / groups;
+  if (full > kI8MaxPairs) full = kI8MaxPairs;
+  const int fit =
+      (int)(kI8MaxPlan / (3 * i8_plan_stride(a.L, a.P) * sizeof(int)));
+  if (full > fit) full = fit;
+  if (full < 1) return {0, 0, 0, 0};
+  const I8Shape big = i8_shape(a, V, full);
+  if (full == 1 || big.blocks >= 2 * i8_slots(kernel, big.threads, big.smem))
+    return big;
+  return i8_shape(a, V, full / 2);
+}
+
+template <typename TO, int V>
 static cudaError_t launch_i8_v(const int8_t* src, const RawPoolArgs& a,
-                               TO* pooled, cudaStream_t stream,
-                               int pairs = 0) {
-  const int G = (a.L == 4 && a.P == 2) || (a.L == 2 && a.P == 2)
-                    ? (4 * a.L * a.P < kG ? 4 * a.L * a.P : kG)
-                    : kG;
-  I8Launch s = i8_launch(a, V, G, pairs);
-  if (kStages > 1) s.smem += (size_t)kStages * G * s.threads * V;
-  if (kStages == 0 && V != 16) return cudaErrorInvalidValue;
-  if (s.smem > 227 * 1024) return cudaErrorInvalidValue;
-  const void* kernel = i8_kernel<TO, V, kG, kStages, kMode>(a.L, a.P);
-  if (s.smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)s.smem);
-  const int8_t* sp = src;
-  RawPoolArgs args = a;
-  TO* po = pooled;
-  int np = s.pairs;
-  void* params[] = {(void*)&sp, (void*)&args, (void*)&po, (void*)&np};
-  return cudaLaunchKernel(kernel, dim3(s.blocks), dim3(s.threads), params,
-                          s.smem, stream);
+                               TO* pooled, cudaStream_t stream) {
+  const I8Kernel<TO> kernel = i8_kernel<TO, V>(a.L, a.P);
+  const I8Shape s = i8_pick(a, V, (const void*)kernel);
+  if (s.pairs < 1 || s.blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)s.blocks, s.threads, s.smem, stream>>>(src, a, pooled,
+                                                          s.pairs);
+  return cudaGetLastError();
 }
 
 // K1's lanes: the widest of 16, 8, 4, 2 and 1 int8 channels that C and the
@@ -712,71 +577,23 @@ static int i8_vec(const RawPoolArgs& a, const void* src, const void* pooled) {
   return 1;
 }
 
-// Design probes by variant: 10 * mode + (0: 8 corners in flight, 1: 16,
-// 5: 32); variant 0 takes every lane width, the others 16-channel lanes.
-template <typename TO, int kG, int kMode, int kStages = 1, int V = 16>
-static cudaError_t launch_i8_probe(const void* src, void* pooled,
-                                   const RawPoolArgs& a, cudaStream_t stream,
-                                   int pairs, int v) {
-  if (v < V) return cudaErrorInvalidValue;
-  return launch_i8_v<TO, V, kG, kStages, kMode>(
-      static_cast<const int8_t*>(src), a, static_cast<TO*>(pooled), stream,
-      pairs);
-}
-
 template <typename TO>
 static cudaError_t launch_i8(const void* src, void* pooled,
-                             const RawPoolArgs& a, cudaStream_t stream,
-                             int variant = 0, int pairs = 0) {
-  const int v = i8_vec<TO>(a, src, pooled);
-  switch (variant) {
-    case 1: return launch_i8_probe<TO, 16, 0>(src, pooled, a, stream, pairs, v);
-    case 5: return launch_i8_probe<TO, 32, 0>(src, pooled, a, stream, pairs, v);
-    case 11: return launch_i8_probe<TO, 16, 1>(src, pooled, a, stream, pairs, v);
-    case 21: return launch_i8_probe<TO, 16, 2>(src, pooled, a, stream, pairs, v);
-    case 31: return launch_i8_probe<TO, 16, 3>(src, pooled, a, stream, pairs, v);
-    case 30: return launch_i8_probe<TO, 8, 3>(src, pooled, a, stream, pairs, v);
-    case 15: return launch_i8_probe<TO, 32, 1>(src, pooled, a, stream, pairs, v);
-    case 25: return launch_i8_probe<TO, 32, 2>(src, pooled, a, stream, pairs, v);
-    case 35: return launch_i8_probe<TO, 32, 3>(src, pooled, a, stream, pairs, v);
-    case 102: return launch_i8_probe<TO, 4, 0, 0>(src, pooled, a, stream, pairs, v);
-    case 103: return launch_i8_probe<TO, 8, 0, 0>(src, pooled, a, stream, pairs, v);
-    case 104: return launch_i8_probe<TO, 8, 0, 1, 8>(src, pooled, a, stream, pairs, v);
-    case 106: return launch_i8_probe<TO, 16, 0, 1, 8>(src, pooled, a, stream, pairs, v);
-    case 81: return launch_i8_probe<TO, 16, 8>(src, pooled, a, stream, pairs, v);
-    case 85: return launch_i8_probe<TO, 32, 8>(src, pooled, a, stream, pairs, v);
-    case 91: return launch_i8_probe<TO, 16, 9>(src, pooled, a, stream, pairs, v);
-    case 95: return launch_i8_probe<TO, 32, 9>(src, pooled, a, stream, pairs, v);
-    case 60: return launch_i8_probe<TO, 8, 6>(src, pooled, a, stream, pairs, v);
-    case 61: return launch_i8_probe<TO, 16, 6>(src, pooled, a, stream, pairs, v);
-    case 70: return launch_i8_probe<TO, 8, 7>(src, pooled, a, stream, pairs, v);
-    case 71: return launch_i8_probe<TO, 16, 7>(src, pooled, a, stream, pairs, v);
-    case 64: return launch_i8_probe<TO, 4, 6>(src, pooled, a, stream, pairs, v);
-    case 74: return launch_i8_probe<TO, 4, 7>(src, pooled, a, stream, pairs, v);
-    case 40: return launch_i8_probe<TO, 8, 4>(src, pooled, a, stream, pairs, v);
-    case 41: return launch_i8_probe<TO, 16, 4>(src, pooled, a, stream, pairs, v);
-    case 45: return launch_i8_probe<TO, 32, 4>(src, pooled, a, stream, pairs, v);
-    case 50: return launch_i8_probe<TO, 8, 5>(src, pooled, a, stream, pairs, v);
-    case 51: return launch_i8_probe<TO, 16, 5>(src, pooled, a, stream, pairs, v);
-    case 55: return launch_i8_probe<TO, 32, 5>(src, pooled, a, stream, pairs, v);
-    case 128: return launch_i8_probe<TO, 8, 0, 2>(src, pooled, a, stream, pairs, v);
-    case 138: return launch_i8_probe<TO, 8, 0, 3>(src, pooled, a, stream, pairs, v);
-    case 144: return launch_i8_probe<TO, 4, 0, 4>(src, pooled, a, stream, pairs, v);
-    case 124: return launch_i8_probe<TO, 4, 0, 2>(src, pooled, a, stream, pairs, v);
-    case 126: return launch_i8_probe<TO, 16, 0, 2>(src, pooled, a, stream, pairs, v);
-    default: break;
-  }
+                             const RawPoolArgs& a, cudaStream_t stream) {
   const int8_t* s = static_cast<const int8_t*>(src);
   TO* po = static_cast<TO*>(pooled);
-  if (v == 16) return launch_i8_v<TO, 16, 8, 1, 0>(s, a, po, stream, pairs);
-  if (v == 8) return launch_i8_v<TO, 8, 8, 1, 0>(s, a, po, stream, pairs);
-  if (v == 4) return launch_i8_v<TO, 4, 8, 1, 0>(s, a, po, stream, pairs);
-  if (v == 2) return launch_i8_v<TO, 2, 8, 1, 0>(s, a, po, stream, pairs);
-  return launch_i8_v<TO, 1, 8, 1, 0>(s, a, po, stream, pairs);
+  const int v = i8_vec<TO>(a, src, pooled);
+  if (v == 16) return launch_i8_v<TO, 16>(s, a, po, stream);
+  if (v == 8) return launch_i8_v<TO, 8>(s, a, po, stream);
+  if (v == 4) return launch_i8_v<TO, 4>(s, a, po, stream);
+  if (v == 2) return launch_i8_v<TO, 2>(s, a, po, stream);
+  return launch_i8_v<TO, 1>(s, a, po, stream);
 }
 
-// Registers, local bytes, threads, shared bytes and resident blocks an SM
-// of `kernel` launched with `threads` threads and `smem` shared bytes.
+// What a launch with aligned pointers runs, for chip_smoke.py: out[7] =
+// registers, local (spilled) bytes, threads, shared bytes and resident
+// blocks an SM of the kernel, pairs a block and blocks of the launch; of
+// K1's kernel, or (direct) of the direct kernel's int8 instance.
 static void kernel_facts(const void* kernel, int threads, size_t smem,
                          int* out) {
   cudaFuncAttributes attr;
@@ -791,71 +608,31 @@ static void kernel_facts(const void* kernel, int threads, size_t smem,
   out[4] = per_sm;
 }
 
-template <typename TO, int kG, int kMode, int kStages = 1, int V = 16>
-static void i8_facts_v(const RawPoolArgs& a, int pairs, int* out) {
-  const int G = (a.L == 4 && a.P == 2) || (a.L == 2 && a.P == 2)
-                    ? (4 * a.L * a.P < kG ? 4 * a.L * a.P : kG)
-                    : kG;
-  I8Launch s = i8_launch(a, V, G, pairs);
-  if (kStages > 1) s.smem += (size_t)kStages * G * s.threads * V;
-  const void* kernel = i8_kernel<TO, V, kG, kStages, kMode>(a.L, a.P);
-  if (s.smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)s.smem);
+template <typename TO, int V>
+static void i8_facts_v(const RawPoolArgs& a, bool direct, int* out) {
+  const long long total = (long long)a.B * a.Lq * a.M;
+  if (direct) {
+    const bool fixed = (a.L == 4 || a.L == 2) && a.P == 2;
+    const void* k =
+        !fixed ? (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, V, 0, 0>
+        : a.L == 4 ? (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, V, 4, 2>
+                   : (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, V, 2, 2>;
+    kernel_facts(k, kDirectThreads, 0, out);
+    out[5] = 0;  // the direct kernel's blocks hold threads, not whole pairs
+    out[6] = (int)((total * (a.C / V) + kDirectThreads - 1) / kDirectThreads);
+    return;
+  }
+  const void* kernel = (const void*)i8_kernel<TO, V>(a.L, a.P);
+  const I8Shape s = i8_pick(a, V, kernel);
   kernel_facts(kernel, s.threads, s.smem, out);
+  out[5] = s.pairs;
+  out[6] = (int)s.blocks;
 }
 
-// K1's instance for (L, P) at C % 16 == 0 (16-byte-aligned pointers), or
-// with variant < 0 the direct kernel's int8 instance (what K1 ran before
-// its own kernel).
 template <typename TO>
-static void i8_facts(const RawPoolArgs& a, int variant, int pairs, int* out) {
-  if (variant < 0) {
-    const void* k =
-        a.L == 4 && a.P == 2
-            ? (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, 16, 4, 2>
-        : a.L == 2 && a.P == 2
-            ? (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, 16, 2, 2>
-            : (const void*)msda_raw_pool_fwd_kernel<int8_t, TO, 16, 0, 0>;
-    return kernel_facts(k, kDirectThreads, 0, out);
-  }
-  switch (variant) {
-    case 1: return i8_facts_v<TO, 16, 0>(a, pairs, out);
-    case 5: return i8_facts_v<TO, 32, 0>(a, pairs, out);
-    case 11: return i8_facts_v<TO, 16, 1>(a, pairs, out);
-    case 21: return i8_facts_v<TO, 16, 2>(a, pairs, out);
-    case 31: return i8_facts_v<TO, 16, 3>(a, pairs, out);
-    case 30: return i8_facts_v<TO, 8, 3>(a, pairs, out);
-    case 15: return i8_facts_v<TO, 32, 1>(a, pairs, out);
-    case 25: return i8_facts_v<TO, 32, 2>(a, pairs, out);
-    case 35: return i8_facts_v<TO, 32, 3>(a, pairs, out);
-    case 102: return i8_facts_v<TO, 4, 0, 0>(a, pairs, out);
-    case 103: return i8_facts_v<TO, 8, 0, 0>(a, pairs, out);
-    case 104: return i8_facts_v<TO, 8, 0, 1, 8>(a, pairs, out);
-    case 106: return i8_facts_v<TO, 16, 0, 1, 8>(a, pairs, out);
-    case 81: return i8_facts_v<TO, 16, 8>(a, pairs, out);
-    case 85: return i8_facts_v<TO, 32, 8>(a, pairs, out);
-    case 91: return i8_facts_v<TO, 16, 9>(a, pairs, out);
-    case 95: return i8_facts_v<TO, 32, 9>(a, pairs, out);
-    case 60: return i8_facts_v<TO, 8, 6>(a, pairs, out);
-    case 61: return i8_facts_v<TO, 16, 6>(a, pairs, out);
-    case 70: return i8_facts_v<TO, 8, 7>(a, pairs, out);
-    case 71: return i8_facts_v<TO, 16, 7>(a, pairs, out);
-    case 64: return i8_facts_v<TO, 4, 6>(a, pairs, out);
-    case 74: return i8_facts_v<TO, 4, 7>(a, pairs, out);
-    case 40: return i8_facts_v<TO, 8, 4>(a, pairs, out);
-    case 41: return i8_facts_v<TO, 16, 4>(a, pairs, out);
-    case 45: return i8_facts_v<TO, 32, 4>(a, pairs, out);
-    case 50: return i8_facts_v<TO, 8, 5>(a, pairs, out);
-    case 51: return i8_facts_v<TO, 16, 5>(a, pairs, out);
-    case 55: return i8_facts_v<TO, 32, 5>(a, pairs, out);
-    case 128: return i8_facts_v<TO, 8, 0, 2>(a, pairs, out);
-    case 138: return i8_facts_v<TO, 8, 0, 3>(a, pairs, out);
-    case 144: return i8_facts_v<TO, 4, 0, 4>(a, pairs, out);
-    case 124: return i8_facts_v<TO, 4, 0, 2>(a, pairs, out);
-    case 126: return i8_facts_v<TO, 16, 0, 2>(a, pairs, out);
-    default: return i8_facts_v<TO, 8, 0>(a, pairs, out);
-  }
+static void i8_facts(const RawPoolArgs& a, bool direct, int* out) {
+  if (a.C % 16 == 0) return i8_facts_v<TO, 16>(a, direct, out);
+  return i8_facts_v<TO, 4>(a, direct, out);
 }
 
 }  // namespace kinet
@@ -934,43 +711,24 @@ extern "C" int msda_raw_pool_fwd_i8_direct(
   return (int)cudaErrorInvalidValue;
 }
 
-// Design probe: K1 with variant `variant` and `pairs` pairs a block (0: as
-// K1 picks).
-extern "C" int msda_raw_pool_fwd_i8_probe(
-    int variant, int pairs, const void* src, const void* quad_scales,
-    int out_dtype, const void* shapes, const void* starts, const void* loc,
-    const void* aw, const void* valid_extents, void* pooled, void* wsum,
-    int B, int S, int C, int Lq, int M, int L, int P, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const kinet::RawPoolArgs a = raw_pool_args(
-      shapes, starts, loc, aw, valid_extents, quad_scales, wsum, B, S, C, Lq,
-      M, L, P);
-  if (out_dtype == kinet::kBF16)
-    return (int)kinet::launch_i8<__nv_bfloat16>(src, pooled, a, s, variant,
-                                                pairs);
-  if (out_dtype == kinet::kF32)
-    return (int)kinet::launch_i8<float>(src, pooled, a, s, variant, pairs);
-  return (int)cudaErrorInvalidValue;
-}
-
-// out[5]: registers, local (spilled) bytes, threads, shared bytes and
-// resident blocks an SM of the kernel that a launch of (C, L, P, B, Lq, M)
-// with 16-byte-aligned pointers runs: K1's own (variant >= 0) or the direct
-// kernel's int8 instance (variant < 0).
-extern "C" int msda_raw_pool_fwd_i8_facts(int out_dtype, int variant,
-                                          int pairs, int B, int C, int Lq,
-                                          int M, int L, int P, int* out) {
+// out[7]: registers, local (spilled) bytes, threads, shared bytes and
+// resident blocks an SM of the kernel that a launch of (B, Lq, M, C, L, P)
+// with aligned pointers runs, pairs a block and blocks: K1's own kernel,
+// or with `direct` the direct kernel's int8 instance.
+extern "C" int msda_raw_pool_fwd_i8_facts(int out_dtype, int direct, int B,
+                                          int Lq, int M, int C, int L, int P,
+                                          int* out) {
   kinet::RawPoolArgs a{};
   a.B = B;
-  a.C = C;
   a.Lq = Lq;
   a.M = M;
+  a.C = C;
   a.L = L;
   a.P = P;
   if (out_dtype == kinet::kBF16)
-    kinet::i8_facts<__nv_bfloat16>(a, variant, pairs, out);
+    kinet::i8_facts<__nv_bfloat16>(a, direct != 0, out);
   else if (out_dtype == kinet::kF32)
-    kinet::i8_facts<float>(a, variant, pairs, out);
+    kinet::i8_facts<float>(a, direct != 0, out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

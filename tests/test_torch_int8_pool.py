@@ -239,14 +239,15 @@ def _grid(a):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [288, 12, 6])  # 16-, 4- and 1-channel lanes
+# 16-, 4- and 2-channel lanes, then 8-channel lanes (C not a multiple of 16)
+@pytest.mark.parametrize("c", [288, 12, 6, 24, 40])
 @pytest.mark.parametrize("shapes,p", [(SHAPES[1], 2), (SHAPES[0], 2),
                                       (SHAPES[2], 3)])
 def test_int8_kernel_matches_plain_on_gpu(shapes, p, c, out_dtype):
-    """The int8 instance of msda_raw_pool_fwd against its plain version:
-    the compiled (L, P) = (4, 2) and (2, 2) instances and the generic one,
-    16-, 4- and 1-channel groups; pooled in f32 and bf16 (rounded once to
-    bf16 by both: one bf16 ulp apart at most), wsum f32; one launch a
+    """K1 (msda_raw_pool_fwd_i8's kernel) against its plain version: the
+    compiled (L, P) = (4, 2) and (2, 2) instances and the generic one,
+    16-, 8-, 4- and 2-channel lanes; pooled in f32 and bf16 (rounded once
+    to bf16 by both: one bf16 ulp apart at most), wsum f32; one launch a
     call, counted."""
     dev = _cuda()
     q8, scales, loc, aw, ext = _pool_inputs(11, shapes, 2, lq=300, m=8, p=p, c=c)
@@ -278,3 +279,53 @@ def test_int8_kernel_raises_under_autograd_on_gpu():
         msda.ms_deform_attn_raw_pool(q8, shapes, loc, aw.requires_grad_(True),
                                      ext, scales)
     assert msda.ms_deform_attn_raw_pool.i8_launches == before
+
+
+def _launch_i8(q8, scales, shapes, loc, aw, ext, pooled, wsum):
+    """The C entry msda_raw_pool_fwd_i8 into the given outputs (views
+    included), as the wrapper launches it."""
+    b, s, c = q8.shape
+    _, lq, m, l, p, _ = loc.shape
+    shapes_t, starts_t = msda._level_tables(shapes, q8.device)
+    msda._launch(
+        "msda_raw_pool_fwd_i8", [msda._P, msda._P, msda._I] + [msda._P] * 7
+        + [msda._I] * 7 + [msda._P], q8.device, q8.data_ptr(),
+        scales.data_ptr(), msda._DTYPE_CODE[pooled.dtype], shapes_t.data_ptr(),
+        starts_t.data_ptr(), loc.data_ptr(), aw.data_ptr(), ext.data_ptr(),
+        pooled.data_ptr(), wsum.data_ptr(), b, s, c, lq, m, l, p,
+        lib="msda_raw_pool_fwd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("src_off,pooled_off", [(4, 0), (8, 0), (0, 1)])
+def test_int8_kernel_views_on_gpu(src_off, pooled_off, out_dtype):
+    """K1 at the served width C = 288 on a table view 4 or 8 bytes off its
+    allocation (4- and 8-channel lanes) and into a pooled view one element
+    off (1-channel lanes), against the plain version; the view of the table
+    also through the wrapper."""
+    dev = _cuda()
+    shapes = SHAPES[1]
+    q8, scales, loc, aw, ext = _pool_inputs(13, shapes, 1, lq=300, m=8, p=2,
+                                            c=288)
+    q8, scales, loc, aw, ext = (torch.from_numpy(a).to(dev) for a in
+                                (q8, scales, _grid(loc), aw, ext))
+    buf = torch.empty(q8.numel() + src_off, dtype=torch.int8, device=dev)
+    view = buf[src_off:].view(q8.shape)
+    view.copy_(q8)
+    assert view.data_ptr() % 16 == src_off
+    out = torch.empty(300 * 8 * 288 + pooled_off, dtype=out_dtype, device=dev)
+    pooled = out[pooled_off:].view(1, 300, 8, 288)
+    wsum = torch.empty(1, 300, 8, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        _launch_i8(view, scales, shapes, loc, aw, ext, pooled, wsum)
+        wrapped, wrapped_w = msda.ms_deform_attn_raw_pool(
+            view, shapes, loc, aw, ext, scales, out_dtype)
+        ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(
+            q8, shapes, loc, aw, ext, scales, out_dtype)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-2, atol=1e-5) if out_dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+    for got, got_w in ((pooled, wsum), (wrapped, wrapped_w)):
+        torch.testing.assert_close(got.float(), ref_p.float(), **tol)
+        torch.testing.assert_close(got_w, ref_w, rtol=1e-4, atol=1e-5)

@@ -23,6 +23,13 @@ and, for the edge samples, against the JAX package's XLA formulations:
   lower index), loads the four corners of every kept sample and nothing of
   a dropped one, and sums the kept samples in (level, point, corner) order
   into its 8- and 4-channel sums.
+- the int8 raw pool's own kernel (``msda_raw_pool_fwd_i8``, K1): a block's
+  plan of every corner (row, w * scale, w) in (level, point, corner) order,
+  padded to whole groups of 16 with row 0 and weight 0; lanes of 16, 8, 4,
+  2 or 1 channels by C and the pointers' alignment, each loading its bytes
+  at row * C + lane * V (aligned) and adding them, turned into f32 by
+  ``i8_at``, in the plan's order; wsum over the unscaled weights; the block
+  shapes, whose plan fits 48 KB and spreads over the banks.
 
 ``chip_smoke.py::read_stats``, which counts the corner rows and distinct
 rows that the replay of the main path reports, is held to the same corner
@@ -566,3 +573,207 @@ def test_msda_topk_wide_model_matches_plain_and_jax(case, uniform):
         jnp.asarray(value.numpy()), shapes, jnp.asarray(loc.numpy()),
         jnp.asarray(aw.numpy()), top_k=k))
     np.testing.assert_allclose(out.numpy(), ref_j, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# msda_raw_pool_fwd_i8's own kernel (K1)
+
+I8_MAX_THREADS, I8_MAX_PAIRS, I8_MAX_PLAN = 288, 32, 48 * 1024
+I8_GROUP = 16  # corners a lane loads before its FMAs (kI8Group)
+
+
+def i8_lane_width(c, src_off, pooled_off, out_bytes):
+    """csrc/msda_raw_pool_fwd.cu::i8_vec: the widest lane of 16, 8, 4, 2 or
+    1 int8 channels that C and the pointers' byte offsets allow; a lane's
+    pooled store needs min(V, 16 / out_bytes) channels' alignment."""
+    for v in (16, 8, 4, 2, 1):
+        kw = min(v, 16 // out_bytes)
+        aligned = pooled_off % (kw * out_bytes) == 0
+        if c % v == 0 and src_off % v == 0 and aligned:
+            return v
+    return 1
+
+
+def i8_block(c, v, l, p, half=False):
+    """csrc/msda_raw_pool_fwd.cu::i8_pick / i8_shape: (pairs a block,
+    threads, plan corners a pair (4LP rounded up to whole groups), plan
+    stride in ints, shared bytes) of the full block (as many whole pairs as
+    fit in 288 threads, at most 32 and as many as the 48 KB plan holds), or
+    of the half block that a launch of less than two waves of full blocks
+    takes."""
+    groups = c // v
+    kpad = -(-4 * l * p // I8_GROUP) * I8_GROUP
+    stride = kpad + 4
+    full = 1 if groups >= I8_MAX_THREADS else min(I8_MAX_THREADS // groups,
+                                                  I8_MAX_PAIRS)
+    full = min(full, I8_MAX_PLAN // (3 * stride * 4))
+    pairs = max(1, full // 2) if half and full > 1 else full
+    return (pairs, min(pairs * groups, I8_MAX_THREADS), kpad, stride,
+            3 * pairs * stride * 4)
+
+
+def i8_plan(scales, shapes, loc, aw, ext, kpad):
+    """The plan a block writes to shared memory: for every (b, q, m), each
+    sample's four corners in (level, point, corner) order, padded to kpad
+    with row 0 and weight 0: (table row [N, kpad] int64, pooling weight
+    w * scale and w [N, kpad] f32)."""
+    b, lq, m, l, p, _ = loc.shape
+    starts = msda.level_start_index(shapes)
+    n = b * lq * m
+    rows = np.zeros((n, kpad), np.int64)
+    wpool = np.zeros((n, kpad), np.float32)
+    wraw = np.zeros((n, kpad), np.float32)
+    for lid, (h, w) in enumerate(shapes):
+        x, y = pixels(loc, shapes, lid)
+        vh, vw = torch.tensor(float(h)), torch.tensor(float(w))
+        if ext is not None:
+            vh, vw = ext[:, lid, 0].view(b, 1, 1), ext[:, lid, 1].view(b, 1, 1)
+        sc = scales[:, lid].view(b, 1, 1)
+        for pt in range(p):
+            for corner in range(4):
+                inside, cell, bil = corner_rule(corner, h, w, x[..., pt],
+                                                y[..., pt], vh, vw)
+                wt = torch.where(inside, bil * aw[..., lid, pt], 0.0)
+                k = 4 * (lid * p + pt) + corner
+                cell = torch.where(inside, cell, 0)
+                rows[:, k] = (starts[lid] + cell).reshape(n).numpy()
+                wpool[:, k] = (wt * sc).reshape(n).numpy()
+                wraw[:, k] = wt.reshape(n).numpy()
+    return rows, wpool, wraw
+
+
+def i8_kernel_model(q8, scales, shapes, loc, aw, ext=None, src_off=0,
+                    pooled_off=0, out_bytes=4):
+    """msda_raw_pool_fwd_i8's kernel: each (b, q, m)'s C / V lanes read the
+    plan's rows as V-byte loads at byte row * C + lane * V of the batch
+    element's table (aligned to V), turn each byte into f32 by i8_at, and
+    add it times the pooling weight in the plan's order, a group of 16
+    corners at a time; lane 0 sums the unscaled weights in the same order.
+    Returns (pooled [B, Lq, M, C], wsum [B, Lq, M]) in f32."""
+    b, s, c = q8.shape
+    lq, m, l, p = loc.shape[1:5]
+    v = i8_lane_width(c, src_off, pooled_off, out_bytes)
+    _, _, kpad, _, _ = i8_block(c, v, l, p)
+    g = I8_GROUP
+    rows, wpool, wraw = i8_plan(scales, shapes, loc, aw, ext, kpad)
+    n = b * lq * m
+    batch = np.repeat(np.arange(b), lq * m)
+    table = q8.numpy().view(np.uint8).reshape(b, s * c).astype(np.uint32)
+    pooled = np.zeros((n, c), np.float32)
+    kw = min(v, 16 // out_bytes)
+    for lane in range(c // v):
+        offs = rows * c + lane * v  # [N, kpad]: bytes into the batch's table
+        assert ((src_off + batch[:, None] * s * c + offs) % v == 0).all()
+        dst = (np.arange(n) * c + lane * v) * out_bytes + pooled_off
+        assert (dst % (kw * out_bytes) == 0).all()
+        acc = np.zeros((n, v), np.float32)
+        for k0 in range(0, kpad, g):  # the groups, in order
+            for k in range(k0, k0 + g):
+                raw = table[batch[:, None], offs[:, k:k + 1] + np.arange(v)]
+                raw = np.pad(raw, ((0, 0), (0, -v % 4)))  # V = 1, 2: low bytes
+                for j in range(v):
+                    shifted = raw[:, 4 * (j // 4):4 * (j // 4) + 4] << \
+                        np.uint32([0, 8, 16, 24])
+                    word = shifted.sum(1, dtype=np.uint32)
+                    val = i8_at_model(word ^ np.uint32(0x80808080), j % 4)
+                    acc[:, j] += wpool[:, k] * val
+        pooled[:, lane * v:(lane + 1) * v] = acc
+    wsum = np.zeros(n, np.float32)
+    for k in range(4 * l * p):
+        wsum += wraw[:, k]
+    return (torch.from_numpy(pooled).view(b, lq, m, c),
+            torch.from_numpy(wsum).view(b, lq, m))
+
+
+I8_CASES = {  # (L, P): (shapes, P); the first two are fixed instances
+    "lp42": (((6, 8), (3, 4)) * 2, 2),
+    "lp22": (((6, 8), (3, 4)), 2),
+    "lp31": (((6, 8), (3, 4), (2, 3)), 1),
+}
+
+
+def test_i8_lanes_and_blocks():
+    """The lane and block rules at the served width (C = 288: 18 lanes of
+    16 bytes; 16 pairs in 288 threads, or 8 in 144; a 36-int plan stride)
+    and where C or the pointers allow no wider lane; every plan stride puts
+    the int4 reads of neighbouring pairs on other banks (stride / 4 odd)
+    and fits the 48 KB of static shared memory."""
+    assert i8_lane_width(288, 0, 0, 2) == i8_lane_width(288, 0, 0, 4) == 16
+    assert i8_block(288, 16, 4, 2) == (16, 288, 32, 36, 6912)
+    assert i8_block(288, 16, 4, 2, half=True) == (8, 144, 32, 36, 3456)
+    assert i8_block(288, 16, 2, 2)[:4] == (16, 288, 16, 20)
+    assert i8_block(288, 16, 3, 1)[2:4] == (16, 20)  # 12 corners, padded
+    assert i8_block(288, 16, 16, 16)[0] == 3  # 1024 corners: the plan's room
+    assert i8_lane_width(288, 4, 0, 2) == 4  # a view 4 bytes off
+    assert i8_lane_width(288, 8, 0, 4) == 8
+    assert i8_lane_width(24, 0, 0, 2) == 8 and i8_lane_width(12, 0, 0, 4) == 4
+    assert i8_lane_width(6, 0, 0, 2) == 2 and i8_lane_width(5, 0, 0, 4) == 1
+    assert i8_lane_width(16, 0, 2, 2) == 1  # pooled off its 2-byte grid only
+    assert i8_lane_width(16, 0, 8, 2) == 4  # 8 bytes: 4 bf16 channels
+    for c in (288, 24, 12, 6, 5, 4096):
+        for l, p in ((4, 2), (2, 2), (3, 1), (4, 4)):
+            v = i8_lane_width(c, 0, 0, 2)
+            for half in (False, True):
+                pairs, threads, kpad, stride, smem = i8_block(c, v, l, p, half)
+                assert 1 <= pairs <= I8_MAX_PAIRS
+                assert threads == min(pairs * (c // v), I8_MAX_THREADS)
+                assert kpad >= 4 * l * p and kpad % I8_GROUP == 0
+                assert (stride // 4) % 2 == 1 and smem <= I8_MAX_PLAN
+
+
+@pytest.mark.parametrize("with_extents", [False, True])
+@pytest.mark.parametrize("c", [12, 24, 16, 32])  # 4-, 8- and 16-byte lanes
+@pytest.mark.parametrize("case", list(I8_CASES))
+def test_raw_pool_i8_model_matches_plain_and_jax(case, c, with_extents):
+    """K1's plan over an int8 table from quantize_rows (each frame's half
+    quantized on its own for the (4, 2) case) against the port's plain
+    version with quad_scales (1e-5 / 1e-6) and JAX's
+    ms_deform_attn_raw_pool over the same int8 rows (1e-4 / 1e-5)."""
+    shapes, p = I8_CASES[case]
+    b, lq, m = 2, 5, 4
+    l = len(shapes)
+    _, src, loc, aw = _inputs(50, shapes, b=b, lq=lq, m=m, p=p, c=c)
+    halves = [(0, 2), (2, 4)] if l == 4 else [(0, l)]  # each frame's half
+    starts = list(msda.level_start_index(shapes))
+    starts.append(sum(h * w for h, w in shapes))
+    q8_parts, scales = [], np.zeros((b, l), np.float32)
+    for lo, hi in halves:
+        jq, js = jax_msda.quantize_rows(jnp.asarray(
+            src[:, starts[lo]:starts[hi]].numpy() * 3.0))
+        q8_parts.append(np.asarray(jq))
+        scales[:, lo:hi] = np.asarray(js)[:, None]
+    q8 = torch.from_numpy(np.concatenate(q8_parts, axis=1))
+    sc = torch.from_numpy(scales)
+    ext = _extents(shapes, b) if with_extents else None
+    pooled, wsum = i8_kernel_model(q8, sc, shapes, loc, aw, ext)
+    ref_p, ref_w = msda.ms_deform_attn_raw_pool_plain(q8, shapes, loc, aw,
+                                                      ext, sc)
+    torch.testing.assert_close(pooled, ref_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(wsum, ref_w, rtol=1e-5, atol=1e-6)
+    ref_j = jax_msda.ms_deform_attn_raw_pool(
+        jnp.asarray(q8.numpy(), jnp.float32), shapes, jnp.asarray(loc.numpy()),
+        jnp.asarray(aw.numpy()), jax_msda.build_raw_quad(
+            jnp.asarray(q8.numpy()), shapes),
+        None if ext is None else jnp.asarray(ext.numpy()), jnp.asarray(scales))
+    for got, j in zip((pooled, wsum), ref_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_raw_pool_i8_model_views():
+    """A table view 4 bytes off its allocation (4-byte lanes) and pooled
+    views that allow 8-byte lanes or none, at the served width: the same
+    sums as the aligned plan, the loads and stores aligned (asserted in
+    the model)."""
+    shapes, p = I8_CASES["lp42"]
+    _, src, loc, aw = _inputs(51, shapes, b=1, lq=3, m=2, p=p, c=288)
+    q8, s = msda.quantize_rows(src * 3.0)
+    sc = s.view(1, 1).expand(1, len(shapes)).contiguous()
+    ref = i8_kernel_model(q8, sc, shapes, loc, aw)
+    for src_off, pooled_off, out_bytes, v in ((4, 0, 2, 4), (8, 0, 4, 8),
+                                              (0, 2, 2, 1)):
+        assert i8_lane_width(288, src_off, pooled_off, out_bytes) == v
+        got = i8_kernel_model(q8, sc, shapes, loc, aw, src_off=src_off,
+                              pooled_off=pooled_off, out_bytes=out_bytes)
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
