@@ -42,7 +42,14 @@ JAX package:
 - ``write_images`` (with an ``output_dir``): each sequence's frames with
   its tracks' boxes as ``output_dir/<dataset dir>/<sequence>/%06d.jpg``
   (``utils/vis.py::plot_sequence``), written by the process that writes
-  the result files, after the frame loop (the RUNTIME line leaves it out).
+  the result files, after the frame loop (the RUNTIME line leaves it out);
+- ``trace=true`` on the command line (a key ``cfgs/track.yaml`` leaves
+  out; off unless given) turns on the port's tracer (``utils/trace.py``)
+  for the run; after the RUNTIME line one line a span (count, median and 95th
+  percentile in ms: the step, its stage and state machine a stream, the
+  host-to-device copy, the forward and its backbone, encoder, decoder and
+  postprocess, the fetch) and one of the counters (frames, MB copied to
+  the device, tracks born, re-identified, ended, live a frame).
 """
 from __future__ import annotations
 
@@ -66,7 +73,7 @@ from ..tracking.batched import (
 )
 from ..tracking.kine_tracker import TrackerKinematic
 from ..tracking.tracker import Tracker
-from ..utils import dist
+from ..utils import dist, trace
 from ..utils.checkpoint import CheckpointManager
 from ..utils.mot_metrics import evaluate_mot_accums, format_summary, get_mot_accum
 from ..utils.vis import plot_sequence
@@ -230,10 +237,14 @@ def main_track(cfg, obj_detector_model=None):
     # device afterwards
     mode, where = model.training, next(model.parameters()).device
     model.to(device).eval()
+    if cfg.get("trace", False):
+        trace.enable()
     try:
         return _track_sequences(cfg, model, train_cfg, gen_attn)
     finally:
         model.to(where).train(mode)
+        if cfg.get("trace", False):
+            trace.disable()
 
 
 def _spatial_processes(cfg, train_cfg=None) -> int:
@@ -397,6 +408,8 @@ def _track_sequences(cfg, model, train_cfg, gen_attn=False):
             f"({num_frames / max(time_total, 1e-9):.2f} Hz)",
             flush=True,
         )
+        if cfg.get("trace", False):
+            print("\n".join(trace.summary(trace.drain())), flush=True)
     if world > 1 and not spatial:
         gathered = dist.all_gather_objects(
             (accums, accum_names) if lead else ([], []))

@@ -55,6 +55,7 @@ import torch
 from torch import nn
 
 from ..structs import ImageBatch, Targets
+from ..utils import trace
 from .backbone import Backbone, BackboneWithMasksAll, downsample_pad_mask
 from .deformable_transformer import (
     DeformableTransformer,
@@ -271,111 +272,121 @@ class DeformableDETR(nn.Module):
         aux_outputs: Optional[bool] = None,  # default: in train() mode
         spatial=None,  # parallel/sp.py: this process's rows of the frame
     ) -> dict:
-        images = batch.images.to(self.transformer.level_embed.dtype)
-        if spatial is None:
-            feats_all, _ = self.backbone(images, batch.pad_mask)
-        else:
-            feats_all = spatial.features(self.backbone, images)
+        with trace.span("backbone"):
+            images = batch.images.to(self.transformer.level_embed.dtype)
+            if spatial is None:
+                feats_all, _ = self.backbone(images, batch.pad_mask)
+            else:
+                feats_all = spatial.features(self.backbone, images)
         feats = feats_all[-3:]  # the pyramid's C3..C5
         b = images.shape[0]
 
-        prev_projected = None
-        if self.merge_frame_features:
-            # the previous frame's levels, projected with no merge (the
-            # current frame's on a first frame)
-            prev_projected = self._project_levels(
-                *(prev_features or (feats, batch.pad_mask)),
-                spatial=spatial)[0]
-        srcs, masks = self._project_levels(feats, batch.pad_mask,
-                                           prev_projected, spatial)
-        pos = list(pos_cache) if pos_cache is not None else self._pos_embeds(masks, 0)
+        with trace.span("encoder"):
+            prev_projected = None
+            if self.merge_frame_features:
+                # the previous frame's levels, projected with no merge (the
+                # current frame's on a first frame)
+                prev_projected = self._project_levels(
+                    *(prev_features or (feats, batch.pad_mask)),
+                    spatial=spatial)[0]
+            srcs, masks = self._project_levels(feats, batch.pad_mask,
+                                               prev_projected, spatial)
+            pos = (list(pos_cache) if pos_cache is not None
+                   else self._pos_embeds(masks, 0))
 
-        tf_kwargs = {}
-        if self.multi_frame_attention:
-            if self.cache_prev_encoder and prev_memory is not None:
-                mem_prev, prev_pad = prev_memory[0], prev_memory[1]
-                p_masks = [downsample_pad_mask(prev_pad, m.shape[-2:]) for m in masks]
-                tf_kwargs = dict(prev_encoded=mem_prev, prev_masks=p_masks)
-            elif self.cache_prev_encoder and prev_features is None:
-                # first frame: prev := current; with the frame-agnostic
-                # encoder its memory is exactly mem_cur, one encoder run
-                tf_kwargs = dict(prev_is_current=True)
-            else:
-                if prev_features is None:
-                    prev_feats, prev_pad = feats, batch.pad_mask
+            enc_kwargs = {}
+            if self.multi_frame_attention:
+                if self.cache_prev_encoder and prev_memory is not None:
+                    mem_prev, prev_pad = prev_memory[0], prev_memory[1]
+                    p_masks = [downsample_pad_mask(prev_pad, m.shape[-2:])
+                               for m in masks]
+                    enc_kwargs = dict(prev_encoded=mem_prev,
+                                      prev_masks=p_masks)
+                elif self.cache_prev_encoder and prev_features is None:
+                    # first frame: prev := current; with the frame-agnostic
+                    # encoder its memory is exactly mem_cur, one encoder run
+                    enc_kwargs = dict(prev_is_current=True)
                 else:
-                    prev_feats, prev_pad = prev_features
-                p_srcs, p_masks = self._project_levels(
-                    prev_feats, prev_pad, prev_projected, spatial)
-                p_pos = self._pos_embeds(
-                    p_masks, frame_idx=0 if self.cache_prev_encoder else 1
-                )
-                srcs, masks, pos = srcs + p_srcs, masks + p_masks, pos + p_pos
+                    if prev_features is None:
+                        prev_feats, prev_pad = feats, batch.pad_mask
+                    else:
+                        prev_feats, prev_pad = prev_features
+                    p_srcs, p_masks = self._project_levels(
+                        prev_feats, prev_pad, prev_projected, spatial)
+                    p_pos = self._pos_embeds(
+                        p_masks, frame_idx=0 if self.cache_prev_encoder else 1
+                    )
+                    srcs, masks = srcs + p_srcs, masks + p_masks
+                    pos = pos + p_pos
+            if spatial is not None:
+                # whole-frame levels (zeros outside this process's rows) for
+                # the flattening; the encoder reads only its own tokens
+                strides = self.level_strides()
+                srcs = [spatial.whole(x, strides[i % self.num_feature_levels])
+                        for i, x in enumerate(srcs)]
+                enc_kwargs["spatial"] = spatial
+            enc = self.transformer.encode(srcs, masks, pos, **enc_kwargs)
 
-        t = self.num_track_slots
-        track_kwargs = {}
-        if t > 0:
-            dev = images.device
-            if targets is None:
-                active = torch.zeros(b, t, dtype=torch.bool, device=dev)
-                tq_embeds = torch.zeros(b, t, self.hidden_dim, device=dev)
-                tq_boxes = torch.full((b, t, 4), 0.5, device=dev)
-            else:
-                active = targets.track_query_mask
-                tq_embeds = targets.track_query_embeds
-                tq_boxes = torch.where(
-                    active[..., None], targets.track_query_boxes, 0.5
+        with trace.span("decoder"):
+            t = self.num_track_slots
+            dec_kwargs = {}
+            if t > 0:
+                dev = images.device
+                if targets is None:
+                    active = torch.zeros(b, t, dtype=torch.bool, device=dev)
+                    tq_embeds = torch.zeros(b, t, self.hidden_dim, device=dev)
+                    tq_boxes = torch.full((b, t, 4), 0.5, device=dev)
+                else:
+                    active = targets.track_query_mask
+                    tq_embeds = targets.track_query_embeds
+                    tq_boxes = torch.where(
+                        active[..., None], targets.track_query_boxes, 0.5
+                    )
+                dec_kwargs = dict(
+                    track_query_embeds=tq_embeds, track_query_boxes=tq_boxes,
+                    track_query_active=active,
                 )
-            track_kwargs = dict(
-                track_query_embeds=tq_embeds, track_query_boxes=tq_boxes,
-                track_query_active=active,
+            if self.two_stage:
+                dec_kwargs.update(
+                    class_embed_fn=self.class_head(self.dec_layers),
+                    bbox_embed_fn=self.bbox_head(self.dec_layers))
+            (hs, memory, init_ref, inter_refs, q_pad, enc_class,
+             enc_coord) = self.transformer.decode(
+                enc, None if self.two_stage else self.query_embed,
+                bbox_embeds=(
+                    [self.bbox_head(i) for i in range(self.dec_layers)]
+                    if self.with_box_refine else None
+                ),
+                **dec_kwargs,
             )
 
-        if self.two_stage:
-            tf_kwargs.update(class_embed_fn=self.class_head(self.dec_layers),
-                             bbox_embed_fn=self.bbox_head(self.dec_layers))
-        if spatial is not None:
-            # whole-frame levels (zeros outside this process's rows) for
-            # the flattening; the encoder reads only its own tokens
-            strides = self.level_strides()
-            srcs = [spatial.whole(x, strides[i % self.num_feature_levels])
-                    for i, x in enumerate(srcs)]
-            tf_kwargs["spatial"] = spatial
-        (hs, memory, init_ref, inter_refs, q_pad, enc_class,
-         enc_coord) = self.transformer(
-            srcs, masks, pos, None if self.two_stage else self.query_embed,
-            bbox_embeds=(
-                [self.bbox_head(i) for i in range(self.dec_layers)]
-                if self.with_box_refine else None
-            ),
-            **track_kwargs, **tf_kwargs,
-        )
-
-        # the last decoder layer's heads; the other layers' heads (the
-        # aux_outputs) feed only the losses, so inference skips them
-        last = self.dec_layers - 1
-        if aux_outputs is None:
-            aux_outputs = self.training
-        layers = range(last + 1) if self.aux_loss and aux_outputs else [last]
-        heads = {i: self._heads(i, hs, init_ref, inter_refs) for i in layers}
-        nq = hs.shape[2]
-        out = {
-            "pred_logits": heads[last][0],
-            "pred_boxes": heads[last][1],
-            "hs_embed": hs[last],
-            "query_valid": (
-                ~q_pad if q_pad is not None
-                else torch.ones(b, nq, dtype=torch.bool, device=hs.device)
-            ),
-        }
-        if len(heads) > 1:
-            out["aux_outputs"] = [
-                {"pred_logits": heads[i][0], "pred_boxes": heads[i][1]}
-                for i in range(last)
-            ]
-        if self.two_stage:
-            out["enc_outputs"] = {"pred_logits": enc_class,
-                                  "pred_boxes": torch.sigmoid(enc_coord)}
+            # the last decoder layer's heads; the other layers' heads (the
+            # aux_outputs) feed only the losses, so inference skips them
+            last = self.dec_layers - 1
+            if aux_outputs is None:
+                aux_outputs = self.training
+            layers = (range(last + 1) if self.aux_loss and aux_outputs
+                      else [last])
+            heads = {i: self._heads(i, hs, init_ref, inter_refs)
+                     for i in layers}
+            nq = hs.shape[2]
+            out = {
+                "pred_logits": heads[last][0],
+                "pred_boxes": heads[last][1],
+                "hs_embed": hs[last],
+                "query_valid": (
+                    ~q_pad if q_pad is not None
+                    else torch.ones(b, nq, dtype=torch.bool, device=hs.device)
+                ),
+            }
+            if len(heads) > 1:
+                out["aux_outputs"] = [
+                    {"pred_logits": heads[i][0], "pred_boxes": heads[i][1]}
+                    for i in range(last)
+                ]
+            if self.two_stage:
+                out["enc_outputs"] = {"pred_logits": enc_class,
+                                      "pred_boxes": torch.sigmoid(enc_coord)}
         # features of this frame, reusable as next frame's prev_features
         out["frame_features"] = (feats, batch.pad_mask)
         if self.multi_frame_attention and self.cache_prev_encoder:

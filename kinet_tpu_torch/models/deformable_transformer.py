@@ -579,10 +579,12 @@ class DeformableTransformer(nn.Module):
     this branch takes no track queries: they are ignored and
     query_pad_mask stays None.
 
-    Returns (hs, memory, init_reference, inter_references, query_pad_mask,
-    enc_outputs_class, enc_outputs_coord_unact); query_pad_mask [B, Q] is
-    True at inactive track slots (None without track queries); the last two
-    are None without two_stage."""
+    A forward is ``decode(encode(...), ...)``: the model calls the two
+    halves itself, so that each is a span of its own (``utils/trace.py``).
+    ``decode`` returns (hs, memory, init_reference, inter_references,
+    query_pad_mask, enc_outputs_class, enc_outputs_coord_unact);
+    query_pad_mask [B, Q] is True at inactive track slots (None without
+    track queries); the last two are None without two_stage."""
 
     def __init__(self, d_model=256, nheads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024,
@@ -733,23 +735,20 @@ class DeformableTransformer(nn.Module):
         vr = torch.stack([get_valid_ratio(m) for m in masks], dim=1)
         return src_flat, mask_flat, pos_flat, vr
 
-    def forward(
+    def encode(
         self,
         srcs,  # list of [B, C, H, W]
         masks,  # list of [B, H, W] bool
         pos_embeds,  # list of [B, H, W, C]
-        query_embed,  # [Q, 2C], None with two_stage
-        track_query_embeds=None,  # [B, T, C]
-        track_query_boxes=None,  # [B, T, 4]
-        track_query_active=None,  # [B, T] bool
-        bbox_embeds=None,  # per-layer refine heads
         prev_encoded=None,  # [B, S_half, C] cached prev-frame memory
         prev_masks=None,  # per-level prev pad masks (with prev_encoded)
         prev_is_current=False,  # first frame: reuse mem_cur as mem_prev
-        class_embed_fn=None,  # two_stage: the encoder's class head
-        bbox_embed_fn=None,  # two_stage: the encoder's box head
         spatial=None,  # parallel/sp.py: encode this process's tokens
     ):
+        """The encoder's half of a forward: (memory [B, S, C], its pad mask
+        [B, S], valid ratios [B, L, 2], spatial shapes, the tokens' dtype,
+        whether the previous frame's half came cached), as ``decode`` takes
+        it."""
         def encode(src, shapes, vr, pos, mask):
             if spatial is None:
                 return self.encoder(src, shapes, vr, pos, mask)
@@ -810,8 +809,24 @@ class DeformableTransformer(nn.Module):
             else:
                 memory = encode(src_flat, spatial_shapes, valid_ratios,
                                 pos_flat, mask_flat)
+        cached = prev_encoded is not None or prev_is_current
+        return (memory, mask_flat, valid_ratios, spatial_shapes,
+                src_flat.dtype, cached)
 
-        dtype = src_flat.dtype
+    def decode(
+        self,
+        enc,  # encode's result
+        query_embed,  # [Q, 2C], None with two_stage
+        track_query_embeds=None,  # [B, T, C]
+        track_query_boxes=None,  # [B, T, 4]
+        track_query_active=None,  # [B, T] bool
+        bbox_embeds=None,  # per-layer refine heads
+        class_embed_fn=None,  # two_stage: the encoder's class head
+        bbox_embed_fn=None,  # two_stage: the encoder's box head
+    ):
+        """The decoder's half of a forward, over ``encode``'s result."""
+        memory, mask_flat, valid_ratios, spatial_shapes, dtype, cached = enc
+        b = memory.shape[0]
         query_pad_mask = enc_class = enc_coord = None
         if self.two_stage:
             query_pos, tgt, reference_points, enc_class, enc_coord = \
@@ -872,10 +887,7 @@ class DeformableTransformer(nn.Module):
         # memory (both halves) itself, or samples the int8 table.
         table = None
         if self.dec_int8 and not self.training:
-            table = self._dec_table(
-                dec_memory, dec_mask, dec_shapes,
-                prev_encoded is not None or prev_is_current,
-            )
+            table = self._dec_table(dec_memory, dec_mask, dec_shapes, cached)
         hs, inter_refs = self.decoder(
             tgt, reference_points, dec_memory, dec_shapes, dec_vr,
             query_pos, dec_mask, query_pad_mask, bbox_embeds, table,

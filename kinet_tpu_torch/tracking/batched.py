@@ -36,6 +36,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..utils import trace
 from .kine_tracker import TrackerKinematic, fetch_kine_rows
 from .tracker import Tracker, fetch_rows
 
@@ -107,6 +108,8 @@ class BatchedTracker:
                     generate_attention_maps=generate_attention_maps)
             for _ in range(n_sequences)
         ]
+        for i, tr in enumerate(self.trackers):
+            tr.stream = i
         self._fwd = self.trackers[0]._fwd
         self._batch_exec = str(tracker_cfg.get("batch_exec", "auto"))
         if self._batch_exec not in ("auto", "stacked", "interleaved"):
@@ -148,19 +151,28 @@ class BatchedTracker:
                   self._pos_cache)
         tracker = self.trackers[0]
         if len(inputs) == 1:
-            return self._fwd(*tracker.make_device_inputs(inputs[0]), *caches)
+            with trace.span("h2d"):
+                dev_inputs = tracker.make_device_inputs(inputs[0])
+            return self._fwd(*dev_inputs, *caches)
         if self.exec_form() == "stacked":
             # each row copied to the device as it is, then concatenated
             # there: no host copy of the frames
             dev = tracker.device
-            stacked = {k: torch.cat([torch.from_numpy(inp[k]).to(dev)
-                                     for inp in inputs])
-                       for k in inputs[0]}
-            return self._fwd(*tracker.make_device_inputs(stacked), *caches)
-        return _concat([
-            self._fwd(*tracker.make_device_inputs(inp),
-                      *(_row(c, e) for c in caches))
-            for e, inp in enumerate(inputs)])
+            with trace.span("h2d"):
+                if trace.enabled():
+                    trace.count("h2d_bytes", sum(a.nbytes for inp in inputs
+                                                 for a in inp.values()))
+                stacked = {k: torch.cat([torch.from_numpy(inp[k]).to(dev)
+                                         for inp in inputs])
+                           for k in inputs[0]}
+                dev_inputs = tracker.make_device_inputs(stacked)
+            return self._fwd(*dev_inputs, *caches)
+        outs = []
+        for e, inp in enumerate(inputs):
+            with trace.span("h2d", e):
+                dev_inputs = tracker.make_device_inputs(inp)
+            outs.append(self._fwd(*dev_inputs, *(_row(c, e) for c in caches)))
+        return _concat(outs)
 
     def step(self, blobs: list):
         """blobs[i]: the next frame blob of sequence i, or None once that
@@ -168,20 +180,21 @@ class BatchedTracker:
         if len(blobs) != len(self.trackers):
             raise ValueError(f"{len(blobs)} blobs for {len(self.trackers)} "
                              f"sequences")
-        inputs = _stage_inputs(self.trackers, blobs, self._last_inputs)
-        if inputs is None:
-            return
-        res = self._forward(inputs)
-        live = [i for i, blob in enumerate(blobs) if blob is not None]
-        outs = fetch_rows(res, live)
-        for i in live:
-            self.trackers[i]._consume(outs[i], blobs[i])
-        if res["frame_features"] is not None:
-            self._prev_features.append(res["frame_features"])
-        if res["frame_memory"] is not None:
-            self._prev_memory.append(res["frame_memory"])
-        if res["pos_cache"] is not None:
-            self._pos_cache = res["pos_cache"]
+        with trace.span("step"):
+            inputs = _stage_inputs(self.trackers, blobs, self._last_inputs)
+            if inputs is None:
+                return
+            res = self._forward(inputs)
+            live = [i for i, blob in enumerate(blobs) if blob is not None]
+            outs = fetch_rows(res, live)
+            for i in live:
+                self.trackers[i]._consume(outs[i], blobs[i])
+            if res["frame_features"] is not None:
+                self._prev_features.append(res["frame_features"])
+            if res["frame_memory"] is not None:
+                self._prev_memory.append(res["frame_memory"])
+            if res["pos_cache"] is not None:
+                self._pos_cache = res["pos_cache"]
 
     def get_results(self, i: int):
         return self.trackers[i].get_results()

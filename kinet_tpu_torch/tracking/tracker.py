@@ -42,6 +42,7 @@ from scipy.optimize import linear_sum_assignment
 from ..ops.nms import nms_numpy
 from ..parallel.sp import spatial_parallel
 from ..structs import ImageBatch, Targets
+from ..utils import trace
 
 
 def dense(a, dtype) -> np.ndarray:
@@ -114,41 +115,43 @@ def make_forward_fn(model, postprocess, attention_maps=False,
 
     @torch.inference_mode()
     def fwd(batch, targets, orig_size, prev_features, prev_memory, pos_cache):
-        kwargs = {"prev_features": prev_features}
-        if spatial_group is not None:
-            kwargs["spatial"] = spatial_parallel(
-                model, spatial_group, batch.images.shape[1])
-        if attention_maps:
-            kwargs["attention_maps"] = True
-        if caches_memory:
-            kwargs.update(prev_memory=prev_memory, pos_cache=pos_cache)
-        out = model(batch, targets, **kwargs)
-        res = postprocess(out, orig_size)
-        maps = None
-        if attention_maps:
-            attn = out["attention_weights"]  # [B, H, Q, Hf * Wf]
-            hf, wf = out["memory"].shape[1:3]
-            maps = attn.mean(1).reshape(attn.shape[0], attn.shape[2], hf, wf)
-        mask_probs = None
-        if "pred_masks" in out:
-            mask_probs = F.interpolate(
-                out["pred_masks"].float(), size=batch.images.shape[1:3],
-                mode="bilinear", align_corners=False).sigmoid_()
-        return {
-            "attention_maps": maps,
-            "mask_probs": mask_probs,
-            "scores": res["scores"],
-            "labels": res["labels"],
-            "boxes": res["boxes"],
-            "hs_embed": out["hs_embed"],
-            # with memory caching the raw backbone features are not needed
-            # across frames, only the encoded memory
-            "frame_features": (
-                None if caches_memory else out.get("frame_features")
-            ),
-            "frame_memory": out.get("frame_memory"),
-            "pos_cache": out.get("pos_cache"),
-        }
+        with trace.span("forward"):
+            kwargs = {"prev_features": prev_features}
+            if spatial_group is not None:
+                kwargs["spatial"] = spatial_parallel(
+                    model, spatial_group, batch.images.shape[1])
+            if attention_maps:
+                kwargs["attention_maps"] = True
+            if caches_memory:
+                kwargs.update(prev_memory=prev_memory, pos_cache=pos_cache)
+            out = model(batch, targets, **kwargs)
+            with trace.span("postprocess"):
+                res = postprocess(out, orig_size)
+            maps = None
+            if attention_maps:
+                attn = out["attention_weights"]  # [B, H, Q, Hf * Wf]
+                hf, wf = out["memory"].shape[1:3]
+                maps = attn.mean(1).reshape(attn.shape[0], attn.shape[2], hf, wf)
+            mask_probs = None
+            if "pred_masks" in out:
+                mask_probs = F.interpolate(
+                    out["pred_masks"].float(), size=batch.images.shape[1:3],
+                    mode="bilinear", align_corners=False).sigmoid_()
+            return {
+                "attention_maps": maps,
+                "mask_probs": mask_probs,
+                "scores": res["scores"],
+                "labels": res["labels"],
+                "boxes": res["boxes"],
+                "hs_embed": out["hs_embed"],
+                # with memory caching the raw backbone features are not needed
+                # across frames, only the encoded memory
+                "frame_features": (
+                    None if caches_memory else out.get("frame_features")
+                ),
+                "frame_memory": out.get("frame_memory"),
+                "pos_cache": out.get("pos_cache"),
+            }
 
     return fwd
 
@@ -162,40 +165,41 @@ def fetch_rows(res: dict, rows) -> dict:
     page-locked memory, so the rows' blocking copy is the one
     synchronization for all of them. ``Tracker.step`` fetches its one row,
     ``BatchedTracker.step`` the rows of its live sequences."""
-    probs = res["mask_probs"]
-    host_probs = {}
-    if probs is not None:
-        for i in rows:
-            host_probs[i] = torch.empty(probs.shape[1:], dtype=probs.dtype,
-                                        pin_memory=probs.is_cuda)
-            host_probs[i].copy_(probs[i], non_blocking=probs.is_cuda)
-    parts = [
-        res["scores"][..., None].float(),
-        res["labels"][..., None].float(),
-        res["boxes"].float(),
-        res["hs_embed"].float(),
-    ]
-    maps = res["attention_maps"]
-    if maps is not None:
-        parts.append(maps.flatten(2).float())
-    table = torch.cat(parts, dim=-1).cpu().numpy()  # [B, Q, columns]
-    d = res["hs_embed"].shape[-1]
-    outs = {}
-    for i in rows:
-        r = table[i]
-        out = {
-            "scores": r[:, 0],
-            "labels": r[:, 1].astype(np.int64),
-            "boxes": r[:, 2:6],
-            "hs_embed": r[:, 6:6 + d],
-        }
+    with trace.span("fetch"):
+        probs = res["mask_probs"]
+        host_probs = {}
+        if probs is not None:
+            for i in rows:
+                host_probs[i] = torch.empty(probs.shape[1:], dtype=probs.dtype,
+                                            pin_memory=probs.is_cuda)
+                host_probs[i].copy_(probs[i], non_blocking=probs.is_cuda)
+        parts = [
+            res["scores"][..., None].float(),
+            res["labels"][..., None].float(),
+            res["boxes"].float(),
+            res["hs_embed"].float(),
+        ]
+        maps = res["attention_maps"]
         if maps is not None:
-            out["attention_maps"] = r[:, 6 + d:].reshape(r.shape[0],
-                                                         *maps.shape[2:])
-        if i in host_probs:
-            out["mask_probs"] = host_probs[i].numpy()
-        outs[i] = out
-    return outs
+            parts.append(maps.flatten(2).float())
+        table = torch.cat(parts, dim=-1).cpu().numpy()  # [B, Q, columns]
+        d = res["hs_embed"].shape[-1]
+        outs = {}
+        for i in rows:
+            r = table[i]
+            out = {
+                "scores": r[:, 0],
+                "labels": r[:, 1].astype(np.int64),
+                "boxes": r[:, 2:6],
+                "hs_embed": r[:, 6:6 + d],
+            }
+            if maps is not None:
+                out["attention_maps"] = r[:, 6 + d:].reshape(r.shape[0],
+                                                             *maps.shape[2:])
+            if i in host_probs:
+                out["mask_probs"] = host_probs[i].numpy()
+            outs[i] = out
+        return outs
 
 
 class Tracker:
@@ -234,6 +238,9 @@ class Tracker:
         self.reid_greedy_matching = c.get("reid_greedy_matching", False)
         self.prev_frame_dist = int(c.get("prev_frame_dist", 1))
         self.steps_termination = int(c.get("steps_termination", 1))
+        # the index of this tracker's stream in a batched tracker, which
+        # sets it: the identifier of its spans (utils/trace.py)
+        self.stream = None
         self.reset()
 
     def reset(self, hard: bool = True):
@@ -375,40 +382,43 @@ class Tracker:
     def _build_inputs(self, blob: dict) -> dict:
         """Phase 1 of step(): age inactive tracks and stage the padded
         track-query state as host [1, ...] numpy arrays."""
-        self.inactive_tracks = [
-            t
-            for t in self.inactive_tracks
-            if t.has_positive_area() and t.count_inactive <= self.inactive_patience
-        ]
-        for t in self.tracks:
-            t.last_pos.append(t.pos.copy())
+        with trace.span("stage", self.stream):
+            waiting = len(self.inactive_tracks)
+            self.inactive_tracks = [
+                t
+                for t in self.inactive_tracks
+                if t.has_positive_area() and t.count_inactive <= self.inactive_patience
+            ]
+            trace.count("tracks_ended", waiting - len(self.inactive_tracks))
+            for t in self.tracks:
+                t.last_pos.append(t.pos.copy())
 
-        h0, w0 = blob["orig_size"]
-        t_slots = self.num_track_slots
-        all_tracks = self.tracks + self.inactive_tracks
-        num_prev = min(len(all_tracks), t_slots)
-        all_tracks = all_tracks[:num_prev]
-        self._num_prev = num_prev
+            h0, w0 = blob["orig_size"]
+            t_slots = self.num_track_slots
+            all_tracks = self.tracks + self.inactive_tracks
+            num_prev = min(len(all_tracks), t_slots)
+            all_tracks = all_tracks[:num_prev]
+            self._num_prev = num_prev
 
-        tq_embeds = np.zeros((1, t_slots, self.hidden_dim), np.float32)
-        tq_boxes = np.full((1, t_slots, 4), 0.5, np.float32)
-        tq_mask = np.zeros((1, t_slots), bool)
-        if num_prev:
-            boxes_c = box_xyxy_to_cxcywh_np(
-                np.stack([t.pos for t in all_tracks])
-            ) / np.array([w0, h0, w0, h0], np.float32)
-            tq_boxes[0, :num_prev] = boxes_c
-            tq_embeds[0, :num_prev] = np.stack([t.hs_embed for t in all_tracks])
-            tq_mask[0, :num_prev] = True
+            tq_embeds = np.zeros((1, t_slots, self.hidden_dim), np.float32)
+            tq_boxes = np.full((1, t_slots, 4), 0.5, np.float32)
+            tq_mask = np.zeros((1, t_slots), bool)
+            if num_prev:
+                boxes_c = box_xyxy_to_cxcywh_np(
+                    np.stack([t.pos for t in all_tracks])
+                ) / np.array([w0, h0, w0, h0], np.float32)
+                tq_boxes[0, :num_prev] = boxes_c
+                tq_embeds[0, :num_prev] = np.stack([t.hs_embed for t in all_tracks])
+                tq_mask[0, :num_prev] = True
 
-        return {
-            "images": dense(blob["images"], np.float32),
-            "pad_mask": dense(blob["pad_mask"], bool),
-            "tq_embeds": tq_embeds,
-            "tq_boxes": tq_boxes,
-            "tq_mask": tq_mask,
-            "orig_size": np.asarray([[float(h0), float(w0)]], np.float32),
-        }
+            return {
+                "images": dense(blob["images"], np.float32),
+                "pad_mask": dense(blob["pad_mask"], bool),
+                "tq_embeds": tq_embeds,
+                "tq_boxes": tq_boxes,
+                "tq_mask": tq_mask,
+                "orig_size": np.asarray([[float(h0), float(w0)]], np.float32),
+            }
 
     def make_device_inputs(self, inputs: dict):
         """[B, ...] inputs (host numpy arrays, or tensors on the device) ->
@@ -417,7 +427,10 @@ class Tracker:
         b, t_slots, hidden = inputs["tq_embeds"].shape
 
         def put(a):
-            return (a if torch.is_tensor(a) else torch.from_numpy(a)).to(dev)
+            if torch.is_tensor(a):
+                return a.to(dev)
+            trace.count("h2d_bytes", a.nbytes)
+            return torch.from_numpy(a).to(dev)
 
         batch = ImageBatch(images=put(inputs["images"]),
                            pad_mask=put(inputs["pad_mask"]))
@@ -436,24 +449,45 @@ class Tracker:
     def step(self, blob: dict):
         """blob: images [1,H,W,3] (normalized), pad_mask [1,H,W],
         orig_size (h, w), dets [K, 4] public detections (xyxy abs)."""
-        inputs = self._build_inputs(blob)
-        batch, targets, orig_size = self.make_device_inputs(inputs)
-        res = self._fwd(
-            batch, targets, orig_size,
-            self._prev_features[0], self._prev_memory[0], self._pos_cache,
-        )
-        self._consume(fetch_rows(res, [0])[0], blob)
+        with trace.span("step"):
+            inputs = self._build_inputs(blob)
+            with trace.span("h2d"):
+                batch, targets, orig_size = self.make_device_inputs(inputs)
+            res = self._fwd(
+                batch, targets, orig_size,
+                self._prev_features[0], self._prev_memory[0], self._pos_cache,
+            )
+            self._consume(fetch_rows(res, [0])[0], blob)
 
-        if res["frame_features"] is not None:
-            self._prev_features.append(res["frame_features"])
-        if res["frame_memory"] is not None:
-            self._prev_memory.append(res["frame_memory"])
-        if res["pos_cache"] is not None:
-            self._pos_cache = res["pos_cache"]
+            if res["frame_features"] is not None:
+                self._prev_features.append(res["frame_features"])
+            if res["frame_memory"] is not None:
+                self._prev_memory.append(res["frame_memory"])
+            if res["pos_cache"] is not None:
+                self._pos_cache = res["pos_cache"]
 
     def _consume(self, out: dict, blob: dict):
         """Phase 2 of step(): the host state machine over one frame's
-        forward outputs (numpy, batch row selected)."""
+        forward outputs (numpy, batch row selected). While tracing, counts
+        the frame and its tracks born, re-identified, ended and live."""
+        with trace.span("state_machine", self.stream):
+            on = trace.enabled()
+            if on:
+                before = (self.track_num, self.num_reids,
+                          len(self.tracks) + len(self.inactive_tracks))
+            self._state_machine(out, blob)
+            if on:
+                born = self.track_num - before[0]
+                trace.count("frames")
+                trace.count("tracks_born", born)
+                trace.count("tracks_reidentified", self.num_reids - before[1])
+                trace.count("tracks_ended", before[2] + born - len(self.tracks)
+                            - len(self.inactive_tracks))
+                trace.count("tracks_live", len(self.tracks))
+
+    def _state_machine(self, out: dict, blob: dict):
+        """``_consume``'s work: keep, end and re-identify tracks, start new
+        ones, write the frame's results."""
         h0, w0 = blob["orig_size"]
         t_slots = self.num_track_slots
         num_prev = self._num_prev
