@@ -261,6 +261,12 @@ class DeformableDETR(nn.Module):
             tmp = torch.cat([tmp[..., :2] + ref, tmp[..., 2:]], -1)
         return self.class_head(i)(hs[i]), torch.sigmoid(tmp)
 
+    @property
+    def image_dtype(self) -> torch.dtype:
+        """The dtype the forward casts its images to first: the trackers
+        stage frames in it (``tracking/staging.py``)."""
+        return self.transformer.level_embed.dtype
+
     def forward(
         self,
         batch: ImageBatch,
@@ -273,7 +279,7 @@ class DeformableDETR(nn.Module):
         spatial=None,  # parallel/sp.py: this process's rows of the frame
     ) -> dict:
         with trace.span("backbone"):
-            images = batch.images.to(self.transformer.level_embed.dtype)
+            images = batch.images.to(self.image_dtype)
             if spatial is None:
                 feats_all, _ = self.backbone(images, batch.pad_mask)
             else:

@@ -138,13 +138,19 @@ class DETR(nn.Module):
                                      num_classes + (0 if focal_loss else 1))
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
 
+    @property
+    def image_dtype(self) -> torch.dtype:
+        """The dtype the forward casts its images to first: the trackers
+        stage frames in it (``tracking/staging.py``)."""
+        return self.query_embed.dtype
+
     def forward(self, batch: ImageBatch, targets: Optional[Targets] = None,
                 prev_features=None,  # accepted for the tracker; single-frame
                 aux_outputs: Optional[bool] = None,
                 attention_maps: bool = False, spatial=None) -> dict:
         # spatial: parallel/sp.py's split of the frame's rows; the trunk
         # runs on this process's rows, the rest on the gathered features
-        images = batch.images.to(self.query_embed.dtype)
+        images = batch.images.to(self.image_dtype)
         feats, masks = self.backbone(images, batch.pad_mask, spatial)
         src, pad = self.input_proj(feats[-1]), masks[-1]
         b, d, h, w = src.shape

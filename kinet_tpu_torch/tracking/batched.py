@@ -10,7 +10,8 @@ served frame (PERF.md §5).
 N untouched per-sequence ``Tracker``s keep their host state machines;
 this class only moves where the forward runs. Each step every live
 tracker stages its padded track-query state (``Tracker._build_inputs``),
-the arrays are concatenated on the batch axis, the forward runs, ONE
+the arrays are copied to the device as one batch (``staging.py``: the
+frames filled in parallel into reusable host buffers), the forward runs, ONE
 device-to-host copy fetches every live row (``fetch_rows``), and each
 tracker consumes its own row (``Tracker._consume``). The previous frame's
 features and the ``cache_prev_encoder`` caches (encoded memory, position
@@ -150,22 +151,11 @@ class BatchedTracker:
         caches = (self._prev_features[0], self._prev_memory[0],
                   self._pos_cache)
         tracker = self.trackers[0]
-        if len(inputs) == 1:
+        if len(inputs) == 1 or self.exec_form() == "stacked":
+            # the rows filled in parallel into the first tracker's staging
+            # buffers and copied to the device (staging.py)
             with trace.span("h2d"):
-                dev_inputs = tracker.make_device_inputs(inputs[0])
-            return self._fwd(*dev_inputs, *caches)
-        if self.exec_form() == "stacked":
-            # each row copied to the device as it is, then concatenated
-            # there: no host copy of the frames
-            dev = tracker.device
-            with trace.span("h2d"):
-                if trace.enabled():
-                    trace.count("h2d_bytes", sum(a.nbytes for inp in inputs
-                                                 for a in inp.values()))
-                stacked = {k: torch.cat([torch.from_numpy(inp[k]).to(dev)
-                                         for inp in inputs])
-                           for k in inputs[0]}
-                dev_inputs = tracker.make_device_inputs(stacked)
+                dev_inputs = tracker.make_device_inputs(inputs)
             return self._fwd(*dev_inputs, *caches)
         outs = []
         for e, inp in enumerate(inputs):

@@ -3,7 +3,8 @@
 
 Split of responsibilities, as in the JAX package:
 - the device work per frame is one forward with the track-query slots
-  padded to a fixed count; its four row outputs come back to the host in
+  padded to a fixed count, its inputs copied through reusable host buffers
+  (``staging.py``); its four row outputs come back to the host in
   one device-to-host copy (with masks, the mask probabilities in a second
   copy into page-locked memory, and one synchronization for both),
 - everything over O(#tracks) state (keep/terminate hysteresis, reid, NMS,
@@ -43,6 +44,7 @@ from ..ops.nms import nms_numpy
 from ..parallel.sp import spatial_parallel
 from ..structs import ImageBatch, Targets
 from ..utils import trace
+from .staging import FrameStager
 
 
 def dense(a, dtype) -> np.ndarray:
@@ -217,6 +219,7 @@ class Tracker:
     ):
         self.model = model
         self.device = next(model.parameters()).device
+        self._stager = FrameStager(self.device)
         self._fwd = make_forward_fn(model, postprocess,
                                     attention_maps=generate_attention_maps,
                                     spatial_group=spatial_group)
@@ -420,31 +423,32 @@ class Tracker:
                 "orig_size": np.asarray([[float(h0), float(w0)]], np.float32),
             }
 
-    def make_device_inputs(self, inputs: dict):
-        """[B, ...] inputs (host numpy arrays, or tensors on the device) ->
-        (ImageBatch, Targets, orig_size)."""
+    def make_device_inputs(self, inputs):
+        """[B, ...] inputs -> (ImageBatch, Targets, orig_size). ``inputs``:
+        a dict of host numpy arrays as ``_build_inputs`` returns them, or a
+        list of such dicts, the rows of one batch in order (staged through
+        ``FrameStager``, the images in the model's ``image_dtype``); or a
+        dict of tensors, moved to the device as they are."""
         dev = self.device
+        if isinstance(inputs, dict) and torch.is_tensor(inputs["images"]):
+            inputs = {k: v.to(dev) for k, v in inputs.items()}
+        else:
+            inputs = self._stager.stage(
+                inputs if isinstance(inputs, list) else [inputs],
+                self.model.image_dtype)
         b, t_slots, hidden = inputs["tq_embeds"].shape
-
-        def put(a):
-            if torch.is_tensor(a):
-                return a.to(dev)
-            trace.count("h2d_bytes", a.nbytes)
-            return torch.from_numpy(a).to(dev)
-
-        batch = ImageBatch(images=put(inputs["images"]),
-                           pad_mask=put(inputs["pad_mask"]))
+        batch = ImageBatch(images=inputs["images"], pad_mask=inputs["pad_mask"])
         targets = Targets.create(
             torch.zeros(b, 1, 4, device=dev),
             torch.zeros(b, 1, dtype=torch.int64, device=dev),
             torch.zeros(b, 1, dtype=torch.bool, device=dev),
             num_track_queries=t_slots, hidden_dim=hidden,
         ).replace(
-            track_query_embeds=put(inputs["tq_embeds"]),
-            track_query_boxes=put(inputs["tq_boxes"]),
-            track_query_mask=put(inputs["tq_mask"]),
+            track_query_embeds=inputs["tq_embeds"],
+            track_query_boxes=inputs["tq_boxes"],
+            track_query_mask=inputs["tq_mask"],
         )
-        return batch, targets, put(inputs["orig_size"])
+        return batch, targets, inputs["orig_size"]
 
     def step(self, blob: dict):
         """blob: images [1,H,W,3] (normalized), pad_mask [1,H,W],

@@ -166,8 +166,9 @@ def drain() -> dict:
 
 def summary(rec: dict) -> list:
     """Lines for an operator: each span name's count, median and 95th
-    percentile in ms, then the counters (frames, MB to the device, tracks
-    born, re-identified, ended, and live a frame)."""
+    percentile in ms, then the counters (frames, MB to the device, of
+    which copied from page-locked buffers, staging buffers allocated,
+    tracks born, re-identified, ended, and live a frame)."""
     by_name = {}
     for s in rec["spans"]:
         by_name.setdefault(s["name"], []).append(
@@ -179,7 +180,10 @@ def summary(rec: dict) -> list:
     frames = c.get("frames", 0)
     lines.append(
         f"COUNTERS: {frames} frames, "
-        f"{c.get('h2d_bytes', 0) / 1e6:.2f} MB to the device, tracks born "
+        f"{c.get('h2d_bytes', 0) / 1e6:.2f} MB to the device "
+        f"({c.get('h2d_pinned_bytes', 0) / 1e6:.2f} MB copied page-locked, "
+        f"{c.get('h2d_stage_allocs', 0)} staging buffers allocated), "
+        f"tracks born "
         f"{c.get('tracks_born', 0)}, re-identified "
         f"{c.get('tracks_reidentified', 0)}, ended {c.get('tracks_ended', 0)},"
         f" live a frame {c.get('tracks_live', 0) / max(frames, 1):.2f}")
