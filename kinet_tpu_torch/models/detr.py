@@ -25,6 +25,11 @@ reference: src/trackformer/models/detr.py).
   concatenated before the detections in the source sequence and every row
   is a prediction [T trail slots | N detection slots].
 
+``DETR.forward`` runs in the tracer's spans ``backbone``, ``encoder`` (the
+input projection, the position encoding and the encoder) and ``decoder``
+(the decoder and the heads), named as ``DeformableDETR``'s
+(``utils/trace.py``).
+
 ``hs_embed`` is the pre-norm decoder output of the last layer (the
 track-query feedback). Heads of the other decoder layers (``aux_outputs``)
 are computed in ``train()`` mode or when asked (``aux_outputs=True``).
@@ -38,6 +43,7 @@ import torch
 from torch import nn
 
 from ..structs import ImageBatch, KineBatch, Targets
+from ..utils import trace
 from .backbone import Backbone, BackboneWithMasksAll, KinetBackbone
 from .deformable_transformer import DropoutRNG
 from .position_encoding import sine_detection_encoding, sine_position_encoding
@@ -150,26 +156,29 @@ class DETR(nn.Module):
                 attention_maps: bool = False, spatial=None) -> dict:
         # spatial: parallel/sp.py's split of the frame's rows; the trunk
         # runs on this process's rows, the rest on the gathered features
-        images = batch.images.to(self.image_dtype)
-        feats, masks = self.backbone(images, batch.pad_mask, spatial)
-        src, pad = self.input_proj(feats[-1]), masks[-1]
-        b, d, h, w = src.shape
-        pos = sine_position_encoding(pad, self.hidden_dim // 2)
-        src_flat = src.flatten(2).transpose(1, 2)
-        pos_flat = pos.reshape(b, h * w, d).to(src.dtype)
-        pad_flat = pad.reshape(b, h * w)
-        query_pos, tgt, tgt_pad = _query_slots(
-            self.query_embed, targets, b, self.num_track_slots, src.dtype)
-
-        hs, hs_raw, memory, weights = self.transformer(
-            src_flat, pos_flat, query_pos, tgt=tgt, src_key_pad_mask=pad_flat,
-            tgt_key_pad_mask=tgt_pad, return_weights=attention_maps)
-        out = _outputs(
-            lambda i: self.class_embed(hs[i]),
-            lambda i: torch.sigmoid(self.bbox_embed(hs[i])),
-            hs.shape[0],
-            self.aux_loss and (self.training if aux_outputs is None
-                               else aux_outputs))
+        with trace.span("backbone"):
+            images = batch.images.to(self.image_dtype)
+            feats, masks = self.backbone(images, batch.pad_mask, spatial)
+        with trace.span("encoder"):
+            src, pad = self.input_proj(feats[-1]), masks[-1]
+            b, d, h, w = src.shape
+            pos = sine_position_encoding(pad, self.hidden_dim // 2)
+            src_flat = src.flatten(2).transpose(1, 2)
+            pos_flat = pos.reshape(b, h * w, d).to(src.dtype)
+            pad_flat = pad.reshape(b, h * w)
+            memory = self.transformer.encoder(src_flat, pos_flat, pad_flat)
+        with trace.span("decoder"):
+            query_pos, tgt, tgt_pad = _query_slots(
+                self.query_embed, targets, b, self.num_track_slots, src.dtype)
+            hs, hs_raw, weights = self.transformer.decoder(
+                tgt, memory, query_pos, pos_flat, pad_flat, tgt_pad,
+                return_weights=attention_maps)
+            out = _outputs(
+                lambda i: self.class_embed(hs[i]),
+                lambda i: torch.sigmoid(self.bbox_embed(hs[i])),
+                hs.shape[0],
+                self.aux_loss and (self.training if aux_outputs is None
+                                   else aux_outputs))
         out["hs_embed"] = hs_raw[-1]
         out["query_valid"] = ~tgt_pad
         # the frame's features, as the JAX model returns them; the next

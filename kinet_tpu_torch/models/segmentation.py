@@ -9,7 +9,9 @@ reference: src/trackformer/models/detr_segmentation.py).
   gcd(8, C) groups (eps 1e-5); each skip first resizes the running map to
   the skip's size by nearest sampling at half-pixel centres (the rule of
   ``jax.image.resize(method="nearest")``);
-- ``SegmWrapper``: any detector plus the mask head. Vanilla DETR: the
+- ``SegmWrapper``: any detector plus the mask head (the attention map and
+  the mask head run in the tracer's span ``mask_head``; the counter
+  ``mask_rows`` counts the decoder rows they ran on). Vanilla DETR: the
   query is the last decoder layer's NORMED output (``hs_last``), the
   attention runs over the encoder memory with its pad mask, and the mask
   head's source is the projected C5 feature (``src_proj``). Deformable
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..structs import ImageBatch, Targets
+from ..utils import trace
 from .backbone import nearest_index
 from .deformable_detr import GroupNorm
 
@@ -144,8 +147,10 @@ class SegmWrapper(nn.Module):
             pad = out["memory_pad_mask"].flatten(1)
             src = out["src_proj"]
         hs_q = out.get("hs_last", out["hs_embed"])
-        bbox_mask = self.bbox_attention(hs_q, memory, pad)
-        out["pred_masks"] = self.mask_head(src, bbox_mask, fpns)
+        with trace.span("mask_head"):
+            bbox_mask = self.bbox_attention(hs_q, memory, pad)
+            out["pred_masks"] = self.mask_head(src, bbox_mask, fpns)
+        trace.count("mask_rows", hs_q.shape[0] * hs_q.shape[1])
         return out
 
 

@@ -5,8 +5,8 @@ Split of responsibilities, as in the JAX package:
 - the device work per frame is one forward with the track-query slots
   padded to a fixed count, its inputs copied through reusable host buffers
   (``staging.py``); its four row outputs come back to the host in
-  one device-to-host copy (with masks, the mask probabilities in a second
-  copy into page-locked memory, and one synchronization for both),
+  one device-to-host copy (with masks, the mask probabilities after it, in
+  copies into page-locked memory with a synchronization of their own),
 - everything over O(#tracks) state (keep/terminate hysteresis, reid, NMS,
   public-detection filtering, result writing) is host-side numpy/scipy.
 
@@ -73,6 +73,24 @@ def clip_boxes_np(b, size_hw):
     return out
 
 
+RESOLVE_BAND_BYTES = 1 << 17  # a track's float32 probabilities a band
+
+
+def _resolve_band(masks, out, lo, hi):
+    """Rows ``lo:hi`` of ``Tracker._resolve_masks``: the pixels' highest
+    probability, then each pixel to the first track that has it (argmax's
+    tie rule) where it is above 0.5, written into ``out``'s boolean masks
+    (numpy's argmax over the tracks' axis is several times slower)."""
+    best = np.array(masks[0][lo:hi], np.float32)
+    for m in masks[1:]:
+        np.maximum(best, m[lo:hi], out=best)
+    free = best > 0.5
+    for m, o in zip(masks, out):
+        mine = np.equal(m[lo:hi], best, out=o[lo:hi])
+        mine &= free
+        np.greater(free, mine, out=free)  # free and not mine
+
+
 @dataclass
 class Track:
     """Per-track state."""
@@ -136,9 +154,11 @@ def make_forward_fn(model, postprocess, attention_maps=False,
                 maps = attn.mean(1).reshape(attn.shape[0], attn.shape[2], hf, wf)
             mask_probs = None
             if "pred_masks" in out:
-                mask_probs = F.interpolate(
-                    out["pred_masks"].float(), size=batch.images.shape[1:3],
-                    mode="bilinear", align_corners=False).sigmoid_()
+                with trace.span("mask_upsample"):
+                    mask_probs = F.interpolate(
+                        out["pred_masks"].float(),
+                        size=batch.images.shape[1:3], mode="bilinear",
+                        align_corners=False).sigmoid_()
             return {
                 "attention_maps": maps,
                 "mask_probs": mask_probs,
@@ -158,23 +178,34 @@ def make_forward_fn(model, postprocess, attention_maps=False,
     return fwd
 
 
+def fetch_mask_probs(probs, rows) -> dict:
+    """{i: batch row i's mask probabilities [Q, H, W]} for each i of
+    ``rows``, copied into page-locked host memory (pageable for a CPU
+    tensor) and then waited for: the tracer's span ``mask_fetch`` holds
+    the copies alone, and ``mask_d2h_bytes`` counts their bytes."""
+    with trace.span("mask_fetch"):
+        out = {}
+        for i in rows:
+            out[i] = torch.empty(probs.shape[1:], dtype=probs.dtype,
+                                 pin_memory=probs.is_cuda)
+            out[i].copy_(probs[i], non_blocking=probs.is_cuda)
+        if probs.is_cuda:
+            torch.cuda.current_stream(probs.device).synchronize()
+    trace.count("mask_d2h_bytes",
+                len(rows) * probs.shape[1:].numel() * probs.element_size())
+    return out
+
+
 def fetch_rows(res: dict, rows) -> dict:
     """{i: the state machine's inputs from batch row i} for each i of
     ``rows``, as numpy, from one forward's outputs ``res``. ONE blocking
     device-to-host copy brings every row's scores, labels, boxes and
-    embeddings (and attention maps); with masks, the probabilities of each
-    of ``rows`` (hundreds of MB a frame) go first, on the same stream, into
-    page-locked memory, so the rows' blocking copy is the one
-    synchronization for all of them. ``Tracker.step`` fetches its one row,
-    ``BatchedTracker.step`` the rows of its live sequences."""
+    embeddings (and attention maps), and with it the wait for the forward;
+    with masks, the probabilities of each of ``rows`` (hundreds of MB a
+    frame) follow (``fetch_mask_probs``). ``Tracker.step`` fetches its one
+    row, ``BatchedTracker.step`` the rows of its live sequences."""
     with trace.span("fetch"):
         probs = res["mask_probs"]
-        host_probs = {}
-        if probs is not None:
-            for i in rows:
-                host_probs[i] = torch.empty(probs.shape[1:], dtype=probs.dtype,
-                                            pin_memory=probs.is_cuda)
-                host_probs[i].copy_(probs[i], non_blocking=probs.is_cuda)
         parts = [
             res["scores"][..., None].float(),
             res["labels"][..., None].float(),
@@ -185,6 +216,7 @@ def fetch_rows(res: dict, rows) -> dict:
         if maps is not None:
             parts.append(maps.flatten(2).float())
         table = torch.cat(parts, dim=-1).cpu().numpy()  # [B, Q, columns]
+        host_probs = {} if probs is None else fetch_mask_probs(probs, rows)
         d = res["hs_embed"].shape[-1]
         outs = {}
         for i in rows:
@@ -632,16 +664,21 @@ class Tracker:
     def _resolve_masks(self, hw):
         """Per-pixel mask overlap resolution (reference tracker.py:515-527):
         each pixel goes to the track of highest probability if that is above
-        0.5, else to none; every track's mask becomes boolean."""
-        probs = np.stack([
-            t.mask if t.mask is not None else np.zeros(hw, np.float32)
-            for t in self.tracks
-        ])
-        winner = probs.argmax(axis=0)
-        idx_map = np.arange(probs.shape[0])[:, None, None]
-        final = (probs > 0.5) & (idx_map == winner)
-        for i, t in enumerate(self.tracks):
-            t.mask = final[i]
+        0.5, else to none; every track's mask becomes boolean. The tracer's
+        span ``mask_resolve``; ``masks_resolved`` counts the tracks."""
+        with trace.span("mask_resolve", self.stream):
+            masks = [t.mask if t.mask is not None else np.zeros(hw, np.float32)
+                     for t in self.tracks]
+            # in bands of rows that stay in the cache: passes over the whole
+            # frame read ~30 MB from memory a track, bands read each track's
+            # probabilities from memory once
+            out = [np.empty(hw, bool) for _ in masks]
+            band = max(1, RESOLVE_BAND_BYTES // (4 * hw[1]))
+            for lo in range(0, hw[0], band):
+                _resolve_band(masks, out, lo, min(lo + band, hw[0]))
+            for t, mine in zip(self.tracks, out):
+                t.mask = mine
+        trace.count("masks_resolved", len(self.tracks))
 
     def get_results(self):
         return self.results

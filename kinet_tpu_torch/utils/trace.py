@@ -168,7 +168,9 @@ def summary(rec: dict) -> list:
     """Lines for an operator: each span name's count, median and 95th
     percentile in ms, then the counters (frames, MB to the device, of
     which copied from page-locked buffers, staging buffers allocated,
-    tracks born, re-identified, ended, and live a frame)."""
+    tracks born, re-identified, ended, and live a frame; with a mask head,
+    its rows, the MB of mask probabilities fetched and the track masks
+    resolved)."""
     by_name = {}
     for s in rec["spans"]:
         by_name.setdefault(s["name"], []).append(
@@ -187,4 +189,9 @@ def summary(rec: dict) -> list:
         f"{c.get('tracks_born', 0)}, re-identified "
         f"{c.get('tracks_reidentified', 0)}, ended {c.get('tracks_ended', 0)},"
         f" live a frame {c.get('tracks_live', 0) / max(frames, 1):.2f}")
+    if "mask_rows" in c:
+        lines.append(
+            f"MASKS: {c['mask_rows']} rows through the mask head, "
+            f"{c.get('mask_d2h_bytes', 0) / 1e6:.2f} MB of probabilities to "
+            f"the host, {c.get('masks_resolved', 0)} track masks resolved")
     return lines
